@@ -1,0 +1,68 @@
+"""Plain PyTorch versions of the CUDA kernels: the same functions, the same
+masked-row semantics, on whatever device their inputs lie.
+
+The kernel wrappers in :mod:`repro_torch.kernels.ops` take these for
+tensors on the CPU; ``chip_smoke.py`` holds each kernel against them on
+the card. ``NEG`` is the port's one masking sentinel (as
+``repro/kernels/segment_sum.py:NEG`` is the reference's).
+"""
+from __future__ import annotations
+
+import torch
+
+NEG = -1e30
+
+
+def _rows(perm: torch.Tensor, indptr: torch.Tensor, num_segments: int):
+    """(edge ids in plan order, their destination rows) for the edges
+    that join a row; pad edges sort past ``indptr[-1]`` and drop out."""
+    counts = (indptr[1:] - indptr[:-1]).long()
+    seg = torch.repeat_interleave(
+        torch.arange(num_segments, device=perm.device), counts)
+    return perm[:seg.numel()].long(), seg
+
+
+def segment_sum_ref(data: torch.Tensor, perm: torch.Tensor,
+                    indptr: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """data (E, D) -> (num_segments, D): per-row sum over the row's edges."""
+    rows, seg = _rows(perm, indptr, num_segments)
+    out = data.new_zeros((num_segments,) + tuple(data.shape[1:]))
+    return out.index_add_(0, seg, data.index_select(0, rows))
+
+
+def segment_max_ref(data: torch.Tensor, perm: torch.Tensor,
+                    indptr: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """data (E, D) -> (num_segments, D): per-row feature-wise max; empty
+    rows give ``NEG`` (callers clamp), as ``segment_max_csc`` does."""
+    rows, seg = _rows(perm, indptr, num_segments)
+    out = data.new_full((num_segments,) + tuple(data.shape[1:]), NEG)
+    idx = seg.view(-1, *([1] * (data.dim() - 1))).expand(
+        (len(seg),) + tuple(data.shape[1:]))
+    return out.scatter_reduce_(0, idx, data.index_select(0, rows), "amax",
+                               include_self=True)
+
+
+def edge_softmax_ref(logits: torch.Tensor, values: torch.Tensor,
+                     perm: torch.Tensor, indptr: torch.Tensor,
+                     num_segments: int):
+    """logits (E, H), values (E, H, D) -> (out (N, H, D), m (N, H),
+    den (N, H)): per destination and head, the softmax over the row's
+    in-edges applied to their values, with the running max ``m`` and
+    denominator ``den`` that ``edge_softmax_csc`` emits.
+
+    Masked edges carry ``NEG`` logits and no separate mask, as in the
+    kernel: a row whose edges are all masked gives ``m = NEG`` and
+    ``den`` = its edge count (each ``exp(NEG - NEG)`` is 1), an empty row
+    ``m = NEG`` and ``den = 0``; ``out = num / max(den, 1e-20)``."""
+    rows, seg = _rows(perm, indptr, num_segments)
+    h = logits.shape[1]
+    lg = logits.index_select(0, rows)
+    v = values.index_select(0, rows)
+    m = logits.new_full((num_segments, h), NEG)
+    m.scatter_reduce_(0, seg[:, None].expand(-1, h), lg, "amax",
+                      include_self=True)
+    p = torch.exp(lg - m[seg])
+    den = logits.new_zeros((num_segments, h)).index_add_(0, seg, p)
+    num = values.new_zeros((num_segments,) + tuple(values.shape[1:]))
+    num.index_add_(0, seg, p[..., None] * v)
+    return num / den.clamp_min(1e-20)[..., None], m, den
