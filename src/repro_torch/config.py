@@ -1,5 +1,5 @@
-"""GNN model configuration (the counterpart of ``repro/config.py``'s
-``GNNConfig``). Training configs arrive with the training slice."""
+"""GNN model and training configuration (the counterpart of
+``repro/config.py``'s ``GNNConfig`` and ``TrainConfig``)."""
 from __future__ import annotations
 
 import importlib
@@ -22,6 +22,20 @@ class GNNConfig:
     # versions on the CPU) or "reference" (plain segment ops, CPU only);
     # see repro_torch.core.aggregate
     aggregate_backend: str = "csc"
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    strategy: str = "global"        # global | mini | cluster
+    lr: float = 1e-2
+    weight_decay: float = 5e-4
+    optimizer: str = "adam"         # sgd | adam | adamw
+    steps: int = 200
+    batch_nodes: int = 0            # mini-batch: #target nodes (0 = 1%)
+    batch_clusters: int = 0         # cluster-batch: #clusters per step
+    cluster_halo_hops: int = 0      # boundary halo (paper's optional feature)
+    seed: int = 0
+    grad_clip: float = 0.0
 
 
 def get_gnn_config(name: str):

@@ -1,13 +1,16 @@
 """The Sum stage (paper §3.1 / §4.2): per-destination aggregation of edge
-messages, forward only (the counterpart of ``repro/core/aggregate.py``).
+messages, forward and backward (the counterpart of
+``repro/core/aggregate.py``).
 
 - :data:`COMBINE_SPECS` — the combine modes (``sum`` / ``mean`` /
   ``max`` / ``softmax``) with their algebraic properties.
 - :class:`AggregationBackend` — segment primitives. ``"csc"`` runs the
   CUDA kernels through :mod:`repro_torch.kernels.ops` (their plain
-  versions for CPU tensors) and needs the block's plan; ``"reference"``
-  is plain segment math for the CPU tests and raises on CUDA tensors, so
-  nothing on the card silently runs it.
+  versions for CPU tensors) and needs the block's plan; its gradients
+  are two ``torch.autograd.Function``s whose backwards are the backward
+  kernels (the reference's ``custom_vjp``s). ``"reference"`` is plain
+  segment math under torch's own autograd, for the CPU tests; it raises
+  on CUDA tensors, so nothing on the card silently runs it.
 - :func:`combine` — the one Sum-stage implementation on one block.
 
 The backends live in this package's own registry. The distributed
@@ -117,9 +120,52 @@ class ReferenceBackend(AggregationBackend):
         return num / torch.clamp_min(den, 1e-9)[..., None]
 
 
+class _CSCSegmentSum(torch.autograd.Function):
+    """``segment_sum_op`` with the plan-driven gather kernel as its
+    backward (segment-sum is linear: ``d_data[e] = g[edge_dst[e]]``); only
+    the plan is kept for the backward."""
+
+    @staticmethod
+    def forward(ctx, data, plan: CSCPlan):
+        ctx.plan = plan
+        return ops.segment_sum_op(data, plan)
+
+    @staticmethod
+    def backward(ctx, g):
+        if not ctx.needs_input_grad[0]:
+            return None, None
+        return ops.segment_sum_bwd_op(g, ctx.plan), None
+
+
+class _CSCEdgeSoftmax(torch.autograd.Function):
+    """``edge_softmax_fwd_op`` with the recompute-in-kernel backward: the
+    forward's per-row statistics ``(m, den)`` are saved beside the
+    operands and its output, so the backward rebuilds each edge's weight
+    without an (E, H) probability tensor."""
+
+    @staticmethod
+    def forward(ctx, logits, values, plan: CSCPlan):
+        out, m, den = ops.edge_softmax_fwd_op(logits, values, plan)
+        ctx.plan = plan
+        ctx.save_for_backward(logits, values, out, m, den)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        need_logits, need_values = ctx.needs_input_grad[:2]
+        if not (need_logits or need_values):
+            return None, None, None
+        logits, values, out, m, den = ctx.saved_tensors
+        d_logits, d_values = ops.edge_softmax_bwd_op(g, logits, values, out,
+                                                     m, den, ctx.plan)
+        return (d_logits if need_logits else None,
+                d_values if need_values else None, None)
+
+
 class CSCBackend(AggregationBackend):
     """The CUDA kernels behind the backend interface, driven by the
-    block's plan (their plain versions for CPU tensors)."""
+    block's plan (their plain versions for CPU tensors), differentiable
+    through :class:`_CSCSegmentSum` and :class:`_CSCEdgeSoftmax`."""
 
     name = "csc"
 
@@ -131,14 +177,22 @@ class CSCBackend(AggregationBackend):
         return plan
 
     def segment_sum(self, data, segment_ids, num_segments, plan=None):
-        return ops.segment_sum_op(data, self._plan(plan))
+        return _CSCSegmentSum.apply(data, self._plan(plan))
 
     def segment_max(self, data, segment_ids, num_segments, plan=None):
+        if data.requires_grad and torch.is_grad_enabled():
+            # without a Function, autograd would train through
+            # scatter_reduce's tie rule, which is neither reference's
+            # (ROADMAP C.1)
+            raise NotImplementedError(
+                "the 'csc' max combine has no backward yet: "
+                "segment_max_csc and segment_max_bwd_csc are still to be "
+                "ported (ROADMAP B.5/B.6)")
         return ops.segment_max_op(data, self._plan(plan))
 
     def edge_softmax(self, logits, values, segment_ids, num_segments,
                      plan=None):
-        return ops.edge_softmax_op(logits, values, self._plan(plan))
+        return _CSCEdgeSoftmax.apply(logits, values, self._plan(plan))
 
 
 _BACKENDS: Dict[str, Callable[[], AggregationBackend]] = {

@@ -1,5 +1,6 @@
 """MPGNN (paper Algorithm 1): K passes of NN-TGA plus a decoder, as one
-``nn.Module`` (the counterpart of ``repro/core/mpgnn.py``)."""
+``nn.Module``, and the loss over labeled nodes (the counterpart of
+``repro/core/mpgnn.py``)."""
 from __future__ import annotations
 
 from typing import Sequence
@@ -9,7 +10,7 @@ from torch import nn
 
 from repro_torch.core.tgar import TGARLayer, layer_forward_block
 from repro_torch.graph.csr import GraphBlock
-from repro_torch.nn.layers import Dense
+from repro_torch.nn.layers import Dense, softmax_cross_entropy
 
 
 class MPGNNModel(nn.Module):
@@ -48,3 +49,19 @@ class MPGNNModel(nn.Module):
 
 def forward_block(model: MPGNNModel, block: GraphBlock) -> torch.Tensor:
     return model(block)
+
+
+def loss_block(model: MPGNNModel, block: GraphBlock) -> torch.Tensor:
+    """Loss = a single NN-T stage over labeled (loss-masked) nodes."""
+    return softmax_cross_entropy(forward_block(model, block), block.y,
+                                 block.loss_mask)
+
+
+def accuracy_block(model: MPGNNModel, block: GraphBlock,
+                   mask=None) -> torch.Tensor:
+    """Accuracy on ``mask`` (default: the block's loss mask), as a 0-d
+    tensor on the block's device."""
+    pred = torch.argmax(forward_block(model, block), dim=-1)
+    m = (mask if mask is not None else block.loss_mask).float()
+    correct = (pred == block.y.long()).float() * m
+    return torch.sum(correct) / torch.clamp_min(torch.sum(m), 1.0)

@@ -1,14 +1,24 @@
-"""Compact views and bucketed staging (paper §2.3/§4.2 host path).
+"""Views, view streams and bucketed staging (paper §2.3/§4.2 host path).
 
-The compact half of the reference's ``core/views.py``:
+The reference's ``core/views.py`` without its dense mask views:
 
-- :class:`CompactView` — a relabeled K-hop subgraph: local-id edge list
-  over the sampled nodes, a local→global map and per-hop offsets, so
+- :class:`GraphView` — a logic view of the whole graph (per-layer active
+  masks and a loss mask); the global strategy's view.
+- :class:`CompactView` — a relabeled sampled subgraph: local-id edge
+  list over the sampled nodes, a local→global map and per-hop offsets, so
   host work and device memory scale with the view, not the graph.
 - :class:`BucketSpec` / :class:`CompactBlockBuilder` — blocks padded to
   a small menu of ``(n_pad, e_pad)`` shapes, staged into per-bucket
   rings of reusable numpy buffers.
-- :class:`ViewBuilder` — ``khop_compact`` builds.
+- :class:`ClusterViewCache` — per-cluster member and halo node sets,
+  computed once per clustering.
+- :class:`ViewBuilder` — ``khop_compact`` and ``cluster_compact`` builds.
+- :class:`ViewStream` — indexable strategy streams: view i is built from
+  an RNG stream derived from ``(seed, i)``, the same draws as the
+  reference's, so both packages build the same views.
+
+The dense mask views (``khop_view``, ``cluster_view``) wait for a later
+slice (ROADMAP A.7): a mini or cluster stream must be compact.
 
 A staged block's tensors alias ring memory (``torch.from_numpy``) and
 stay valid until ``slots`` more views land in the same bucket; a
@@ -18,14 +28,47 @@ consumer that holds a block longer copies it first
 from __future__ import annotations
 
 import warnings
-from dataclasses import dataclass
-from typing import Optional
+from dataclasses import dataclass, replace
+from typing import Iterator, Optional
 
 import numpy as np
+import torch
 
-from repro_torch.core.subgraph import bfs_layers_fresh, stamped_in_edges
-from repro_torch.graph.csr import Graph, GraphBlock, block_from_arrays
+from repro_torch.core.subgraph import (_expand_frontier, bfs_layers_fresh,
+                                       stamped_in_edges)
+from repro_torch.graph.csr import (Graph, GraphBlock, base_block,
+                                   block_from_arrays)
 from repro_torch.kernels.plan import build_bucket_csc_plan
+
+DENSE_VIEWS_TODO = ("dense mask views are not ported yet (ROADMAP A.7); "
+                    "use compact=True")
+
+
+@dataclass
+class GraphView:
+    """Per-layer node/edge active masks plus a loss mask over the whole
+    graph; ``None`` masks mean every node or edge is active."""
+    graph: Graph
+    K: int
+    strategy: str
+    node_active: Optional[np.ndarray]    # (K, N) f32 or None (=all)
+    edge_active: Optional[np.ndarray]    # (K, M) f32 or None
+    loss_mask: np.ndarray                # (N,) f32
+    meta: dict
+
+    def as_block(self, gcn_norm: bool = True,
+                 csc_plan: bool = False) -> GraphBlock:
+        """This view's masks stamped onto a shallow copy of the graph's
+        cached base block (features, edge layout, norms and plan shared
+        read-only across views)."""
+        base = base_block(self.graph, gcn_norm=gcn_norm, csc_plan=csc_plan)
+        as_t = (lambda a: None if a is None
+                else torch.from_numpy(np.asarray(a, np.float32)))
+        return replace(base,
+                       loss_mask=as_t((self.loss_mask > 0).astype(
+                           np.float32)),
+                       node_active=as_t(self.node_active),
+                       edge_active=as_t(self.edge_active))
 
 
 @dataclass
@@ -67,6 +110,23 @@ class CompactView:
     def edge_layer_mask(self, k: int) -> np.ndarray:
         d_bound, s_bound = self.layer_bounds(k)
         return (self.dst_local < d_bound) & (self.src_local < s_bound)
+
+    def copy_masks(self) -> "CompactView":
+        """Detach (fresh arrays) — the ViewStream iterator contract."""
+        return CompactView(self.graph, self.K, self.strategy,
+                           self.nodes.copy(), self.hop_offsets.copy(),
+                           self.src_local.copy(), self.dst_local.copy(),
+                           self.edge_ids.copy(), self.loss_local.copy(),
+                           dict(self.meta))
+
+    def as_block(self, gcn_norm: bool = True, csc_plan: bool = False,
+                 bucket: Optional[tuple] = None) -> GraphBlock:
+        """One-off padded block with fresh arrays; ``bucket`` is an
+        ``(n_pad, e_pad)`` pair (None pads tight)."""
+        n_pad, e_pad = bucket or (max(1, self.num_nodes),
+                                  max(1, self.num_edges))
+        slot = _CompactSlot(self.graph, self.K, int(n_pad), int(e_pad))
+        return _fill_compact_block(self, slot, gcn_norm, csc_plan)
 
 
 def _ceil_pow2(x: int) -> int:
@@ -227,8 +287,13 @@ class CompactBlockBuilder:
             e = min(_ceil_pow2(view.num_edges), self.g.num_edges)
             return (max(n, view.num_nodes), max(e, view.num_edges))
 
-    def stage(self, view: CompactView) -> GraphBlock:
+    def stage(self, view) -> GraphBlock:
+        """A bucket-padded block over ring memory; a GraphView stages as
+        its own full-graph block (the graph's cached base block)."""
         self.stages += 1
+        if isinstance(view, GraphView):
+            return view.as_block(gcn_norm=self.gcn_norm,
+                                 csc_plan=self.csc_plan)
         shape = self._pick(view)
         ring = self._rings.setdefault(shape, [])
         if len(ring) < self.slots:
@@ -243,10 +308,55 @@ class CompactBlockBuilder:
                                    features=self.features)
 
 
+class ClusterViewCache:
+    """Static per-cluster node sets, computed once per clustering.
+
+    ``members[c]`` — sorted member node ids of cluster c;
+    ``halo[c]`` — sorted node ids of c's ``halo_hops``-grown active set.
+    A step's active set over any chosen clusters is the union of the
+    cached sets (the halo of a union is the union of the halos)."""
+
+    def __init__(self, g: Graph, clusters: np.ndarray, halo_hops: int = 0):
+        from repro_torch.core.clustering import cluster_members
+        self.g = g
+        self.clusters = np.asarray(clusters)
+        self.halo_hops = int(halo_hops)
+        self.num_clusters = int(self.clusters.max()) + 1
+        self.members = cluster_members(self.clusters, self.num_clusters)
+        self.halo = (self.members if self.halo_hops == 0
+                     else self._grow_halos())
+
+    def _grow_halos(self) -> list:
+        """Per-cluster halo BFS over the in-edges of the frontier, with a
+        stamp array (last cluster to visit each node) as the visited set."""
+        g, C = self.g, self.num_clusters
+        indptr, order = g.csc()
+        src = g.src
+        stamp = np.full(g.num_nodes, -1, np.int64)
+        halos = []
+        for c in range(C):
+            frontier = self.members[c]
+            stamp[frontier] = c
+            grown = [frontier]
+            for _ in range(self.halo_hops):
+                eidx = _expand_frontier(indptr, order, frontier, 0, None)
+                if len(eidx) == 0:
+                    break
+                cand = src[eidx]
+                fresh = np.unique(cand[stamp[cand] != c])
+                if len(fresh) == 0:
+                    break
+                stamp[fresh] = c
+                grown.append(fresh)
+                frontier = fresh
+            halos.append(np.unique(np.concatenate(grown))
+                         if len(grown) > 1 else np.asarray(frontier))
+        return halos
+
+
 class ViewBuilder:
-    """Builds compact K-hop views with reusable stamp scratch (single
-    consumer). Dense mask views and cluster views wait for the training
-    slice."""
+    """Builds compact views with reusable stamp scratch (single
+    consumer)."""
 
     def __init__(self, g: Graph, K: int):
         self.g = g
@@ -256,6 +366,17 @@ class ViewBuilder:
         self._stamp: Optional[np.ndarray] = None
         self._g2l: Optional[np.ndarray] = None
         self._tick = 0
+        # all-ones train fallback for graphs without a train_mask
+        self._all_train: Optional[np.ndarray] = None
+
+    def _train_mask(self, train: Optional[np.ndarray]) -> np.ndarray:
+        if train is not None:
+            return train
+        if self.g.train_mask is not None:
+            return self.g.train_mask
+        if self._all_train is None:
+            self._all_train = np.ones(self.g.num_nodes, bool)
+        return self._all_train
 
     def _compact_scratch(self):
         if self._stamp is None:
@@ -291,3 +412,161 @@ class ViewBuilder:
             {"targets": int(offsets[0]), "touched": n,
              "active_nodes": int(offsets[K - 1]),
              "active_edges": int(len(eidx))})
+
+    def cluster_compact(self, chosen: np.ndarray, cache: ClusterViewCache,
+                        train: Optional[np.ndarray] = None) -> CompactView:
+        """The chosen clusters' cached halo sets as one compact view: edges
+        are the in-edges of that set with both endpoints inside, and every
+        hop offset is n (every node active in every layer)."""
+        g, K = self.g, self.K
+        stamp, g2l, tick = self._compact_scratch()
+        members = np.unique(np.concatenate(
+            [cache.members[c] for c in chosen])).astype(np.int64)
+        nodes = (members if cache.halo_hops == 0 else np.unique(
+            np.concatenate([cache.halo[c] for c in chosen])).astype(
+                np.int64))
+        self.builds += 1
+        n = len(nodes)
+        stamp[nodes] = tick
+        g2l[nodes] = np.arange(n)
+        eidx = stamped_in_edges(g, nodes, stamp, tick)
+        src_local = g2l[g.src[eidx]].astype(np.int32)
+        dst_local = g2l[g.dst[eidx]].astype(np.int32)
+        sorter = np.argsort(dst_local, kind="stable")
+        train = self._train_mask(train)
+        labeled = members[train[members]]
+        if len(labeled) == 0:
+            labeled = members
+        loss_local = np.zeros(n, np.float32)
+        loss_local[g2l[labeled]] = 1.0
+        return CompactView(
+            g, K, "cluster", nodes, np.full(K + 1, n, np.int64),
+            src_local[sorter], dst_local[sorter],
+            eidx[sorter].astype(np.int64), loss_local,
+            {"clusters": [int(c) for c in chosen],
+             "members": int(len(members)), "active": n,
+             "active_nodes": n, "active_edges": int(len(eidx)),
+             "targets": int(len(labeled))})
+
+
+class ViewStream:
+    """An indexable stream of views: ``build(i)`` is a pure function of
+    the index (view i draws from an RNG stream derived from ``(seed,
+    i)``), so the stream position is one integer (``cursor``). Also a
+    plain iterator: ``next`` builds at ``cursor``, advances it, and hands
+    out views detached from the builder's scratch."""
+
+    strategy = "?"
+
+    def __init__(self, g: Graph, K: int, seed: int = 0,
+                 length: Optional[int] = None):
+        self.g = g
+        self.K = K
+        self.seed = int(seed)
+        self.length = length
+        self.cursor = 0
+        self._builder: Optional[ViewBuilder] = None
+
+    def rng_for(self, i: int) -> np.random.Generator:
+        """The order-stable per-view RNG stream."""
+        return np.random.default_rng(
+            np.random.SeedSequence(entropy=self.seed, spawn_key=(int(i),)))
+
+    def build(self, i: int, builder: Optional[ViewBuilder] = None):
+        raise NotImplementedError
+
+    def make_builder(self) -> Optional[ViewBuilder]:
+        """A private ViewBuilder for one consumer (None for the static
+        global view)."""
+        return ViewBuilder(self.g, self.K)
+
+    def __iter__(self) -> Iterator:
+        return self
+
+    def __next__(self):
+        if self.length is not None and self.cursor >= self.length:
+            raise StopIteration
+        if self._builder is None:
+            self._builder = self.make_builder()
+        view = self.build(self.cursor, self._builder)
+        self.cursor += 1
+        if self._builder is not None:
+            view = view.copy_masks()
+        return view
+
+
+class GlobalViewStream(ViewStream):
+    """The static full-graph view: every index is the same object, so a
+    trainer can recognise it and stage it once."""
+
+    strategy = "global"
+
+    def __init__(self, view: GraphView, length: Optional[int] = None):
+        super().__init__(view.graph, view.K, seed=0, length=length)
+        self._view = view
+
+    def build(self, i: int, builder=None) -> GraphView:
+        return self._view
+
+    def make_builder(self) -> None:
+        return None
+
+
+class MiniBatchViewStream(ViewStream):
+    """Random labeled targets + their K-hop compact view, one independent
+    RNG stream per index."""
+
+    strategy = "mini"
+
+    def __init__(self, g: Graph, K: int, batch_nodes: int = 0,
+                 neighbor_cap: int = 0, seed: int = 0,
+                 length: Optional[int] = None, compact: bool = False):
+        if not compact:
+            raise NotImplementedError(DENSE_VIEWS_TODO)
+        super().__init__(g, K, seed=seed, length=length)
+        self.labeled = np.where(g.train_mask if g.train_mask is not None
+                                else np.ones(g.num_nodes, bool))[0]
+        if len(self.labeled) == 0:
+            raise ValueError(
+                "mini-batch views: the graph has no labeled nodes "
+                "(train_mask selects nothing) to sample batch targets from")
+        self.batch_nodes = batch_nodes or max(1, len(self.labeled) // 100)
+        self.neighbor_cap = neighbor_cap
+
+    def build(self, i: int, builder: Optional[ViewBuilder] = None
+              ) -> CompactView:
+        rng = self.rng_for(i)
+        targets = rng.choice(self.labeled,
+                             size=min(self.batch_nodes, len(self.labeled)),
+                             replace=False)
+        builder = builder or self.make_builder()
+        return builder.khop_compact(targets, self.neighbor_cap, rng)
+
+
+class ClusterViewStream(ViewStream):
+    """Random cluster picks composed from one shared (read-only)
+    ClusterViewCache, one independent RNG stream per index."""
+
+    strategy = "cluster"
+
+    def __init__(self, g: Graph, K: int, clusters: np.ndarray,
+                 clusters_per_batch: int = 0, halo_hops: int = 0,
+                 seed: int = 0, length: Optional[int] = None,
+                 compact: bool = False):
+        if not compact:
+            raise NotImplementedError(DENSE_VIEWS_TODO)
+        super().__init__(g, K, seed=seed, length=length)
+        self.cache = ClusterViewCache(g, clusters, halo_hops)
+        C = self.cache.num_clusters
+        self.clusters_per_batch = min(
+            clusters_per_batch or max(1, C // 100), C)
+        self.train = (g.train_mask if g.train_mask is not None
+                      else np.ones(g.num_nodes, bool))
+
+    def build(self, i: int, builder: Optional[ViewBuilder] = None
+              ) -> CompactView:
+        rng = self.rng_for(i)
+        chosen = rng.choice(self.cache.num_clusters,
+                            size=self.clusters_per_batch, replace=False)
+        builder = builder or self.make_builder()
+        return builder.cluster_compact(chosen, self.cache, self.train)

@@ -32,6 +32,10 @@ SIGNATURES = {
     "segment_sum": ("segment_sum_f32", [_P, _P, _P, _P, _I, _I, _P]),
     "edge_softmax": ("edge_softmax_f32",
                      [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
+    "segment_sum_bwd": ("segment_sum_bwd_f32",
+                        [_P, _P, _P, _I, _I, _I, _P]),
+    "edge_softmax_bwd": ("edge_softmax_bwd_f32",
+                         [_P] * 9 + [_I, _I, _I, _I, _P]),
 }
 
 _lock = threading.Lock()

@@ -1,5 +1,6 @@
-"""Plain PyTorch versions of the CUDA kernels: the same functions, the same
-masked-row semantics, on whatever device their inputs lie.
+"""Plain PyTorch versions of the CUDA kernels, forward and backward: the
+same functions, the same masked-row and clipping semantics, on whatever
+device their inputs lie.
 
 The kernel wrappers in :mod:`repro_torch.kernels.ops` take these for
 tensors on the CPU; ``chip_smoke.py`` holds each kernel against them on
@@ -66,3 +67,41 @@ def edge_softmax_ref(logits: torch.Tensor, values: torch.Tensor,
     num = values.new_zeros((num_segments,) + tuple(values.shape[1:]))
     num.index_add_(0, seg, p[..., None] * v)
     return num / den.clamp_min(1e-20)[..., None], m, den
+
+
+def _clipped_rows(edge_dst: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """Each edge's destination row, clipped to the last row as
+    ``jnp.take(..., mode="clip")`` clips it: a pad edge (``edge_dst ==
+    num_segments``) reads row ``num_segments - 1``."""
+    return edge_dst.long().clamp_max(num_segments - 1)
+
+
+def segment_sum_bwd_ref(g: torch.Tensor, edge_dst: torch.Tensor
+                        ) -> torch.Tensor:
+    """g (N, D) -> (E, D): ``d_data[e] = g[edge_dst[e]]``, clipped; zeros
+    when N = 0."""
+    n = g.shape[0]
+    if n == 0:
+        return g.new_zeros((len(edge_dst),) + tuple(g.shape[1:]))
+    return g.index_select(0, _clipped_rows(edge_dst, n))
+
+
+def edge_softmax_bwd_ref(g: torch.Tensor, logits: torch.Tensor,
+                         values: torch.Tensor, m: torch.Tensor,
+                         den: torch.Tensor, og: torch.Tensor,
+                         edge_dst: torch.Tensor):
+    """g (N, H, D), logits (E, H), values (E, H, D), m / den / og (N, H)
+    -> (d_logits (E, H), d_values (E, H, D)), as ``edge_softmax_bwd_csc``
+    computes them: ``p_e = exp(logit_e - m_i) / max(den_i, 1e-20)``, zero
+    where ``logit_e <= NEG/2``; ``d_values = p * g_i`` and ``d_logits =
+    p * (values_e . g_i - og_i)``, with the row lookup clipped."""
+    n = g.shape[0]
+    if n == 0:
+        return torch.zeros_like(logits), torch.zeros_like(values)
+    rows = _clipped_rows(edge_dst, n)
+    p = torch.exp(logits - m[rows]) / den[rows].clamp_min(1e-20)
+    p = torch.where(logits > NEG / 2, p, torch.zeros_like(p))
+    gi = g.index_select(0, rows)
+    d_values = p[..., None] * gi
+    d_logits = p * ((values * gi).sum(-1) - og[rows])
+    return d_logits, d_values

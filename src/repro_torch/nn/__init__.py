@@ -1,3 +1,4 @@
-from repro_torch.nn.layers import Dense, dense_apply, dense_init
+from repro_torch.nn.layers import (Dense, dense_apply, dense_init,
+                                  softmax_cross_entropy)
 
-__all__ = ["Dense", "dense_apply", "dense_init"]
+__all__ = ["Dense", "dense_apply", "dense_init", "softmax_cross_entropy"]

@@ -1,4 +1,5 @@
-"""Dense building blocks, initialised from an explicit ``torch.Generator``.
+"""Dense building blocks, initialised from an explicit ``torch.Generator``,
+and the classification loss.
 
 Weights keep the reference's ``(in, out)`` layout (``y = x @ w + b``), so
 parameters carried over from the JAX package load as they are.
@@ -6,7 +7,7 @@ parameters carried over from the JAX package load as they are.
 from __future__ import annotations
 
 import math
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 from torch import nn
@@ -48,3 +49,19 @@ class Dense(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return dense_apply(self._parameters, x)
+
+
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                          mask: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+    """Mean cross-entropy over the (optionally masked) examples, in
+    float32; ``labels`` are class ids. The masked mean divides by the mask
+    sum clamped at 1, so an empty mask gives 0."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = logz - ll
+    if mask is not None:
+        mask = mask.float()
+        return torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)
+    return torch.mean(nll)

@@ -1,4 +1,6 @@
-"""Parameters carried over from the JAX package.
+"""Parameters, gradients and optimizer state carried over from the JAX
+package (a gradient tree is shaped as the params: ``params_from_jax``
+names it too).
 
 The JAX package keeps a model's parameters as a nested dict/list tree;
 the port keeps the same names and layouts as ``nn.Module`` attributes,
@@ -42,3 +44,14 @@ def load_jax_params(model: nn.Module, tree) -> nn.Module:
     parameter must be matched by name and shape."""
     model.load_state_dict(params_from_jax(tree), strict=True)
     return model
+
+
+def opt_state_from_jax(tree) -> dict:
+    """The port's optimizer state from the reference's: ``{"step", "m",
+    "v"}`` (adam, adamw) or ``{"step"[, "mu"]}`` (sgd), each moment tree
+    named by ``state_dict`` keys, the step a Python int."""
+    out = {"step": int(np.asarray(tree["step"]))}
+    for k in ("m", "v", "mu"):
+        if k in tree:
+            out[k] = dict(params_from_jax(tree[k]))
+    return out

@@ -1,0 +1,313 @@
+"""The port's Sum-stage backward kernels against the JAX package's.
+
+On the CPU the backward wrappers run the kernels' plain versions
+(``repro_torch.kernels.ref``); they are held, over every edge including a
+bucket's pad edges, against the JAX package's Pallas backward kernels
+run in interpret mode at rtol/atol 1e-5 (the sums are taken in another
+order, so equality is not the bar). ``gradcheck`` holds the two autograd
+Functions to finite differences in float64. The tests marked ``cuda``
+hold each CUDA kernel against its plain version on the card and skip
+where there is none:
+
+    python -m pytest -m cuda tests/test_torch_backward.py
+"""
+import numpy as np
+import pytest
+import torch
+
+try:
+    import jax  # noqa: F401 — the oracle, kept on the CPU
+    from repro.kernels import ops as jops
+except ImportError:      # a machine without the JAX package: only the
+    jops = None          # card-side tests below can run there
+
+from repro_torch.core.aggregate import _CSCEdgeSoftmax, _CSCSegmentSum
+from repro_torch.kernels import ops
+from repro_torch.kernels.plan import build_bucket_csc_plan, build_csc_plan
+from repro_torch.kernels.ref import (NEG, edge_softmax_bwd_ref,
+                                     edge_softmax_ref, segment_sum_bwd_ref)
+
+TOL = 1e-5
+
+# name -> (nodes, edges, heads, dim, extra); extra: "mask" masks 30% of
+# the edges, "all_masked" every edge of rows 0..19, "bucket" adds pad
+# edges with garbage logits and values that read row N - 1
+CASES = {
+    "multihead": (150, 600, 4, 8, ""),
+    "gat_e_width": (200, 900, 4, 8, "mask"),
+    "heads_4x16": (120, 500, 4, 16, ""),
+    "width_130": (120, 400, 1, 130, ""),
+    "empty_rows": (300, 100, 2, 8, ""),
+    "all_masked_rows": (100, 400, 4, 8, "all_masked"),
+    "bucket_pad": (100, 300, 4, 8, "bucket"),
+    "no_edges": (50, 0, 4, 8, ""),
+}
+# how the cotangent reaches the wrapper
+LAYOUTS = ("contiguous", "transposed", "expanded")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module")
+def oracle():
+    if jops is None:
+        pytest.skip("the JAX package (the oracle) is not installed")
+    return jops
+
+
+def _case(name: str, seed: int = 0):
+    """numpy inputs: (ids (E_all,), n_rows, logits, values, g, bucket)."""
+    n, e, h, d, extra = CASES[name]
+    rng = np.random.default_rng(seed)
+    ids = np.sort(rng.integers(0, n, e)).astype(np.int32)
+    if extra != "bucket":
+        ids = rng.permutation(ids).astype(np.int32)    # unsorted edge axis
+    logits = rng.normal(size=(e, h)).astype(np.float32) * 3
+    values = rng.normal(size=(e, h, d)).astype(np.float32)
+    masked = np.zeros(e, bool)
+    if extra == "mask":
+        masked = rng.random(e) < 0.3
+    elif extra == "all_masked":
+        masked = ids < 20
+    logits[masked] = NEG
+    values[masked] = 0.0
+    bucket = None
+    if extra == "bucket":
+        n, e_pad = 128, 512
+        pad = e_pad - e
+        logits = np.concatenate(
+            [logits, rng.normal(size=(pad, h)).astype(np.float32)])
+        values = np.concatenate(
+            [values, rng.normal(size=(pad, h, d)).astype(np.float32)])
+        ids = np.concatenate([ids, np.full(pad, n, np.int32)])
+        bucket = (n, e_pad)
+    g = rng.normal(size=(n, h, d)).astype(np.float32)
+    return ids, n, logits, values, g, bucket
+
+
+def _plans(ids, n, bucket, jax_plans=True):
+    if bucket is None:
+        plan = build_csc_plan(ids, n)
+        jplan = jops.build_csc_plan(ids, n) if jax_plans else None
+    else:
+        real = ids[ids < bucket[0]]
+        plan = build_bucket_csc_plan(real, *bucket)
+        jplan = (jops.build_bucket_csc_plan(real, *bucket) if jax_plans
+                 else None)
+    return plan, jplan
+
+
+def _cotangent(g: np.ndarray, layout: str) -> torch.Tensor:
+    """The same values, laid out as autograd might hand them over."""
+    if layout == "transposed":
+        t = torch.from_numpy(np.ascontiguousarray(g.transpose(1, 0, 2)))
+        return t.transpose(0, 1)
+    if layout == "expanded":
+        return torch.from_numpy(g[:1].copy()).expand(g.shape)
+    return torch.from_numpy(g)
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_segment_sum_bwd_matches_pallas_kernel(name, layout, oracle):
+    ids, n, _, values, g, bucket = _case(name)
+    plan, jplan = _plans(ids, n, bucket)
+    gt = _cotangent(g, layout)
+    got = ops.segment_sum_bwd_op(gt, plan)
+    want = np.asarray(oracle.segment_sum_bwd_op(gt.numpy(), jplan,
+                                                interpret=True))
+    assert got.shape == want.shape == values.shape
+    np.testing.assert_allclose(got.numpy(), want, rtol=TOL, atol=TOL)
+    if bucket is not None:        # pad edges read row N - 1
+        pads = ids >= n
+        np.testing.assert_array_equal(
+            got.numpy()[pads], np.broadcast_to(gt.numpy()[n - 1],
+                                               (pads.sum(),) + g.shape[1:]))
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_edge_softmax_bwd_matches_pallas_kernel(name, layout, oracle):
+    ids, n, logits, values, g, bucket = _case(name)
+    plan, jplan = _plans(ids, n, bucket)
+    lg, v = torch.from_numpy(logits), torch.from_numpy(values)
+    out, m, den = ops.edge_softmax_fwd_op(lg, v, plan)
+    gt = _cotangent(g, layout)
+    d_lg, d_v = ops.edge_softmax_bwd_op(gt, lg, v, out, m, den, plan)
+    # the JAX backward on the same saved operands and statistics
+    w_lg, w_v = (np.asarray(a) for a in oracle.edge_softmax_bwd_op(
+        gt.numpy(), logits, values, out.numpy(), m.numpy(), den.numpy(),
+        jplan, interpret=True))
+    assert d_lg.shape == w_lg.shape and d_v.shape == w_v.shape
+    np.testing.assert_allclose(d_lg.numpy(), w_lg, rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(d_v.numpy(), w_v, rtol=TOL, atol=TOL)
+    if name == "all_masked_rows":      # masked edges get zero gradients
+        masked = ids < 20
+        assert not d_lg.numpy()[masked].any()
+        assert not d_v.numpy()[masked].any()
+
+
+def test_single_head_backward_matches_pallas_kernel(oracle):
+    ids, n, logits, values, g, _ = _case("gat_e_width")
+    plan, jplan = _plans(ids, n, None)
+    lg, v = torch.from_numpy(logits[:, 0]), torch.from_numpy(values[:, 0])
+    out, m, den = ops.edge_softmax_fwd_op(lg, v, plan)
+    d_lg, d_v = ops.edge_softmax_bwd_op(torch.from_numpy(g[:, 0]), lg, v,
+                                        out, m, den, plan)
+    w_lg, w_v = oracle.edge_softmax_bwd_op(
+        g[:, 0], logits[:, 0], values[:, 0], out.numpy(), m.numpy(),
+        den.numpy(), jplan, interpret=True)
+    np.testing.assert_allclose(d_lg.numpy(), np.asarray(w_lg), rtol=TOL,
+                               atol=TOL)
+    np.testing.assert_allclose(d_v.numpy(), np.asarray(w_v), rtol=TOL,
+                               atol=TOL)
+
+
+def test_no_rows_give_zero_gradients():
+    """N = 0: every edge is a pad edge with nothing to read."""
+    plan = build_csc_plan(np.zeros(6, np.int32), 0)
+    g = torch.zeros(0, 2, 4)
+    assert not ops.segment_sum_bwd_op(g, plan).any()
+    assert ops.segment_sum_bwd_op(g, plan).shape == (6, 2, 4)
+    d_lg, d_v = ops.edge_softmax_bwd_op(
+        g, torch.randn(6, 2), torch.randn(6, 2, 4), g, torch.zeros(0, 2),
+        torch.zeros(0, 2), plan)
+    assert d_lg.shape == (6, 2) and d_v.shape == (6, 2, 4)
+    assert not d_lg.any() and not d_v.any()
+
+
+def test_backward_wrappers_validate_shapes():
+    ids, n, logits, values, g, _ = _case("multihead")
+    plan = build_csc_plan(ids, n)
+    lg, v = torch.from_numpy(logits), torch.from_numpy(values)
+    out, m, den = ops.edge_softmax_fwd_op(lg, v, plan)
+    with pytest.raises(ValueError, match="segment axis"):
+        ops.segment_sum_bwd_op(torch.from_numpy(g[1:]), plan)
+    with pytest.raises(ValueError, match="edge axis"):
+        ops.edge_softmax_bwd_op(torch.from_numpy(g), lg[1:], v[1:], out, m,
+                                den, plan)
+    with pytest.raises(ValueError, match="do not fit"):
+        ops.edge_softmax_bwd_op(torch.from_numpy(g[1:]), lg, v, out, m, den,
+                                plan)
+
+
+def test_cpu_backward_wrappers_launch_nothing():
+    ids, n, logits, values, g, _ = _case("multihead")
+    plan = build_csc_plan(ids, n)
+    lg, v = torch.from_numpy(logits), torch.from_numpy(values)
+    before = dict(ops.launches)
+    out, m, den = ops.edge_softmax_fwd_op(lg, v, plan)
+    ops.edge_softmax_bwd_op(torch.from_numpy(g), lg, v, out, m, den, plan)
+    ops.segment_sum_bwd_op(torch.from_numpy(g), plan)
+    assert ops.launches == before
+
+
+# -- the autograd Functions ---------------------------------------------------
+
+
+def _f64_case(name: str):
+    ids, n, logits, values, _, _ = _case(name)
+    ids, logits, values = ids[:60], logits[:60], values[:60]
+    n = min(n, 40)
+    ids = ids % n
+    plan = build_csc_plan(ids, n)
+    lg = torch.from_numpy(logits.astype(np.float64)).requires_grad_()
+    v = torch.from_numpy(values[..., :3].astype(np.float64)).requires_grad_()
+    return plan, lg, v
+
+
+@pytest.mark.parametrize("name", ["multihead", "all_masked_rows",
+                                  "empty_rows", "gat_e_width"])
+def test_functions_pass_gradcheck_in_float64(name):
+    """(A bucket's pad edges are left out: they join no row, so their
+    true gradient is 0, while the backward reads row N - 1 for them as
+    the TPU kernel does; the combine masks their values to 0.)"""
+    plan, lg, v = _f64_case(name)
+    assert torch.autograd.gradcheck(
+        lambda x: _CSCSegmentSum.apply(x, plan), (v,), eps=1e-6, atol=1e-6)
+    assert torch.autograd.gradcheck(
+        lambda a, b: _CSCEdgeSoftmax.apply(a, b, plan), (lg, v), eps=1e-6,
+        atol=1e-6)
+
+
+def test_functions_honour_needs_input_grad():
+    plan, lg, v = _f64_case("multihead")
+    lg.requires_grad_(False)
+    _CSCEdgeSoftmax.apply(lg, v, plan).sum().backward()
+    assert lg.grad is None and v.grad is not None
+    deg = _CSCSegmentSum.apply(torch.ones(plan.num_edges), plan)
+    assert not deg.requires_grad
+
+
+def test_edge_softmax_grad_through_function_matches_autograd_of_plain():
+    """The Function's gradients equal torch autograd through the plain
+    forward (which saves no statistics): same math, another route."""
+    plan, lg, v = _f64_case("gat_e_width")
+    g = torch.randn(plan.num_segments, lg.shape[1], v.shape[2],
+                    dtype=torch.float64, generator=torch.Generator()
+                    .manual_seed(0))
+    a_lg, a_v = torch.autograd.grad(
+        (_CSCEdgeSoftmax.apply(lg, v, plan) * g).sum(), (lg, v))
+    out = edge_softmax_ref(lg, v, plan.perm, plan.indptr,
+                           plan.num_segments)[0]
+    b_lg, b_v = torch.autograd.grad((out * g).sum(), (lg, v))
+    torch.testing.assert_close(a_lg, b_lg, rtol=1e-9, atol=1e-12)
+    torch.testing.assert_close(a_v, b_v, rtol=1e-9, atol=1e-12)
+
+
+# -- on the card -------------------------------------------------------------
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_cuda_backward_kernels_match_plain_versions(name, layout, cuda):
+    ids, n, logits, values, g, bucket = _case(name)
+    plan, _ = _plans(ids, n, bucket, jax_plans=False)
+    plan = plan.to(cuda)
+    lg = torch.from_numpy(logits).to(cuda)
+    v = torch.from_numpy(values).to(cuda)
+    gt = _cotangent(g, layout).to(cuda)
+    out, m, den = ops.edge_softmax_fwd_op(lg, v, plan)
+    before = dict(ops.launches)
+    got = ops.segment_sum_bwd_op(gt, plan)
+    d_lg, d_v = ops.edge_softmax_bwd_op(gt, lg, v, out, m, den, plan)
+    torch.cuda.synchronize()
+    gc = gt.contiguous()
+    torch.testing.assert_close(
+        got.flatten(1), segment_sum_bwd_ref(gc.flatten(1), plan.edge_dst),
+        rtol=TOL, atol=TOL)
+    w_lg, w_v = edge_softmax_bwd_ref(gc, lg, v, m, den, (out * gc).sum(-1),
+                                     plan.edge_dst)
+    torch.testing.assert_close(d_lg, w_lg, rtol=TOL, atol=TOL)
+    torch.testing.assert_close(d_v, w_v, rtol=TOL, atol=TOL)
+    launched = int(len(ids) > 0)
+    assert ops.launches["segment_sum_bwd"] == (before["segment_sum_bwd"]
+                                               + launched)
+    assert ops.launches["edge_softmax_bwd"] == (before["edge_softmax_bwd"]
+                                                + launched)
+
+
+@pytest.mark.cuda
+def test_cuda_backward_kernels_are_deterministic(cuda):
+    ids, n, logits, values, g, _ = _case("gat_e_width")
+    plan = build_csc_plan(ids, n).to(cuda)
+    lg = torch.from_numpy(logits).to(cuda)
+    v = torch.from_numpy(values).to(cuda)
+    gt = torch.from_numpy(g).to(cuda)
+    out, m, den = ops.edge_softmax_fwd_op(lg, v, plan)
+    a = ops.edge_softmax_bwd_op(gt, lg, v, out, m, den, plan)
+    b = ops.edge_softmax_bwd_op(gt, lg, v, out, m, den, plan)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    assert torch.equal(ops.segment_sum_bwd_op(gt, plan),
+                       ops.segment_sum_bwd_op(gt, plan))

@@ -133,3 +133,17 @@ def test_served_model_is_the_config(name):
     cfg, dataset = get_gnn_config(name)
     g = resolve_graph(dataset, cfg.model)
     assert config_for(g, cfg.model, cfg.num_layers, cfg.hidden_dim) == cfg
+
+
+@pytest.mark.parametrize("name", ["gnn_gat_e_alipay", "gnn_gcn_reddit"])
+def test_train_configs_match_reference(name):
+    """The config modules' ``TRAIN`` dicts equal the reference configs',
+    strategy by strategy and field by field."""
+    import dataclasses
+    import importlib
+    want = importlib.import_module(f"repro.configs.{name}").TRAIN
+    got = importlib.import_module(f"repro_torch.configs.{name}").TRAIN
+    assert set(got) == set(want)
+    for strategy, cfg in want.items():
+        assert (dataclasses.asdict(got[strategy])
+                == dataclasses.asdict(cfg)), strategy
