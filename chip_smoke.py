@@ -15,7 +15,9 @@ Phases (each raises on failure, so the script exits non-zero):
    bucket shapes and at the edge cases (empty, masked and all-masked
    rows, pad edges that clip to the last row, no edges, no rows, a width
    that is not a multiple of 4, 4 heads of 16, a cotangent that is not
-   contiguous);
+   contiguous); the segment-max pair exactly, over ties, empty,
+   all-masked and NaN rows, pad edges, no edges and no rows, at widths
+   64, 128 and 130;
 4. serve GAT-E (alipay_like, 20,000 nodes, published widths) on the card
    through ``repro_torch.launch.serve_gnn``: 512 requests, 4 clients,
    cache on; every response held against the same port run on the CPU,
@@ -23,18 +25,24 @@ Phases (each raises on failure, so the script exits non-zero):
    read;
 5. serve GCN (reddit_like + self-loops, hidden 128), the same way;
 6. kernel times at layer 0 of a full-graph step (GAT-E on a
-   1,000,000-node alipay_like graph, GCN on reddit_like), forward and
-   backward: each kernel held against its plain version there, then
-   kernel, plain version and library call timed with CUDA events, beside
-   the bound from bytes moved;
+   1,000,000-node alipay_like graph, GCN on reddit_like; the segment-max
+   pair on the 1,000,000-node plan at width 64), forward and backward:
+   each kernel held against its plain version there, then kernel, plain
+   version and library call timed with CUDA events, beside the bound from
+   bytes moved; and the gather backward (a segment sum over the source
+   plan) beside torch's ``index_add_``;
 7. train GAT-E (alipay_like, 20,000 nodes, the config's widths and lr)
    on the card through ``repro_torch.api.make_trainer`` and ``fit``, 30
    steps under each of global, mini (compact) and cluster (compact, halo
    1), and the same jobs on the CPU from the same seed: step-1 gradients
    and every step's loss held against the CPU's, the global loss must
-   fall, the backward kernel must launch; then the same 20 global steps
-   run twice on the card, reporting whether they agree bit for bit;
-8. train GCN (reddit_like + self-loops, hidden 128), the same way.
+   fall, the backward kernel must launch the same number of times on
+   every step; then the same 20 global steps run twice on the card must
+   agree bit for bit;
+8. train GCN (reddit_like + self-loops, hidden 128), the same way;
+9. serve SAGE-max (reddit_like without self-loops, the Reddit config's
+   widths with the model swapped), as in phases 4-5;
+10. train SAGE-max (the same job), as in phases 7-8.
 
 The last lines are the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
@@ -73,7 +81,14 @@ KERNELS = {
     "edge_softmax_bwd": {
         "source": "src/repro_torch/kernels/csrc/edge_softmax_bwd.cu",
         "replaces": "src/repro/kernels/backward.py:220"},
+    "segment_max": {
+        "source": "src/repro_torch/kernels/csrc/segment_max.cu",
+        "replaces": "src/repro/kernels/segment_sum.py:230"},
+    "segment_max_bwd": {
+        "source": "src/repro_torch/kernels/csrc/segment_max_bwd.cu",
+        "replaces": "src/repro/kernels/backward.py:140"},
 }
+MAX_WIDTH = 64                     # the Reddit config's feature width
 
 
 def card_label() -> str:
@@ -137,6 +152,91 @@ def _check_backward(plan, lg, v, out, m, den, g, worst: dict, name: str):
                                        msg=f"{kname} on {name}")
             if a.numel():
                 worst[kname] = max(worst[kname], float((a - b).abs().max()))
+
+
+def _max_case(rng, n, e, d, *, mask=0.0, all_masked=0, relu=False, nan=0,
+              e_pad=0, n_pad=0):
+    """Inputs shaped as the max combine hands them to the kernel: (plan,
+    data) on the card, masked edges at NEG. ``relu`` clamps at 0 (the
+    ties of layer 1, which pools ReLU outputs), ``nan`` puts NaN in that
+    many entries; pad edges carry garbage and read row N - 1."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.plan import build_bucket_csc_plan
+    from repro_torch.kernels.ref import NEG
+    ids = np.sort(rng.integers(0, n, e)).astype(np.int32)
+    data = rng.normal(size=(max(e, e_pad), d)).astype(np.float32)
+    if relu:
+        data = np.maximum(data, 0)
+    masked = (rng.random(e) < mask) | (ids < all_masked)
+    data[:e][masked] = NEG
+    if nan and e:
+        data[rng.choice(e, nan, replace=False),
+             rng.integers(0, d, nan)] = np.nan
+    plan = build_bucket_csc_plan(ids, max(n, n_pad), max(e, e_pad))
+    return plan.to(DEVICE), torch.from_numpy(data).to(DEVICE)
+
+
+def check_max_kernels(rng, worst: dict) -> None:
+    """The segment-max pair against its plain versions, exactly: a max
+    picks one of its inputs and the backward multiplies by 1 or 0."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.plan import build_csc_plan
+    from repro_torch.kernels.ref import segment_max_bwd_ref, segment_max_ref
+    cases = {
+        # SAGE-max training buckets: layer 0 pools the 64 raw features,
+        # layer 1 the 128 ReLU outputs (ties at 0); pad edges clip
+        "sage_max_bucket_d64": dict(n=3500, e=90000, d=64, e_pad=131072,
+                                    n_pad=4096),
+        "sage_max_bucket_d128_relu": dict(n=3500, e=90000, d=128,
+                                          relu=True, mask=0.1,
+                                          e_pad=131072, n_pad=4096),
+        "empty_rows": dict(n=5000, e=1000, d=64),
+        "all_masked_rows": dict(n=500, e=4000, d=64, all_masked=100),
+        "nan": dict(n=500, e=4000, d=64, nan=12),
+        "no_edges": dict(n=300, e=0, d=64),
+        "width_130": dict(n=700, e=5000, d=130, relu=True),
+    }
+    for name, kw in cases.items():
+        plan, data = _max_case(rng, **kw)
+        got = ops.segment_max_op(data, plan)
+        want = segment_max_ref(data, plan.perm, plan.indptr,
+                               plan.num_segments)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, rtol=0, atol=0,
+                                   equal_nan=True,
+                                   msg=f"segment_max on {name}")
+        for contiguous in (True, False):
+            # the same values, transposed in memory when not contiguous
+            g = torch.from_numpy(rng.normal(size=(
+                data.shape[1], plan.num_segments)).astype("float32"))
+            g = g.to(DEVICE).t()
+            g = g.contiguous() if contiguous else g
+            d_data = ops.segment_max_bwd_op(g, got, data, plan)
+            w_data = segment_max_bwd_ref(g.contiguous(), want, data,
+                                         plan.edge_dst)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(
+                d_data, w_data, rtol=0, atol=0, equal_nan=True,
+                msg=f"segment_max_bwd on {name}, contiguous={contiguous}")
+        live = ~torch.isnan(want)
+        if live.any():
+            worst["segment_max"] = max(worst["segment_max"], float(
+                (got - want)[live].abs().max()))
+        if d_data.numel():
+            worst["segment_max_bwd"] = max(worst["segment_max_bwd"], float(
+                (d_data - w_data).nan_to_num().abs().max()))
+        print(f"  max {name}: ok", flush=True)
+    # no rows: every edge reads nothing, the gradient is zeros
+    plan = build_csc_plan(np.zeros(64, np.int32), 0).to(DEVICE)
+    g = torch.zeros((0, MAX_WIDTH), device=DEVICE)
+    data = torch.randn((64, MAX_WIDTH), device=DEVICE)
+    if (ops.segment_max_op(data, plan).shape != (0, MAX_WIDTH)
+            or ops.segment_max_bwd_op(g, g, data, plan).any()):
+        raise AssertionError("segment_max with no rows misbehaved")
+    print("  max no_rows: ok", flush=True)
 
 
 def check_kernels() -> dict:
@@ -206,8 +306,11 @@ def check_kernels() -> dict:
     if ops.segment_sum_bwd_op(g, plan).any() or d_lg.any() or d_v.any():
         raise AssertionError("backward with no rows gave non-zero gradients")
     print("  no_rows: ok", flush=True)
+    check_max_kernels(rng, worst)
     print("kernels: " + ", ".join(
-        f"{k} max_abs_err={worst[k]:.3e} (rtol {RTOL}, atol {ATOL}) pass"
+        f"{k} max_abs_err={worst[k]:.3e} (" + (
+            "exact" if k.startswith("segment_max")
+            else f"rtol {RTOL}, atol {ATOL}") + ") pass"
         for k in KERNELS), flush=True)
     return worst
 
@@ -215,17 +318,27 @@ def check_kernels() -> dict:
 # -- phases 4 and 5: serving --------------------------------------------------
 
 
-def serve(config: str, label: str, requests: int = 512) -> dict:
-    """Serve a seeded trace on the card through the entry point's
-    functions for the config module ``config``, hold it against the CPU,
-    and return the launch counts of the served run."""
-    import numpy as np
+def _config(config: str, model=None):
+    """``(CONFIG, DATASET)`` of the config module, its model swapped for
+    ``model`` when given (widths and dataset kept)."""
+    import dataclasses
     from repro_torch.config import get_gnn_config
+    cfg, dataset = get_gnn_config(config)
+    return (dataclasses.replace(cfg, model=model) if model else cfg), dataset
+
+
+def serve(config: str, label: str, requests: int = 512,
+          model_name=None) -> dict:
+    """Serve a seeded trace on the card through the entry point's
+    functions for the config module ``config`` (its model swapped for
+    ``model_name`` when given), hold it against the CPU, and return the
+    launch counts of the served run."""
+    import numpy as np
     from repro_torch.kernels import ops
     from repro_torch.launch.serve_gnn import (build_server, config_for,
                                               print_report, request_trace,
                                               resolve_graph, run_clients)
-    cfg, dataset = get_gnn_config(config)
+    cfg, dataset = _config(config, model_name)
     model, hidden, layers = cfg.model, cfg.hidden_dim, cfg.num_layers
     t0 = time.perf_counter()
     g = resolve_graph(dataset, model, seed=0)
@@ -346,6 +459,47 @@ def _layer0_inputs(config: str, **graph_kw):
     return g, block, logit, value
 
 
+def _max_times(plan, gen) -> dict:
+    """The segment-max pair at the 1,000,000-node ``alipay_like`` plan,
+    on seeded (E, 64) messages: each held against its plain version, then
+    timed beside it, its bound and, for the forward, ``scatter_reduce_``
+    over the destinations (the backward has no single PyTorch call)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import (NEG, segment_max_bwd_ref,
+                                         segment_max_ref)
+    E, N, D = plan.num_edges, plan.num_segments, MAX_WIDTH
+    data = torch.randn((E, D), generator=gen, device=DEVICE)
+    fwd = ops.segment_max_op(data, plan)
+    torch.testing.assert_close(
+        fwd, segment_max_ref(data, plan.perm, plan.indptr, N), rtol=0,
+        atol=0)
+    ms = _time_ms(lambda: ops.segment_max_op(data, plan))
+    plain = _time_ms(lambda: segment_max_ref(data, plan.perm, plan.indptr,
+                                             N), 100.0)
+    idx = plan.edge_dst.long()[:, None].expand(E, D)
+    lib = _time_ms(lambda: torch.full((N, D), NEG, device=DEVICE)
+                   .scatter_reduce_(0, idx, data, "amax", include_self=True),
+                   100.0)
+    bound, by = _bound(4 * (E * D + N * D) + 4 * (E + N + 1), E * D)
+    rows = {"segment_max": dict(ms=ms, plain_ms=plain, bound_ms=bound,
+                                bound_by=by, library_ms=lib,
+                                shape=f"E={E} N={N} D={D}")}
+    cot = torch.randn((N, D), generator=gen, device=DEVICE)
+    torch.testing.assert_close(
+        ops.segment_max_bwd_op(cot, fwd, data, plan),
+        segment_max_bwd_ref(cot, fwd, data, plan.edge_dst), rtol=0, atol=0)
+    ms = _time_ms(lambda: ops.segment_max_bwd_op(cot, fwd, data, plan))
+    plain = _time_ms(lambda: segment_max_bwd_ref(cot, fwd, data,
+                                                 plan.edge_dst), 100.0)
+    # reads g, fwd, data and edge_dst; writes d_data
+    bound, by = _bound(4 * (2 * E * D + 2 * N * D) + 4 * E, 2 * E * D)
+    rows["segment_max_bwd"] = dict(ms=ms, plain_ms=plain, bound_ms=bound,
+                                   bound_by=by, library_ms=None,
+                                   shape=f"E={E} N={N} D={D}")
+    return rows
+
+
 def kernel_times() -> dict:
     """Kernel, plain-version and library times at full-graph sizes,
     forward and backward, each kernel's output first held against its
@@ -396,7 +550,9 @@ def kernel_times() -> dict:
                                         bound_ms=bound, bound_by=by,
                                         library_ms=None,
                                         shape=f"E={E} N={N} H={H} D={D}")
-        del g, block, logit, value, plan, fwd, out, m, den, cot
+        del logit, value, fwd, out, m, den, cot
+        rows.update(_max_times(plan, gen))
+        del g, block, plan
         torch.cuda.empty_cache()
 
         # GCN: segment_sum and its backward at a full-graph layer 0
@@ -432,6 +588,21 @@ def kernel_times() -> dict:
         rows["segment_sum_bwd"] = dict(ms=ms, plain_ms=plain, bound_ms=bound,
                                        bound_by=by, library_ms=lib,
                                        shape=f"E={E} N={N} D={D}")
+
+        # the NN-G gather's backward (ROADMAP C.7): the segment_sum kernel
+        # over the source plan, against index_select's own backward, an
+        # atomic index_add_ over src
+        splan, src = block.src_plan, block.src.long()
+        d_msg = torch.randn((E, D), generator=gen, device=DEVICE)
+        torch.testing.assert_close(
+            ops.segment_sum_op(d_msg, splan),
+            torch.zeros(N, D, device=DEVICE).index_add_(0, src, d_msg),
+            rtol=RTOL, atol=ATOL)
+        ms = _time_ms(lambda: ops.segment_sum_op(d_msg, splan))
+        lib = _time_ms(lambda: torch.zeros(N, D, device=DEVICE).index_add_(
+            0, src, d_msg))
+        print(f"  gather backward [E={E} N={N} D={D}]: segment_sum over the "
+              f"source plan {ms:.4f} ms, index_add_ over src {lib:.4f} ms")
     for name, r in rows.items():
         print(f"  {name} [{r['shape']}]: kernel {r['ms']:.4f} ms, plain "
               f"{r['plain_ms']:.4f} ms, library {r['library_ms']} ms, bound "
@@ -485,11 +656,33 @@ def _profile(trainer, views, step_ms: float, steps: int = 5) -> None:
         print(f"      {ms:.4f} ms/step over {n:.0f} calls  {key[:90]}")
 
 
-def train(config: str, label: str, bwd_kernel: str) -> dict:
-    """Train the config module's model on the card under each strategy,
-    hold it against the same job on the CPU, and return the launch counts
-    of the card runs. Then repeat 20 global steps on the card and report
-    whether the two runs agree bit for bit."""
+def _src_plan_s(trainer, views, steps: int):
+    """Host seconds that building the source plans (the gather
+    backward's, ROADMAP C.7) adds to staging the first ``steps`` views of
+    a compact stream; None for the global stream, whose one plan is
+    built once per graph."""
+    from repro_torch.core.views import CompactView
+    from repro_torch.kernels.plan import build_bucket_csc_plan
+    total = 0.0
+    for i in range(steps):
+        view = views.build(i)
+        if not isinstance(view, CompactView):
+            return None
+        n_pad, e_pad = trainer.stager._pick(view)
+        t0 = time.perf_counter()
+        build_bucket_csc_plan(view.src_local, n_pad, e_pad)
+        total += time.perf_counter() - t0
+    return total
+
+
+def train(config: str, label: str, bwd_kernel: str, bwd_per_step: int,
+          model_name=None) -> dict:
+    """Train the config module's model (swapped for ``model_name`` when
+    given) on the card under each strategy, hold it against the same job
+    on the CPU, and return the launch counts of the card runs; the
+    backward kernel must launch ``bwd_per_step`` times on every step.
+    Then run 20 global steps twice on the card: the two runs must agree
+    bit for bit."""
     import dataclasses
     import importlib
     import numpy as np
@@ -497,14 +690,14 @@ def train(config: str, label: str, bwd_kernel: str) -> dict:
     from repro_torch.kernels import ops
     from repro_torch.launch.serve_gnn import config_for, resolve_graph
     mod = importlib.import_module(f"repro_torch.configs.{config}")
-    cfg = mod.CONFIG
-    g = resolve_graph(mod.DATASET, cfg.model, seed=0)
+    cfg, dataset = _config(config, model_name)
+    g = resolve_graph(dataset, cfg.model, seed=0)
     if config_for(g, cfg.model, cfg.num_layers, cfg.hidden_dim) != cfg:
         raise AssertionError(f"{config}: the trained model is not CONFIG")
     total = {}
     for strategy, tcfg in mod.TRAIN.items():
         job = api.TrainJob(
-            dataset=mod.DATASET, model=cfg.model, strategy=strategy,
+            dataset=dataset, model=cfg.model, strategy=strategy,
             steps=TRAIN_STEPS, num_layers=cfg.num_layers,
             hidden=cfg.hidden_dim, lr=tcfg.lr,
             weight_decay=tcfg.weight_decay, seed=tcfg.seed, compact=True,
@@ -527,6 +720,10 @@ def train(config: str, label: str, bwd_kernel: str) -> dict:
               f"{(TRAIN_STEPS - 1) / wall:.2f} steps/s over steps 2-"
               f"{TRAIN_STEPS}; host staging {t['stage_s']:.4f} s, device "
               f"step {t['step_s']:.4f} s (host clock, all steps)")
+        src_s = _src_plan_s(card, views, TRAIN_STEPS)
+        if src_s is not None:
+            print(f"    source plans (gather backward): {src_s:.4f} s of "
+                  f"the staging, {100 * src_s / t['stage_s']:.1f}%")
         print(f"    loss {losses[0]:.5f} -> {losses[-1]:.5f} (CPU "
               f"{want[0]:.5f} -> {want[-1]:.5f}); card vs CPU: step-1 "
               f"gradients max rel err {g_err:.3e} (tolerance {GRAD_TOL}), "
@@ -546,11 +743,15 @@ def train(config: str, label: str, bwd_kernel: str) -> dict:
         if strategy == "global" and not losses[-1] < losses[0]:
             raise AssertionError(f"global: the loss did not fall "
                                  f"({losses[0]} -> {losses[-1]})")
-        if launches[bwd_kernel] <= 0:
-            raise AssertionError(f"{strategy}: no {bwd_kernel} launch")
+        # every step runs the same layers, so launches on every step show
+        # as exactly bwd_per_step * steps
+        if launches[bwd_kernel] != bwd_per_step * TRAIN_STEPS:
+            raise AssertionError(
+                f"{strategy}: {launches[bwd_kernel]} {bwd_kernel} launches "
+                f"in {TRAIN_STEPS} steps, expected {bwd_per_step} per step")
 
-    # the same 20 global steps twice on the card: a report, not a gate
-    job = api.TrainJob(dataset=mod.DATASET, model=cfg.model, steps=20,
+    # the same 20 global steps twice on the card, bit for bit
+    job = api.TrainJob(dataset=dataset, model=cfg.model, steps=20,
                        num_layers=cfg.num_layers, hidden=cfg.hidden_dim,
                        lr=mod.TRAIN["global"].lr, eval_every=0,
                        device=DEVICE)
@@ -567,6 +768,9 @@ def train(config: str, label: str, bwd_kernel: str) -> dict:
     print(f"  bitwise repeat, 20 global steps twice on the card: "
           f"{'bitwise equal' if same else 'NOT bitwise equal'}, largest "
           f"difference over losses and final parameters {diff:.3e}")
+    if not same:
+        raise AssertionError(f"{cfg.model}: two identical training runs on "
+                             "the card differ")
     return total
 
 
@@ -634,10 +838,29 @@ def main(argv=None) -> int:
     rows = kernel_times()
 
     phase("7. train GAT-E (alipay_like)")
-    count(train("gnn_gat_e_alipay", label, "edge_softmax_bwd"))
+    count(train("gnn_gat_e_alipay", label, "edge_softmax_bwd", 2))
 
     phase("8. train GCN (reddit_like + self-loops)")
-    count(train("gnn_gcn_reddit", label, "segment_sum_bwd"))
+    count(train("gnn_gcn_reddit", label, "segment_sum_bwd", 2))
+
+    phase("9. serve SAGE-max (reddit_like)")
+    got = serve("gnn_gcn_reddit", label, requests, model_name="sage_max")
+    if got["segment_max"] <= 0:
+        raise AssertionError("SAGE-max serving launched no segment_max "
+                             "kernel")
+    print(f"  {got['segment_max'] / requests:.3f} segment_max launches per "
+          "served request")
+    count(got)
+
+    phase("10. train SAGE-max (reddit_like)")
+    # layer 0 pools the raw features, which take no gradient: two forward
+    # launches and one backward launch per step
+    got = train("gnn_gcn_reddit", label, "segment_max_bwd", 1,
+                model_name="sage_max")
+    if got["segment_max"] != 2 * 3 * TRAIN_STEPS:
+        raise AssertionError(f"SAGE-max training: {got['segment_max']} "
+                             "segment_max launches, expected 2 per step")
+    count(got)
     phase("done")
 
     record = {"kernels": [

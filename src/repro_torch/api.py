@@ -154,9 +154,9 @@ def make_trainer(job: TrainJob):
 
 def train(job: TrainJob, log=print) -> TrainResult:
     """Run the job end to end: build graph, model and views, fit, check
-    the trainer's contract, evaluate. Deterministic in ``job.seed`` on the
-    CPU; on the card the NN-G gathers' atomic backward may change the
-    last bits between runs (ROADMAP C.7)."""
+    the trainer's contract, evaluate. Deterministic in ``job.seed``, bit
+    for bit, on the CPU and on the card: every scatter of the backward is
+    a plan-order segment sum, with no atomics."""
     trainer, views, eval_view, eval_mask, g, model = make_trainer(job)
     t0 = time.perf_counter()
     out = trainer.fit(views, steps=job.steps, eval_every=job.eval_every,

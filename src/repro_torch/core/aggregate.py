@@ -7,10 +7,16 @@ messages, forward and backward (the counterpart of
 - :class:`AggregationBackend` — segment primitives. ``"csc"`` runs the
   CUDA kernels through :mod:`repro_torch.kernels.ops` (their plain
   versions for CPU tensors) and needs the block's plan; its gradients
-  are two ``torch.autograd.Function``s whose backwards are the backward
+  are three ``torch.autograd.Function``s whose backwards are the backward
   kernels (the reference's ``custom_vjp``s). ``"reference"`` is plain
   segment math under torch's own autograd, for the CPU tests; it raises
   on CUDA tensors, so nothing on the card silently runs it.
+
+The two backends differ on one point, as the reference's do (ROADMAP
+C.1): where several entries tie for a row's max, ``"csc"`` gives each of
+them the row's full cotangent (segment ids ``[0,0,0,1]``, data
+``[1,3,3,2]`` -> gradient ``[0,1,1,1]``), ``"reference"`` splits it
+evenly (``[0,.5,.5,1]``), torch's rule and ``jax.ops.segment_max``'s.
 - :func:`combine` — the one Sum-stage implementation on one block.
 
 The backends live in this package's own registry. The distributed
@@ -98,7 +104,10 @@ class ReferenceBackend(AggregationBackend):
         return out.index_add_(0, segment_ids.long(), data)
 
     def segment_max(self, data, segment_ids, num_segments, plan=None):
-        """Empty segments give -inf, as ``jax.ops.segment_max`` does."""
+        """Empty segments give -inf, as ``jax.ops.segment_max`` does;
+        under autograd, tied maxima split the cotangent evenly (ids
+        ``[0,0,0,1]``, data ``[1,3,3,2]`` -> ``[0,.5,.5,1]``), the JAX
+        ``reference`` backend's rule (ROADMAP C.1)."""
         self._cpu_only(data)
         out = data.new_full((num_segments,) + tuple(data.shape[1:]),
                             float("-inf"))
@@ -137,6 +146,30 @@ class _CSCSegmentSum(torch.autograd.Function):
         return ops.segment_sum_bwd_op(g, ctx.plan), None
 
 
+class _CSCSegmentMax(torch.autograd.Function):
+    """``segment_max_op`` with the argmax-hit gather kernel as its
+    backward (the reference's ``_csc_segment_max``): the input and the
+    output are saved, and ``d_data[e] = g[r] * (data[e] == out[r])`` for
+    the edge's row ``r``. Every tied entry gets the full cotangent (ids
+    ``[0,0,0,1]``, data ``[1,3,3,2]`` -> ``[0,1,1,1]``), the JAX ``csc``
+    kernel's rule, not the ``reference`` backend's even split (ROADMAP
+    C.1)."""
+
+    @staticmethod
+    def forward(ctx, data, plan: CSCPlan):
+        out = ops.segment_max_op(data, plan)
+        ctx.plan = plan
+        ctx.save_for_backward(data, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        if not ctx.needs_input_grad[0]:
+            return None, None
+        data, out = ctx.saved_tensors
+        return ops.segment_max_bwd_op(g, out, data, ctx.plan), None
+
+
 class _CSCEdgeSoftmax(torch.autograd.Function):
     """``edge_softmax_fwd_op`` with the recompute-in-kernel backward: the
     forward's per-row statistics ``(m, den)`` are saved beside the
@@ -165,7 +198,8 @@ class _CSCEdgeSoftmax(torch.autograd.Function):
 class CSCBackend(AggregationBackend):
     """The CUDA kernels behind the backend interface, driven by the
     block's plan (their plain versions for CPU tensors), differentiable
-    through :class:`_CSCSegmentSum` and :class:`_CSCEdgeSoftmax`."""
+    through :class:`_CSCSegmentSum`, :class:`_CSCSegmentMax` and
+    :class:`_CSCEdgeSoftmax`."""
 
     name = "csc"
 
@@ -180,15 +214,7 @@ class CSCBackend(AggregationBackend):
         return _CSCSegmentSum.apply(data, self._plan(plan))
 
     def segment_max(self, data, segment_ids, num_segments, plan=None):
-        if data.requires_grad and torch.is_grad_enabled():
-            # without a Function, autograd would train through
-            # scatter_reduce's tie rule, which is neither reference's
-            # (ROADMAP C.1)
-            raise NotImplementedError(
-                "the 'csc' max combine has no backward yet: "
-                "segment_max_csc and segment_max_bwd_csc are still to be "
-                "ported (ROADMAP B.5/B.6)")
-        return ops.segment_max_op(data, self._plan(plan))
+        return _CSCSegmentMax.apply(data, self._plan(plan))
 
     def edge_softmax(self, logits, values, segment_ids, num_segments,
                      plan=None):

@@ -7,13 +7,15 @@ implements the three neural stages; the Sum stage is
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 from torch import nn
 
 from repro_torch.core import aggregate as agg
 from repro_torch.graph.csr import GraphBlock
+from repro_torch.kernels import ops
+from repro_torch.kernels.plan import CSCPlan
 
 
 class TGARLayer(nn.Module):
@@ -44,9 +46,43 @@ class TGARLayer(nn.Module):
         raise NotImplementedError
 
 
-def tree_take(tree: Dict[str, torch.Tensor], idx: torch.Tensor):
-    """Index the leading axis of every entry (edge-endpoint lookup)."""
-    return {k: v.index_select(0, idx) for k, v in tree.items()}
+class _PlannedGather(torch.autograd.Function):
+    """``v[idx]`` whose backward is a segment sum over ``plan``, the plan
+    over ``idx`` (``d_v[i]`` sums ``g`` over the edges with ``idx == i``,
+    in plan order). torch's own backward of ``index_select`` is an
+    ``index_add_``, atomic on CUDA and so not the same from run to run;
+    this one is the ``segment_sum`` kernel: no atomics, the same bits on
+    every run. Pad edges join no row of the plan: the combine masks
+    their messages, so their cotangent is 0 and dropping it changes
+    nothing."""
+
+    @staticmethod
+    def forward(ctx, v, idx, plan: CSCPlan):
+        ctx.plan = plan
+        return v.index_select(0, idx)
+
+    @staticmethod
+    def backward(ctx, g):
+        if not ctx.needs_input_grad[0]:
+            return None, None, None
+        # autograd may hand the cotangent over expanded (stride 0)
+        return ops.segment_sum_op(g.contiguous(), ctx.plan), None, None
+
+
+def tree_take(tree: Dict[str, torch.Tensor], idx: torch.Tensor,
+              plan: Optional[CSCPlan] = None):
+    """Index the leading axis of every entry (edge-endpoint lookup).
+    ``plan`` — the plan over ``idx`` (a block's ``src_plan`` for its
+    ``src``, ``csc_plan`` for its ``dst``) — makes the backward the
+    deterministic segment sum of :class:`_PlannedGather`; without one
+    (or with no gradient to take) it is plain ``index_select``."""
+    out = {}
+    for k, v in tree.items():
+        if plan is not None and v.requires_grad and torch.is_grad_enabled():
+            out[k] = _PlannedGather.apply(v, idx, plan)
+        else:
+            out[k] = v.index_select(0, idx)
+    return out
 
 
 def layer_forward_block(layer: TGARLayer, h: torch.Tensor, block: GraphBlock,
@@ -63,8 +99,8 @@ def layer_forward_block(layer: TGARLayer, h: torch.Tensor, block: GraphBlock,
         node_act = block.node_active[layer_idx]
 
     n = layer.transform(h)                                # NN-T
-    n_src = tree_take(n, block.src)
-    n_dst = tree_take(n, block.dst)
+    n_src = tree_take(n, block.src, block.src_plan)
+    n_dst = tree_take(n, block.dst, block.csc_plan)
     msg = layer.gather(n_src, n_dst, block.edge_attr, block.edge_weight,
                        edge_mask)                         # NN-G
     M = agg.combine(layer.combine, msg, block.dst, num_nodes, edge_mask,

@@ -155,9 +155,10 @@ class CompactTrainer(BaseTrainer):
             model.load_state_dict(params)
         self.model = model.to(self.device)
         self.g = g
+        csc = model.aggregate_backend == "csc"
         self.stager = CompactBlockBuilder(
             g, model.K, buckets=buckets, slots=slots, gcn_norm=gcn_norm,
-            csc_plan=model.aggregate_backend == "csc")
+            csc_plan=csc, src_plan=csc)
         self.params = dict(self.model.named_parameters())
         self.opt_state = opt.init(self.params)
         # (n_pad, e_pad) -> steps run on blocks of that shape

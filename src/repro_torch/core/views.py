@@ -194,11 +194,12 @@ class _CompactSlot:
 
 def _fill_compact_block(view: CompactView, slot: _CompactSlot,
                         gcn_norm: bool, csc_plan: bool,
-                        features: Optional[np.ndarray] = None
-                        ) -> GraphBlock:
+                        features: Optional[np.ndarray] = None,
+                        src_plan: bool = False) -> GraphBlock:
     """Gather the view's node/edge data into (zeroed) bucket-shaped
     buffers. Pad edges keep src = dst = 0 with edge_mask 0, inert under
-    every combine mode; in the plan they join no row."""
+    every combine mode; in the plans they join no row. ``src_plan``
+    also builds the plan over the source ids (the gather backward's)."""
     g, K = view.graph, view.K
     n, e = view.num_nodes, view.num_edges
     x_src = g.node_features if features is None else features
@@ -232,28 +233,33 @@ def _fill_compact_block(view: CompactView, slot: _CompactSlot,
         d_bound, _ = view.layer_bounds(k)
         slot.node_active[k, :d_bound] = 1.0   # hop-ordered: a prefix
         slot.edge_active[k, :e][view.edge_layer_mask(k)] = 1.0
-    plan = None
-    if csc_plan:
-        plan = build_bucket_csc_plan(view.dst_local, len(slot.node_mask),
-                                     len(slot.edge_mask))
+    n_pad, e_pad = len(slot.node_mask), len(slot.edge_mask)
+    plan = (build_bucket_csc_plan(view.dst_local, n_pad, e_pad)
+            if csc_plan else None)
+    splan = (build_bucket_csc_plan(view.src_local, n_pad, e_pad)
+             if csc_plan and src_plan else None)
     return block_from_arrays(slot.src, slot.dst, slot.edge_mask,
                              slot.node_mask, slot.x, slot.y, slot.loss,
                              slot.edge_weight, slot.edge_attr,
                              node_active=slot.node_active,
-                             edge_active=slot.edge_active, csc_plan=plan)
+                             edge_active=slot.edge_active, csc_plan=plan,
+                             src_plan=splan)
 
 
 class CompactBlockBuilder:
     """Stages CompactViews into per-bucket rings of reusable padded
     buffers; with ``csc_plan=True`` a bucket-shaped plan is built per view
-    from the compact dst ids (host cost O(view)). ``features`` substitutes
-    another (N, D) row source for ``g.node_features`` (the serving
-    cache's table, updated in place)."""
+    from the compact dst ids (host cost O(view)), and with ``src_plan=True``
+    another from the src ids, which the gather backward of a training step
+    reads (serving, which takes no gradient, leaves it out). ``features``
+    substitutes another (N, D) row source for ``g.node_features`` (the
+    serving cache's table, updated in place)."""
 
     def __init__(self, g: Graph, K: int,
                  buckets: Optional[BucketSpec] = None, slots: int = 2,
                  gcn_norm: bool = True, csc_plan: bool = False,
-                 features: Optional[np.ndarray] = None):
+                 features: Optional[np.ndarray] = None,
+                 src_plan: bool = False):
         self.g = g
         self.K = int(K)
         self.features = features
@@ -261,6 +267,7 @@ class CompactBlockBuilder:
         self.slots = max(1, int(slots))
         self.gcn_norm = bool(gcn_norm)
         self.csc_plan = bool(csc_plan)
+        self.src_plan = bool(src_plan)
         self._rings: dict = {}     # (n_pad, e_pad) -> [_CompactSlot, ...]
         self._turns: dict = {}
         self.stages = 0
@@ -305,7 +312,8 @@ class CompactBlockBuilder:
         self._turns[shape] = turn + 1
         return _fill_compact_block(view, ring[turn % len(ring)],
                                    self.gcn_norm, self.csc_plan,
-                                   features=self.features)
+                                   features=self.features,
+                                   src_plan=self.src_plan)
 
 
 class ClusterViewCache:

@@ -32,8 +32,10 @@ class Graph:
     name: str = "graph"
     _csr: Optional[tuple] = field(default=None, repr=False)
     _csc: Optional[tuple] = field(default=None, repr=False)
-    # plans keyed by the padded segment count, built once per graph
+    # plans over the destination / source ids, keyed by the padded
+    # (node, edge) counts, built once per graph
     _csc_plans: dict = field(default_factory=dict, repr=False)
+    _src_plans: dict = field(default_factory=dict, repr=False)
     _gcn_norm: Optional[np.ndarray] = field(default=None, repr=False)
     _base_blocks: dict = field(default_factory=dict, repr=False)
 
@@ -74,17 +76,27 @@ class Graph:
                 np.float32)
         return self._gcn_norm
 
-    def csc_plan(self, pad_nodes: int = 0, pad_edges: int = 0) -> CSCPlan:
-        """Cached plan over the (padded) destination ids, shared by every
-        whole-graph block of this graph (paper §4.2's reused indexing)."""
+    def _plan(self, cache: dict, ids: np.ndarray, pad_nodes: int,
+              pad_edges: int) -> CSCPlan:
         n_pad = max(pad_nodes, self.num_nodes)
         e_pad = max(pad_edges, self.num_edges)
         key = (n_pad, e_pad)
-        if key not in self._csc_plans:
-            ids = np.full(e_pad, n_pad, np.int32)
-            ids[: self.num_edges] = self.dst
-            self._csc_plans[key] = build_csc_plan(ids, n_pad)
-        return self._csc_plans[key]
+        if key not in cache:
+            padded = np.full(e_pad, n_pad, np.int32)
+            padded[: self.num_edges] = ids
+            cache[key] = build_csc_plan(padded, n_pad)
+        return cache[key]
+
+    def csc_plan(self, pad_nodes: int = 0, pad_edges: int = 0) -> CSCPlan:
+        """Cached plan over the (padded) destination ids, shared by every
+        whole-graph block of this graph (paper §4.2's reused indexing)."""
+        return self._plan(self._csc_plans, self.dst, pad_nodes, pad_edges)
+
+    def src_plan(self, pad_nodes: int = 0, pad_edges: int = 0) -> CSCPlan:
+        """The same plan over the source ids: the backward of the NN-G
+        gather ``n[src]`` is a segment sum over it. Pad edges join no
+        row."""
+        return self._plan(self._src_plans, self.src, pad_nodes, pad_edges)
 
     def add_self_loops(self) -> "Graph":
         loops = np.arange(self.num_nodes, dtype=np.int32)
@@ -125,6 +137,9 @@ class GraphBlock:
     edge_active: Optional[torch.Tensor] = None
     # plan for the "csc" aggregation backend
     csc_plan: Optional[CSCPlan] = None
+    # the same over the source ids, for the gather backward
+    # (core/tgar.py:tree_take); None = torch's own index_select backward
+    src_plan: Optional[CSCPlan] = None
 
     @property
     def num_nodes_padded(self) -> int:
@@ -152,11 +167,12 @@ def _t(a: Optional[np.ndarray]) -> Optional[torch.Tensor]:
 
 def block_from_arrays(src, dst, edge_mask, node_mask, x, y, loss_mask,
                       edge_weight, edge_attr=None, node_active=None,
-                      edge_active=None, csc_plan=None) -> GraphBlock:
+                      edge_active=None, csc_plan=None,
+                      src_plan=None) -> GraphBlock:
     """A GraphBlock over numpy arrays, sharing their memory."""
     return GraphBlock(_t(src), _t(dst), _t(edge_mask), _t(node_mask), _t(x),
                       _t(y), _t(loss_mask), _t(edge_weight), _t(edge_attr),
-                      _t(node_active), _t(edge_active), csc_plan)
+                      _t(node_active), _t(edge_active), csc_plan, src_plan)
 
 
 def build_block(g: Graph, pad_nodes: int = 0, pad_edges: int = 0,
@@ -164,7 +180,8 @@ def build_block(g: Graph, pad_nodes: int = 0, pad_edges: int = 0,
                 gcn_norm: bool = True,
                 csc_plan: bool = False) -> GraphBlock:
     """Whole-graph block. ``csc_plan=True`` attaches the graph's cached
-    plan so the "csc" aggregation backend can run."""
+    plans (destination and source) so the "csc" aggregation backend and
+    the gather backward can run."""
     n, m = g.num_nodes, g.num_edges
     n_pad = max(pad_nodes, n)
     e_pad = max(pad_edges, m)
@@ -190,9 +207,10 @@ def build_block(g: Graph, pad_nodes: int = 0, pad_edges: int = 0,
     if g.edge_features is not None:
         ea = np.zeros((e_pad, g.edge_features.shape[1]), np.float32)
         ea[:m] = g.edge_features
-    plan = g.csc_plan(n_pad, e_pad) if csc_plan else None
+    plans = ((g.csc_plan(n_pad, e_pad), g.src_plan(n_pad, e_pad))
+             if csc_plan else (None, None))
     return block_from_arrays(src, dst, emask, nmask, x, y, lm, ew, ea,
-                             csc_plan=plan)
+                             csc_plan=plans[0], src_plan=plans[1])
 
 
 def base_block(g: Graph, gcn_norm: bool = True,

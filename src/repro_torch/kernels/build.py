@@ -36,6 +36,9 @@ SIGNATURES = {
                         [_P, _P, _P, _I, _I, _I, _P]),
     "edge_softmax_bwd": ("edge_softmax_bwd_f32",
                          [_P] * 9 + [_I, _I, _I, _I, _P]),
+    "segment_max": ("segment_max_f32", [_P, _P, _P, _P, _I, _I, _P]),
+    "segment_max_bwd": ("segment_max_bwd_f32",
+                        [_P] * 5 + [_I, _I, _I, _P]),
 }
 
 _lock = threading.Lock()

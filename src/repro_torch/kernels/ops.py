@@ -16,11 +16,12 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.plan import CSCPlan
 from repro_torch.kernels.ref import (NEG, edge_softmax_bwd_ref,
-                                     edge_softmax_ref, segment_max_ref,
-                                     segment_sum_bwd_ref, segment_sum_ref)
+                                     edge_softmax_ref, segment_max_bwd_ref,
+                                     segment_max_ref, segment_sum_bwd_ref,
+                                     segment_sum_ref)
 
 launches = {"segment_sum": 0, "edge_softmax": 0, "segment_sum_bwd": 0,
-            "edge_softmax_bwd": 0}
+            "edge_softmax_bwd": 0, "segment_max": 0, "segment_max_bwd": 0}
 
 
 def reset_launches() -> None:
@@ -56,19 +57,21 @@ def _raise_on(rc: int, name: str) -> None:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
 
 
-def _segment_sum_cuda(data: torch.Tensor, plan: CSCPlan) -> torch.Tensor:
-    _check_cuda("segment_sum", (plan.perm, plan.indptr), data)
+def _segment_reduce_cuda(name: str, data: torch.Tensor,
+                         plan: CSCPlan) -> torch.Tensor:
+    """``segment_sum`` or ``segment_max``: the same launch over the plan."""
+    _check_cuda(name, (plan.perm, plan.indptr), data)
     n, d = plan.num_segments, data.shape[1]
     out = torch.empty((n, d), dtype=torch.float32, device=data.device)
     if n == 0 or d == 0:
         return out
-    fn = build.kernel("segment_sum")
+    fn = build.kernel(name)
     with torch.cuda.device(data.device):
         stream = torch.cuda.current_stream(data.device).cuda_stream
         rc = fn(_ptr(data), _ptr(plan.perm), _ptr(plan.indptr), _ptr(out),
                 n, d, stream)
-    _raise_on(rc, "segment_sum")
-    launches["segment_sum"] += 1
+    _raise_on(rc, name)
+    launches[name] += 1
     return out
 
 
@@ -130,6 +133,25 @@ def _edge_softmax_bwd_cuda(g, logits, values, m, den, og, plan: CSCPlan):
     return d_logits, d_values
 
 
+def _segment_max_bwd_cuda(g: torch.Tensor, fwd_out: torch.Tensor,
+                          data: torch.Tensor, plan: CSCPlan) -> torch.Tensor:
+    _check_cuda("segment_max_bwd", (plan.edge_dst,), g, fwd_out, data)
+    (n, d), e = g.shape, plan.num_edges
+    if n == 0:
+        return g.new_zeros((e, d))
+    out = torch.empty((e, d), dtype=torch.float32, device=g.device)
+    if e == 0 or d == 0:
+        return out
+    fn = build.kernel("segment_max_bwd")
+    with torch.cuda.device(g.device):
+        stream = torch.cuda.current_stream(g.device).cuda_stream
+        rc = fn(_ptr(g), _ptr(fwd_out), _ptr(data), _ptr(plan.edge_dst),
+                _ptr(out), e, n, d, stream)
+    _raise_on(rc, "segment_max_bwd")
+    launches["segment_max_bwd"] += 1
+    return out
+
+
 def _route(t: torch.Tensor) -> str:
     if t.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {t.device}")
@@ -148,24 +170,24 @@ def segment_sum_op(data: torch.Tensor, plan: CSCPlan) -> torch.Tensor:
         out = segment_sum_ref(flat, plan.perm, plan.indptr,
                               plan.num_segments)
     else:
-        out = _segment_sum_cuda(flat, plan)
+        out = _segment_reduce_cuda("segment_sum", flat, plan)
     return out.reshape((plan.num_segments,) + trailing)
 
 
 def segment_max_op(data: torch.Tensor, plan: CSCPlan) -> torch.Tensor:
-    """Per-row max; empty rows give NEG. Only the plain version exists so
-    far: ``segment_max_csc`` is still to be ported (ROADMAP B.5)."""
+    """data (E,)/(E, D)/(E, H, D) -> (num_segments, ...trailing): the
+    per-row, feature-wise max; empty rows give NEG (callers clamp), and a
+    NaN entry makes its row's output NaN, as ``segment_max_csc`` does."""
     if data.shape[0] != plan.num_edges:
         raise ValueError(f"data edge axis {data.shape[0]} != plan "
                          f"num_edges {plan.num_edges}")
-    if _route(data) == "cuda":
-        raise NotImplementedError(
-            "segment_max has no CUDA kernel yet: segment_max_csc is still "
-            "to be ported (ROADMAP B.5)")
     trailing = tuple(data.shape[1:])
-    out = segment_max_ref(data.reshape(data.shape[0], math.prod(trailing)),
-                          plan.perm,
-                          plan.indptr, plan.num_segments)
+    flat = data.reshape(data.shape[0], math.prod(trailing))
+    if _route(data) == "cpu":
+        out = segment_max_ref(flat, plan.perm, plan.indptr,
+                              plan.num_segments)
+    else:
+        out = _segment_reduce_cuda("segment_max", flat, plan)
     return out.reshape((plan.num_segments,) + trailing)
 
 
@@ -214,6 +236,38 @@ def segment_sum_bwd_op(g: torch.Tensor, plan: CSCPlan) -> torch.Tensor:
         out = segment_sum_bwd_ref(flat, plan.edge_dst)
     else:
         out = _segment_sum_bwd_cuda(flat, plan)
+    return out.reshape((plan.num_edges,) + trailing)
+
+
+def segment_max_bwd_op(g: torch.Tensor, fwd_out: torch.Tensor,
+                       data: torch.Tensor, plan: CSCPlan) -> torch.Tensor:
+    """Backward of :func:`segment_max_op` from its saved input ``data``
+    (E, ...trailing) and output ``fwd_out`` (num_segments, ...trailing):
+    ``d_data[e] = g[edge_dst[e]] * (data[e] == fwd_out[edge_dst[e]])``.
+    Every entry that attains its row's max gets the full cotangent —
+    ties do not split it, the rule of the JAX ``csc`` kernel (the
+    ``reference`` backend splits it evenly, ROADMAP C.1). Pad edges read
+    the last row, as the TPU kernel clips."""
+    if g.shape[0] != plan.num_segments:
+        raise ValueError(f"cotangent segment axis {g.shape[0]} != plan "
+                         f"num_segments {plan.num_segments}")
+    if data.shape[0] != plan.num_edges:
+        raise ValueError(f"data edge axis {data.shape[0]} != plan "
+                         f"num_edges {plan.num_edges}")
+    trailing = tuple(g.shape[1:])
+    if fwd_out.shape != g.shape or tuple(data.shape[1:]) != trailing:
+        raise ValueError(f"cotangent {tuple(g.shape)} / forward output "
+                         f"{tuple(fwd_out.shape)} / data "
+                         f"{tuple(data.shape)} do not fit one another")
+    d = math.prod(trailing)
+    # autograd may hand the cotangent over expanded (stride 0)
+    gf = g.contiguous().reshape(g.shape[0], d)
+    ff = fwd_out.contiguous().reshape(g.shape[0], d)
+    df = data.contiguous().reshape(data.shape[0], d)
+    if _route(g) == "cpu":
+        out = segment_max_bwd_ref(gf, ff, df, plan.edge_dst)
+    else:
+        out = _segment_max_bwd_cuda(gf, ff, df, plan)
     return out.reshape((plan.num_edges,) + trailing)
 
 

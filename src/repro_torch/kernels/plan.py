@@ -13,7 +13,11 @@ row, so the plan keeps only the contracts:
 Edges whose segment id is ``num_segments`` or more (the pad edges of a
 bucket) sort past ``indptr[-1]`` and join no row, so the kernels read
 each real edge once and need no atomics. Built once per graph or per
-staged view, with numpy; work is O(E).
+staged view, with numpy; work is O(E) (a stable radix sort).
+
+The same plan over the *source* ids (a block's ``src_plan``) turns the
+backward of the NN-G gather ``n[src]`` into a per-source segment sum,
+so it too runs in a fixed order with no atomics.
 """
 from __future__ import annotations
 
@@ -37,6 +41,18 @@ class CSCPlan:
                        edge_dst=self.edge_dst.to(device, copy=copy))
 
 
+def _stable_order(ids: np.ndarray) -> np.ndarray:
+    """``np.argsort(ids, kind="stable")`` for non-negative int32 ids, as
+    one or two passes of numpy's radix sort over 16-bit digits (its
+    stable sort of wider integers is a merge sort, several times
+    slower on unsorted ids)."""
+    if len(ids) == 0 or int(ids.max()) < 1 << 16:
+        return np.argsort(ids.astype(np.uint16), kind="stable")
+    low = np.argsort((ids & 0xFFFF).astype(np.uint16), kind="stable")
+    return low[np.argsort((ids[low] >> 16).astype(np.uint16),
+                          kind="stable")]
+
+
 def build_csc_plan(segment_ids: np.ndarray, num_segments: int) -> CSCPlan:
     """Plan over ``segment_ids`` (E,); ids at or past ``num_segments``
     are pad edges and join no row."""
@@ -49,7 +65,7 @@ def build_csc_plan(segment_ids: np.ndarray, num_segments: int) -> CSCPlan:
         raise ValueError("negative segment id")
     valid = ids < num_segments
     edge_dst = np.where(valid, ids, num_segments).astype(np.int32)
-    perm = np.argsort(edge_dst, kind="stable").astype(np.int32)
+    perm = _stable_order(edge_dst).astype(np.int32)
     counts = np.bincount(ids[valid], minlength=num_segments)
     indptr = np.zeros(num_segments + 1, np.int64)
     np.cumsum(counts, out=indptr[1:])
@@ -62,7 +78,8 @@ def build_bucket_csc_plan(dst_local: np.ndarray, n_pad: int,
                           e_pad: int) -> CSCPlan:
     """Plan for one bucket-padded compact block: the view's ``e`` real
     edges, then ``e_pad - e`` pad edges with id ``n_pad`` that join no
-    row. Leaf shapes are a function of the bucket alone."""
+    row. Leaf shapes are a function of the bucket alone. Over the view's
+    ``src_local`` it is the block's source plan."""
     e = len(dst_local)
     if e > e_pad:
         raise ValueError(f"{e} edges do not fit the bucket's e_pad={e_pad}")

@@ -86,6 +86,21 @@ def segment_sum_bwd_ref(g: torch.Tensor, edge_dst: torch.Tensor
     return g.index_select(0, _clipped_rows(edge_dst, n))
 
 
+def segment_max_bwd_ref(g: torch.Tensor, fwd_out: torch.Tensor,
+                        data: torch.Tensor, edge_dst: torch.Tensor
+                        ) -> torch.Tensor:
+    """g / fwd_out (N, D), data (E, D) -> (E, D): ``d_data[e] =
+    g[edge_dst[e]] * (data[e] == fwd_out[edge_dst[e]])``, clipped, as
+    ``segment_max_bwd_csc`` computes it: every entry that attains its
+    row's max gets the row's full cotangent (ties do not split it), a
+    NaN entry none; zeros when N = 0."""
+    n = g.shape[0]
+    if n == 0:
+        return data.new_zeros(data.shape)
+    rows = _clipped_rows(edge_dst, n)
+    return g.index_select(0, rows) * (data == fwd_out.index_select(0, rows))
+
+
 def edge_softmax_bwd_ref(g: torch.Tensor, logits: torch.Tensor,
                          values: torch.Tensor, m: torch.Tensor,
                          den: torch.Tensor, og: torch.Tensor,

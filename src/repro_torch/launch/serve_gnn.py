@@ -140,7 +140,7 @@ def main(argv=None):
         description="serve a GNN with seeded weights and load-test it")
     ap.add_argument("--dataset", default="cora")
     ap.add_argument("--model", default="gcn",
-                    choices=["gcn", "sage", "gat", "gat_e"])
+                    choices=["gcn", "sage", "sage_max", "gat", "gat_e"])
     ap.add_argument("--layers", type=int, default=2)
     ap.add_argument("--hidden", type=int, default=64)
     ap.add_argument("--steps", type=int, default=0,

@@ -22,7 +22,7 @@ def main(argv=None) -> int:
     g = sub.add_parser("gnn")
     g.add_argument("--dataset", default="cora")
     g.add_argument("--model", default="gcn",
-                   choices=["gcn", "sage", "gat", "gat_e"])
+                   choices=["gcn", "sage", "sage_max", "gat", "gat_e"])
     g.add_argument("--strategy", default="global",
                    choices=["global", "mini", "cluster"])
     g.add_argument("--steps", type=int, default=100)

@@ -242,11 +242,28 @@ def test_cuda_kernels_are_deterministic(cuda):
 
 
 @pytest.mark.cuda
-def test_cuda_max_combine_raises_until_ported(cuda):
-    ids, n, _, values, _, _ = _case("multihead")
+def test_cuda_max_combine_runs_the_kernel_pair(cuda):
+    """The csc max combine on the card: the segment_max kernel forward,
+    its backward kernel under autograd, equal to the plain versions."""
+    from repro_torch.core.aggregate import combine
+    ids, n, _, values, _, _ = _case("masked")
     plan = build_csc_plan(ids, n).to(cuda)
-    with pytest.raises(NotImplementedError, match="ROADMAP B.5"):
-        ops.segment_max_op(torch.from_numpy(values).to(cuda), plan)
+    v = torch.from_numpy(values).to(cuda).requires_grad_()
+    mask = (torch.arange(len(ids), device=cuda) % 5 != 0).float()
+    dst = torch.from_numpy(ids).to(cuda)
+    before = dict(ops.launches)
+    out = combine("max", {"value": v}, dst, n, mask, "csc", plan)
+    (d_v,) = torch.autograd.grad(out.sum(), v)
+    torch.cuda.synchronize()
+    assert ops.launches["segment_max"] == before["segment_max"] + 1
+    assert ops.launches["segment_max_bwd"] == before["segment_max_bwd"] + 1
+    v_cpu = v.detach().cpu().requires_grad_()
+    cpu = combine("max", {"value": v_cpu}, dst.cpu(), n, mask.cpu(), "csc",
+                  plan.to("cpu"))
+    (want,) = torch.autograd.grad(cpu.sum(), v_cpu)
+    torch.testing.assert_close(out.detach().cpu(), cpu.detach(), rtol=0,
+                               atol=0)
+    torch.testing.assert_close(d_v.cpu(), want, rtol=0, atol=0)
 
 
 def test_reference_backend_refuses_device_tensors():

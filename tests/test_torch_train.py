@@ -162,19 +162,28 @@ def test_gat_e_gradients_match_jax_pallas_backward():
         _assert_rel(p.grad, want[k].numpy(), GRAD_REL, k)
 
 
-def test_sage_max_on_csc_refuses_to_train():
-    """No segment_max kernel pair yet: training through it would use
-    torch's tie rule, so the csc backend refuses; inference runs."""
+def test_sage_max_on_csc_trains():
+    """The csc max combine trains through its kernel pair's Function:
+    the same forward as the reference backend, bit for bit (a max is
+    exact), and a finite gradient on every parameter. (The two backends'
+    gradients differ where maxima tie, ROADMAP C.1; tests/
+    test_torch_sage_max.py holds these against the JAX csc backend.)"""
     jg, pg = _graphs("reddit_like", "sage")
-    model = make_gnn(GNNConfig(model="sage_max", hidden_dim=8,
-                               num_classes=int(pg.labels.max()) + 1,
-                               feature_dim=pg.node_features.shape[1]))
-    pb = CompactBlockBuilder(pg, 2, gcn_norm=False, csc_plan=True).stage(
+    cfg = dict(model="sage_max", hidden_dim=8,
+               num_classes=int(pg.labels.max()) + 1,
+               feature_dim=pg.node_features.shape[1])
+    model = make_gnn(GNNConfig(**cfg))
+    ref = make_gnn(GNNConfig(aggregate_backend="reference", **cfg))
+    ref.load_state_dict(model.state_dict())
+    pb = CompactBlockBuilder(pg, 2, gcn_norm=False, csc_plan=True,
+                             src_plan=True).stage(
         ViewBuilder(pg, 2).khop_compact(np.arange(5)))
-    with pytest.raises(NotImplementedError, match="B.5/B.6"):
-        loss_block(model, pb)
-    with torch.no_grad():
-        assert torch.isfinite(model(pb)).all()
+    loss = loss_block(model, pb)
+    loss.backward()
+    assert torch.equal(loss.detach(), loss_block(ref, pb).detach())
+    for k, p in model.named_parameters():
+        assert torch.isfinite(p.grad).all(), k
+    assert model.layers[1].w_neigh.w.grad.abs().max() > 0
 
 
 # -- optimizers and schedules ------------------------------------------------
