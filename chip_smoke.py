@@ -42,7 +42,30 @@ Phases (each raises on failure, so the script exits non-zero):
 8. train GCN (reddit_like + self-loops, hidden 128), the same way;
 9. serve SAGE-max (reddit_like without self-loops, the Reddit config's
    widths with the model swapped), as in phases 4-5;
-10. train SAGE-max (the same job), as in phases 7-8.
+10. train SAGE-max (the same job), as in phases 7-8;
+11. serve Qwen3-4B at full width and depth (36 layers, d 2560) through
+    ``repro_torch.launch.serve.BatchServer``: first the float32 parity
+    gates on left-padded prompts (prefill plus 8 decode steps: the
+    ``flash_attention`` kernel against its plain version at full depth
+    on the card, one launch per layer on the kernel path and none on
+    the plain one; then card against CPU at depth 2, decode fed seeded
+    tokens and then the CPU's own argmax), then a bf16 serving run of 64
+    requests (prompts uniform in 512-2048 tokens, 128 new tokens each,
+    batch 4) with its tokens/s, the kernel's launches per prefill batch,
+    a profile of one short batch and the bf16 kernel-vs-plain
+    difference;
+12. serve RWKV-6 1.6B (24 layers, d 2048) the same way through the
+    ``wkv6`` kernel (prompts of whole 128-token chunks, 512-2048; the
+    parity gates also cover the prefill's final states).
+
+Phase 3 also holds ``flash_attention`` (causal, non-causal, window,
+``seq_len < T``, ``kv_start`` with fully masked rows, GQA 1 and 4, D 64
+and 128, ragged T) and ``wkv6`` (B > 1, ragged T, the final state) in
+float32 and bfloat16 (element by element) against their plain versions;
+phase 6 times them at the Qwen3-4B and RWKV-6 1.6B prefill shapes beside
+``scaled_dot_product_attention`` (timed only: the port never calls it).
+The GNN cache hits of phases 4, 5 and 9 must equal a full recompute bit
+for bit.
 
 The last lines are the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
@@ -50,6 +73,7 @@ limit, and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import subprocess
 import sys
@@ -61,7 +85,16 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory rate
 FP32_OPS_PER_S = 67e12             # H100 SXM float32 outside tensor cores
+BF16_OPS_PER_S = 989e12            # H100 SXM bf16 tensor cores, dense
 RTOL = ATOL = 1e-5                 # kernel vs plain: sums in another order
+WKV_TOL = 1e-4                     # wkv6 vs plain, float32
+BF16_RTOL = 1e-2                   # LM kernels vs plain in bf16, each
+BF16_ATOL = 1e-3                   # element: one bf16 ulp (< 2^-7 |out|),
+                                   # plus 1e-3 * rms(out) of float32 noise
+LIB_REL = 2e-2                     # bf16 kernel vs the library call,
+                                   # * max|out| (it rounds p to bf16)
+LM_PARITY = 1e-3                   # f32 kernel vs plain logits, * max|logit|
+LM_CPU = 1e-4                      # f32 card vs CPU logits, * max|logit|
 SERVE_TOL = 1e-4                   # card vs CPU responses
 GRAD_TOL = 1e-4                    # card vs CPU step-1 gradients, relative
 LOSS_TOL = 1e-3                    # card vs CPU losses, * max(1, |loss|)
@@ -87,8 +120,18 @@ KERNELS = {
     "segment_max_bwd": {
         "source": "src/repro_torch/kernels/csrc/segment_max_bwd.cu",
         "replaces": "src/repro/kernels/backward.py:140"},
+    "flash_attention": {
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:89"},
+    "wkv6": {
+        "source": "src/repro_torch/kernels/csrc/wkv6.cu",
+        "replaces": "src/repro/kernels/wkv6.py:78"},
 }
 MAX_WIDTH = 64                     # the Reddit config's feature width
+LM_REQUESTS = 64                   # LM serving run: seeded requests,
+LM_PROMPTS = (512, 2048)           # prompt lengths uniform in this range,
+LM_NEW_TOKENS = 128                # new tokens each,
+LM_BATCH = 4                       # in batches of 4
 
 
 def card_label() -> str:
@@ -239,6 +282,119 @@ def check_max_kernels(rng, worst: dict) -> None:
     print("  max no_rows: ok", flush=True)
 
 
+def _bf16_rel(got, want) -> float:
+    """Largest |got - want| over the largest |want|, in float32."""
+    scale = max(float(want.float().abs().max()), 1e-30)
+    return float((got.float() - want.float()).abs().max()) / scale
+
+
+def _bf16_check(got, want, what: str) -> float:
+    """Hold a bf16 kernel output against its plain version element by
+    element. Both read the same bf16 inputs, compute in float32 and round
+    to bf16 once, so they may part by one bf16 ulp (under 2^-7 of |want|)
+    where float32 sum-order noise crosses a rounding boundary, and by that
+    noise near 0: ``|got - want| <= BF16_ATOL * rms(want) + BF16_RTOL *
+    |want|``. Returns the worst element's share of its limit (<= 1)."""
+    g, w = got.float(), want.float()
+    if not w.numel():
+        return 0.0
+    atol = BF16_ATOL * float(w.square().mean().sqrt())
+    share = float(((g - w).abs() / (atol + BF16_RTOL * w.abs())).max())
+    if not share <= 1.0:
+        raise AssertionError(f"{what}: bf16 kernel vs plain, the worst "
+                             f"element at {share:.3f} of its limit (rtol "
+                             f"{BF16_RTOL}, atol {BF16_ATOL} * rms)")
+    return share
+
+
+def check_lm_kernels(rng, worst: dict) -> None:
+    """``flash_attention`` and ``wkv6`` against their plain versions on
+    the card, in float32 (rtol/atol 1e-5 and 1e-4) and bfloat16 (element
+    by element, :func:`_bf16_check`); ``worst`` keeps the float32 max abs
+    error and the bf16 worst share of the limit."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import flash_attention_ref, wkv6_ref
+    # name -> (B, T, Hq, Hkv, D, causal, window, seq_len, kv_start)
+    flash = {
+        # the Qwen3-4B prefill of a served batch: GQA 4, D 128, left pad
+        "qwen3_prefill": (4, 512, 32, 8, 128, True, 0, 0, (0, 37, 300, 448)),
+        "causal_gqa1_d64": (2, 256, 4, 4, 64, True, 0, 0, None),
+        "noncausal_d64": (2, 200, 4, 4, 64, False, 0, 0, None),
+        "window_d128": (2, 300, 8, 2, 128, True, 48, 0, None),
+        "seq_len_noncausal": (2, 256, 4, 1, 128, False, 0, 190, None),
+        "seq_len_causal": (1, 256, 8, 2, 64, True, 0, 130, None),
+        # row 0 sees no key at all, rows of 1 and 2 lose a prefix
+        "kv_start_all_masked": (3, 150, 8, 2, 128, True, 0, 0, (150, 70, 5)),
+        "ragged_t_gqa4": (2, 77, 8, 2, 64, True, 0, 0, (0, 10)),
+        "window_kv_start": (2, 333, 4, 1, 64, True, 100, 0, (200, 3)),
+    }
+    for name, (B, T, Hq, Hkv, D, causal, window, seq_len, start) in \
+            flash.items():
+        q = torch.from_numpy(rng.normal(size=(B, T, Hq, D)).astype(
+            "float32")).to(DEVICE)
+        k = torch.from_numpy(rng.normal(size=(B, T, Hkv, D)).astype(
+            "float32")).to(DEVICE)
+        v = torch.from_numpy(rng.normal(size=(B, T, Hkv, D)).astype(
+            "float32")).to(DEVICE)
+        kv = (None if start is None else
+              torch.tensor(start, dtype=torch.int32, device=DEVICE))
+        kw = dict(causal=causal, sliding_window=window, seq_len=seq_len,
+                  kv_start=kv)
+        for dtype in (torch.float32, torch.bfloat16):
+            a, b, c = q.to(dtype), k.to(dtype), v.to(dtype)
+            got = ops.flash_attention_op(a, b, c, **kw)
+            want = flash_attention_ref(a, b, c, **kw)
+            torch.cuda.synchronize()
+            if dtype == torch.float32:
+                torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL,
+                                           msg=f"flash_attention on {name}")
+                worst["flash_attention"] = max(
+                    worst["flash_attention"],
+                    float((got - want).abs().max()))
+            else:
+                worst["flash_attention_bf16"] = max(
+                    worst.get("flash_attention_bf16", 0.0),
+                    _bf16_check(got, want, f"flash_attention on {name}"))
+            if start is not None and start[0] >= T:
+                if got[0].any():
+                    raise AssertionError(f"flash_attention on {name}: a "
+                                         "row with no visible key is not 0")
+        print(f"  flash {name}: ok", flush=True)
+    # name -> (B, T, H, K): the RWKV-6 1.6B prefill of a served batch,
+    # then ragged T and the reduced head width
+    wkv = {"rwkv6_prefill": (4, 512, 32, 64), "ragged_t": (3, 77, 4, 64),
+           "k32": (2, 45, 3, 32)}
+    for name, (B, T, H, K) in wkv.items():
+        r, kk, vv = (torch.from_numpy((rng.normal(size=(B, T, H, K)) * 0.5)
+                                      .astype("float32")).to(DEVICE)
+                     for _ in range(3))
+        w = torch.from_numpy(np.exp(-np.exp(rng.normal(
+            -2.0, 0.7, size=(B, T, H, K)))).astype("float32")).to(DEVICE)
+        u = torch.from_numpy((rng.normal(size=(H, K)) * 0.1).astype(
+            "float32")).to(DEVICE)
+        for dtype in (torch.float32, torch.bfloat16):
+            a, b, c = r.to(dtype), kk.to(dtype), vv.to(dtype)
+            o, S = ops.wkv6_op(a, b, c, w, u)
+            w_o, w_S = wkv6_ref(a, b, c, w, u)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(S, w_S, rtol=WKV_TOL, atol=WKV_TOL,
+                                       msg=f"wkv6 final state on {name}")
+            if dtype == torch.float32:
+                torch.testing.assert_close(o, w_o, rtol=WKV_TOL,
+                                           atol=WKV_TOL,
+                                           msg=f"wkv6 on {name}")
+                worst["wkv6"] = max(worst["wkv6"],
+                                    float((o - w_o).abs().max()),
+                                    float((S - w_S).abs().max()))
+            else:
+                worst["wkv6_bf16"] = max(worst.get("wkv6_bf16", 0.0),
+                                         _bf16_check(o, w_o,
+                                                     f"wkv6 on {name}"))
+        print(f"  wkv6 {name}: ok", flush=True)
+
+
 def check_kernels() -> dict:
     """Max abs error of each kernel against its plain version over every
     case; raises past rtol/atol 1e-5."""
@@ -307,11 +463,20 @@ def check_kernels() -> dict:
         raise AssertionError("backward with no rows gave non-zero gradients")
     print("  no_rows: ok", flush=True)
     check_max_kernels(rng, worst)
+    check_lm_kernels(rng, worst)
+
+    def tol(k: str) -> str:
+        if k.startswith("segment_max"):
+            return "exact"
+        if k in ("flash_attention", "wkv6"):
+            t = RTOL if k == "flash_attention" else WKV_TOL
+            return (f"f32 rtol/atol {t}; bf16 worst element "
+                    f"{worst[k + '_bf16']:.3f} of its limit, rtol "
+                    f"{BF16_RTOL} atol {BF16_ATOL}*rms")
+        return f"rtol {RTOL}, atol {ATOL}"
     print("kernels: " + ", ".join(
-        f"{k} max_abs_err={worst[k]:.3e} (" + (
-            "exact" if k.startswith("segment_max")
-            else f"rtol {RTOL}, atol {ATOL}") + ") pass"
-        for k in KERNELS), flush=True)
+        f"{k} max_abs_err={worst[k]:.3e} ({tol(k)}) pass" for k in KERNELS),
+        flush=True)
     return worst
 
 
@@ -386,12 +551,13 @@ def serve(config: str, label: str, requests: int = 512,
     again = cached.submit(targets)
     if cached.cache.hits == hits0:
         raise AssertionError(f"{model}: the second submit hit no cache row")
-    np.testing.assert_allclose(again, full, rtol=RTOL, atol=ATOL,
-                               err_msg=f"{model}: cache hit vs recompute")
+    same = bool(np.array_equal(again, full))
     print(f"  cache hit vs full recompute: "
           f"{cached.cache.hits - hits0} hits, max_abs_err="
-          f"{float(np.abs(again - full).max()):.3e}, bitwise="
-          f"{bool(np.array_equal(again, full))}")
+          f"{float(np.abs(again - full).max()):.3e}, bitwise={same}")
+    if not same:
+        raise AssertionError(f"{model}: a cache hit is not bitwise equal "
+                             "to a full recompute")
     return launches
 
 
@@ -419,9 +585,10 @@ def _time_ms(fn, min_total_ms: float = 200.0) -> float:
     return start.elapsed_time(stop) / n
 
 
-def _bound(nbytes: float, nops: float) -> tuple:
+def _bound(nbytes: float, nops: float,
+           ops_per_s: float = FP32_OPS_PER_S) -> tuple:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = nops / FP32_OPS_PER_S * 1e3
+    t_ops = nops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -610,6 +777,358 @@ def kernel_times() -> dict:
     return rows
 
 
+def _flash_inputs(gen, B, T, Hq, Hkv, D):
+    import torch
+    return [torch.randn((B, T, h, D), generator=gen, device=DEVICE,
+                        dtype=torch.bfloat16) for h in (Hq, Hkv, Hkv)]
+
+
+def _flash_bound(B, T, Hq, Hkv, D) -> tuple:
+    """q, k, v read and out written once, in bf16; causal attention does
+    QK^T and PV, 2 * D multiply-adds each, over the T (T + 1) / 2 visible
+    (query, key) pairs of each head, at the bf16 tensor-core peak."""
+    nbytes = 2 * B * T * (2 * Hq * D + 2 * Hkv * D)
+    nops = 4 * D * B * Hq * T * (T + 1) / 2
+    return _bound(nbytes, nops, BF16_OPS_PER_S)
+
+
+def lm_kernel_times() -> dict:
+    """``flash_attention`` at the Qwen3-4B prefill shapes (B 1, 32 q heads,
+    8 kv heads of 128, bf16, causal) at T 4096, with its plain version
+    and ``scaled_dot_product_attention``, and at T 32768 (kernel and
+    library: the plain version's scores would not fit); ``wkv6`` at the
+    RWKV-6 1.6B prefill (B 8, T 4096, 32 heads of 64, r/k/v in bf16).
+    Each kernel is held against its plain version there first (the
+    library call too, at bf16 tolerance)."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import flash_attention_ref, wkv6_ref
+    rows = {}
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    B, Hq, Hkv, D = 1, 32, 8, 128
+    with torch.inference_mode():
+        for T in (4096, 32768):
+            q, k, v = _flash_inputs(gen, B, T, Hq, Hkv, D)
+            # the library's layout, made once outside the timed call
+            qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
+
+            def lib_fn():
+                # never the math backend: its scores would not fit at 32k
+                with sdpa_kernel([SDPBackend.FLASH_ATTENTION,
+                                  SDPBackend.EFFICIENT_ATTENTION,
+                                  SDPBackend.CUDNN_ATTENTION]):
+                    return F.scaled_dot_product_attention(
+                        qt, kt, vt, is_causal=True, enable_gqa=True)
+            got = ops.flash_attention_op(q, k, v)
+            lib_rel = _bf16_rel(got, lib_fn().transpose(1, 2))
+            plain = None
+            if T == 4096:
+                _bf16_check(got, flash_attention_ref(q, k, v),
+                            f"flash_attention at T {T}")
+                plain = _time_ms(lambda: flash_attention_ref(q, k, v), 100.0)
+            if lib_rel > LIB_REL:
+                raise AssertionError(f"flash_attention at T {T} vs SDPA: "
+                                     f"{lib_rel:.3e} of max|out|")
+            ms = _time_ms(lambda: ops.flash_attention_op(q, k, v), 100.0)
+            lib = _time_ms(lib_fn, 100.0)
+            bound, by = _flash_bound(B, T, Hq, Hkv, D)
+            row = dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
+                       library_ms=lib,
+                       shape=f"B={B} T={T} Hq={Hq} Hkv={Hkv} D={D} bf16 "
+                       "causal")
+            if T == 4096:
+                rows["flash_attention"] = row
+            else:
+                print(f"  flash_attention [{row['shape']}]: kernel "
+                      f"{ms:.4f} ms, library (SDPA) {lib:.4f} ms, bound "
+                      f"{bound:.4f} ms ({by}); kernel vs SDPA "
+                      f"{lib_rel:.3e} of max|out|")
+            del q, k, v, qt, kt, vt, got
+            torch.cuda.empty_cache()
+
+        B, T, H, K = 8, 4096, 32, 64
+        r, kk, vv = (torch.randn((B, T, H, K), generator=gen, device=DEVICE)
+                     .mul_(0.5).to(torch.bfloat16) for _ in range(3))
+        w = torch.exp(-torch.exp(torch.randn((B, T, H, K), generator=gen,
+                                             device=DEVICE) * 0.7 - 2.0))
+        u = torch.randn((H, K), generator=gen, device=DEVICE) * 0.1
+        o, S = ops.wkv6_op(r, kk, vv, w, u)
+        w_o, w_S = wkv6_ref(r, kk, vv, w, u)
+        torch.testing.assert_close(S, w_S, rtol=WKV_TOL, atol=WKV_TOL)
+        _bf16_check(o, w_o, "wkv6 at the 1.6B prefill")
+        ms = _time_ms(lambda: ops.wkv6_op(r, kk, vv, w, u), 100.0)
+        plain = _time_ms(lambda: wkv6_ref(r, kk, vv, w, u), 100.0)
+        n = B * T * H * K
+        # r, k, v and o in bf16, w in f32; u and the f32 final state; an
+        # FMA for the decayed state and one for the output per (k, v)
+        nbytes = 2 * 4 * n + 4 * n + 4 * H * K + 4 * B * H * K * K
+        bound, by = _bound(nbytes, 4 * B * T * H * K * K)
+        rows["wkv6"] = dict(ms=ms, plain_ms=plain, bound_ms=bound,
+                            bound_by=by, library_ms=None,
+                            shape=f"B={B} T={T} H={H} K=V={K} bf16")
+    for name, r_ in rows.items():
+        print(f"  {name} [{r_['shape']}]: kernel {r_['ms']:.4f} ms, plain "
+              f"{r_['plain_ms']:.4f} ms, library {r_['library_ms']} ms, "
+              f"bound {r_['bound_ms']:.4f} ms ({r_['bound_by']})")
+    return rows
+
+
+# -- phases 11 and 12: LM serving ----------------------------------------------
+
+
+@contextlib.contextmanager
+def plain_lm_kernels():
+    """Inside the block the model's prefill calls the kernels' plain
+    versions in place of the wrappers (the port itself has no such
+    switch: on a CUDA tensor a wrapper launches its kernel)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import flash_attention_ref, wkv6_ref
+    saved = ops.flash_attention_op, ops.wkv6_op
+    ops.flash_attention_op, ops.wkv6_op = flash_attention_ref, wkv6_ref
+    try:
+        yield
+    finally:
+        ops.flash_attention_op, ops.wkv6_op = saved
+
+
+def _lm_run(model, toks, pads, feed=None, steps: int = 8):
+    """Prefill a left-padded batch, then ``steps`` decode steps fed the
+    tokens ``feed`` (B, steps), or, when it is None, each step's own
+    argmax as the server feeds them; returns (logits of every step,
+    float32 on the CPU; the prefill's final states for RWKV; the fed
+    tokens)."""
+    import torch
+    dev = model.device
+    B, P = toks.shape
+    valid = torch.arange(P)[None, :] >= pads[:, None]
+    positions = (torch.arange(P)[None, :] - pads[:, None]).clamp_min(0)
+    batch = {"tokens": toks.to(dev), "valid": valid.to(dev),
+             "positions": positions.to(dev, torch.int32)}
+    logits, caches, idx = model.prefill(batch, cache_len=P + steps)
+    out = [logits.float().cpu()]
+    pre = [{k: (v.float().cpu() if torch.is_tensor(v) else None)
+            for k, v in (c.get("time", {}) or {}).items()}
+           for c in caches]
+    fed = []
+    for i in range(steps):
+        tok = (feed[:, i:i + 1] if feed is not None
+               else out[-1][:, -1].argmax(-1)[:, None])
+        fed.append(tok)
+        step = {"tokens": tok.to(dev), "valid": batch["valid"],
+                "positions": (idx - pads.to(dev))[:, None].to(torch.int32)}
+        logits, caches, idx = model.decode_step(step, caches, idx)
+        out.append(logits.float().cpu())
+    return torch.cat(out, 1), pre, torch.cat(fed, 1)
+
+
+def _kernel_and_plain(model, kernel: str, toks, pads, feed):
+    """``_lm_run`` through the kernels, then through their plain
+    versions, on the same model; the counts show the two took different
+    paths: one ``kernel`` launch per layer in the first, none in the
+    second."""
+    from repro_torch.kernels import ops
+    ops.reset_launches()
+    got = _lm_run(model, toks, pads, feed)
+    n = ops.launches[kernel]
+    ops.reset_launches()
+    with plain_lm_kernels():
+        want = _lm_run(model, toks, pads, feed)
+    if n != model.cfg.num_layers or any(ops.launches.values()):
+        raise AssertionError(f"{kernel}: {n} launches on the kernel path "
+                             f"(expected {model.cfg.num_layers}), "
+                             f"{dict(ops.launches)} on the plain path")
+    return got, want
+
+
+def _profile_lm(server, reqs) -> None:
+    """Device time by kernel over one short served batch (prefill and its
+    decode rounds), from a ``torch.profiler`` trace, and the device's
+    busy share against the same batch's unprofiled time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for r in reqs:
+        r.out.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    server.run(reqs)
+    batch_ms = 1e3 * (time.perf_counter() - t0)
+    for r in reqs:
+        r.out.clear()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        server.run(reqs)
+        torch.cuda.synchronize()
+    kernels = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
+                      for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA
+                      and e.self_device_time_total > 0), reverse=True)
+    busy = sum(k[0] for k in kernels)
+    print(f"    profile (one batch of {len(reqs)}, prompts "
+          f"{[len(r.prompt) for r in reqs]}, {reqs[0].max_new} new tokens): "
+          f"device busy {busy:.3f} ms in {sum(k[1] for k in kernels):.0f} "
+          f"device ops, {100 * busy / batch_ms:.1f}% of the unprofiled "
+          f"{batch_ms:.3f} ms batch; largest:")
+    for ms, n, key in kernels[:6]:
+        print(f"      {ms:.4f} ms over {n:.0f} calls  {key[:90]}")
+
+
+def _lm_batch(cfg, lengths, seed: int = 0):
+    """Seeded prompts of the given lengths, left-padded: (tokens, pads)."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    P = max(lengths)
+    toks = np.zeros((len(lengths), P), np.int64)
+    for i, n in enumerate(lengths):
+        toks[i, P - n:] = rng.integers(0, cfg.vocab_size, n)
+    pads = torch.tensor([P - n for n in lengths])
+    return torch.from_numpy(toks), pads
+
+
+def _rel(a, b) -> float:
+    return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+
+def _state_rel(got_pre, want_pre) -> float:
+    return max(_rel(a["state"], b["state"]) for a, b in zip(got_pre,
+                                                              want_pre))
+
+
+def serve_lm(arch: str, kernel: str, lengths, serve_lengths,
+             new_tokens: int = LM_NEW_TOKENS) -> dict:
+    """The parity gates and the bf16 serving run of one LM (see the
+    module docstring, phases 11-12); returns the serving run's launch
+    counts."""
+    import copy
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.arch import build_model
+    from repro_torch.config import get_arch_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import BatchServer, Request
+    cfg = get_arch_config(arch)
+    f32 = cfg.replace(dtype="float32")
+    toks, pads = _lm_batch(cfg, lengths)
+    # seeded decode tokens: the same feed whatever the logits say
+    seeded = torch.randint(0, cfg.vocab_size, (len(lengths), 8),
+                           generator=torch.Generator().manual_seed(1))
+
+    # f32, full depth: the kernel path against the plain path on the card
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    model = build_model(f32, gen).requires_grad_(False)
+    n_params = sum(p.numel() for p in model.parameters())
+    torch.cuda.synchronize()
+    print(f"  {arch}: {f32.num_layers} layers, d {f32.d_model}, "
+          f"{n_params / 1e9:.3f} B parameters, float32 "
+          f"({4 * n_params / 1e9:.1f} GB), made on the card in "
+          f"{time.perf_counter() - t0:.1f}s")
+    (got, got_pre, _), (want, want_pre, _) = _kernel_and_plain(
+        model, kernel, toks, pads, seeded)
+    err = _rel(got, want)
+    print(f"  f32 full depth, kernel vs plain on the card: prefill + 8 "
+          f"decode logits max diff {err:.3e} of max|logit| (limit "
+          f"{LM_PARITY}); {f32.num_layers} {kernel} launches, 0 plain")
+    if not torch.isfinite(got).all() or err > LM_PARITY:
+        raise AssertionError(f"{arch}: kernel vs plain logits {err:.3e}")
+    if cfg.rwkv is not None:
+        s_err = _state_rel(got_pre, want_pre)
+        print(f"  f32 full depth, kernel vs plain: prefill final states max "
+              f"diff {s_err:.3e} of max|S| (limit {LM_PARITY})")
+        if s_err > LM_PARITY:
+            raise AssertionError(f"{arch}: final states differ by {s_err}")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # f32, depth 2 at full width: the card against the CPU, decode fed
+    # the seeded tokens, then the CPU's own argmax as the server feeds
+    # (the card is fed the CPU's picks, so a near tie cannot part them)
+    cfg2 = f32.replace(num_layers=2)
+    cpu = build_model(cfg2, torch.Generator().manual_seed(1))
+    card = copy.deepcopy(cpu).to(DEVICE)
+    for feed_name, feed in (("seeded", seeded), ("argmax", None)):
+        want, want_pre, fed = _lm_run(cpu, toks, pads, feed)
+        got, got_pre, _ = _lm_run(card, toks, pads, fed)
+        err = _rel(got, want)
+        msg = (f"  f32 depth 2, card vs CPU, {feed_name} feed: logits max "
+               f"diff {err:.3e} of max|logit| (limit {LM_CPU})")
+        if feed is None:
+            same = float((got[:, :-1].argmax(-1) == fed).float().mean())
+            msg += (f"; the card's own argmax picks the CPU's token at "
+                    f"{100 * same:.1f}% of {fed.numel()} steps")
+        if cfg.rwkv is not None:
+            s_err = _state_rel(got_pre, want_pre)
+            msg += f"; final states {s_err:.3e} of max|S|"
+            err = max(err, s_err)
+        print(msg)
+        if err > LM_CPU:
+            raise AssertionError(f"{arch}: card vs CPU, {feed_name} feed, "
+                                 f"differ by {err:.3e}")
+    del cpu, card
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # bf16, full width and depth: the serving run
+    rng = np.random.default_rng(0)
+    B = LM_BATCH
+    server = BatchServer(arch, batch_size=B,
+                         cache_len=max(serve_lengths) + new_tokens,
+                         reduced=False, seed=0, device=DEVICE)
+    reqs = [Request(i, rng.integers(0, cfg.vocab_size, n).astype(np.int32),
+                    new_tokens) for i, n in enumerate(serve_lengths)]
+    server.run(reqs[:B])                  # warm-up batch, not counted
+    server.stats = type(server.stats)()
+    for r in reqs[:B]:
+        r.out.clear()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    for i in range(0, len(reqs), B):
+        server.run(reqs[i:i + B])
+    wall = time.perf_counter() - t0
+    launches = dict(ops.launches)
+    st = server.stats
+    n_batches = (len(reqs) + B - 1) // B
+    print(f"  bf16 serving, {len(reqs)} requests (prompts "
+          f"{min(serve_lengths)}-{max(serve_lengths)}, mean "
+          f"{np.mean(serve_lengths):.0f}), batch {B}, {new_tokens} new "
+          f"tokens: prefill {st.prefill_tokens} tok in {st.prefill_s:.4f}s "
+          f"= {st.prefill_tokens / st.prefill_s:.1f} tok/s; decode "
+          f"{st.decode_tokens} tok in {st.decode_s:.4f}s = "
+          f"{st.decode_tokens / st.decode_s:.1f} tok/s "
+          f"({1e3 * st.decode_s / (n_batches * (new_tokens - 1)):.2f} ms "
+          f"per decode round); wall {wall:.3f}s; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
+    print(f"  launches: {kernel} {launches[kernel]} = "
+          f"{launches[kernel] / n_batches:.0f} per prefill batch "
+          f"({cfg.num_layers} layers)")
+    if any(len(r.out) != new_tokens for r in reqs):
+        raise AssertionError(f"{arch}: a request got the wrong token count")
+    if launches[kernel] != cfg.num_layers * n_batches:
+        raise AssertionError(f"{arch}: {launches[kernel]} {kernel} "
+                             f"launches, expected one per layer per batch")
+
+    # a trace of one batch short enough to profile: the first prompts,
+    # 16 new tokens
+    _profile_lm(server, [Request(r.rid, r.prompt, 16) for r in reqs[:B]])
+
+    # bf16: kernel against plain on one batch, reported only
+    (got, _, _), (want, _, _) = _kernel_and_plain(server.model, kernel,
+                                                  toks, pads, seeded)
+    agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+    print(f"  bf16 kernel vs plain (reported, not gated): logits max diff "
+          f"{_rel(got, want):.3e} of max|logit|; greedy tokens agree on "
+          f"{100 * agree:.1f}% of {got.shape[0] * got.shape[1]} positions")
+    del server
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 # -- phases 7 and 8: training --------------------------------------------------
 
 
@@ -774,10 +1293,29 @@ def train(config: str, label: str, bwd_kernel: str, bwd_per_step: int,
     return total
 
 
+def lm_phases(phase) -> list:
+    """Phases 11 and 12; returns each serving run's launch counts."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    lo, hi = LM_PROMPTS
+    phase("11. serve Qwen3-4B (full width, 36 layers)")
+    got = [serve_lm("qwen3-4b", "flash_attention", (512, 301, 77, 160),
+                    [int(n) for n in rng.integers(lo, hi + 1,
+                                                  LM_REQUESTS)])]
+    phase("12. serve RWKV-6 1.6B (full width, 24 layers)")
+    # whole chunks of 128, so every padded batch length is one too
+    got.append(serve_lm("rwkv6-1.6b", "wkv6", (512, 384, 128, 256),
+                        [int(n) for n in rng.choice(
+                            np.arange(lo, hi + 1, 128), LM_REQUESTS)]))
+    return got
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--only", choices=["kernels"], default=None,
-                    help="stop after phase 3 (build and check the kernels)")
+    ap.add_argument("--only", choices=["kernels", "lm"], default=None,
+                    help="kernels: stop after phase 3 (build and check the "
+                    "kernels); lm: phases 1-3, the LM kernels' times and "
+                    "phases 11-12")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -817,6 +1355,12 @@ def main(argv=None) -> int:
         for k in launches:
             launches[k] += got[k]
 
+    if args.only == "lm":
+        phase("6. kernel times (LM zoo)")
+        lm_kernel_times()
+        lm_phases(phase)
+        return 0
+
     phase("4. serve GAT-E (alipay_like)")
     requests = 512
     got = serve("gnn_gat_e_alipay", label, requests)
@@ -836,6 +1380,7 @@ def main(argv=None) -> int:
 
     phase("6. kernel times")
     rows = kernel_times()
+    rows.update(lm_kernel_times())
 
     phase("7. train GAT-E (alipay_like)")
     count(train("gnn_gat_e_alipay", label, "edge_softmax_bwd", 2))
@@ -861,6 +1406,9 @@ def main(argv=None) -> int:
         raise AssertionError(f"SAGE-max training: {got['segment_max']} "
                              "segment_max launches, expected 2 per step")
     count(got)
+
+    for got in lm_phases(phase):
+        count(got)
     phase("done")
 
     record = {"kernels": [

@@ -1,0 +1,128 @@
+"""Pre-norm residual blocks of the LM zoo (the counterpart of
+``repro/arch/blocks.py``), for the kinds the port serves: ``attn`` (GQA
+with a SwiGLU FFN: qwen3, phi3) and ``rwkv`` (RWKV-6). MoE, Mamba,
+MLA, LayerNorm with a GELU MLP (whisper) and cross-attention are refused
+with an error until they are ported (ROADMAP A.12).
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.arch.rwkv6_block import (rwkv_channel_apply,
+                                          rwkv_channel_init, rwkv_init_cache,
+                                          rwkv_time_apply, rwkv_time_init)
+from repro_torch.config import ArchConfig
+from repro_torch.nn.attention import attention_apply, attention_init
+from repro_torch.nn.layers import (rmsnorm_apply, rmsnorm_init, swiglu_apply,
+                                   swiglu_init)
+
+
+def _unported(what: str):
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP A.12)")
+
+
+def _check_ported(cfg: ArchConfig, kind: str) -> None:
+    if kind not in ("attn", "rwkv"):
+        raise _unported(f"block kind {kind!r}")
+    if cfg.moe is not None:
+        raise _unported("the MoE FFN")
+    if cfg.mla is not None:
+        raise _unported("MLA")
+    if getattr(cfg, "norm_type", "rmsnorm") == "layernorm":
+        raise _unported("LayerNorm with a GELU MLP")
+    if cfg.cross_attention or cfg.encoder_layers:
+        raise _unported("cross-attention")
+
+
+def _norm_init(cfg: ArchConfig, dtype, device=None) -> dict:
+    return rmsnorm_init(cfg.d_model, dtype, device)
+
+
+def norm_apply(cfg: ArchConfig, p, x: torch.Tensor) -> torch.Tensor:
+    return rmsnorm_apply(p, x, cfg.norm_eps)
+
+
+def block_init(gen: torch.Generator, cfg: ArchConfig, kind: str,
+               dtype) -> dict:
+    """The weights of one block of ``kind`` ("attn" | "rwkv"), drawn from
+    ``gen`` on its device, as a dict with the reference's names."""
+    _check_ported(cfg, kind)
+    p: dict = {"norm1": _norm_init(cfg, dtype, gen.device)}
+    if kind == "attn":
+        p["attn"] = attention_init(
+            gen, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+            cfg.resolved_head_dim, dtype, qk_norm=cfg.qk_norm)
+        p["norm2"] = _norm_init(cfg, dtype, gen.device)
+        p["ffn"] = swiglu_init(gen, cfg.d_model, cfg.d_ff, dtype)
+    else:
+        p["time"] = rwkv_time_init(gen, cfg.d_model, cfg.rwkv, dtype)
+        p["norm2"] = _norm_init(cfg, dtype, gen.device)
+        p["channel"] = rwkv_channel_init(gen, cfg.d_model, cfg.d_ff, dtype)
+    return p
+
+
+def block_cache_init(cfg: ArchConfig, kind: str, batch: int, cache_len: int,
+                     dtype, rolling: bool = False, device=None) -> dict:
+    """Decode cache for one block of the given kind."""
+    _check_ported(cfg, kind)
+    if kind == "attn":
+        if rolling:
+            raise _unported("the rolling sliding-window cache")
+        hd = cfg.resolved_head_dim
+        shape = (batch, cache_len, cfg.num_kv_heads, hd)
+        return {"k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device)}
+    return rwkv_init_cache(batch, cfg.d_model, cfg.rwkv, dtype, device)
+
+
+def _ffn_apply(p_ffn, x: torch.Tensor):
+    """The block's FFN and its auxiliary loss (0: no MoE here)."""
+    return swiglu_apply(p_ffn, x), x.new_zeros((), dtype=torch.float32)
+
+
+def block_apply(p, x: torch.Tensor, cfg: ArchConfig, kind: str, *,
+                positions=None, mrope_positions=None, causal=True,
+                cache=None, cache_index=None, enc_memory=None,
+                sliding_window: Optional[int] = None, valid=None,
+                kv_start=None):
+    """Pre-norm residual block. Returns (x, new_cache, aux_loss).
+    ``valid``: (B, P) pad mask over the first P cache slots (serving
+    with left-padded prompts) and ``kv_start`` its first real slot per
+    row (prefill); only the attention path reads them."""
+    if enc_memory is not None:
+        raise _unported("cross-attention")
+    sw = cfg.sliding_window if sliding_window is None else sliding_window
+    new_cache = None
+    if kind == "attn":
+        h = norm_apply(cfg, p["norm1"], x)
+        out = attention_apply(
+            p["attn"], h, num_heads=cfg.num_heads,
+            num_kv_heads=cfg.num_kv_heads,
+            head_dim=cfg.resolved_head_dim, positions=positions,
+            rope_theta=cfg.rope_theta, qk_norm=cfg.qk_norm,
+            norm_eps=cfg.norm_eps, causal=causal, sliding_window=sw,
+            cache=cache, cache_index=cache_index,
+            mrope_positions=mrope_positions, valid=valid,
+            kv_start=kv_start)
+        a, new_cache = out if cache is not None else (out, None)
+        x = x + a
+        h2 = norm_apply(cfg, p["norm2"], x)
+        f, aux = _ffn_apply(p["ffn"], h2)
+        x = x + f
+    elif kind == "rwkv":
+        h = norm_apply(cfg, p["norm1"], x)
+        t, c_t = rwkv_time_apply(p["time"], h, cfg.rwkv, cfg.norm_eps,
+                                 cache=cache["time"] if cache else None)
+        x = x + t
+        h2 = norm_apply(cfg, p["norm2"], x)
+        c, c_c = rwkv_channel_apply(p["channel"], h2,
+                                    cache=cache["channel"] if cache else None)
+        x = x + c
+        if cache is not None:
+            new_cache = {"time": c_t, "channel": c_c}
+        aux = x.new_zeros((), dtype=torch.float32)
+    else:
+        raise _unported(f"block kind {kind!r}")
+    return x, new_cache, aux

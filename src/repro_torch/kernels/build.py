@@ -27,18 +27,24 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int64
-# C entry point of each kernel source: (symbol, argtypes)
+_FLASH = [_P] * 5 + [_I] * 8 + [_P]
+_WKV6 = [_P] * 7 + [_I] * 4 + [_P]
+# C entry points of each kernel source: {source: {symbol: argtypes}}; the
+# LM zoo's kernels have one entry point per input type
 SIGNATURES = {
-    "segment_sum": ("segment_sum_f32", [_P, _P, _P, _P, _I, _I, _P]),
-    "edge_softmax": ("edge_softmax_f32",
-                     [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
-    "segment_sum_bwd": ("segment_sum_bwd_f32",
-                        [_P, _P, _P, _I, _I, _I, _P]),
-    "edge_softmax_bwd": ("edge_softmax_bwd_f32",
-                         [_P] * 9 + [_I, _I, _I, _I, _P]),
-    "segment_max": ("segment_max_f32", [_P, _P, _P, _P, _I, _I, _P]),
-    "segment_max_bwd": ("segment_max_bwd_f32",
-                        [_P] * 5 + [_I, _I, _I, _P]),
+    "segment_sum": {"segment_sum_f32": [_P, _P, _P, _P, _I, _I, _P]},
+    "edge_softmax": {"edge_softmax_f32":
+                     [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P]},
+    "segment_sum_bwd": {"segment_sum_bwd_f32":
+                        [_P, _P, _P, _I, _I, _I, _P]},
+    "edge_softmax_bwd": {"edge_softmax_bwd_f32":
+                         [_P] * 9 + [_I, _I, _I, _I, _P]},
+    "segment_max": {"segment_max_f32": [_P, _P, _P, _P, _I, _I, _P]},
+    "segment_max_bwd": {"segment_max_bwd_f32":
+                        [_P] * 5 + [_I, _I, _I, _P]},
+    "flash_attention": {"flash_attention_f32": _FLASH,
+                        "flash_attention_bf16": _FLASH},
+    "wkv6": {"wkv6_f32": _WKV6, "wkv6_bf16": _WKV6},
 }
 
 _lock = threading.Lock()
@@ -88,15 +94,16 @@ def build_all(names=tuple(SIGNATURES)) -> dict:
             raise RuntimeError(f"nvcc failed for {failed}; see the log above")
         for name in todo:
             lib = ctypes.CDLL(str(_target(name)))
-            symbol, argtypes = SIGNATURES[name]
-            fn = getattr(lib, symbol)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            for symbol, argtypes in SIGNATURES[name].items():
+                fn = getattr(lib, symbol)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
             _libs[name] = lib
         return {n: _libs[n] for n in names}
 
 
-def kernel(name: str):
-    """The bound C entry point of kernel ``name``, built at first use."""
+def kernel(name: str, symbol: str = ""):
+    """The bound C entry point ``symbol`` (by default the source's only
+    one) of kernel source ``name``, built at first use."""
     lib = _libs.get(name) or build_all((name,))[name]
-    return getattr(lib, SIGNATURES[name][0])
+    return getattr(lib, symbol or next(iter(SIGNATURES[name])))

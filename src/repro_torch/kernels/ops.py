@@ -1,4 +1,6 @@
-"""Wrappers around the CUDA kernels, with the plans they read.
+"""Wrappers around the CUDA kernels, with the plans they read: the
+Sum-stage kernels of the GNN path and the LM zoo's ``flash_attention``
+and ``wkv6``.
 
 For a tensor on the CPU a wrapper runs the kernel's plain version
 (:mod:`repro_torch.kernels.ref`); for a CUDA tensor it launches the
@@ -10,18 +12,21 @@ kernel. The backward wrappers are what the autograd Functions of
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.plan import CSCPlan
 from repro_torch.kernels.ref import (NEG, edge_softmax_bwd_ref,
-                                     edge_softmax_ref, segment_max_bwd_ref,
-                                     segment_max_ref, segment_sum_bwd_ref,
-                                     segment_sum_ref)
+                                     edge_softmax_ref, flash_attention_ref,
+                                     segment_max_bwd_ref, segment_max_ref,
+                                     segment_sum_bwd_ref, segment_sum_ref,
+                                     wkv6_ref)
 
 launches = {"segment_sum": 0, "edge_softmax": 0, "segment_sum_bwd": 0,
-            "edge_softmax_bwd": 0, "segment_max": 0, "segment_max_bwd": 0}
+            "edge_softmax_bwd": 0, "segment_max": 0, "segment_max_bwd": 0,
+            "flash_attention": 0, "wkv6": 0}
 
 
 def reset_launches() -> None:
@@ -310,3 +315,137 @@ def edge_softmax_bwd_op(g: torch.Tensor, logits: torch.Tensor,
     if single:
         return d_logits[:, 0], d_values[:, 0, :]
     return d_logits, d_values
+
+
+# -- the LM zoo's kernels ---------------------------------------------------------
+
+_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+FLASH_HEAD_DIMS = (32, 64, 128)
+WKV6_HEAD_DIMS = (32, 64)
+
+
+def _check_lm_cuda(name: str, typed: tuple, f32: tuple = ()) -> str:
+    """``typed`` operands: one dtype, float32 or bfloat16; ``f32``:
+    float32. All contiguous on one device. Returns the symbol suffix."""
+    dev, dtype = typed[0].device, typed[0].dtype
+    if dtype not in _SUFFIX:
+        raise TypeError(f"{name}: the kernel takes float32 or bfloat16, "
+                        f"got {dtype}")
+    for t in typed + f32:
+        if t.device != dev:
+            raise ValueError(f"{name}: operands on {t.device} and {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: operands must be contiguous")
+    for t in typed:
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: operands in {t.dtype} and {dtype}")
+    for t in f32:
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: w and u must be float32, got "
+                            f"{t.dtype}")
+    return _SUFFIX[dtype]
+
+
+def _flash_attention_cuda(q, k, v, kv_start, causal, sliding_window,
+                          seq_len):
+    suffix = _check_lm_cuda("flash_attention", (q, k, v))
+    B, T, Hq, D = q.shape
+    if D not in FLASH_HEAD_DIMS or v.shape[-1] != D:
+        raise ValueError(f"flash_attention: the kernel takes q/k/v head "
+                         f"dims equal and in {FLASH_HEAD_DIMS}, got "
+                         f"{D}/{v.shape[-1]}")
+    if (kv_start.device != q.device or kv_start.dtype != torch.int32
+            or not kv_start.is_contiguous()):
+        raise TypeError("flash_attention: kv_start must be contiguous "
+                        "int32 on the operands' device")
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    fn = build.kernel("flash_attention", f"flash_attention_{suffix}")
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = fn(_ptr(q), _ptr(k), _ptr(v), _ptr(kv_start), _ptr(out), B, T,
+                Hq, k.shape[2], D, int(causal), int(sliding_window),
+                seq_len, stream)
+    _raise_on(rc, "flash_attention")
+    launches["flash_attention"] += 1
+    return out
+
+
+def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                       causal: bool = True, sliding_window: int = 0,
+                       seq_len: int = 0,
+                       kv_start: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
+    """Blockwise attention (the counterpart of
+    ``repro/kernels/ops.py:flash_attention_op``): q (B, T, Hq, D), k and
+    v (B, T, Hkv, D) -> (B, T, Hq, D) in q's dtype.
+
+    GQA by index (q head ``h`` reads kv head ``h // (Hq / Hkv)``), no
+    repeated K/V; ragged T is masked in the kernel, so nothing is padded.
+    ``seq_len`` (0 = T) masks keys at and past it; ``kv_start`` (B,) int
+    masks the keys before ``kv_start[b]`` of row ``b`` (the left pad of a
+    served batch; None = 0, the TPU kernel). A query row with no visible
+    key gives 0. See :func:`repro_torch.kernels.ref.flash_attention_ref`
+    for the exact function."""
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError("flash_attention expects (B, T, H, D) q, k, v")
+    B, T, Hq, D = q.shape
+    Hkv = k.shape[2]
+    if (k.shape[:2] != (B, T) or v.shape[:3] != k.shape[:3]
+            or k.shape[3] != D or Hkv == 0 or Hq % Hkv):
+        raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)} do not fit "
+                         "(same B and T; Hq a multiple of Hkv)")
+    seq_len = int(seq_len) or T
+    if seq_len > T:
+        raise ValueError(f"seq_len {seq_len} exceeds the length {T}")
+    if kv_start is None:
+        kv_start = torch.zeros(B, dtype=torch.int32, device=q.device)
+    elif kv_start.shape != (B,):
+        raise ValueError(f"kv_start must be ({B},), got "
+                         f"{tuple(kv_start.shape)}")
+    if _route(q) == "cpu":
+        return flash_attention_ref(q, k, v, causal=causal,
+                                   sliding_window=sliding_window,
+                                   seq_len=seq_len, kv_start=kv_start)
+    return _flash_attention_cuda(q, k, v, kv_start, causal, sliding_window,
+                                 seq_len)
+
+
+def _wkv6_cuda(r, k, v, w, u):
+    suffix = _check_lm_cuda("wkv6", (r, k, v), (w, u))
+    B, T, H, K = r.shape
+    if K not in WKV6_HEAD_DIMS or v.shape[-1] != K:
+        raise ValueError(f"wkv6: the kernel takes K = V in "
+                         f"{WKV6_HEAD_DIMS}, got {K}/{v.shape[-1]}")
+    o = torch.empty_like(v)
+    s = torch.empty((B, H, K, K), dtype=torch.float32, device=r.device)
+    if B * H == 0:
+        return o, s
+    fn = build.kernel("wkv6", f"wkv6_{suffix}")
+    with torch.cuda.device(r.device):
+        stream = torch.cuda.current_stream(r.device).cuda_stream
+        rc = fn(_ptr(r), _ptr(k), _ptr(v), _ptr(w), _ptr(u), _ptr(o),
+                _ptr(s), B, T, H, K, stream)
+    _raise_on(rc, "wkv6")
+    launches["wkv6"] += 1
+    return o, s
+
+
+def wkv6_op(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            w: torch.Tensor, u: torch.Tensor):
+    """The RWKV-6 recurrence from a zero state (the counterpart of
+    ``repro/kernels/ops.py:wkv6_op``): r, k, w (B, T, H, K), v (B, T, H,
+    V), u (H, K) -> (o (B, T, H, V) in r's dtype, S_final (B, H, K, V)
+    float32). Any T: the kernel runs the steps in order, so nothing is
+    padded to a chunk. See :func:`repro_torch.kernels.ref.wkv6_ref`."""
+    if r.dim() != 4 or k.shape != r.shape or w.shape != r.shape \
+            or v.dim() != 4 or v.shape[:3] != r.shape[:3] \
+            or u.shape != r.shape[2:]:
+        raise ValueError(f"wkv6: r {tuple(r.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)}, w {tuple(w.shape)}, u "
+                         f"{tuple(u.shape)} do not fit")
+    if _route(r) == "cpu":
+        return wkv6_ref(r, k, v, w, u)
+    return _wkv6_cuda(r, k, v, w, u)

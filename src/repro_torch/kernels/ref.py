@@ -1,6 +1,7 @@
 """Plain PyTorch versions of the CUDA kernels, forward and backward: the
 same functions, the same masked-row and clipping semantics, on whatever
-device their inputs lie.
+device their inputs lie. The Sum-stage kernels' come first, then the LM
+zoo's (``flash_attention_ref``, ``wkv6_ref``).
 
 The kernel wrappers in :mod:`repro_torch.kernels.ops` take these for
 tensors on the CPU; ``chip_smoke.py`` holds each kernel against them on
@@ -8,6 +9,9 @@ the card. ``NEG`` is the port's one masking sentinel (as
 ``repro/kernels/segment_sum.py:NEG`` is the reference's).
 """
 from __future__ import annotations
+
+import math
+from typing import Optional
 
 import torch
 
@@ -120,3 +124,71 @@ def edge_softmax_bwd_ref(g: torch.Tensor, logits: torch.Tensor,
     d_values = p[..., None] * gi
     d_logits = p * ((values * gi).sum(-1) - og[rows])
     return d_logits, d_values
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True, sliding_window: int = 0,
+                        seq_len: int = 0,
+                        kv_start: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
+    """q (B, T, Hq, D), k (B, T, Hkv, D), v (B, T, Hkv, Dv) -> (B, T, Hq,
+    Dv) in q's dtype, computed in float32: what ``flash_attention``'s
+    ``_flash_kernel`` computes, with GQA by index and a per-row key start.
+
+    q head ``h`` reads kv head ``h // (Hq / Hkv)`` (the reference's
+    ``jnp.repeat`` of the kv heads). Key ``j`` is visible to query ``i``
+    of row ``b`` when ``j < seq_len`` (0 means T), ``j >= kv_start[b]``,
+    and, as asked, ``j <= i`` (causal) and ``j > i - sliding_window``.
+    Scores are ``q.k / sqrt(D)``, masked ones ``NEG``; the output is
+    ``sum(p v) / max(sum(p), 1e-20)`` with ``p = 0`` on masked keys, so a
+    query row with no visible key gives 0."""
+    B, T, Hq, D = q.shape
+    Hkv = k.shape[2]
+    seq_len = seq_len or T
+    scale = 1.0 / math.sqrt(D)
+    qf = q.float().reshape(B, T, Hkv, Hq // Hkv, D)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qf, k.float()) * scale
+    qi = torch.arange(T, device=q.device)[:, None]
+    ki = torch.arange(T, device=q.device)[None, :]
+    ok = ki < seq_len
+    if causal:
+        ok = ok & (ki <= qi)
+    if sliding_window:
+        ok = ok & (ki > qi - sliding_window)
+    if kv_start is not None:
+        ok = ok[None] & (ki[None] >= kv_start.long()[:, None, None])
+    else:
+        ok = ok[None].expand(B, T, T)
+    ok = ok[:, None, None]                               # (B, 1, 1, T, T)
+    s = torch.where(ok, s, torch.full_like(s, NEG))
+    m = s.amax(-1, keepdim=True)
+    p = torch.where(ok, torch.exp(s - m), torch.zeros_like(s))
+    den = p.sum(-1, keepdim=True).clamp_min(1e-20)
+    out = torch.einsum("bhgqk,bkhd->bhgqd", p, v.float()) / den
+    return (out.permute(0, 3, 1, 2, 4).reshape(B, T, Hq, v.shape[-1])
+            .to(q.dtype))
+
+
+def wkv6_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             w: torch.Tensor, u: torch.Tensor):
+    """The RWKV-6 recurrence, one step at a time in float32, from a zero
+    state: r, k, w (B, T, H, K), v (B, T, H, V), u (H, K) ->
+    (o (B, T, H, V) in r's dtype, S_final (B, H, K, V) float32), with
+
+        o_t = r_t . (S + diag(u) k_t v_t^T),   S <- diag(w_t) S + k_t v_t^T
+
+    (``repro/kernels/ref.py:wkv6_ref``, which ``wkv6`` computes in
+    chunks)."""
+    dtype = r.dtype
+    r, k, v, w, u = (a.float() for a in (r, k, v, w, u))
+    B, T, H, K = r.shape
+    S = r.new_zeros((B, H, K, v.shape[-1]))
+    outs = []
+    for t in range(T):
+        kv = k[:, t, :, :, None] * v[:, t, :, None, :]
+        outs.append(torch.einsum("bhk,bhkv->bhv", r[:, t],
+                                 S + u[None, :, :, None] * kv))
+        S = w[:, t, :, :, None] * S + kv
+    o = (torch.stack(outs, 1) if outs
+         else v.new_zeros((B, 0, H, v.shape[-1])))
+    return o.to(dtype), S

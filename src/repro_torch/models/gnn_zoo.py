@@ -19,7 +19,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.core.tgar import TGARLayer
-from repro_torch.nn.layers import Dense, _fan_in_init
+from repro_torch.nn.layers import Dense, _fan_in_init, matmul
 
 
 def _leaky_relu(x):
@@ -37,7 +37,7 @@ class GCNLayer(TGARLayer):
         self.b = nn.Parameter(torch.zeros(out_dim))
 
     def transform(self, h):                    # Proj_k: n = h W
-        return {"n": h @ self.w}
+        return {"n": matmul(h, self.w)}
 
     def gather(self, n_src, n_dst, edge_attr, edge_w, edge_mask):
         # Prop_k: m_{j->i} = L(i,j) * n_j   (edge_w carries the GCN norm)
@@ -93,7 +93,7 @@ class GATLayer(TGARLayer):
         self.b = nn.Parameter(torch.zeros(out_dim))
 
     def transform(self, h):
-        n = (h @ self.w).reshape(h.shape[0], self.heads, self.hd)
+        n = matmul(h, self.w).reshape(h.shape[0], self.heads, self.hd)
         # per-node halves of the attention logit (NN-T owns node math)
         return {"n": n,
                 "as": torch.einsum("nhd,hd->nh", n, self.a_src),
@@ -121,8 +121,8 @@ class GATELayer(GATLayer):
 
     def gather(self, n_src, n_dst, edge_attr, edge_w, edge_mask):
         # edge attributes join both the attention logit and the value
-        e_att = edge_attr @ self.w_e_att                        # (E, H)
-        e_val = (edge_attr @ self.w_e_val).reshape(
+        e_att = matmul(edge_attr, self.w_e_att)             # (E, H)
+        e_val = matmul(edge_attr, self.w_e_val).reshape(
             edge_attr.shape[0], self.heads, self.hd)
         logit = _leaky_relu(n_src["as"] + n_dst["ad"] + e_att)
         return {"logit": logit, "value": n_src["n"] + e_val}

@@ -1,0 +1,226 @@
+"""GQA attention with RoPE and qk-norm (the counterpart of
+``repro/nn/attention.py``).
+
+Functional, as the reference: ``attention_init`` returns a dict of
+weights and ``attention_apply(p, x, ...)`` reads it. Softmax is in
+float32 whatever the activations' type. Prefill into a full cache runs
+the ``flash_attention`` kernel (:mod:`repro_torch.kernels.ops`); decode
+and the no-cache path compute ``_sdpa`` over an additive bias, as the
+reference does. The caches are updated in place (the reference returns
+new ones), which keeps one copy of each on the card.
+
+Not ported yet, and refused with an error: the rolling sliding-window
+cache, cross-attention, M-RoPE and MLA (ROADMAP A.12).
+"""
+from __future__ import annotations
+
+import functools
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import ops
+from repro_torch.kernels.ref import NEG as NEG_INF   # one masking sentinel
+from repro_torch.nn.layers import _fan_in_init, rmsnorm_apply, rmsnorm_init
+
+
+def rope_frequencies(head_dim: int, theta: float = 10000.0, device=None
+                     ) -> torch.Tensor:
+    """Inverse frequencies, shape (head_dim//2,) float32 (computed in
+    numpy as the reference computes them), made once per device: a
+    host-to-device copy in every layer would stall the launch queue."""
+    return _rope_frequencies(int(head_dim), float(theta),
+                             str(torch.device("cpu" if device is None
+                                              else device)))
+
+
+@functools.lru_cache(maxsize=32)
+def _rope_frequencies(head_dim: int, theta: float, device: str):
+    exponents = np.arange(0, head_dim, 2, dtype=np.float32) / head_dim
+    inv = (1.0 / (theta ** exponents)).astype(np.float32)
+    return torch.from_numpy(inv).to(device)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float = 10000.0) -> torch.Tensor:
+    """x: (..., S, H, hd); positions: broadcastable to (..., S)."""
+    hd = x.shape[-1]
+    inv = rope_frequencies(hd, theta, x.device)
+    ang = positions[..., None].float() * inv            # (..., S, hd/2)
+    ang = ang[..., None, :]                             # (..., S, 1, hd/2)
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def make_attention_bias(q_pos: torch.Tensor, k_pos: torch.Tensor,
+                        causal: bool, sliding_window: int = 0,
+                        k_valid: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
+    """Additive bias (..., Sq, Sk) in float32: 0 allowed, NEG blocked."""
+    qp = q_pos[..., :, None].to(torch.int32)
+    kp = k_pos[..., None, :].to(torch.int32)
+    allowed = torch.ones(torch.broadcast_shapes(qp.shape, kp.shape),
+                         dtype=torch.bool, device=qp.device)
+    if causal:
+        allowed = allowed & (kp <= qp)
+    if sliding_window:
+        allowed = allowed & (kp > qp - sliding_window)
+    if k_valid is not None:
+        allowed = allowed & k_valid[..., None, :]
+    zero = torch.zeros((), dtype=torch.float32, device=qp.device)
+    return torch.where(allowed, zero, torch.full_like(zero, NEG_INF))
+
+
+def attention_init(gen: torch.Generator, d_model: int, num_heads: int,
+                   num_kv_heads: int, head_dim: int, dtype=torch.float32,
+                   qk_norm: bool = False) -> dict:
+    p = {
+        "wq": _fan_in_init(gen, (d_model, num_heads * head_dim),
+                           dtype=dtype),
+        "wk": _fan_in_init(gen, (d_model, num_kv_heads * head_dim),
+                           dtype=dtype),
+        "wv": _fan_in_init(gen, (d_model, num_kv_heads * head_dim),
+                           dtype=dtype),
+        "wo": _fan_in_init(gen, (num_heads * head_dim, d_model),
+                           dtype=dtype),
+    }
+    if qk_norm:
+        p["q_norm"] = rmsnorm_init(head_dim, dtype, gen.device)
+        p["k_norm"] = rmsnorm_init(head_dim, dtype, gen.device)
+    return p
+
+
+def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+          bias: torch.Tensor) -> torch.Tensor:
+    """q: (B,Sq,Hkv,G,hd)  k,v: (B,Sk,Hkv,hd)  bias: (B,1|Hkv,Sq,Sk) ->
+    (B,Sq,Hkv,G,hd) float32."""
+    scale = 1.0 / np.sqrt(q.shape[-1])
+    scores = torch.einsum("bqhgd,bkhd->bhgqk", q.float(), k.float()) * scale
+    scores = scores + bias[:, :, None, :, :]
+    probs = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhgqk,bkhd->bqhgd", probs, v.float())
+
+
+def left_pad_starts(valid: torch.Tensor) -> torch.Tensor:
+    """The first real key of each row of a left-pad mask ``valid`` (B, P):
+    ``P - valid.sum(1)`` as int32. Raises ``ValueError`` when a row is
+    not left-padded (False slots, then True slots): the kernel masks one
+    leading run of keys per row and nothing else."""
+    P = valid.shape[1]
+    start = P - valid.sum(1).to(torch.int32)
+    want = torch.arange(P, device=valid.device)[None, :] >= start[:, None]
+    if not bool(torch.equal(valid.bool(), want)):
+        raise ValueError("valid must be a left-pad mask: each row False "
+                         "on its leading pad slots and True after them")
+    return start.contiguous()
+
+
+def attention_apply(p, x: torch.Tensor, *, num_heads: int, num_kv_heads: int,
+                    head_dim: int, positions=None, rope_theta=10000.0,
+                    qk_norm=False, norm_eps=1e-5, causal=True,
+                    sliding_window=0, cache=None, cache_index=None,
+                    kv_x=None, kv_positions=None, mrope_positions=None,
+                    valid=None, kv_start=None):
+    """Unified GQA attention, as ``repro/nn/attention.py:attention_apply``.
+
+    - train/prefill without a cache: self attention over x (``_sdpa``).
+    - with a cache {"k","v"} (B, S_max, Hkv, hd): the new kv is written at
+      ``cache_index`` (an int) and ``(out, cache)`` returned. A prefill
+      (``cache_index == 0``, more than one token) attends over the prompt
+      through the ``flash_attention`` kernel, with ``valid``'s left pad as
+      the per-row ``kv_start``; decode attends over the whole cache with
+      ``_sdpa``.
+    - ``valid``: (B, P) bool, which of the first P cache slots hold real
+      tokens. Prefill passes the prompt's pad mask; decode keeps passing
+      it so the pad K/Vs stay masked out of every later step.
+    - ``kv_start``: (B,) int32, ``left_pad_starts(valid)``. A prefill
+      through many layers computes it once and passes it to each; left
+      ``None``, the prefill computes it here from ``valid``.
+
+    Query rows that are left pad see no key at all: the kernel gives them
+    0 where the reference's ``_sdpa`` gives the uniform average of the
+    values (ROADMAP C.8). Those rows feed only pad positions, which every
+    later layer masks as keys and no logit reads.
+    """
+    if kv_x is not None:
+        raise NotImplementedError("cross-attention is not ported yet "
+                                  "(ROADMAP A.12: whisper)")
+    if mrope_positions is not None:
+        raise NotImplementedError("M-RoPE is not ported yet (ROADMAP "
+                                  "A.12: qwen2-vl)")
+    if cache is not None and "pos" in cache:
+        raise NotImplementedError("the rolling sliding-window cache is "
+                                  "not ported yet (ROADMAP A.12)")
+    B, Sq, _ = x.shape
+    G = num_heads // num_kv_heads
+    q = (x @ p["wq"]).reshape(B, Sq, num_kv_heads, G, head_dim)
+    k = (x @ p["wk"]).reshape(B, Sq, num_kv_heads, head_dim)
+    v = (x @ p["wv"]).reshape(B, Sq, num_kv_heads, head_dim)
+    if qk_norm:
+        q = rmsnorm_apply(p["q_norm"], q, norm_eps)
+        k = rmsnorm_apply(p["k_norm"], k, norm_eps)
+    if positions is not None:
+        q = apply_rope(q.reshape(B, Sq, num_heads, head_dim), positions,
+                       rope_theta).reshape(B, Sq, num_kv_heads, G, head_dim)
+        kpos = kv_positions if kv_positions is not None else positions
+        k = apply_rope(k, kpos, rope_theta)
+
+    if cache is not None:
+        idx = int(cache_index)
+        cache["k"][:, idx:idx + Sq] = k.to(cache["k"].dtype)
+        cache["v"][:, idx:idx + Sq] = v.to(cache["v"].dtype)
+        if idx == 0 and Sq > 1:
+            # prefill: the prompt's keys are the cache's first Sq slots
+            # and every later slot is masked, so attend over k, v alone
+            if valid is not None:
+                if valid.shape[1] != Sq:
+                    raise ValueError(f"prefill valid mask covers "
+                                     f"{valid.shape[1]} slots, the prompt "
+                                     f"{Sq}")
+                if kv_start is None:
+                    kv_start = left_pad_starts(valid)
+            out = ops.flash_attention_op(
+                q.reshape(B, Sq, num_heads, head_dim).contiguous(),
+                k.contiguous(), v.contiguous(), causal=True,
+                sliding_window=sliding_window, kv_start=kv_start)
+            out = out.reshape(B, Sq, num_heads * head_dim).to(x.dtype)
+            return out @ p["wo"], cache
+        ck, cv = cache["k"], cache["v"]
+        S_max = ck.shape[1]
+        k_pos = torch.arange(S_max, dtype=torch.int32, device=x.device)[None]
+        q_pos = (idx + torch.arange(Sq, dtype=torch.int32,
+                                    device=x.device))[None]
+        k_valid = k_pos <= (idx + Sq - 1)
+        if valid is not None:
+            # left-pad slots written at prefill stay in the cache; mask
+            # them out of this and every later step's attention
+            P = valid.shape[1]
+            vfull = torch.ones((B, S_max), dtype=torch.bool,
+                               device=x.device)
+            vfull[:, :P] = valid.bool()
+            k_valid = k_valid & vfull
+        bias = make_attention_bias(q_pos, k_pos, causal=True,
+                                   sliding_window=sliding_window,
+                                   k_valid=k_valid)
+        bias = bias[:, None] if bias.dim() == 3 else bias
+        k, v = ck, cv
+    else:
+        q_pos = positions if positions is not None else (
+            torch.arange(Sq, dtype=torch.int32, device=x.device)[None])
+        if q_pos.dim() == 1:
+            q_pos = q_pos[None]
+        bias = make_attention_bias(q_pos, q_pos, causal=causal,
+                                   sliding_window=sliding_window)
+        if bias.dim() == 3:
+            bias = bias[:, None]
+        bias = bias.expand((B, 1) + tuple(bias.shape[-2:]))
+
+    out = _sdpa(q, k, v, bias)
+    out = out.reshape(B, Sq, num_heads * head_dim).to(x.dtype)
+    out = out @ p["wo"]
+    if cache is not None:
+        return out, cache
+    return out

@@ -1,25 +1,69 @@
-"""Dense building blocks, initialised from an explicit ``torch.Generator``,
+"""Dense building blocks, initialised from an explicit ``torch.Generator``
+(on the generator's device), the LM zoo's norms, embedding and SwiGLU,
 and the classification loss.
 
 Weights keep the reference's ``(in, out)`` layout (``y = x @ w + b``), so
-parameters carried over from the JAX package load as they are.
+parameters carried over from the JAX package load as they are. The LM
+blocks keep the reference's functional form: ``*_init`` returns a dict
+of tensors, :class:`ParamTree` holds such a dict as an ``nn.Module``,
+and ``*_apply(p, x)`` reads it by key.
 """
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Dict, Optional
+import threading
+from typing import Dict, Mapping, Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 
-def _fan_in_init(gen: torch.Generator, shape, scale: float = 1.0
-                 ) -> torch.Tensor:
-    """Normal(0, scale / sqrt(fan_in)) with fan_in = shape[0]."""
+def _fan_in_init(gen: torch.Generator, shape, scale: float = 1.0,
+                 dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Normal(0, scale / sqrt(fan_in)) with fan_in = shape[0], drawn in
+    float32 on the generator's device and cast to ``dtype``."""
     fan_in = shape[0] if len(shape) > 1 else 1
     std = scale / math.sqrt(fan_in)
-    return torch.randn(tuple(shape), generator=gen,
-                       dtype=torch.float32) * std
+    w = torch.randn(tuple(shape), generator=gen, device=gen.device,
+                    dtype=torch.float32) * std
+    return w.to(dtype)
+
+
+# -- products over fixed row tiles ---------------------------------------------
+
+_tiles = threading.local()
+
+
+@contextlib.contextmanager
+def fixed_row_tiles(rows: int):
+    """Within the block, on this thread, :func:`matmul` computes every
+    product over tiles of exactly ``rows`` rows (the last one padded with
+    zeros). cuBLAS picks its GEMM kernel, and so its order of summation,
+    by the product's shape; with one fixed row count a row's result no
+    longer depends on how many rows came with it. The GNN server uses it
+    so that a cache hit (top layer on a small block) equals a full
+    recompute (top layer inside a larger one) bit for bit."""
+    prev = getattr(_tiles, "rows", 0)
+    _tiles.rows = int(rows)
+    try:
+        yield
+    finally:
+        _tiles.rows = prev
+
+
+def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` for a 2-D ``x``, over fixed row tiles inside
+    :func:`fixed_row_tiles`."""
+    t = getattr(_tiles, "rows", 0)
+    if not t or x.dim() != 2:
+        return x @ w
+    n = x.shape[0]
+    pad = (-n) % t
+    if pad:
+        x = torch.cat([x, x.new_zeros((pad, x.shape[1]))])
+    return torch.cat([x[i:i + t] @ w for i in range(0, n + pad, t)])[:n]
 
 
 def dense_init(gen: torch.Generator, in_dim: int, out_dim: int,
@@ -32,7 +76,7 @@ def dense_init(gen: torch.Generator, in_dim: int, out_dim: int,
 
 
 def dense_apply(p, x: torch.Tensor) -> torch.Tensor:
-    y = x @ p["w"]
+    y = matmul(x, p["w"])
     if "b" in p:
         y = y + p["b"]
     return y
@@ -65,3 +109,60 @@ def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
         mask = mask.float()
         return torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)
     return torch.mean(nll)
+
+
+# -- the LM zoo's building blocks ----------------------------------------------
+
+
+class ParamTree(nn.Module):
+    """A nested dict of tensors as an ``nn.Module``: tensors become
+    parameters, dicts child trees, so the ``state_dict`` keys are the
+    reference's pytree paths joined with ``.``. ``p["name"]`` and
+    ``"name" in p`` read it as the functional code reads a dict."""
+
+    def __init__(self, tree: Mapping):
+        super().__init__()
+        for k, v in tree.items():
+            if isinstance(v, Mapping):
+                self.add_module(k, ParamTree(v))
+            else:
+                self.register_parameter(k, nn.Parameter(v))
+
+    def __getitem__(self, key: str):
+        return getattr(self, key)
+
+    def __contains__(self, key: str) -> bool:
+        return key in self._parameters or key in self._modules
+
+
+def rmsnorm_init(dim: int, dtype=torch.float32, device=None):
+    return {"scale": torch.ones(dim, dtype=dtype, device=device)}
+
+
+def rmsnorm_apply(p, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    xf = x.float()
+    var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * p["scale"].float()).to(x.dtype)
+
+
+def embedding_init(gen: torch.Generator, vocab: int, dim: int,
+                   dtype=torch.float32):
+    return {"table": (torch.randn((vocab, dim), generator=gen,
+                                  device=gen.device, dtype=torch.float32)
+                      * 0.02).to(dtype)}
+
+
+def swiglu_init(gen: torch.Generator, d_model: int, d_ff: int,
+                dtype=torch.float32):
+    return {
+        "wi_gate": _fan_in_init(gen, (d_model, d_ff), dtype=dtype),
+        "wi_up": _fan_in_init(gen, (d_model, d_ff), dtype=dtype),
+        "wo": _fan_in_init(gen, (d_ff, d_model), dtype=dtype),
+    }
+
+
+def swiglu_apply(p, x: torch.Tensor) -> torch.Tensor:
+    g = F.silu(x @ p["wi_gate"])
+    u = x @ p["wi_up"]
+    return (g * u) @ p["wo"]

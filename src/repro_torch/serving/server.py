@@ -22,7 +22,10 @@ card. Why a hit equals a full recompute at ``staleness=0``: hop ordering
 makes the 1-hop node set a prefix of a K-hop view, the write-back stores
 the true h^{K-1} of that prefix, and the 1-hop view aggregates the same
 edges in the same plan order; the kernels sum in plan order without
-atomics.
+atomics; and the dense products run over row tiles of one fixed size
+(:func:`~repro_torch.nn.layers.fixed_row_tiles`, the ladder's largest
+node count), so cuBLAS computes a row the same way in a small block and
+a large one.
 """
 from __future__ import annotations
 
@@ -39,6 +42,7 @@ from repro_torch.core.tgar import layer_forward_block
 from repro_torch.core.views import BucketSpec, CompactBlockBuilder, ViewBuilder
 from repro_torch.device import resolve_device
 from repro_torch.graph.csr import Graph
+from repro_torch.nn.layers import fixed_row_tiles
 from repro_torch.serving.cache import EmbeddingCache
 
 
@@ -189,8 +193,12 @@ class GNNServer:
         # buffers and the cache write-back must be ordered
         self._serve_lock = threading.Lock()
 
+        # every dense product of a served forward runs over tiles of
+        # this many rows, whatever the block's bucket
+        row_tile = max(shape[0] for shape in self.buckets.shapes)
+
         def full_fn(block):
-            with torch.inference_mode():
+            with torch.inference_mode(), fixed_row_tiles(row_tile):
                 h = block.x
                 n = block.num_nodes_padded
                 penult = h
@@ -202,7 +210,7 @@ class GNNServer:
                 return self.model.decode(h), penult
 
         def hit_fn(block):
-            with torch.inference_mode():
+            with torch.inference_mode(), fixed_row_tiles(row_tile):
                 h = layer_forward_block(self.model.layers[-1], block.x,
                                         block, 0, block.num_nodes_padded,
                                         backend=backend)

@@ -1,0 +1,217 @@
+"""The port's LM serving path against the JAX package's.
+
+Reduced Qwen3-4B and RWKV-6 in float32, with the JAX model's params
+loaded into the port through ``lm_params_from_jax``: prefill logits and
+caches and 8 decode steps must match the JAX model within rtol 1e-4 /
+atol 1e-5 (prefill goes through the kernels' plain versions on the CPU,
+the reference through ``_sdpa`` and ``wkv_chunked``); prefill(S/2) plus
+decodes must equal prefill(S) inside the port; and the port's
+``BatchServer`` must produce the JAX server's tokens on mixed-length
+prompts, batched equal to solo.
+"""
+import numpy as np
+import pytest
+import torch
+
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+
+from repro.arch import build_model as jax_build_model  # noqa: E402
+from repro.config import get_arch_config as jax_arch_config  # noqa: E402
+from repro.launch.serve import BatchServer as JaxBatchServer  # noqa: E402
+from repro.launch.serve import Request as JaxRequest  # noqa: E402
+
+from repro_torch.arch import build_model, layer_kinds  # noqa: E402
+from repro_torch.config import get_arch_config  # noqa: E402
+from repro_torch.launch import serve  # noqa: E402
+from repro_torch.nn.attention import attention_apply  # noqa: E402
+from repro_torch.weights import lm_params_from_jax  # noqa: E402
+
+RTOL, ATOL = 1e-4, 1e-5
+ARCHS = ["qwen3-4b", "rwkv6-1.6b"]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    torch.set_num_threads(1)
+
+
+def _cfgs(arch):
+    return (jax_arch_config(arch).reduced().replace(dtype="float32"),
+            get_arch_config(arch).reduced().replace(dtype="float32"))
+
+
+@pytest.fixture(scope="module", params=ARCHS)
+def pair(request):
+    """(arch, JAX model, JAX params, port model with those params)."""
+    jcfg, cfg = _cfgs(request.param)
+    jm = jax_build_model(jcfg, remat=False)
+    params = jm.init(jax.random.PRNGKey(1))
+    model = build_model(cfg)
+    model.load_state_dict(lm_params_from_jax(
+        cfg, jax.tree_util.tree_map(np.asarray, params)), strict=True)
+    return request.param, jm, params, model
+
+
+def _close(got, want, what):
+    np.testing.assert_allclose(np.asarray(got), np.asarray(want),
+                               rtol=RTOL, atol=ATOL, err_msg=what)
+
+
+def _tokens(cfg, B, S, seed=0):
+    return np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (B, S)).astype(np.int32)
+
+
+def test_configs_are_the_references():
+    for arch in ARCHS:
+        jcfg = jax_arch_config(arch)
+        cfg = get_arch_config(arch)
+        for field in ("num_layers", "d_model", "num_heads", "num_kv_heads",
+                      "d_ff", "vocab_size", "head_dim", "qk_norm",
+                      "rope_theta", "dtype", "norm_eps", "source"):
+            assert getattr(cfg, field) == getattr(jcfg, field), field
+        assert cfg.reduced().d_model == jcfg.reduced().d_model
+        assert (cfg.rwkv is None) == (jcfg.rwkv is None)
+        if cfg.rwkv is not None:
+            assert vars(cfg.rwkv) == vars(jcfg.rwkv)
+            assert vars(cfg.reduced().rwkv) == vars(jcfg.reduced().rwkv)
+        assert layer_kinds(cfg) == [
+            "rwkv" if cfg.rwkv is not None else "attn"] * cfg.num_layers
+
+
+def test_prefill_and_decode_match_jax(pair):
+    arch, jm, params, model = pair
+    cfg = model.cfg
+    B, P, N = 2, 16, 8
+    toks = _tokens(cfg, B, P + N)
+    jl, jc, jidx = jm.prefill(params, {"tokens": jnp.asarray(toks[:, :P])},
+                              cache_len=P + N)
+    pl, pc, idx = model.prefill({"tokens": torch.from_numpy(toks[:, :P])
+                                 .long()}, cache_len=P + N)
+    _close(pl, jl, f"{arch}: prefill logits")
+    assert idx == int(jidx) == P
+    for layer, c in enumerate(pc):
+        if arch == "qwen3-4b":
+            for key in ("k", "v"):
+                _close(c[key], jc[0][key][layer], f"layer {layer} {key}")
+        else:
+            _close(c["time"]["state"], jc[0]["time"]["state"][layer],
+                   f"layer {layer} state")
+            _close(c["time"]["last"], jc[0]["time"]["last"][layer],
+                   f"layer {layer} time shift")
+            _close(c["channel"]["last"], jc[0]["channel"]["last"][layer],
+                   f"layer {layer} channel shift")
+    for t in range(P, P + N):
+        jl, jc, jidx = jm.decode_step(
+            params, {"tokens": jnp.asarray(toks[:, t:t + 1])}, jc, jidx)
+        pl, pc, idx = model.decode_step(
+            {"tokens": torch.from_numpy(toks[:, t:t + 1]).long()}, pc, idx)
+        _close(pl, jl, f"{arch}: decode step {t - P}")
+
+
+def test_half_prefill_plus_decodes_equals_full_prefill(pair):
+    arch, _, _, model = pair
+    B, S = 2, 16
+    toks = torch.from_numpy(_tokens(model.cfg, B, S, seed=1)).long()
+    full, _, _ = model.prefill({"tokens": toks}, cache_len=S)
+    lo, caches, idx = model.prefill({"tokens": toks[:, :S // 2]},
+                                    cache_len=S)
+    for t in range(S // 2, S):
+        lo, caches, idx = model.decode_step({"tokens": toks[:, t:t + 1]},
+                                            caches, idx)
+    _close(lo, full, f"{arch}: prefill(S/2) + decodes vs prefill(S)")
+
+
+def _mixed_prompts(vocab):
+    # the prompts of tests/test_serving_extensions.py's batched-vs-solo
+    rng = np.random.default_rng(0)
+    return [rng.integers(0, vocab, n).astype(np.int32) for n in (4, 9, 6)]
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_batch_server_tokens_match_jax(arch):
+    jsrv = JaxBatchServer(arch, batch_size=3, cache_len=24, reduced=True,
+                          rolling=False)
+    prompts = _mixed_prompts(jsrv.cfg.vocab_size)
+    jreqs = [JaxRequest(i, p, 4) for i, p in enumerate(prompts)]
+    jsrv.run(jreqs)
+    cfg = get_arch_config(arch).reduced().replace(dtype="float32")
+    sd = lm_params_from_jax(cfg, jax.tree_util.tree_map(np.asarray,
+                                                        jsrv.params))
+    srv = serve.BatchServer(arch, batch_size=3, cache_len=24, reduced=True,
+                            rolling=False, device="cpu", state_dict=sd)
+    reqs = [serve.Request(i, p, 4) for i, p in enumerate(prompts)]
+    srv.run(reqs)
+    assert [r.out for r in reqs] == [r.out for r in jreqs]
+    assert srv.stats.prefill_tokens == 9 * 3
+    assert srv.stats.decode_tokens == 3 * 3
+
+
+def test_batched_mixed_length_prompts_match_solo():
+    srv = serve.BatchServer("qwen3-4b", batch_size=3, cache_len=24,
+                            device="cpu", seed=3)
+    prompts = _mixed_prompts(srv.cfg.vocab_size)
+    reqs = [serve.Request(i, p, 4) for i, p in enumerate(prompts)]
+    srv.run(reqs)
+    solo = serve.BatchServer("qwen3-4b", batch_size=1, cache_len=24,
+                             device="cpu", seed=3)
+    for i, p in enumerate(prompts):
+        r = serve.Request(0, p, 4)
+        solo.run([r])
+        assert r.out == reqs[i].out, (i, r.out, reqs[i].out)
+
+
+def test_prefill_refuses_a_mask_that_is_not_a_left_pad():
+    _, cfg = _cfgs("qwen3-4b")
+    model = build_model(cfg)
+    toks = torch.zeros((1, 4), dtype=torch.long)
+    valid = torch.tensor([[True, False, True, True]])
+    with pytest.raises(ValueError, match="left-pad"):
+        model.prefill({"tokens": toks, "valid": valid}, cache_len=8)
+
+
+def test_prefill_checks_the_left_pad_once(monkeypatch):
+    """The pad mask's first real key per row is computed and checked once
+    per prefill and handed to every attention layer."""
+    from repro_torch.arch import model as model_mod
+    _, cfg = _cfgs("qwen3-4b")
+    model = build_model(cfg)
+    assert cfg.num_layers > 1
+    calls = []
+    real = model_mod.left_pad_starts
+    monkeypatch.setattr(model_mod, "left_pad_starts",
+                        lambda v: calls.append(v) or real(v))
+    toks = torch.zeros((2, 6), dtype=torch.long)
+    valid = torch.arange(6)[None, :] >= torch.tensor([[0], [2]])
+    with_start, _, _ = model.prefill({"tokens": toks, "valid": valid},
+                                     cache_len=8)
+    assert len(calls) == 1
+    monkeypatch.setattr(model_mod, "left_pad_starts", lambda v: None)
+    per_layer, _, _ = model.prefill({"tokens": toks, "valid": valid},
+                                    cache_len=8)
+    torch.testing.assert_close(with_start, per_layer, rtol=0, atol=0)
+
+
+def test_unported_paths_raise():
+    with pytest.raises(NotImplementedError, match="A.12"):
+        get_arch_config("mixtral-8x7b")
+    cfg = get_arch_config("qwen3-4b").reduced().replace(
+        dtype="float32", sliding_window=4)
+    with pytest.raises(NotImplementedError, match="rolling"):
+        build_model(cfg, rolling_window_decode=True).init_cache(1, 8)
+    p = build_model(cfg).blocks[0]["attn"]
+    x = torch.zeros((1, 2, cfg.d_model))
+    kw = dict(num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
+              head_dim=cfg.resolved_head_dim)
+    with pytest.raises(NotImplementedError, match="cross-attention"):
+        attention_apply(p, x, kv_x=x, **kw)
+    with pytest.raises(NotImplementedError, match="M-RoPE"):
+        attention_apply(p, x, mrope_positions=torch.zeros((3, 1, 2)), **kw)
+
+
+def test_serve_cli_runs_on_the_cpu(capsys):
+    assert serve.main(["--arch", "qwen3-4b", "--device", "cpu",
+                       "--requests", "2", "--batch", "2", "--new-tokens",
+                       "2", "--prompt-len", "8"]) == 0
+    assert "[cpu] qwen3-4b (2 layers" in capsys.readouterr().out
