@@ -4,6 +4,8 @@ and check them.
 
     python3 chip_smoke.py                 # every phase; needs one card
     python3 chip_smoke.py --only kernels  # phases 1-3: build and check
+    python3 chip_smoke.py --only lm-times # and the LM kernels' times
+    python3 chip_smoke.py --only lm       # and the LM phases 11-12
 
 Phases (each raises on failure, so the script exits non-zero):
 
@@ -59,13 +61,18 @@ Phases (each raises on failure, so the script exits non-zero):
     parity gates also cover the prefill's final states).
 
 Phase 3 also holds ``flash_attention`` (causal, non-causal, window,
-``seq_len < T``, ``kv_start`` with fully masked rows, GQA 1 and 4, D 64
-and 128, ragged T) and ``wkv6`` (B > 1, ragged T, the final state) in
-float32 and bfloat16 (element by element) against their plain versions;
-phase 6 times them at the Qwen3-4B and RWKV-6 1.6B prefill shapes beside
-``scaled_dot_product_attention`` (timed only: the port never calls it).
-The GNN cache hits of phases 4, 5 and 9 must equal a full recompute bit
-for bit.
+``seq_len < T``, ``kv_start`` with fully masked rows, GQA 1 and 4, D 32,
+64 and 128, ragged T, T 129, 255 and 4,100 across the bf16 kernel's
+tiles, a ``kv_start`` and a window edge inside a tile) and ``wkv6`` (B >
+1, ragged T, T 1 and 33, B*H of 4, the final state; o in r's type and
+float32) in float32 and bfloat16 (element by element) against their
+plain versions; phase 6 times them at the Qwen3-4B and RWKV-6 1.6B
+prefill shapes and at the served batch's, ``flash_attention`` beside
+``scaled_dot_product_attention`` (timed only: the port never calls it)
+and that call's share of the bf16 element gate. Phases 11-12 also print
+each LM kernel's profiled device ms per batch and gate two identical
+bf16 prefills bitwise equal. The GNN cache hits of phases 4, 5 and 9
+must equal a full recompute bit for bit.
 
 The last lines are the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
@@ -121,7 +128,8 @@ KERNELS = {
         "source": "src/repro_torch/kernels/csrc/segment_max_bwd.cu",
         "replaces": "src/repro/kernels/backward.py:140"},
     "flash_attention": {
-        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        # bf16, the served path's (float32 keeps flash_attention.cu)
+        "source": "src/repro_torch/kernels/csrc/flash_attention_tc.cu",
         "replaces": "src/repro/kernels/flash_attention.py:89"},
     "wkv6": {
         "source": "src/repro_torch/kernels/csrc/wkv6.cu",
@@ -329,6 +337,14 @@ def check_lm_kernels(rng, worst: dict) -> None:
         "kv_start_all_masked": (3, 150, 8, 2, 128, True, 0, 0, (150, 70, 5)),
         "ragged_t_gqa4": (2, 77, 8, 2, 64, True, 0, 0, (0, 10)),
         "window_kv_start": (2, 333, 4, 1, 64, True, 100, 0, (200, 3)),
+        # lengths that cross the bf16 kernel's 128-row query and 64-key
+        # tiles; D 32; a kv_start and a window edge inside a tile
+        "t129": (1, 129, 8, 2, 128, True, 0, 0, None),
+        "t255_noncausal": (2, 255, 4, 2, 64, False, 0, 0, None),
+        "t4100_qwen_heads": (1, 4100, 32, 8, 128, True, 0, 0, None),
+        "d32": (2, 200, 4, 2, 32, True, 0, 0, (0, 50)),
+        "kv_start_mid_tile": (2, 300, 8, 2, 128, True, 0, 0, (70, 201)),
+        "window_crosses_tile": (2, 400, 8, 2, 64, True, 100, 0, (0, 30)),
     }
     for name, (B, T, Hq, Hkv, D, causal, window, seq_len, start) in \
             flash.items():
@@ -363,9 +379,13 @@ def check_lm_kernels(rng, worst: dict) -> None:
                                          "row with no visible key is not 0")
         print(f"  flash {name}: ok", flush=True)
     # name -> (B, T, H, K): the RWKV-6 1.6B prefill of a served batch,
-    # then ragged T and the reduced head width
+    # then ragged T, the reduced head width, one step, two tiles and one,
+    # B*H of 4, and more (b, h) blocks than an H100 has SMs
     wkv = {"rwkv6_prefill": (4, 512, 32, 64), "ragged_t": (3, 77, 4, 64),
-           "k32": (2, 45, 3, 32)}
+           "k32": (2, 45, 3, 32), "t1": (2, 1, 4, 64),
+           "t33": (1, 33, 8, 64), "bh4": (1, 200, 4, 64),
+           "bh4_k32": (2, 70, 2, 32), "bh160_ragged": (5, 77, 32, 64),
+           "bh144_k32": (9, 40, 16, 32)}
     for name, (B, T, H, K) in wkv.items():
         r, kk, vv = (torch.from_numpy((rng.normal(size=(B, T, H, K)) * 0.5)
                                       .astype("float32")).to(DEVICE)
@@ -374,17 +394,23 @@ def check_lm_kernels(rng, worst: dict) -> None:
             -2.0, 0.7, size=(B, T, H, K)))).astype("float32")).to(DEVICE)
         u = torch.from_numpy((rng.normal(size=(H, K)) * 0.1).astype(
             "float32")).to(DEVICE)
-        for dtype in (torch.float32, torch.bfloat16):
+        # (input type, out_dtype): o in r's type, then float32 o from
+        # bf16 inputs (the model's call)
+        for dtype, out in ((torch.float32, None), (torch.bfloat16, None),
+                           (torch.bfloat16, torch.float32)):
             a, b, c = r.to(dtype), kk.to(dtype), vv.to(dtype)
-            o, S = ops.wkv6_op(a, b, c, w, u)
-            w_o, w_S = wkv6_ref(a, b, c, w, u)
+            o, S = ops.wkv6_op(a, b, c, w, u, out_dtype=out)
+            w_o, w_S = wkv6_ref(a, b, c, w, u, out_dtype=out)
             torch.cuda.synchronize()
+            if o.dtype != w_o.dtype:
+                raise AssertionError(f"wkv6 on {name}: o in {o.dtype}")
             torch.testing.assert_close(S, w_S, rtol=WKV_TOL, atol=WKV_TOL,
                                        msg=f"wkv6 final state on {name}")
-            if dtype == torch.float32:
+            if o.dtype == torch.float32:
                 torch.testing.assert_close(o, w_o, rtol=WKV_TOL,
                                            atol=WKV_TOL,
-                                           msg=f"wkv6 on {name}")
+                                           msg=f"wkv6 on {name}, {dtype} "
+                                           "in, float32 out")
                 worst["wkv6"] = max(worst["wkv6"],
                                     float((o - w_o).abs().max()),
                                     float((S - w_S).abs().max()))
@@ -783,95 +809,145 @@ def _flash_inputs(gen, B, T, Hq, Hkv, D):
                         dtype=torch.bfloat16) for h in (Hq, Hkv, Hkv)]
 
 
-def _flash_bound(B, T, Hq, Hkv, D) -> tuple:
+def _flash_bound(B, T, Hq, Hkv, D, pads=None) -> tuple:
     """q, k, v read and out written once, in bf16; causal attention does
-    QK^T and PV, 2 * D multiply-adds each, over the T (T + 1) / 2 visible
-    (query, key) pairs of each head, at the bf16 tensor-core peak."""
+    QK^T and PV, 2 * D multiply-adds each, over the visible (query, key)
+    pairs of each head (T (T + 1) / 2 of a row, (T - pad) (T - pad + 1) /
+    2 of a left-padded one), at the bf16 tensor-core peak."""
     nbytes = 2 * B * T * (2 * Hq * D + 2 * Hkv * D)
-    nops = 4 * D * B * Hq * T * (T + 1) / 2
+    pairs = sum((T - p) * (T - p + 1) / 2 for p in (pads or (0,) * B))
+    nops = 4 * D * Hq * pairs
     return _bound(nbytes, nops, BF16_OPS_PER_S)
 
 
-def lm_kernel_times() -> dict:
-    """``flash_attention`` at the Qwen3-4B prefill shapes (B 1, 32 q heads,
-    8 kv heads of 128, bf16, causal) at T 4096, with its plain version
-    and ``scaled_dot_product_attention``, and at T 32768 (kernel and
-    library: the plain version's scores would not fit); ``wkv6`` at the
-    RWKV-6 1.6B prefill (B 8, T 4096, 32 heads of 64, r/k/v in bf16).
-    Each kernel is held against its plain version there first (the
-    library call too, at bf16 tolerance)."""
+def _bf16_share(got, want) -> float:
+    """:func:`_bf16_check`'s worst-element share, reported, not gated."""
+    g, w = got.float(), want.float()
+    atol = BF16_ATOL * float(w.square().mean().sqrt())
+    return float(((g - w).abs() / (atol + BF16_RTOL * w.abs())).max())
+
+
+def _flash_row(gen, B, T, pads=None, plain: bool = True) -> dict:
+    """``flash_attention`` at the Qwen3-4B attention shape (32 q heads, 8
+    kv heads of 128, bf16, causal), B rows of T with left ``pads``:
+    held against its plain version (when ``plain``) and SDPA, then
+    timed beside both. SDPA runs with ``is_causal`` or, with pads, a
+    boolean mask; its share of the element gate against the plain
+    version is reported over the rows that see a key."""
     import torch
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
     from repro_torch.kernels import ops
-    from repro_torch.kernels.ref import flash_attention_ref, wkv6_ref
+    from repro_torch.kernels.ref import flash_attention_ref
+    Hq, Hkv, D = 32, 8, 128
+    q, k, v = _flash_inputs(gen, B, T, Hq, Hkv, D)
+    start = (None if pads is None else
+             torch.tensor(pads, dtype=torch.int32, device=DEVICE))
+    # the library's layout, made once outside the timed call
+    qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
+    mask = None
+    if pads is not None:
+        i = torch.arange(T, device=DEVICE)
+        mask = ((i[None, :] <= i[:, None])[None]
+                & (i[None, None, :] >= start.long()[:, None, None]))[:, None]
+        # a masked call takes repeated kv heads (no GQA backend with masks)
+        kt, vt = (a.repeat_interleave(Hq // Hkv, dim=1) for a in (kt, vt))
+
+    def lib_fn():
+        # never the math backend: its scores would not fit at 32k
+        with sdpa_kernel([SDPBackend.FLASH_ATTENTION,
+                          SDPBackend.EFFICIENT_ATTENTION,
+                          SDPBackend.CUDNN_ATTENTION]):
+            return F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, is_causal=mask is None,
+                enable_gqa=mask is None)
+
+    def kern():
+        return ops.flash_attention_op(q, k, v, kv_start=start)
+    got = kern()
+    lib_out = lib_fn().transpose(1, 2)
+    seen = (slice(None) if pads is None else
+            torch.arange(T, device=DEVICE)[None, :] >= start[:, None])
+    lib_rel = _bf16_rel(got[seen], lib_out[seen])
+    if lib_rel > LIB_REL:
+        raise AssertionError(f"flash_attention at B {B} T {T} vs SDPA: "
+                             f"{lib_rel:.3e} of max|out|")
+    plain_ms = lib_share = kern_share = None
+    if plain:
+        want = flash_attention_ref(q, k, v, kv_start=start)
+        kern_share = _bf16_check(got, want, f"flash_attention at B {B} "
+                                 f"T {T}")
+        lib_share = _bf16_share(lib_out[seen], want[seen])
+        del want
+        plain_ms = _time_ms(lambda: flash_attention_ref(
+            q, k, v, kv_start=start), 100.0)
+    ms = _time_ms(kern, 100.0)
+    lib = _time_ms(lib_fn, 100.0)
+    bound, by = _flash_bound(B, T, Hq, Hkv, D, pads)
+    shape = (f"B={B} T={T} Hq={Hq} Hkv={Hkv} D={D} bf16 causal"
+             + (f" pads={tuple(pads)}" if pads else ""))
+    print(f"  flash_attention [{shape}]: kernel {ms:.4f} ms, plain "
+          f"{plain_ms} ms, SDPA {lib:.4f} ms, bound {bound:.4f} ms ({by}); "
+          f"element-gate share vs plain: kernel {kern_share}, SDPA "
+          f"{lib_share} (reported); kernel vs SDPA {lib_rel:.3e} of "
+          "max|out|", flush=True)
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                library_ms=lib, shape=shape)
+
+
+def _wkv6_row(gen, B, T, H=32, K=64) -> dict:
+    """``wkv6`` at the RWKV-6 1.6B shape (32 heads of 64), r/k/v in bf16,
+    float32 o (the model's call): held against its plain version, then
+    timed beside it and the bound."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import wkv6_ref
+    r, kk, vv = (torch.randn((B, T, H, K), generator=gen, device=DEVICE)
+                 .mul_(0.5).to(torch.bfloat16) for _ in range(3))
+    w = torch.exp(-torch.exp(torch.randn((B, T, H, K), generator=gen,
+                                         device=DEVICE) * 0.7 - 2.0))
+    u = torch.randn((H, K), generator=gen, device=DEVICE) * 0.1
+    f32 = torch.float32
+    o, S = ops.wkv6_op(r, kk, vv, w, u, out_dtype=f32)
+    w_o, w_S = wkv6_ref(r, kk, vv, w, u, out_dtype=f32)
+    torch.testing.assert_close(S, w_S, rtol=WKV_TOL, atol=WKV_TOL)
+    torch.testing.assert_close(o, w_o, rtol=WKV_TOL, atol=WKV_TOL)
+    ms = _time_ms(lambda: ops.wkv6_op(r, kk, vv, w, u, out_dtype=f32),
+                  100.0)
+    plain = _time_ms(lambda: wkv6_ref(r, kk, vv, w, u, out_dtype=f32), 100.0)
+    n = B * T * H * K
+    # r, k, v in bf16, w and o in f32 (14 bytes a (b, t, h, k)), u and
+    # the f32 final state; an FMA for the output and one for the decayed
+    # state per (k, v) and step (csrc/wkv6.cu's note counts the same)
+    nbytes = 14 * n + 4 * H * K + 4 * B * H * K * K
+    bound, by = _bound(nbytes, 4 * B * T * H * K * K)
+    shape = f"B={B} T={T} H={H} K=V={K} bf16 in, f32 o"
+    print(f"  wkv6 [{shape}]: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+          f"bound {bound:.4f} ms ({by})", flush=True)
+    return dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
+                library_ms=None, shape=shape)
+
+
+def lm_kernel_times() -> dict:
+    """``flash_attention`` at the Qwen3-4B prefill shapes: B 1 at T 4096
+    (the record's row) and 32768 (kernel and SDPA: the plain version's
+    scores would not fit), and the served batch (B 4, T 2048, left pads
+    0, 37, 300, 448); ``wkv6`` at the RWKV-6 1.6B prefill, B 8 T 4096
+    (the record's row) and the served batch, B 4 T 2048. Each kernel is
+    held against its plain version there first."""
+    import torch
     rows = {}
     gen = torch.Generator(device=DEVICE).manual_seed(0)
-    B, Hq, Hkv, D = 1, 32, 8, 128
     with torch.inference_mode():
-        for T in (4096, 32768):
-            q, k, v = _flash_inputs(gen, B, T, Hq, Hkv, D)
-            # the library's layout, made once outside the timed call
-            qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
-
-            def lib_fn():
-                # never the math backend: its scores would not fit at 32k
-                with sdpa_kernel([SDPBackend.FLASH_ATTENTION,
-                                  SDPBackend.EFFICIENT_ATTENTION,
-                                  SDPBackend.CUDNN_ATTENTION]):
-                    return F.scaled_dot_product_attention(
-                        qt, kt, vt, is_causal=True, enable_gqa=True)
-            got = ops.flash_attention_op(q, k, v)
-            lib_rel = _bf16_rel(got, lib_fn().transpose(1, 2))
-            plain = None
-            if T == 4096:
-                _bf16_check(got, flash_attention_ref(q, k, v),
-                            f"flash_attention at T {T}")
-                plain = _time_ms(lambda: flash_attention_ref(q, k, v), 100.0)
-            if lib_rel > LIB_REL:
-                raise AssertionError(f"flash_attention at T {T} vs SDPA: "
-                                     f"{lib_rel:.3e} of max|out|")
-            ms = _time_ms(lambda: ops.flash_attention_op(q, k, v), 100.0)
-            lib = _time_ms(lib_fn, 100.0)
-            bound, by = _flash_bound(B, T, Hq, Hkv, D)
-            row = dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
-                       library_ms=lib,
-                       shape=f"B={B} T={T} Hq={Hq} Hkv={Hkv} D={D} bf16 "
-                       "causal")
-            if T == 4096:
-                rows["flash_attention"] = row
-            else:
-                print(f"  flash_attention [{row['shape']}]: kernel "
-                      f"{ms:.4f} ms, library (SDPA) {lib:.4f} ms, bound "
-                      f"{bound:.4f} ms ({by}); kernel vs SDPA "
-                      f"{lib_rel:.3e} of max|out|")
-            del q, k, v, qt, kt, vt, got
-            torch.cuda.empty_cache()
-
-        B, T, H, K = 8, 4096, 32, 64
-        r, kk, vv = (torch.randn((B, T, H, K), generator=gen, device=DEVICE)
-                     .mul_(0.5).to(torch.bfloat16) for _ in range(3))
-        w = torch.exp(-torch.exp(torch.randn((B, T, H, K), generator=gen,
-                                             device=DEVICE) * 0.7 - 2.0))
-        u = torch.randn((H, K), generator=gen, device=DEVICE) * 0.1
-        o, S = ops.wkv6_op(r, kk, vv, w, u)
-        w_o, w_S = wkv6_ref(r, kk, vv, w, u)
-        torch.testing.assert_close(S, w_S, rtol=WKV_TOL, atol=WKV_TOL)
-        _bf16_check(o, w_o, "wkv6 at the 1.6B prefill")
-        ms = _time_ms(lambda: ops.wkv6_op(r, kk, vv, w, u), 100.0)
-        plain = _time_ms(lambda: wkv6_ref(r, kk, vv, w, u), 100.0)
-        n = B * T * H * K
-        # r, k, v and o in bf16, w in f32; u and the f32 final state; an
-        # FMA for the decayed state and one for the output per (k, v)
-        nbytes = 2 * 4 * n + 4 * n + 4 * H * K + 4 * B * H * K * K
-        bound, by = _bound(nbytes, 4 * B * T * H * K * K)
-        rows["wkv6"] = dict(ms=ms, plain_ms=plain, bound_ms=bound,
-                            bound_by=by, library_ms=None,
-                            shape=f"B={B} T={T} H={H} K=V={K} bf16")
-    for name, r_ in rows.items():
-        print(f"  {name} [{r_['shape']}]: kernel {r_['ms']:.4f} ms, plain "
-              f"{r_['plain_ms']:.4f} ms, library {r_['library_ms']} ms, "
-              f"bound {r_['bound_ms']:.4f} ms ({r_['bound_by']})")
+        rows["flash_attention"] = _flash_row(gen, 1, 4096)
+        torch.cuda.empty_cache()
+        _flash_row(gen, 1, 32768, plain=False)
+        torch.cuda.empty_cache()
+        _flash_row(gen, 4, 2048, pads=(0, 37, 300, 448))
+        torch.cuda.empty_cache()
+        rows["wkv6"] = _wkv6_row(gen, 8, 4096)
+        _wkv6_row(gen, 4, 2048)
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -942,10 +1018,42 @@ def _kernel_and_plain(model, kernel: str, toks, pads, feed):
     return got, want
 
 
-def _profile_lm(server, reqs) -> None:
+def _prefill_repeat(model, toks, pads) -> None:
+    """The same left-padded prefill twice on the card: logits and every
+    cache tensor (the final WKV states of RWKV-6, K and V of attention)
+    must be bitwise equal, since no kernel of the path sums in an order
+    that changes from run to run."""
+    import torch
+    dev = model.device
+    P = toks.shape[1]
+    valid = torch.arange(P)[None, :] >= pads[:, None]
+    batch = {"tokens": toks.to(dev), "valid": valid.to(dev),
+             "positions": (torch.arange(P)[None, :] - pads[:, None])
+             .clamp_min(0).to(dev, torch.int32)}
+
+    def leaves(tree):
+        if torch.is_tensor(tree):
+            return [tree]
+        items = tree.values() if isinstance(tree, dict) else tree
+        return [x for t in items if t is not None for x in leaves(t)]
+    runs = []
+    for _ in range(2):
+        logits, caches, _ = model.prefill(batch, cache_len=P)
+        runs.append([logits] + leaves(caches))
+    same = all(bool(torch.equal(a, b)) for a, b in zip(*runs))
+    print(f"  bitwise repeat, one bf16 prefill ({len(toks)} prompts of "
+          f"{P} padded tokens) twice on the card: "
+          f"{'bitwise equal' if same else 'NOT bitwise equal'} over the "
+          f"logits and {len(runs[0]) - 1} cache tensors")
+    if not same:
+        raise AssertionError("two identical prefills on the card differ")
+
+
+def _profile_lm(server, reqs, kernel_key: str) -> None:
     """Device time by kernel over one short served batch (prefill and its
     decode rounds), from a ``torch.profiler`` trace, and the device's
-    busy share against the same batch's unprofiled time."""
+    busy share against the same batch's unprofiled time; the port's LM
+    kernel (names holding ``kernel_key``) on a line of its own."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -973,6 +1081,11 @@ def _profile_lm(server, reqs) -> None:
           f"{batch_ms:.3f} ms batch; largest:")
     for ms, n, key in kernels[:6]:
         print(f"      {ms:.4f} ms over {n:.0f} calls  {key[:90]}")
+    mine = [k for k in kernels if kernel_key in k[2]]
+    print(f"    {kernel_key}: {sum(k[0] for k in mine):.4f} ms over "
+          f"{sum(k[1] for k in mine):.0f} calls in the batch")
+    if not mine:
+        raise AssertionError(f"the profile shows no {kernel_key} launch")
 
 
 def _lm_batch(cfg, lengths, seed: int = 0):
@@ -1114,7 +1227,10 @@ def serve_lm(arch: str, kernel: str, lengths, serve_lengths,
 
     # a trace of one batch short enough to profile: the first prompts,
     # 16 new tokens
-    _profile_lm(server, [Request(r.rid, r.prompt, 16) for r in reqs[:B]])
+    _profile_lm(server, [Request(r.rid, r.prompt, 16) for r in reqs[:B]],
+                "flash_tc_kernel" if kernel == "flash_attention"
+                else "wkv6_kernel")
+    _prefill_repeat(server.model, toks, pads)
 
     # bf16: kernel against plain on one batch, reported only
     (got, _, _), (want, _, _) = _kernel_and_plain(server.model, kernel,
@@ -1312,10 +1428,11 @@ def lm_phases(phase) -> list:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--only", choices=["kernels", "lm"], default=None,
+    ap.add_argument("--only", choices=["kernels", "lm-times", "lm"],
+                    default=None,
                     help="kernels: stop after phase 3 (build and check the "
-                    "kernels); lm: phases 1-3, the LM kernels' times and "
-                    "phases 11-12")
+                    "kernels); lm-times: phases 1-3 and the LM kernels' "
+                    "times; lm: those and phases 11-12")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -1355,10 +1472,11 @@ def main(argv=None) -> int:
         for k in launches:
             launches[k] += got[k]
 
-    if args.only == "lm":
+    if args.only in ("lm-times", "lm"):
         phase("6. kernel times (LM zoo)")
         lm_kernel_times()
-        lm_phases(phase)
+        if args.only == "lm":
+            lm_phases(phase)
         return 0
 
     phase("4. serve GAT-E (alipay_like)")

@@ -6,8 +6,10 @@ The same simplification as the reference: static token-shift mixing
 coefficients instead of the data-dependent ddlerp; the recurrence is
 unchanged. Prefill runs the recurrence through the ``wkv6`` kernel
 (:func:`repro_torch.kernels.ops.wkv6_op`), which also returns the final
-state for the decode cache; decode is the one-step recurrence in plain
-PyTorch, as the reference computes it outside any kernel.
+state for the decode cache and writes o in float32, so ``ln_x`` reads
+the same float32 o as the reference's; decode is the one-step
+recurrence in plain PyTorch, as the reference computes it outside any
+kernel.
 """
 from __future__ import annotations
 
@@ -92,8 +94,11 @@ def rwkv_time_apply(p, x: torch.Tensor, rc, norm_eps: float, cache=None):
         if T % chunk != 0:
             raise ValueError(f"sequence length {T} must be a multiple of "
                              f"chunk {chunk}")
+        # o in float32, as the reference's wkv_chunked returns it: ln_x
+        # normalises it and the result rounds to x's dtype once
         o, S = ops.wkv6_op(r.contiguous(), k.contiguous(), v.contiguous(),
-                           w.contiguous(), p["bonus_u"].contiguous())
+                           w.contiguous(), p["bonus_u"].contiguous(),
+                           out_dtype=torch.float32)
         if cache is not None:
             new_cache = {"last": x[:, -1:], "state": S}
     else:

@@ -30,7 +30,8 @@ _I = ctypes.c_int64
 _FLASH = [_P] * 5 + [_I] * 8 + [_P]
 _WKV6 = [_P] * 7 + [_I] * 4 + [_P]
 # C entry points of each kernel source: {source: {symbol: argtypes}}; the
-# LM zoo's kernels have one entry point per input type
+# LM zoo's kernels have one entry point per input type (``wkv6`` per
+# input and output type); bf16 attention has a source of its own
 SIGNATURES = {
     "segment_sum": {"segment_sum_f32": [_P, _P, _P, _P, _I, _I, _P]},
     "edge_softmax": {"edge_softmax_f32":
@@ -42,9 +43,10 @@ SIGNATURES = {
     "segment_max": {"segment_max_f32": [_P, _P, _P, _P, _I, _I, _P]},
     "segment_max_bwd": {"segment_max_bwd_f32":
                         [_P] * 5 + [_I, _I, _I, _P]},
-    "flash_attention": {"flash_attention_f32": _FLASH,
-                        "flash_attention_bf16": _FLASH},
-    "wkv6": {"wkv6_f32": _WKV6, "wkv6_bf16": _WKV6},
+    "flash_attention": {"flash_attention_f32": _FLASH},
+    "flash_attention_tc": {"flash_attention_bf16": _FLASH},
+    "wkv6": {"wkv6_f32_f32": _WKV6, "wkv6_bf16_bf16": _WKV6,
+             "wkv6_bf16_f32": _WKV6},
 }
 
 _lock = threading.Lock()

@@ -7,14 +7,14 @@
 // (max, denominator, accumulator) in VMEM scratch, and skips key blocks
 // outside the causal / window band and past seq_len.
 //
-// Bound on the H100: operations at serving and prefill lengths. Causal
-// attention does 2*B*Hq*T^2*D multiply-adds (QK^T and PV, halved by the
-// mask); its bytes are q, k, v and out read or written once. At T = 4096,
-// Hq = 32, D = 128 that is 0.14 ms of bf16 tensor-core work against
-// 0.04 ms of bytes. This first kernel computes in float32 FMAs on the
-// CUDA cores (67 TFLOP/s at best, not 989), so it is far from that bound
-// by design: simple and right first; wgmma tiles fed by TMA are the
-// redesign.
+// This is the float32 entry point: the model's float32 runs (the parity
+// gates) take it. bf16, the served path's type, runs on the tensor cores
+// in flash_attention_tc.cu.
+//
+// Bound on the H100: operations. Causal attention does 2*B*Hq*T^2*D
+// multiply-adds (QK^T and PV, halved by the mask); in float32 on the
+// CUDA cores (67 TFLOP/s) that is 2.1 ms at T = 4096, Hq = 32, D = 128,
+// against 0.08 ms of bytes.
 //
 // Design: one block of 256 threads per (query tile of 64 rows, q head,
 // batch row). The query tile is staged once in shared memory as float32;
@@ -30,9 +30,8 @@
 // without bank conflicts. Masked scores are NEG and their p is 0, so a
 // query row with no visible key (a left-pad row of a served batch)
 // writes 0 (the TPU kernel's max(l, 1e-20) clamp). kv head = h / (Hq /
-// Hkv), so no repeated K/V tensor exists. Inputs and output are float32
-// or bfloat16; all arithmetic is float32.
-#include <cuda_bf16.h>
+// Hkv), so no repeated K/V tensor exists. Inputs, output and arithmetic
+// are float32.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -43,15 +42,6 @@ constexpr int kBQ = 64;         // query rows per block
 constexpr int kBK = 64;         // key rows per tile
 constexpr int kThreads = 256;   // 16 x 16: ty picks rows, tx columns
 constexpr float kNeg = -1e30f;  // the port's masking sentinel (ref.NEG)
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);  // round to nearest even, as torch's cast
-}
 
 __device__ __forceinline__ float half_warp_max(float x) {
 #pragma unroll
@@ -71,11 +61,11 @@ constexpr int smem_floats() {
   return kBQ * (D + 1) + kBK * (D + 1) + kBK * D + kBQ * (kBK + 1);
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, const int* __restrict__ kv_start,
-             T* __restrict__ out, int64_t T_len, int64_t Hq, int64_t Hkv,
+flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
+             const float* __restrict__ v, const int* __restrict__ kv_start,
+             float* __restrict__ out, int64_t T_len, int64_t Hq, int64_t Hkv,
              int causal, int64_t window, int64_t seq_len, float scale) {
   extern __shared__ float smem[];
   constexpr int kS = D + 1;       // padded row stride of Q and K tiles
@@ -95,15 +85,15 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int64_t hk = h / (Hq / Hkv);
   const int64_t q_row = Hq * D;
   const int64_t k_row = Hkv * D;
-  const T* qb = q + b * T_len * q_row + h * D;
-  const T* kb = k + b * T_len * k_row + hk * D;
-  const T* vb = v + b * T_len * k_row + hk * D;
+  const float* qb = q + b * T_len * q_row + h * D;
+  const float* kb = k + b * T_len * k_row + hk * D;
+  const float* vb = v + b * T_len * k_row + hk * D;
   const int64_t start = kv_start[b];
 
   for (int i = tid; i < kBQ * D; i += kThreads) {
     const int r = i / D, d = i % D;
     const int64_t t = q0 + r;
-    qs[r * kS + d] = t < T_len ? to_f32(qb[t * q_row + d]) : 0.f;
+    qs[r * kS + d] = t < T_len ? qb[t * q_row + d] : 0.f;
   }
 
   float m[4], l[4], acc[4][kCols];
@@ -128,8 +118,8 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int r = i / D, d = i % D;
       const int64_t t = k0 + r;
       const bool in = t < T_len;
-      ks[r * kS + d] = in ? to_f32(kb[t * k_row + d]) : 0.f;
-      vs[r * D + d] = in ? to_f32(vb[t * k_row + d]) : 0.f;
+      ks[r * kS + d] = in ? kb[t * k_row + d] : 0.f;
+      vs[r * D + d] = in ? vb[t * k_row + d] : 0.f;
     }
     __syncthreads();
 
@@ -202,36 +192,35 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int64_t qp = q0 + ty + 16 * i;
     if (qp >= T_len) continue;
     const float den = fmaxf(l[i], 1e-20f);
-    T* o = out + (b * T_len + qp) * q_row + h * D;
+    float* o = out + (b * T_len + qp) * q_row + h * D;
 #pragma unroll
     for (int jj = 0; jj < kCols; ++jj)
-      store(o + tx + 16 * jj, acc[i][jj] / den);
+      o[tx + 16 * jj] = acc[i][jj] / den;
   }
 }
 
-template <typename T, int D>
+template <int D>
 int run(const void* q, const void* k, const void* v, const void* kv_start,
         void* out, int64_t B, int64_t T_len, int64_t Hq, int64_t Hkv,
         int64_t causal, int64_t window, int64_t seq_len,
         cudaStream_t stream) {
   const int bytes = smem_floats<D>() * (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       bytes);
   if (err != cudaSuccess) return (int)err;
   // 1 / sqrt(D) rounded once to float, as the plain version's scalar
   const float scale = (float)(1.0 / sqrt((double)D));
   const dim3 grid((unsigned)((T_len + kBQ - 1) / kBQ), (unsigned)Hq,
                   (unsigned)B);
-  flash_kernel<T, D><<<grid, kThreads, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const int*>(kv_start),
-      static_cast<T*>(out), T_len, Hq, Hkv, causal ? 1 : 0, window,
+  flash_kernel<D><<<grid, kThreads, bytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const int*>(kv_start),
+      static_cast<float*>(out), T_len, Hq, Hkv, causal ? 1 : 0, window,
       seq_len, scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
 int dispatch(const void* q, const void* k, const void* v,
              const void* kv_start, void* out, int64_t B, int64_t T_len,
              int64_t Hq, int64_t Hkv, int64_t D, int64_t causal,
@@ -242,14 +231,14 @@ int dispatch(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 32:
-      return run<T, 32>(q, k, v, kv_start, out, B, T_len, Hq, Hkv, causal,
-                        window, seq_len, s);
+      return run<32>(q, k, v, kv_start, out, B, T_len, Hq, Hkv, causal,
+                     window, seq_len, s);
     case 64:
-      return run<T, 64>(q, k, v, kv_start, out, B, T_len, Hq, Hkv, causal,
-                        window, seq_len, s);
+      return run<64>(q, k, v, kv_start, out, B, T_len, Hq, Hkv, causal,
+                     window, seq_len, s);
     case 128:
-      return run<T, 128>(q, k, v, kv_start, out, B, T_len, Hq, Hkv, causal,
-                         window, seq_len, s);
+      return run<128>(q, k, v, kv_start, out, B, T_len, Hq, Hkv, causal,
+                      window, seq_len, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -257,26 +246,16 @@ int dispatch(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// q (B, T, Hq, D), k and v (B, T, Hkv, D), kv_start (B,) int32 ->
-// out (B, T, Hq, D), all contiguous, float32 or bfloat16 by the symbol;
-// D in {32, 64, 128}. seq_len (1..T) masks keys at and past it; window
-// 0 means none. Returns cudaGetLastError().
+// q (B, T, Hq, D), k and v (B, T, Hkv, D) float32, kv_start (B,) int32
+// -> out (B, T, Hq, D) float32, all contiguous; D in {32, 64, 128}.
+// seq_len (1..T) masks keys at and past it; window 0 means none. Returns
+// cudaGetLastError().
 extern "C" int flash_attention_f32(const void* q, const void* k,
                                    const void* v, const void* kv_start,
                                    void* out, int64_t B, int64_t T_len,
                                    int64_t Hq, int64_t Hkv, int64_t D,
                                    int64_t causal, int64_t window,
                                    int64_t seq_len, void* stream) {
-  return dispatch<float>(q, k, v, kv_start, out, B, T_len, Hq, Hkv, D,
-                         causal, window, seq_len, stream);
-}
-
-extern "C" int flash_attention_bf16(const void* q, const void* k,
-                                    const void* v, const void* kv_start,
-                                    void* out, int64_t B, int64_t T_len,
-                                    int64_t Hq, int64_t Hkv, int64_t D,
-                                    int64_t causal, int64_t window,
-                                    int64_t seq_len, void* stream) {
-  return dispatch<__nv_bfloat16>(q, k, v, kv_start, out, B, T_len, Hq, Hkv,
-                                 D, causal, window, seq_len, stream);
+  return dispatch(q, k, v, kv_start, out, B, T_len, Hq, Hkv, D, causal,
+                  window, seq_len, stream);
 }

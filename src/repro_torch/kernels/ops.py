@@ -346,6 +346,14 @@ def _check_lm_cuda(name: str, typed: tuple, f32: tuple = ()) -> str:
     return _SUFFIX[dtype]
 
 
+def _check_aligned(name: str, tensors: tuple) -> None:
+    """The tensor-core and staged kernels copy 16 bytes at a time."""
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: operands must start on a 16-byte "
+                             "boundary")
+
+
 def _flash_attention_cuda(q, k, v, kv_start, causal, sliding_window,
                           seq_len):
     suffix = _check_lm_cuda("flash_attention", (q, k, v))
@@ -361,7 +369,12 @@ def _flash_attention_cuda(q, k, v, kv_start, causal, sliding_window,
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    fn = build.kernel("flash_attention", f"flash_attention_{suffix}")
+    # float32 runs on the CUDA cores, bf16 on the tensor cores; both
+    # count as one ``flash_attention`` launch
+    source = "flash_attention" if suffix == "f32" else "flash_attention_tc"
+    if suffix == "bf16":
+        _check_aligned("flash_attention", (q, k, v, out))
+    fn = build.kernel(source, f"flash_attention_{suffix}")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(_ptr(q), _ptr(k), _ptr(v), _ptr(kv_start), _ptr(out), B, T,
@@ -413,17 +426,18 @@ def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                  seq_len)
 
 
-def _wkv6_cuda(r, k, v, w, u):
+def _wkv6_cuda(r, k, v, w, u, out_dtype):
     suffix = _check_lm_cuda("wkv6", (r, k, v), (w, u))
     B, T, H, K = r.shape
     if K not in WKV6_HEAD_DIMS or v.shape[-1] != K:
         raise ValueError(f"wkv6: the kernel takes K = V in "
                          f"{WKV6_HEAD_DIMS}, got {K}/{v.shape[-1]}")
-    o = torch.empty_like(v)
+    o = torch.empty(v.shape, dtype=out_dtype, device=r.device)
     s = torch.empty((B, H, K, K), dtype=torch.float32, device=r.device)
     if B * H == 0:
         return o, s
-    fn = build.kernel("wkv6", f"wkv6_{suffix}")
+    _check_aligned("wkv6", (r, k, v, w, o))
+    fn = build.kernel("wkv6", f"wkv6_{suffix}_{_SUFFIX[out_dtype]}")
     with torch.cuda.device(r.device):
         stream = torch.cuda.current_stream(r.device).cuda_stream
         rc = fn(_ptr(r), _ptr(k), _ptr(v), _ptr(w), _ptr(u), _ptr(o),
@@ -434,18 +448,25 @@ def _wkv6_cuda(r, k, v, w, u):
 
 
 def wkv6_op(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-            w: torch.Tensor, u: torch.Tensor):
+            w: torch.Tensor, u: torch.Tensor,
+            out_dtype: Optional[torch.dtype] = None):
     """The RWKV-6 recurrence from a zero state (the counterpart of
     ``repro/kernels/ops.py:wkv6_op``): r, k, w (B, T, H, K), v (B, T, H,
-    V), u (H, K) -> (o (B, T, H, V) in r's dtype, S_final (B, H, K, V)
-    float32). Any T: the kernel runs the steps in order, so nothing is
-    padded to a chunk. See :func:`repro_torch.kernels.ref.wkv6_ref`."""
+    V), u (H, K) -> (o (B, T, H, V), S_final (B, H, K, V) float32). o is
+    in r's dtype when ``out_dtype`` is None (the TPU kernel's contract)
+    and float32 when it is ``torch.float32`` (what the model's
+    ``wkv_chunked`` returns, so ``ln_x`` rounds once). Any T: the kernel
+    runs the steps in order, so nothing is padded to a chunk. See
+    :func:`repro_torch.kernels.ref.wkv6_ref`."""
     if r.dim() != 4 or k.shape != r.shape or w.shape != r.shape \
             or v.dim() != 4 or v.shape[:3] != r.shape[:3] \
             or u.shape != r.shape[2:]:
         raise ValueError(f"wkv6: r {tuple(r.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)}, w {tuple(w.shape)}, u "
                          f"{tuple(u.shape)} do not fit")
+    if out_dtype not in (None, torch.float32):
+        raise ValueError(f"wkv6: out_dtype is None (r's dtype) or "
+                         f"torch.float32, got {out_dtype}")
     if _route(r) == "cpu":
-        return wkv6_ref(r, k, v, w, u)
-    return _wkv6_cuda(r, k, v, w, u)
+        return wkv6_ref(r, k, v, w, u, out_dtype)
+    return _wkv6_cuda(r, k, v, w, u, out_dtype or r.dtype)

@@ -170,16 +170,18 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def wkv6_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-             w: torch.Tensor, u: torch.Tensor):
+             w: torch.Tensor, u: torch.Tensor,
+             out_dtype: Optional[torch.dtype] = None):
     """The RWKV-6 recurrence, one step at a time in float32, from a zero
     state: r, k, w (B, T, H, K), v (B, T, H, V), u (H, K) ->
-    (o (B, T, H, V) in r's dtype, S_final (B, H, K, V) float32), with
+    (o (B, T, H, V) in ``out_dtype``, S_final (B, H, K, V) float32), with
 
         o_t = r_t . (S + diag(u) k_t v_t^T),   S <- diag(w_t) S + k_t v_t^T
 
     (``repro/kernels/ref.py:wkv6_ref``, which ``wkv6`` computes in
-    chunks)."""
-    dtype = r.dtype
+    chunks). ``out_dtype`` None is r's dtype (the TPU kernel's contract);
+    ``torch.float32`` keeps o as the model's ``wkv_chunked`` returns it."""
+    dtype = r.dtype if out_dtype is None else out_dtype
     r, k, v, w, u = (a.float() for a in (r, k, v, w, u))
     B, T, H, K = r.shape
     S = r.new_zeros((B, H, K, v.shape[-1]))

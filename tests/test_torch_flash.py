@@ -12,6 +12,8 @@ skip where there is none:
 
     python -m pytest -m cuda tests/test_torch_flash.py
 """
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -139,6 +141,88 @@ def test_bfloat16_in_bfloat16_out():
     torch.testing.assert_close(out.float(), want, rtol=0, atol=2e-2)
 
 
+# the element gate of the bf16 kernels (chip_smoke.py's _bf16_check):
+# |got - want| <= BF16_RTOL * |want| + BF16_ATOL * rms(want), one bf16 ulp
+# of the output plus float32 sum-order noise near 0
+BF16_RTOL, BF16_ATOL = 1e-2, 1e-3
+
+
+def _bf16_share(got, want) -> float:
+    """The worst element's share of the bf16 element gate (<= 1 passes)."""
+    g, w = got.float(), want.float()
+    atol = BF16_ATOL * float(w.square().mean().sqrt())
+    return float(((g - w).abs() / (atol + BF16_RTOL * w.abs())).max())
+
+
+def _tensor_core_emulation(q, k, v, p_mode: str, kv_start=None,
+                           bk: int = 64):
+    """The bf16 kernel's arithmetic in plain torch (causal, GQA by
+    index, left pads): S = q k^T exactly from bf16 operands, an online
+    softmax over tiles of ``bk`` keys with float32 p, and PV with float32
+    sums, p entering it as ``p_mode``: "split" bf16(p) + bf16(p -
+    bf16(p)) (the kernel), "bf16" bf16(p) alone (the library kernels'
+    way) or "fp16" fp16(p) against fp16 V."""
+    B, T, Hq, D = q.shape
+    rep = Hq // k.shape[2]
+    scale = 1.0 / math.sqrt(D)
+    qf = q.float().transpose(1, 2)
+    kf, vf = (a.float().repeat_interleave(rep, 2).transpose(1, 2)
+              for a in (k, v))
+    if p_mode == "fp16":
+        vf = vf.half().float()
+    s = (qf @ kf.transpose(-1, -2)) * scale
+    i = torch.arange(T)
+    ok = (i[None, :] <= i[:, None])[None, None]
+    if kv_start is not None:
+        ok = ok & (i[None, None, None, :] >= kv_start[:, None, None, None])
+    s = torch.where(ok, s, torch.full_like(s, -math.inf))
+    m = torch.full((B, Hq, T, 1), -math.inf)
+    l = torch.zeros((B, Hq, T, 1))
+    acc = torch.zeros((B, Hq, T, D))
+    for k0 in range(0, T, bk):
+        st = s[..., k0:k0 + bk]
+        m_new = torch.maximum(m, st.amax(-1, keepdim=True))
+        m_use = torch.where(m_new == -math.inf, 0.0, m_new)
+        alpha = torch.exp(m - m_use)
+        p = torch.exp(st - m_use)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        vt = vf[..., k0:k0 + bk, :]
+        if p_mode == "fp16":
+            pv = p.half().float() @ vt
+        else:
+            hi = p.bfloat16().float()
+            pv = hi @ vt
+            if p_mode == "split":
+                pv = pv + (p - hi).bfloat16().float() @ vt
+        acc = acc * alpha + pv
+        m = m_new
+    return (acc / l.clamp_min(1e-20)).transpose(1, 2).bfloat16()
+
+
+# name -> (B, T, Hq, Hkv, D, left pads): the Qwen3-4B prefill of a served
+# batch, and a small causal case
+P_CASES = {"qwen3_prefill": (4, 512, 32, 8, 128, (0, 37, 300, 448)),
+           "causal_d64": (2, 256, 4, 4, 64, None)}
+
+
+@pytest.mark.parametrize("name", sorted(P_CASES))
+def test_split_p_passes_the_bf16_gate_where_bf16_p_fails(name):
+    """Why the tensor-core kernel splits p: PV with p = p_hi + p_lo stays
+    inside the element gate against the float32-p plain version;
+    rounding p to bf16 alone does not. Prints each way's worst share."""
+    B, T, Hq, Hkv, D, pads = P_CASES[name]
+    q, k, v = (torch.from_numpy(a).bfloat16()
+               for a in _qkv(B, T, Hq, Hkv, D, seed=6))
+    start = None if pads is None else torch.tensor(pads)
+    want = flash_attention_ref(q, k, v, kv_start=start)
+    share = {mode: _bf16_share(_tensor_core_emulation(q, k, v, mode, start),
+                               want)
+             for mode in ("split", "bf16", "fp16")}
+    print(f"{name}: worst element's share of the bf16 gate by p: {share}")
+    assert share["split"] <= 1.0, share
+    assert share["bf16"] > 1.0, share
+
+
 def test_shape_errors():
     q, k, v = (torch.from_numpy(a) for a in _qkv(1, 8, 3, 2, 32))
     with pytest.raises(ValueError, match="multiple of Hkv"):
@@ -186,9 +270,40 @@ def test_cuda_kernel_matches_plain_version(name, dtype, cuda):
     if dtype == torch.float32:
         torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
     else:
-        scale = float(want.float().abs().max())
-        assert float((got.float() - want.float()).abs().max()) \
-            <= 2e-2 * scale
+        assert _bf16_share(got, want) <= 1.0
+
+
+# lengths that cross the bf16 kernel's 128-row query and 64-key tiles,
+# D 32, a kv_start and a window edge inside a tile: name -> (B, T, Hq,
+# Hkv, D, causal, window, kv_start)
+TILE_CASES = {
+    "t129": (1, 129, 4, 2, 128, True, 0, (0,)),
+    "t255_noncausal": (2, 255, 4, 2, 64, False, 0, (0, 0)),
+    "d32_pad": (2, 200, 4, 2, 32, True, 0, (0, 50)),
+    "kv_start_mid_tile": (2, 300, 4, 2, 128, True, 0, (70, 201)),
+    "window_crosses_tile": (2, 400, 4, 2, 64, True, 100, (0, 30)),
+    "all_masked_row": (2, 150, 4, 1, 64, True, 0, (150, 5)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", sorted(TILE_CASES))
+def test_cuda_kernel_at_tile_edges(name, dtype, cuda):
+    B, T, Hq, Hkv, D, causal, window, start = TILE_CASES[name]
+    q, k, v = (torch.from_numpy(a).to(cuda, dtype)
+               for a in _qkv(B, T, Hq, Hkv, D, seed=7))
+    start = torch.tensor(start, dtype=torch.int32, device=cuda)
+    kw = dict(causal=causal, sliding_window=window, kv_start=start)
+    got = ops.flash_attention_op(q, k, v, **kw)
+    torch.cuda.synchronize()
+    want = flash_attention_ref(q, k, v, **kw)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+    else:
+        assert _bf16_share(got, want) <= 1.0
+    for b in range(B):        # the rows before kv_start see no key
+        assert not got[b, :int(start[b])].any()
 
 
 @pytest.mark.cuda

@@ -110,6 +110,105 @@ def test_prefill_and_decode_match_jax(pair):
         _close(pl, jl, f"{arch}: decode step {t - P}")
 
 
+# bf16 logits, port vs reference (ROADMAP C.13). bf16 keeps 8 significant
+# bits, so one rounding of a logit near the largest moves it by up to
+# 2^-8 = 3.9e-3 of max|logit|; the two packages round activations at
+# different places through the 2 reduced layers (XLA keeps some fused
+# intermediates in float32, PyTorch's CPU ops round each output). Measured
+# on the CPU: 1.21e-2 (Qwen3-4B) and 1.80e-2 (RWKV-6) of max|logit| over
+# prefill and 4 decode steps, 1.55e-2 for RWKV-6 before its WKV output was
+# kept in float32 (C.10). The gate is 4e-2, about 10 ulps at the largest
+# logit and twice the larger measurement.
+BF16_LOGITS = 4e-2
+
+
+def _bf16_logit_gaps(jm, params, model, toks, P, N):
+    """max|dlogit| / max|logit| of the port against the JAX model over a
+    bf16 prefill of P tokens and N decode steps."""
+    jl, jc, jidx = jm.prefill(params, {"tokens": jnp.asarray(toks[:, :P])},
+                              cache_len=P + N)
+    pl, pc, idx = model.prefill({"tokens": torch.from_numpy(toks[:, :P])
+                                 .long()}, cache_len=P + N)
+    pairs = [(pl, jl)]
+    for t in range(P, P + N):
+        jl, jc, jidx = jm.decode_step(
+            params, {"tokens": jnp.asarray(toks[:, t:t + 1])}, jc, jidx)
+        pl, pc, idx = model.decode_step(
+            {"tokens": torch.from_numpy(toks[:, t:t + 1]).long()}, pc, idx)
+        pairs.append((pl, jl))
+    rels = []
+    for got, want in pairs:
+        assert got.dtype == torch.bfloat16
+        got, want = got.float().numpy(), np.asarray(want, np.float32)
+        assert np.isfinite(got).all()
+        rels.append(float(np.abs(got - want).max() / np.abs(want).max()))
+    return rels
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_bf16_prefill_and_decode_near_jax(arch, monkeypatch):
+    jcfg = jax_arch_config(arch).reduced()
+    cfg = get_arch_config(arch).reduced()
+    assert cfg.dtype == jcfg.dtype == "bfloat16"
+    jm = jax_build_model(jcfg, remat=False)
+    params = jm.init(jax.random.PRNGKey(1))
+    model = build_model(cfg)
+    model.load_state_dict(lm_params_from_jax(cfg, jax.tree_util.tree_map(
+        lambda a: np.asarray(a, np.float32), params)), strict=True)
+    toks = _tokens(cfg, 2, 36)
+    rels = _bf16_logit_gaps(jm, params, model, toks, 32, 4)
+    print(f"{arch} bf16 max|dlogit|/max|logit| per step (prefill, 4 "
+          f"decodes): {['%.3e' % r for r in rels]}")
+    assert max(rels) <= BF16_LOGITS, rels
+    if cfg.rwkv is not None:
+        # the same run with WKV's o rounded to bf16 before ln_x, as
+        # before C.10's repair: reported, not gated
+        from repro_torch.kernels import ops
+        real = ops.wkv6_op
+        monkeypatch.setattr(ops, "wkv6_op",
+                            lambda *a, out_dtype=None: real(*a))
+        before = _bf16_logit_gaps(jm, params, model, toks, 32, 4)
+        print(f"{arch} with o rounded to bf16 before ln_x: "
+              f"{['%.3e' % r for r in before]}")
+
+
+def test_bf16_rwkv_time_mixing_nearer_jax_with_float32_o(monkeypatch):
+    """ROADMAP C.10 against the reference: in bf16, layer 0's time mixing
+    parts from the JAX package's by less when ``ln_x`` reads the float32
+    WKV output (the repair) than when it reads o rounded to bf16 first
+    (the parent's path, rebuilt here by dropping ``out_dtype``)."""
+    from repro.arch import rwkv6_block as jblk
+    from repro_torch.arch import rwkv6_block as blk
+    from repro_torch.kernels import ops
+    jcfg = jax_arch_config("rwkv6-1.6b").reduced()
+    cfg = get_arch_config("rwkv6-1.6b").reduced()
+    params = jax_build_model(jcfg, remat=False).init(jax.random.PRNGKey(1))
+    model = build_model(cfg)
+    model.load_state_dict(lm_params_from_jax(cfg, jax.tree_util.tree_map(
+        lambda a: np.asarray(a, np.float32), params)), strict=True)
+    x = np.random.default_rng(5).normal(
+        size=(2, 32, cfg.d_model)).astype(np.float32)
+    jp = jax.tree_util.tree_map(lambda a: a[0], params["blocks"][0]["time"])
+    want, _ = jblk.rwkv_time_apply(jp, jnp.asarray(x).astype(jnp.bfloat16),
+                                   jcfg.rwkv, jcfg.norm_eps)
+    want = np.asarray(want, np.float32)
+
+    def gap():
+        with torch.no_grad():
+            got, _ = blk.rwkv_time_apply(model.blocks[0]["time"],
+                                         torch.from_numpy(x).bfloat16(),
+                                         cfg.rwkv, cfg.norm_eps)
+        d = np.abs(got.float().numpy() - want) / np.abs(want).max()
+        return float(d.max()), float(d.mean())
+    repaired = gap()
+    real = ops.wkv6_op
+    monkeypatch.setattr(ops, "wkv6_op", lambda *a, out_dtype=None: real(*a))
+    parent = gap()
+    print(f"rwkv6 layer-0 time mixing vs JAX, (max, mean) of max|out|: "
+          f"float32 o {repaired}, bf16 o {parent}")
+    assert repaired[0] < parent[0] and repaired[1] < parent[1]
+
+
 def test_half_prefill_plus_decodes_equals_full_prefill(pair):
     arch, _, _, model = pair
     B, S = 2, 16

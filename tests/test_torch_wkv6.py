@@ -108,6 +108,72 @@ def test_bfloat16_output_in_r_dtype():
     assert o.dtype == torch.bfloat16 and s.dtype == torch.float32
 
 
+def test_float32_output_on_bf16_inputs_matches_wkv_chunked(oracle):
+    """``out_dtype=torch.float32`` on bf16 inputs: the o that the model's
+    ``wkv_chunked`` returns from the same bf16 inputs (it computes and
+    returns float32), within 1e-4."""
+    arrays = _inputs(2, 32, 2, 32, seed=3)
+    r, k, v = (torch.from_numpy(a).bfloat16() for a in arrays[:3])
+    w, u = (torch.from_numpy(a) for a in arrays[3:])
+    o, s = ops.wkv6_op(r, k, v, w, u, out_dtype=torch.float32)
+    assert o.dtype == torch.float32 and s.dtype == torch.float32
+    jr, jk, jv = (jnp.asarray(a.float().numpy()).astype(jnp.bfloat16)
+                  for a in (r, k, v))
+    w_o, w_s = wkv_chunked(jr, jk, jv, jnp.asarray(arrays[3]),
+                           jnp.asarray(arrays[4]), chunk=8)
+    assert w_o.dtype == jnp.float32
+    np.testing.assert_allclose(o.numpy(), np.asarray(w_o), rtol=RTOL,
+                               atol=ATOL)
+    np.testing.assert_allclose(s.numpy(), np.asarray(w_s), rtol=RTOL,
+                               atol=ATOL)
+
+
+def test_float32_output_is_the_unrounded_bf16_one():
+    """The float32 o rounds to the bf16 o: one recurrence, two output
+    types."""
+    r, k, v, w, u = (torch.from_numpy(a) for a in _inputs(1, 12, 2, 32))
+    r, k, v = r.bfloat16(), k.bfloat16(), v.bfloat16()
+    o32, s32 = ops.wkv6_op(r, k, v, w, u, out_dtype=torch.float32)
+    o16, s16 = ops.wkv6_op(r, k, v, w, u)
+    assert o16.dtype == torch.bfloat16
+    torch.testing.assert_close(o32.bfloat16(), o16, rtol=0, atol=0)
+    torch.testing.assert_close(s32, s16, rtol=0, atol=0)
+
+
+def test_out_dtype_is_none_or_float32():
+    r, k, v, w, u = (torch.from_numpy(a) for a in _inputs(1, 4, 1, 32))
+    with pytest.raises(ValueError, match="out_dtype"):
+        ops.wkv6_op(r, k, v, w, u, out_dtype=torch.bfloat16)
+
+
+def test_bf16_model_hands_ln_x_a_float32_o(monkeypatch):
+    """ROADMAP C.10: in bf16 the port's RWKV-6 time mixing normalises the
+    recurrence's float32 o with ``ln_x`` and rounds once after it, as the
+    reference does (``repro/arch/rwkv6_block.py``: ``wkv_chunked``
+    returns float32); the prefill asks ``wkv6`` for float32 o."""
+    from repro_torch.arch import rwkv6_block as blk
+    from repro_torch.config import get_arch_config
+    cfg = get_arch_config("rwkv6-1.6b").reduced()
+    assert cfg.dtype == "bfloat16"
+    gen = torch.Generator().manual_seed(0)
+    p = blk.rwkv_time_init(gen, cfg.d_model, cfg.rwkv, torch.bfloat16)
+    seen = []
+    real = blk.rmsnorm_apply
+    monkeypatch.setattr(blk, "rmsnorm_apply",
+                        lambda q, x, eps: seen.append(x.dtype)
+                        or real(q, x, eps))
+    x = torch.randn((2, 16, cfg.d_model), generator=gen).bfloat16()
+    out, _ = blk.rwkv_time_apply(p, x, cfg.rwkv, cfg.norm_eps)
+    cache = blk.rwkv_init_cache(2, cfg.d_model, cfg.rwkv, torch.bfloat16)
+    out_c, cache = blk.rwkv_time_apply(p, x, cfg.rwkv, cfg.norm_eps,
+                                       cache["time"])
+    step, _ = blk.rwkv_time_apply(p, x[:, :1], cfg.rwkv, cfg.norm_eps,
+                                  cache)
+    assert seen == [torch.float32] * 3
+    assert out.dtype == out_c.dtype == step.dtype == torch.bfloat16
+    torch.testing.assert_close(out, out_c, rtol=0, atol=0)
+
+
 def test_shape_errors_and_no_launch_on_the_cpu():
     r, k, v, w, u = (torch.from_numpy(a) for a in _inputs(1, 8, 2, 32))
     with pytest.raises(ValueError, match="do not fit"):
@@ -127,24 +193,57 @@ def cuda():
     return torch.device("cuda")
 
 
+# the element gate of the bf16 kernels (chip_smoke.py's _bf16_check):
+# |got - want| <= BF16_RTOL * |want| + BF16_ATOL * rms(want), one bf16 ulp
+# of the output plus float32 sum-order noise near 0
+BF16_RTOL, BF16_ATOL = 1e-2, 1e-3
+
+# one step, two 16-step tiles and one more step, B*H of 4, and more
+# (b, h) blocks than an H100's 132 SMs: name -> (B, T, H, K)
+CARD_CASES = dict(CASES, t1=(2, 1, 4, 64), t33=(1, 33, 8, 64),
+                  bh4=(1, 200, 4, 64), bh4_k32=(2, 70, 2, 32),
+                  bh160_ragged=(5, 77, 32, 64), bh144_k32=(9, 40, 16, 32))
+
+
+def _bf16_share(got, want) -> float:
+    g, w = got.float(), want.float()
+    atol = BF16_ATOL * float(w.square().mean().sqrt())
+    return float(((g - w).abs() / (atol + BF16_RTOL * w.abs())).max())
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("name", sorted(CASES))
-def test_cuda_kernel_matches_plain_version(name, dtype, cuda):
+@pytest.mark.parametrize("dtype,out_dtype",
+                         [(torch.float32, None), (torch.bfloat16, None),
+                          (torch.bfloat16, torch.float32)])
+@pytest.mark.parametrize("name", sorted(CARD_CASES))
+def test_cuda_kernel_matches_plain_version(name, dtype, out_dtype, cuda):
     r, k, v, w, u = (torch.from_numpy(a).to(cuda)
-                     for a in _inputs(*CASES[name]))
+                     for a in _inputs(*CARD_CASES[name]))
     r, k, v = r.to(dtype), k.to(dtype), v.to(dtype)
     before = ops.launches["wkv6"]
-    o, s = ops.wkv6_op(r, k, v, w, u)
+    o, s = ops.wkv6_op(r, k, v, w, u, out_dtype=out_dtype)
     torch.cuda.synchronize()
     assert ops.launches["wkv6"] == before + 1
-    w_o, w_s = wkv6_ref(r, k, v, w, u)
+    w_o, w_s = wkv6_ref(r, k, v, w, u, out_dtype=out_dtype)
+    assert o.dtype == w_o.dtype == (out_dtype or dtype)
     torch.testing.assert_close(s, w_s, rtol=RTOL, atol=ATOL)
-    if dtype == torch.float32:
+    if o.dtype == torch.float32:
         torch.testing.assert_close(o, w_o, rtol=RTOL, atol=ATOL)
     else:
-        scale = float(w_o.float().abs().max())
-        assert float((o.float() - w_o.float()).abs().max()) <= 2e-2 * scale
+        assert _bf16_share(o, w_o) <= 1.0
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_repeats_bitwise(cuda):
+    """The K-slices' partial outputs are summed in a fixed order: two
+    identical calls give the same bits."""
+    r, k, v, w, u = (torch.from_numpy(a).to(cuda)
+                     for a in _inputs(2, 100, 4, 64, seed=4))
+    a = ops.wkv6_op(r.bfloat16(), k.bfloat16(), v.bfloat16(), w, u,
+                    out_dtype=torch.float32)
+    b = ops.wkv6_op(r.bfloat16(), k.bfloat16(), v.bfloat16(), w, u,
+                    out_dtype=torch.float32)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
 
 
 @pytest.mark.cuda
