@@ -2,10 +2,11 @@
 """Drive the PyTorch port's serving and training paths on one NVIDIA GPU
 and check them.
 
-    python3 chip_smoke.py                 # every phase; needs one card
-    python3 chip_smoke.py --only kernels  # phases 1-3: build and check
-    python3 chip_smoke.py --only lm-times # and the LM kernels' times
-    python3 chip_smoke.py --only lm       # and the LM phases 11-12
+    python3 chip_smoke.py                  # every phase; needs one card
+    python3 chip_smoke.py --only kernels   # phases 1-3: build and check
+    python3 chip_smoke.py --only gnn-times # and the GNN kernels' times
+    python3 chip_smoke.py --only lm-times  # and the LM kernels' times
+    python3 chip_smoke.py --only lm        # and the LM phases 11-12
 
 Phases (each raises on failure, so the script exits non-zero):
 
@@ -19,7 +20,14 @@ Phases (each raises on failure, so the script exits non-zero):
    that is not a multiple of 4, 4 heads of 16, a cotangent that is not
    contiguous); the segment-max pair exactly, over ties, empty,
    all-masked and NaN rows, pad edges, no edges and no rows, at widths
-   64, 128 and 130;
+   64, 128 and 130; both forward kernels also over hub rows of 5,000 to
+   6,000 edges, which they cut into pieces and merge (masked,
+   all-masked and NaN hubs, hubs at the first and last rows beside empty
+   rows, pad edges behind a hub, 4 heads of 16), over the GAT-E cells'
+   own 20,000-node alipay_like plan, and ``edge_softmax`` over two plans
+   of 1.1 million rows plus edges, which it runs as merge-path chunks;
+   on those power-law rows ``segment_sum`` is held against a float64
+   sum, within 1e-5 of each row's sum of |x|;
 4. serve GAT-E (alipay_like, 20,000 nodes, published widths) on the card
    through ``repro_torch.launch.serve_gnn``: 512 requests, 4 clients,
    cache on; every response held against the same port run on the CPU,
@@ -32,7 +40,11 @@ Phases (each raises on failure, so the script exits non-zero):
    each kernel held against its plain version there, then kernel, plain
    version and library call timed with CUDA events, beside the bound from
    bytes moved; and the gather backward (a segment sum over the source
-   plan) beside torch's ``index_add_``;
+   plan) beside torch's ``index_add_``; ``edge_softmax`` and
+   ``segment_max`` also on a hub-free plan of the same N and E, on the
+   cells' layer-0 plans and a bucket each, and ``edge_softmax`` on
+   power-law plans either side of its schedule switch, one JSON ``plan
+   row`` each, with the profiled device ms beside the CUDA-event time;
 7. train GAT-E (alipay_like, 20,000 nodes, the config's widths and lr)
    on the card through ``repro_torch.api.make_trainer`` and ``fit``, 30
    steps under each of global, mini (compact) and cluster (compact, halo
@@ -153,18 +165,33 @@ def card_label() -> str:
 # -- phase 3: kernels against their plain versions ---------------------------
 
 
-def _case(rng, n, e, h, d, *, mask=0.0, all_masked=0, e_pad=0, n_pad=0):
+def _ids(rng, n, e, hub=(), empty=()):
+    """Sorted destination ids: ``e`` uniform over ``n`` rows, none in the
+    rows ``empty``, plus ``deg`` more for each ``(row, deg)`` of ``hub``."""
+    import numpy as np
+    ids = rng.integers(0, n, e)
+    ids = ids[~np.isin(ids, np.asarray(empty, dtype=np.int64))]
+    return np.sort(np.concatenate(
+        [ids] + [np.full(deg, row) for row, deg in hub])).astype(np.int32)
+
+
+def _case(rng, n, e, h, d, *, mask=0.0, all_masked=0, e_pad=0, n_pad=0,
+          hub=(), empty=(), masked_rows=()):
     """Inputs shaped as a served block: (plan, logits, values) on the card.
     ``mask`` masks that share of edges, ``all_masked`` every edge of the
-    first rows; ``e_pad``/``n_pad`` make a bucket with pad edges."""
+    first rows and ``masked_rows`` every edge of those rows; ``hub`` adds
+    hub rows and ``empty`` empties rows (:func:`_ids`); ``e_pad``/``n_pad``
+    make a bucket with pad edges."""
     import numpy as np
     import torch
     from repro_torch.kernels.plan import build_bucket_csc_plan
     from repro_torch.kernels.ref import NEG
-    ids = np.sort(rng.integers(0, n, e)).astype(np.int32)
+    ids = _ids(rng, n, e, hub, empty)
+    e = len(ids)
     logits = (rng.normal(size=(max(e, e_pad), h)) * 3).astype(np.float32)
     values = rng.normal(size=(max(e, e_pad), h, d)).astype(np.float32)
-    masked = (rng.random(e) < mask) | (ids < all_masked)
+    masked = ((rng.random(e) < mask) | (ids < all_masked)
+              | np.isin(ids, np.asarray(masked_rows, dtype=np.int64)))
     logits[:e][masked] = NEG
     values[:e][masked] = 0.0
     plan = build_bucket_csc_plan(ids, max(n, n_pad), max(e, e_pad))
@@ -206,36 +233,77 @@ def _check_backward(plan, lg, v, out, m, den, g, worst: dict, name: str):
 
 
 def _max_case(rng, n, e, d, *, mask=0.0, all_masked=0, relu=False, nan=0,
-              e_pad=0, n_pad=0):
+              e_pad=0, n_pad=0, hub=(), empty=(), masked_rows=(),
+              nan_rows=()):
     """Inputs shaped as the max combine hands them to the kernel: (plan,
     data) on the card, masked edges at NEG. ``relu`` clamps at 0 (the
     ties of layer 1, which pools ReLU outputs), ``nan`` puts NaN in that
-    many entries; pad edges carry garbage and read row N - 1."""
+    many entries and ``nan_rows`` in one entry of each of those rows;
+    ``hub``, ``empty`` and ``masked_rows`` as in :func:`_case`; pad edges
+    carry garbage and read row N - 1."""
     import numpy as np
     import torch
     from repro_torch.kernels.plan import build_bucket_csc_plan
     from repro_torch.kernels.ref import NEG
-    ids = np.sort(rng.integers(0, n, e)).astype(np.int32)
+    ids = _ids(rng, n, e, hub, empty)
+    e = len(ids)
     data = rng.normal(size=(max(e, e_pad), d)).astype(np.float32)
     if relu:
         data = np.maximum(data, 0)
-    masked = (rng.random(e) < mask) | (ids < all_masked)
+    masked = ((rng.random(e) < mask) | (ids < all_masked)
+              | np.isin(ids, np.asarray(masked_rows, dtype=np.int64)))
     data[:e][masked] = NEG
     if nan and e:
         data[rng.choice(e, nan, replace=False),
              rng.integers(0, d, nan)] = np.nan
+    for row in nan_rows:
+        at = np.flatnonzero(ids == row)
+        data[at[len(at) // 2], d // 2] = np.nan
     plan = build_bucket_csc_plan(ids, max(n, n_pad), max(e, e_pad))
     return plan.to(DEVICE), torch.from_numpy(data).to(DEVICE)
 
 
-def check_max_kernels(rng, worst: dict) -> None:
+def _check_max_case(plan, data, rng, worst: dict, name: str) -> None:
+    """The segment-max pair against its plain versions on one case."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import segment_max_bwd_ref, segment_max_ref
+    got = ops.segment_max_op(data, plan)
+    want = segment_max_ref(data, plan.perm, plan.indptr, plan.num_segments)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True,
+                               msg=f"segment_max on {name}")
+    for contiguous in (True, False):
+        # the same values, transposed in memory when not contiguous
+        g = torch.from_numpy(rng.normal(size=(
+            data.shape[1], plan.num_segments)).astype("float32"))
+        g = g.to(DEVICE).t()
+        g = g.contiguous() if contiguous else g
+        d_data = ops.segment_max_bwd_op(g, got, data, plan)
+        w_data = segment_max_bwd_ref(g.contiguous(), want, data,
+                                     plan.edge_dst)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(
+            d_data, w_data, rtol=0, atol=0, equal_nan=True,
+            msg=f"segment_max_bwd on {name}, contiguous={contiguous}")
+    live = ~torch.isnan(want)
+    if live.any():
+        worst["segment_max"] = max(worst["segment_max"], float(
+            (got - want)[live].abs().max()))
+    if d_data.numel():
+        worst["segment_max_bwd"] = max(worst["segment_max_bwd"], float(
+            (d_data - w_data).nan_to_num().abs().max()))
+    print(f"  max {name}: ok", flush=True)
+
+
+def check_max_kernels(rng, worst: dict, alipay_plan) -> None:
     """The segment-max pair against its plain versions, exactly: a max
     picks one of its inputs and the backward multiplies by 1 or 0."""
     import numpy as np
     import torch
     from repro_torch.kernels import ops
     from repro_torch.kernels.plan import build_csc_plan
-    from repro_torch.kernels.ref import segment_max_bwd_ref, segment_max_ref
+    hub = ((1500, 5000),)          # 5,000 edges: 78 of the kernel's pieces
     cases = {
         # SAGE-max training buckets: layer 0 pools the 64 raw features,
         # layer 1 the 128 ReLU outputs (ties at 0); pad edges clip
@@ -249,37 +317,26 @@ def check_max_kernels(rng, worst: dict) -> None:
         "nan": dict(n=500, e=4000, d=64, nan=12),
         "no_edges": dict(n=300, e=0, d=64),
         "width_130": dict(n=700, e=5000, d=130, relu=True),
+        # hub rows, cut into many pieces and merged
+        "hub_d64": dict(n=3000, e=20000, d=64, hub=hub),
+        "hub_all_masked": dict(n=3000, e=20000, d=64, hub=hub,
+                               masked_rows=(1500,)),
+        "hub_nan": dict(n=3000, e=20000, d=64, hub=hub, nan_rows=(1500,)),
+        "hubs_first_last_d128_relu": dict(
+            n=3000, e=3000, d=128, relu=True,
+            hub=((0, 5000), (2999, 6000)), empty=(1, 2, 2997, 2998)),
+        "hub_bucket_pad": dict(n=3000, e=20000, d=64,
+                               hub=((2999, 5000),), e_pad=32768,
+                               n_pad=4096),
+        "hub_width_130": dict(n=700, e=5000, d=130, hub=((350, 5000),)),
     }
     for name, kw in cases.items():
         plan, data = _max_case(rng, **kw)
-        got = ops.segment_max_op(data, plan)
-        want = segment_max_ref(data, plan.perm, plan.indptr,
-                               plan.num_segments)
-        torch.cuda.synchronize()
-        torch.testing.assert_close(got, want, rtol=0, atol=0,
-                                   equal_nan=True,
-                                   msg=f"segment_max on {name}")
-        for contiguous in (True, False):
-            # the same values, transposed in memory when not contiguous
-            g = torch.from_numpy(rng.normal(size=(
-                data.shape[1], plan.num_segments)).astype("float32"))
-            g = g.to(DEVICE).t()
-            g = g.contiguous() if contiguous else g
-            d_data = ops.segment_max_bwd_op(g, got, data, plan)
-            w_data = segment_max_bwd_ref(g.contiguous(), want, data,
-                                         plan.edge_dst)
-            torch.cuda.synchronize()
-            torch.testing.assert_close(
-                d_data, w_data, rtol=0, atol=0, equal_nan=True,
-                msg=f"segment_max_bwd on {name}, contiguous={contiguous}")
-        live = ~torch.isnan(want)
-        if live.any():
-            worst["segment_max"] = max(worst["segment_max"], float(
-                (got - want)[live].abs().max()))
-        if d_data.numel():
-            worst["segment_max_bwd"] = max(worst["segment_max_bwd"], float(
-                (d_data - w_data).nan_to_num().abs().max()))
-        print(f"  max {name}: ok", flush=True)
+        _check_max_case(plan, data, rng, worst, name)
+    # the GAT-E cells' own 20,000-node alipay_like plan, seeded messages
+    data = torch.from_numpy(rng.normal(size=(
+        alipay_plan.num_edges, MAX_WIDTH)).astype(np.float32)).to(DEVICE)
+    _check_max_case(alipay_plan, data, rng, worst, "alipay_like_20k_d64")
     # no rows: every edge reads nothing, the gradient is zeros
     plan = build_csc_plan(np.zeros(64, np.int32), 0).to(DEVICE)
     g = torch.zeros((0, MAX_WIDTH), device=DEVICE)
@@ -421,6 +478,62 @@ def check_lm_kernels(rng, worst: dict) -> None:
         print(f"  wkv6 {name}: ok", flush=True)
 
 
+def _sum_f64_err(got, flat, plan, what: str) -> float:
+    """segment_sum's output against a float64 sum of the same rows: each
+    element within rtol 1e-5 of its row's sum of |x| (the scale of a
+    float32 sum's rounding error, which cancellation can leave far
+    above the sum itself) plus atol 1e-6. Returns the max abs error."""
+    from repro_torch.kernels.ref import segment_sum_ref
+    n = plan.num_segments
+    x = flat.double()
+    want = segment_sum_ref(x, plan.perm, plan.indptr, n)
+    scale = segment_sum_ref(x.abs(), plan.perm, plan.indptr, n)
+    err = (got.double() - want).abs()
+    bad = err > ATOL + RTOL * scale
+    if bad.any():
+        raise AssertionError(
+            f"{what}: {int(bad.sum())} elements past atol {ATOL} + rtol "
+            f"{RTOL} * sum|x| of a float64 sum (max abs err "
+            f"{float(err.max()):.3e})")
+    return float(err.max()) if err.numel() else 0.0
+
+
+def _check_case(plan, lg, v, rng, worst: dict, name: str,
+                hub: bool = False) -> None:
+    """segment_sum, edge_softmax and both backward kernels against their
+    plain versions on one case. On hub rows (``hub``) segment_sum is held
+    against a float64 sum instead (:func:`_sum_f64_err`): a float32 sum
+    of thousands of edges in plan order and the plain version's atomic
+    ``index_add_`` differ past the element gate where the row's values
+    cancel, whichever is nearer the exact sum."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import edge_softmax_ref, segment_sum_ref
+    flat = v.flatten(1)
+    got = ops.segment_sum_op(flat, plan)
+    want = segment_sum_ref(flat, plan.perm, plan.indptr, plan.num_segments)
+    out, m, den = ops.edge_softmax_fwd_op(lg, v, plan)
+    w_out, w_m, w_den = edge_softmax_ref(lg, v, plan.perm, plan.indptr,
+                                         plan.num_segments)
+    torch.cuda.synchronize()
+    if hub:
+        worst["segment_sum"] = max(worst["segment_sum"], _sum_f64_err(
+            got, flat, plan, f"segment_sum on {name}"))
+    for kname, pairs in (("segment_sum", [] if hub else [(got, want)]),
+                         ("edge_softmax", [(out, w_out), (m, w_m),
+                                           (den, w_den)])):
+        for a, b in pairs:
+            torch.testing.assert_close(a, b, rtol=RTOL, atol=ATOL,
+                                       msg=f"{kname} on {name}")
+            if a.numel():
+                worst[kname] = max(worst[kname], float((a - b).abs().max()))
+    for contiguous in (True, False):
+        g = _cotangent(rng, tuple(out.shape), contiguous)
+        _check_backward(plan, lg, v, out, m, den, g, worst,
+                        f"{name}, contiguous={contiguous}")
+    print(f"  {name}: ok", flush=True)
+
+
 def check_kernels() -> dict:
     """Max abs error of each kernel against its plain version over every
     case; raises past rtol/atol 1e-5."""
@@ -428,8 +541,9 @@ def check_kernels() -> dict:
     import torch
     from repro_torch.kernels import ops
     from repro_torch.kernels.plan import build_csc_plan
-    from repro_torch.kernels.ref import edge_softmax_ref, segment_sum_ref
     rng = np.random.default_rng(0)
+    chunk_hubs = ((0, 5000), (100_000, 6000), (199_999, 5000))
+    chunk_empty = (1, 2, 199_997, 199_998)
     cases = {
         # the serving path's buckets: GAT-E's 4 heads of 8 in its
         # (4096, 16384) bucket and GCN's 128 in its (4096, 131072) one,
@@ -451,32 +565,47 @@ def check_kernels() -> dict:
                                  n_pad=4096),
         "gat_e_train_bucket": dict(n=6000, e=30000, h=4, d=8, e_pad=32768,
                                    n_pad=8192),
+        # hub rows (5,000 edges: 78 of the kernels' 64-edge pieces at
+        # these sizes), cut into pieces and merged: masked edges, an
+        # all-masked hub, hubs at the first and last rows beside empty
+        # rows, pad edges behind a hub, 4 heads of 16 (two passes of the
+        # warp)
+        "hub": dict(n=3000, e=12000, h=4, d=8, mask=0.2,
+                    hub=((1500, 5000),)),
+        "hub_all_masked": dict(n=2000, e=8000, h=4, d=8,
+                               hub=((700, 5000),), masked_rows=(700,)),
+        "hubs_first_last": dict(n=3000, e=3000, h=4, d=8,
+                                hub=((0, 5000), (2999, 6000)),
+                                empty=(1, 2, 2997, 2998)),
+        "hub_bucket_pad": dict(n=3000, e=10000, h=4, d=8,
+                               hub=((2999, 5000),), e_pad=32768,
+                               n_pad=4096),
+        "hub_heads_4x16": dict(n=700, e=5000, h=4, d=16,
+                               hub=((350, 5000),)),
+        # plans of 2^19 rows plus edges or more, which edge_softmax.cu
+        # runs as merge-path chunks of 256 items: hubs at the first and
+        # last rows beside empty rows, an all-masked hub cut by a few
+        # dozen chunk edges, masked edges (a fifth of the short rows all
+        # masked), and the same behind pad edges in a bucket
+        "chunks_hubs": dict(n=200_000, e=900_000, h=4, d=8, mask=0.2,
+                            hub=chunk_hubs, empty=chunk_empty,
+                            masked_rows=(100_000,)),
+        "chunks_hubs_bucket_pad": dict(n=200_000, e=900_000, h=4, d=8,
+                                       mask=0.2, hub=chunk_hubs,
+                                       empty=chunk_empty,
+                                       masked_rows=(100_000,),
+                                       e_pad=1_048_576, n_pad=262_144),
     }
     worst = {k: 0.0 for k in KERNELS}
     for name, kw in cases.items():
         plan, lg, v = _case(rng, **kw)
-        flat = v.flatten(1)
-        got = ops.segment_sum_op(flat, plan)
-        want = segment_sum_ref(flat, plan.perm, plan.indptr,
-                               plan.num_segments)
-        out, m, den = ops.edge_softmax_fwd_op(lg, v, plan)
-        w_out, w_m, w_den = edge_softmax_ref(lg, v, plan.perm, plan.indptr,
-                                             plan.num_segments)
-        torch.cuda.synchronize()
-        for kname, pairs in (("segment_sum", [(got, want)]),
-                             ("edge_softmax", [(out, w_out), (m, w_m),
-                                               (den, w_den)])):
-            for a, b in pairs:
-                torch.testing.assert_close(a, b, rtol=RTOL, atol=ATOL,
-                                           msg=f"{kname} on {name}")
-                if a.numel():
-                    worst[kname] = max(worst[kname],
-                                       float((a - b).abs().max()))
-        for contiguous in (True, False):
-            g = _cotangent(rng, tuple(out.shape), contiguous)
-            _check_backward(plan, lg, v, out, m, den, g, worst,
-                            f"{name}, contiguous={contiguous}")
-        print(f"  {name}: ok", flush=True)
+        _check_case(plan, lg, v, rng, worst, name, hub="hub" in kw)
+    # the GAT-E cells' own layer 0: the 20,000-node alipay_like plan
+    # (a power-law plan: rows of up to 412 edges, so segment_sum is held
+    # as on the hub cases)
+    _, block, lg, v = _layer0_inputs("gnn_gat_e_alipay")
+    _check_case(block.csc_plan, lg, v, rng, worst, "alipay_like_20k_layer0",
+                hub=True)
     # no rows: every edge reads nothing, the gradients are zeros
     plan = build_csc_plan(np.zeros(64, np.int32), 0).to(DEVICE)
     g = torch.zeros((0, 4, 8), device=DEVICE)
@@ -488,7 +617,7 @@ def check_kernels() -> dict:
     if ops.segment_sum_bwd_op(g, plan).any() or d_lg.any() or d_v.any():
         raise AssertionError("backward with no rows gave non-zero gradients")
     print("  no_rows: ok", flush=True)
-    check_max_kernels(rng, worst)
+    check_max_kernels(rng, worst, block.csc_plan)
     check_lm_kernels(rng, worst)
 
     def tol(k: str) -> str:
@@ -652,6 +781,92 @@ def _layer0_inputs(config: str, **graph_kw):
     return g, block, logit, value
 
 
+def _device_ms(fn, calls: int = 20, tries: int = 3):
+    """Device milliseconds per call of ``fn`` from a ``torch.profiler``
+    trace: every CUDA kernel it launches, summed, so the host's time
+    between launches (which sets CUDA-event times at a cell's small
+    shapes) is left out. A trace that holds no CUDA kernel, or a kernel
+    whose count of launches is not a multiple of ``calls`` (a trace that
+    dropped events), is taken again, up to ``tries`` traces; then None:
+    a profile that saw nothing is not a kernel that took no time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA]
+        if events and not any(e.count % calls for e in events):
+            return sum(e.self_device_time_total
+                       for e in events) / 1e3 / calls
+        print(f"  (a trace of {calls} calls recorded "
+              f"{[(e.key, e.count) for e in events]})", flush=True)
+    print("  (no whole trace: device_ms null)", flush=True)
+    return None
+
+
+def _softmax_row(plan, logit, value) -> dict:
+    """``edge_softmax`` on one plan: held against its plain version, then
+    timed beside it (CUDA events; profiled device ms) and its bound."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import edge_softmax_ref
+    _, H, D = value.shape
+    N = plan.num_segments
+    E = int(plan.indptr[-1])       # real edges: a bucket's pads join no row
+    for a, b in zip(ops.edge_softmax_fwd_op(logit, value, plan),
+                    edge_softmax_ref(logit, value, plan.perm, plan.indptr,
+                                     N)):
+        torch.testing.assert_close(a, b, rtol=RTOL, atol=ATOL)
+    kern = (lambda: ops.edge_softmax_fwd_op(logit, value, plan))
+    ms = _time_ms(kern)
+    plain = _time_ms(lambda: edge_softmax_ref(
+        logit, value, plan.perm, plan.indptr, N), 100.0)
+    nbytes = 4 * (E * H + E * H * D + E + (N + 1) + N * H * D + 2 * N * H)
+    bound, by = _bound(nbytes, 8 * E * H * D)
+    return dict(ms=ms, device_ms=_device_ms(kern), plain_ms=plain,
+                bound_ms=bound, bound_by=by, library_ms=None,
+                shape=f"E={E} N={N} H={H} D={D}")
+
+
+def _max_row(plan, data) -> dict:
+    """``segment_max`` on one plan: held against its plain version
+    exactly, then timed beside it, ``scatter_reduce_`` over the
+    destinations and its bound."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import NEG, segment_max_ref
+    (E_all, D), N = data.shape, plan.num_segments
+    E = int(plan.indptr[-1])       # real edges: a bucket's pads join no row
+    torch.testing.assert_close(
+        ops.segment_max_op(data, plan),
+        segment_max_ref(data, plan.perm, plan.indptr, N), rtol=0, atol=0)
+    kern = (lambda: ops.segment_max_op(data, plan))
+    ms = _time_ms(kern)
+    plain = _time_ms(lambda: segment_max_ref(data, plan.perm, plan.indptr,
+                                             N), 100.0)
+    # pad edges (destination N) land in one spare row
+    idx = plan.edge_dst.long()[:, None].expand(E_all, D)
+    rows = N + (E_all > E)
+    lib = _time_ms(lambda: torch.full((rows, D), NEG, device=DEVICE)
+                   .scatter_reduce_(0, idx, data, "amax", include_self=True),
+                   100.0)
+    bound, by = _bound(4 * (E * D + N * D) + 4 * (E + N + 1), E * D)
+    return dict(ms=ms, device_ms=_device_ms(kern), plain_ms=plain,
+                bound_ms=bound, bound_by=by, library_ms=lib,
+                shape=f"E={E} N={N} D={D}")
+
+
+def _plan_row(kernel: str, plan: str, row: dict) -> None:
+    print("  plan row " + json.dumps({"kernel": kernel, "plan": plan,
+                                      **row}), flush=True)
+
+
 def _max_times(plan, gen) -> dict:
     """The segment-max pair at the 1,000,000-node ``alipay_like`` plan,
     on seeded (E, 64) messages: each held against its plain version, then
@@ -659,25 +874,13 @@ def _max_times(plan, gen) -> dict:
     over the destinations (the backward has no single PyTorch call)."""
     import torch
     from repro_torch.kernels import ops
-    from repro_torch.kernels.ref import (NEG, segment_max_bwd_ref,
-                                         segment_max_ref)
+    from repro_torch.kernels.ref import segment_max_bwd_ref
     E, N, D = plan.num_edges, plan.num_segments, MAX_WIDTH
     data = torch.randn((E, D), generator=gen, device=DEVICE)
+    rows = {"segment_max": _max_row(plan, data)}
+    _plan_row("segment_max", f"alipay_like, {N} nodes (power law)",
+              rows["segment_max"])
     fwd = ops.segment_max_op(data, plan)
-    torch.testing.assert_close(
-        fwd, segment_max_ref(data, plan.perm, plan.indptr, N), rtol=0,
-        atol=0)
-    ms = _time_ms(lambda: ops.segment_max_op(data, plan))
-    plain = _time_ms(lambda: segment_max_ref(data, plan.perm, plan.indptr,
-                                             N), 100.0)
-    idx = plan.edge_dst.long()[:, None].expand(E, D)
-    lib = _time_ms(lambda: torch.full((N, D), NEG, device=DEVICE)
-                   .scatter_reduce_(0, idx, data, "amax", include_self=True),
-                   100.0)
-    bound, by = _bound(4 * (E * D + N * D) + 4 * (E + N + 1), E * D)
-    rows = {"segment_max": dict(ms=ms, plain_ms=plain, bound_ms=bound,
-                                bound_by=by, library_ms=lib,
-                                shape=f"E={E} N={N} D={D}")}
     cot = torch.randn((N, D), generator=gen, device=DEVICE)
     torch.testing.assert_close(
         ops.segment_max_bwd_op(cot, fwd, data, plan),
@@ -693,6 +896,75 @@ def _max_times(plan, gen) -> dict:
     return rows
 
 
+def plan_rows(E: int, N: int, H: int, D: int, gen) -> None:
+    """``edge_softmax`` and ``segment_max`` on more plans, one JSON row
+    each: a hub-free plan with the 1,000,000-node plan's N and E (uniform
+    destinations: what the kernels take when no row is a hub), the
+    cells' own layer-0 plans (GAT-E's 20,000-node alipay_like; SAGE-max's
+    reddit_like at width 64), ``edge_softmax`` on power-law plans on
+    either side of its schedule switch, and a bucket of each (short
+    rows)."""
+    import numpy as np
+    import torch
+    from repro_torch.graph import build_block
+    from repro_torch.kernels.plan import build_bucket_csc_plan, build_csc_plan
+    from repro_torch.launch.serve_gnn import resolve_graph
+    ids = np.sort(np.random.default_rng(0).integers(0, N, E))
+    plan = build_csc_plan(ids.astype(np.int32), N).to(DEVICE)
+    del ids
+    logit = torch.randn((E, H), generator=gen, device=DEVICE) * 3
+    value = torch.randn((E, H, D), generator=gen, device=DEVICE)
+    _plan_row("edge_softmax", f"uniform, {N} nodes (hub-free)",
+              _softmax_row(plan, logit, value))
+    del logit, value
+    data = torch.randn((E, MAX_WIDTH), generator=gen, device=DEVICE)
+    _plan_row("segment_max", f"uniform, {N} nodes (hub-free)",
+              _max_row(plan, data))
+    del data, plan
+    torch.cuda.empty_cache()
+    _, block, logit, value = _layer0_inputs("gnn_gat_e_alipay")
+    _plan_row("edge_softmax", "alipay_like, 20000 nodes (GAT-E cells)",
+              _softmax_row(block.csc_plan, logit, value))
+    g = resolve_graph("reddit_like", "sage_max", seed=0)
+    plan = build_block(g, csc_plan=True).csc_plan.to(DEVICE)
+    data = torch.randn((plan.num_edges, MAX_WIDTH), generator=gen,
+                       device=DEVICE)
+    _plan_row("segment_max", "reddit_like (SAGE-max cells)",
+              _max_row(plan, data))
+    # edge_softmax on either side of its schedule switch (2^19 rows plus
+    # edges, csrc/edge_softmax.cu's kLargePlan): alipay_like power-law
+    # plans of 0.35, 0.7 and 1.4 million items, between the cells' 20k
+    # plan (0.14 million) and the 1M one (7 million)
+    for nodes in (50_000, 100_000, 200_000):
+        g = resolve_graph("alipay_like", "gat_e", seed=0, num_nodes=nodes)
+        plan = build_block(g, csc_plan=True).csc_plan.to(DEVICE)
+        e = plan.num_edges
+        _plan_row("edge_softmax", f"alipay_like, {nodes} nodes (power law)",
+                  _softmax_row(plan, torch.randn(
+                      (e, H), generator=gen, device=DEVICE) * 3, torch.randn(
+                      (e, H, D), generator=gen, device=DEVICE)))
+    # bucket-padded views with short uniform rows, the kind the serving
+    # and mini-batch paths stage: a GAT-E serving bucket and a SAGE-max
+    # training bucket
+    rng = np.random.default_rng(1)
+    for kernel, n, e, n_pad, e_pad in (("edge_softmax", 3000, 12000, 4096,
+                                        16384),
+                                       ("segment_max", 3500, 90000, 4096,
+                                        131072)):
+        plan = build_bucket_csc_plan(
+            np.sort(rng.integers(0, n, e)).astype(np.int32), n_pad,
+            e_pad).to(DEVICE)
+        label = f"bucket ({n_pad}, {e_pad}), {e} uniform edges"
+        if kernel == "edge_softmax":
+            row = _softmax_row(plan, torch.randn(
+                (e_pad, H), generator=gen, device=DEVICE) * 3, torch.randn(
+                (e_pad, H, D), generator=gen, device=DEVICE))
+        else:
+            row = _max_row(plan, torch.randn((e_pad, MAX_WIDTH),
+                                             generator=gen, device=DEVICE))
+        _plan_row(kernel, label, row)
+
+
 def kernel_times() -> dict:
     """Kernel, plain-version and library times at full-graph sizes,
     forward and backward, each kernel's output first held against its
@@ -700,7 +972,6 @@ def kernel_times() -> dict:
     import torch
     from repro_torch.kernels import ops
     from repro_torch.kernels.ref import (edge_softmax_bwd_ref,
-                                         edge_softmax_ref,
                                          segment_sum_bwd_ref,
                                          segment_sum_ref)
     rows = {}
@@ -712,19 +983,10 @@ def kernel_times() -> dict:
         plan = block.csc_plan
         E, H, D = value.shape
         N = plan.num_segments
-        fwd = ops.edge_softmax_fwd_op(logit, value, plan)
-        for a, b in zip(fwd, edge_softmax_ref(logit, value, plan.perm,
-                                              plan.indptr, N)):
-            torch.testing.assert_close(a, b, rtol=RTOL, atol=ATOL)
-        ms = _time_ms(lambda: ops.edge_softmax_fwd_op(logit, value, plan))
-        plain = _time_ms(lambda: edge_softmax_ref(
-            logit, value, plan.perm, plan.indptr, N), 100.0)
-        nbytes = 4 * (E * H + E * H * D + E + (N + 1) + N * H * D + 2 * N * H)
-        bound, by = _bound(nbytes, 8 * E * H * D)
-        rows["edge_softmax"] = dict(ms=ms, plain_ms=plain, bound_ms=bound,
-                                    bound_by=by, library_ms=None,
-                                    shape=f"E={E} N={N} H={H} D={D}")
-        out, m, den = fwd
+        rows["edge_softmax"] = _softmax_row(plan, logit, value)
+        _plan_row("edge_softmax", f"alipay_like, {N} nodes (power law)",
+                  rows["edge_softmax"])
+        out, m, den = ops.edge_softmax_fwd_op(logit, value, plan)
         cot = torch.randn((N, H, D), generator=gen, device=DEVICE)
         bwd = (lambda: ops.edge_softmax_bwd_op(cot, logit, value, out, m,
                                                den, plan))
@@ -743,10 +1005,11 @@ def kernel_times() -> dict:
                                         bound_ms=bound, bound_by=by,
                                         library_ms=None,
                                         shape=f"E={E} N={N} H={H} D={D}")
-        del logit, value, fwd, out, m, den, cot
+        del logit, value, out, m, den, cot
         rows.update(_max_times(plan, gen))
         del g, block, plan
         torch.cuda.empty_cache()
+        plan_rows(E, N, H, D, gen)
 
         # GCN: segment_sum and its backward at a full-graph layer 0
         g, block, _, value = _layer0_inputs("gnn_gcn_reddit")
@@ -1289,6 +1552,13 @@ def _profile(trainer, views, step_ms: float, steps: int = 5) -> None:
           f"{step_ms:.3f} ms step; largest:")
     for ms, n, key in kernels[:6]:
         print(f"      {ms:.4f} ms/step over {n:.0f} calls  {key[:90]}")
+    port = [k for k in kernels[6:] if any(
+        name in k[2] for name in ("segment_sum", "edge_softmax",
+                                  "segment_max"))]
+    if port:
+        print("    and the port's other Sum-stage kernels:")
+    for ms, n, key in port:
+        print(f"      {ms:.4f} ms/step over {n:.0f} calls  {key[:90]}")
 
 
 def _src_plan_s(trainer, views, steps: int):
@@ -1428,10 +1698,12 @@ def lm_phases(phase) -> list:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--only", choices=["kernels", "lm-times", "lm"],
+    ap.add_argument("--only",
+                    choices=["kernels", "gnn-times", "lm-times", "lm"],
                     default=None,
                     help="kernels: stop after phase 3 (build and check the "
-                    "kernels); lm-times: phases 1-3 and the LM kernels' "
+                    "kernels); gnn-times: phases 1-3 and the GNN kernels' "
+                    "times; lm-times: phases 1-3 and the LM kernels' "
                     "times; lm: those and phases 11-12")
     args = ap.parse_args(argv)
     import torch
@@ -1472,6 +1744,10 @@ def main(argv=None) -> int:
         for k in launches:
             launches[k] += got[k]
 
+    if args.only == "gnn-times":
+        phase("6. kernel times (GNN)")
+        kernel_times()
+        return 0
     if args.only in ("lm-times", "lm"):
         phase("6. kernel times (LM zoo)")
         lm_kernel_times()

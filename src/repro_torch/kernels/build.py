@@ -4,10 +4,10 @@ Each ``csrc/<name>.cu`` exposes a plain C interface and compiles alone
 with ``nvcc`` for ``sm_90a`` into ``lib<name>.so`` (no PyTorch headers,
 so a build takes seconds); all sources compile in parallel. Libraries go
 to ``build/repro_torch_kernels/`` at the repository root, in a directory
-named by a hash of the source and the flags, so an unchanged source is
-built once. ``ctypes`` loads them: pointers and the stream pass as
-``c_void_p``, sizes as ``c_int64``, and every entry point returns
-``cudaGetLastError()``.
+named by a hash of the source, the shared headers (``csrc/*.cuh``) and
+the flags, so an unchanged source is built once. ``ctypes`` loads them: pointers and the stream pass as
+``c_void_p``, sizes as ``c_int64``, and every entry point that launches
+returns ``cudaGetLastError()``.
 """
 from __future__ import annotations
 
@@ -29,18 +29,21 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int64
 _FLASH = [_P] * 5 + [_I] * 8 + [_P]
 _WKV6 = [_P] * 7 + [_I] * 4 + [_P]
-# C entry points of each kernel source: {source: {symbol: argtypes}}; the
-# LM zoo's kernels have one entry point per input type (``wkv6`` per
-# input and output type); bf16 attention has a source of its own
+# C entry points of each kernel source: {source: {symbol: argtypes, or
+# (argtypes, restype) where it returns other than an int}}; the LM zoo's
+# kernels have one entry point per input type (``wkv6`` per input and
+# output type); bf16 attention has a source of its own; segment_max and
+# edge_softmax also say how many bytes of scratch a plan needs
 SIGNATURES = {
     "segment_sum": {"segment_sum_f32": [_P, _P, _P, _P, _I, _I, _P]},
-    "edge_softmax": {"edge_softmax_f32":
-                     [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P]},
+    "edge_softmax": {"edge_softmax_f32": [_P] * 8 + [_I] * 4 + [_P],
+                     "edge_softmax_scratch_bytes": ([_I] * 4, _I)},
     "segment_sum_bwd": {"segment_sum_bwd_f32":
                         [_P, _P, _P, _I, _I, _I, _P]},
     "edge_softmax_bwd": {"edge_softmax_bwd_f32":
                          [_P] * 9 + [_I, _I, _I, _I, _P]},
-    "segment_max": {"segment_max_f32": [_P, _P, _P, _P, _I, _I, _P]},
+    "segment_max": {"segment_max_f32": [_P] * 5 + [_I] * 3 + [_P],
+                    "segment_max_scratch_bytes": ([_I] * 3, _I)},
     "segment_max_bwd": {"segment_max_bwd_f32":
                         [_P] * 5 + [_I, _I, _I, _P]},
     "flash_attention": {"flash_attention_f32": _FLASH},
@@ -62,7 +65,9 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    # the shared headers (csrc/*.cuh) are part of every source's hash
+    src = b"".join(p.read_bytes() for p in
+                   [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}" / f"lib{name}.so"
 
@@ -96,10 +101,10 @@ def build_all(names=tuple(SIGNATURES)) -> dict:
             raise RuntimeError(f"nvcc failed for {failed}; see the log above")
         for name in todo:
             lib = ctypes.CDLL(str(_target(name)))
-            for symbol, argtypes in SIGNATURES[name].items():
+            for symbol, spec in SIGNATURES[name].items():
                 fn = getattr(lib, symbol)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
+                fn.argtypes, fn.restype = (
+                    spec if isinstance(spec, tuple) else (spec, ctypes.c_int))
             _libs[name] = lib
         return {n: _libs[n] for n in names}
 

@@ -4,9 +4,11 @@ and ``wkv6``.
 
 For a tensor on the CPU a wrapper runs the kernel's plain version
 (:mod:`repro_torch.kernels.ref`); for a CUDA tensor it launches the
-kernel or raises — there is no fallback. Each launch adds one to
-``launches[name]``, so a run can show that its path went through the
-kernel. The backward wrappers are what the autograd Functions of
+kernel or raises — there is no fallback. Each call that launches adds
+one to ``launches[name]``, so a run can show that its path went through
+the kernel; ``segment_max`` and ``edge_softmax`` make two CUDA launches
+a call (their rows or chunks, then the merge of the rows they cut) and
+count one. The backward wrappers are what the autograd Functions of
 :mod:`repro_torch.core.aggregate` call.
 """
 from __future__ import annotations
@@ -62,39 +64,71 @@ def _raise_on(rc: int, name: str) -> None:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
 
 
-def _segment_reduce_cuda(name: str, data: torch.Tensor,
-                         plan: CSCPlan) -> torch.Tensor:
-    """``segment_sum`` or ``segment_max``: the same launch over the plan."""
-    _check_cuda(name, (plan.perm, plan.indptr), data)
+def _segment_sum_cuda(data: torch.Tensor, plan: CSCPlan) -> torch.Tensor:
+    _check_cuda("segment_sum", (plan.perm, plan.indptr), data)
     n, d = plan.num_segments, data.shape[1]
     out = torch.empty((n, d), dtype=torch.float32, device=data.device)
     if n == 0 or d == 0:
         return out
-    fn = build.kernel(name)
+    fn = build.kernel("segment_sum")
     with torch.cuda.device(data.device):
         stream = torch.cuda.current_stream(data.device).cuda_stream
         rc = fn(_ptr(data), _ptr(plan.perm), _ptr(plan.indptr), _ptr(out),
                 n, d, stream)
-    _raise_on(rc, name)
-    launches[name] += 1
+    _raise_on(rc, "segment_sum")
+    launches["segment_sum"] += 1
+    return out
+
+
+def _scratch(name: str, *sizes: int, device) -> torch.Tensor:
+    """The scratch of ``segment_max`` or ``edge_softmax`` (the partials
+    of the rows their schedule cuts), sized by the kernel source from the
+    plan's rows and edges and the widths; from the caching allocator,
+    never zeroed."""
+    nbytes = build.kernel(name, f"{name}_scratch_bytes")(*sizes)
+    return torch.empty(nbytes, dtype=torch.uint8, device=device)
+
+
+def _segment_max_cuda(data: torch.Tensor, plan: CSCPlan) -> torch.Tensor:
+    """One op, two CUDA launches (``csrc/segment_max.cu``): a warp per row
+    and per 64-edge piece of a long row, then the merge of the rows that
+    were cut."""
+    _check_cuda("segment_max", (plan.perm, plan.indptr), data)
+    n, e, d = plan.num_segments, plan.num_edges, data.shape[1]
+    out = torch.empty((n, d), dtype=torch.float32, device=data.device)
+    if n == 0 or d == 0:
+        return out
+    fn = build.kernel("segment_max")
+    scratch = _scratch("segment_max", n, e, d, device=data.device)
+    with torch.cuda.device(data.device):
+        stream = torch.cuda.current_stream(data.device).cuda_stream
+        rc = fn(_ptr(data), _ptr(plan.perm), _ptr(plan.indptr), _ptr(out),
+                _ptr(scratch), n, e, d, stream)
+    _raise_on(rc, "segment_max")
+    launches["segment_max"] += 1
     return out
 
 
 def _edge_softmax_cuda(logits: torch.Tensor, values: torch.Tensor,
                        plan: CSCPlan):
+    """One op, two CUDA launches (``csrc/edge_softmax.cu``): a warp per row
+    and per 64-edge piece of a long row, or from 2^19 rows plus edges a
+    warp per merge-path chunk, then the merge of the rows that were
+    cut."""
     _check_cuda("edge_softmax", (plan.perm, plan.indptr), logits, values)
-    n, (_, h, d) = plan.num_segments, values.shape
+    n, e, (_, h, d) = plan.num_segments, plan.num_edges, values.shape
     out = torch.empty((n, h, d), dtype=torch.float32, device=values.device)
     m = torch.empty((n, h), dtype=torch.float32, device=values.device)
     den = torch.empty((n, h), dtype=torch.float32, device=values.device)
     if n == 0 or h == 0 or d == 0:
         return out, m.fill_(NEG), den.zero_()
     fn = build.kernel("edge_softmax")
+    scratch = _scratch("edge_softmax", n, e, h, d, device=values.device)
     with torch.cuda.device(values.device):
         stream = torch.cuda.current_stream(values.device).cuda_stream
         rc = fn(_ptr(logits), _ptr(values), _ptr(plan.perm),
-                _ptr(plan.indptr), _ptr(out), _ptr(m), _ptr(den), n, h, d,
-                stream)
+                _ptr(plan.indptr), _ptr(out), _ptr(m), _ptr(den),
+                _ptr(scratch), n, e, h, d, stream)
     _raise_on(rc, "edge_softmax")
     launches["edge_softmax"] += 1
     return out, m, den
@@ -175,7 +209,7 @@ def segment_sum_op(data: torch.Tensor, plan: CSCPlan) -> torch.Tensor:
         out = segment_sum_ref(flat, plan.perm, plan.indptr,
                               plan.num_segments)
     else:
-        out = _segment_reduce_cuda("segment_sum", flat, plan)
+        out = _segment_sum_cuda(flat, plan)
     return out.reshape((plan.num_segments,) + trailing)
 
 
@@ -192,7 +226,7 @@ def segment_max_op(data: torch.Tensor, plan: CSCPlan) -> torch.Tensor:
         out = segment_max_ref(flat, plan.perm, plan.indptr,
                               plan.num_segments)
     else:
-        out = _segment_reduce_cuda("segment_max", flat, plan)
+        out = _segment_max_cuda(flat, plan)
     return out.reshape((plan.num_segments,) + trailing)
 
 

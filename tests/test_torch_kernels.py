@@ -9,6 +9,9 @@ card and skip where there is none:
 
     python -m pytest -m cuda tests/test_torch_kernels.py
 """
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -29,7 +32,10 @@ RTOL, ATOL = 1e-5, 1e-6
 
 # name -> (nodes, edges, heads, dim, extra); extra: "mask" masks 30% of
 # the edges, "all_masked" every edge of rows 0..19, "bucket" pads the
-# edge axis with pad edges that join no row
+# edge axis with pad edges that join no row, "hub" gives row HUB[0]
+# HUB[1] more edges (a hub among short rows), "hub_all_masked" masks
+# every edge of that hub
+HUB = (7, 700)
 CASES = {
     "multihead": (150, 600, 4, 8, ""),
     "wide_d": (120, 400, 1, 130, ""),
@@ -38,8 +44,32 @@ CASES = {
     "all_masked_rows": (100, 400, 4, 8, "all_masked"),
     "bucket_pad": (100, 300, 4, 8, "bucket"),
     "no_edges": (50, 0, 4, 8, ""),
+    "hub": (150, 600, 4, 8, "hub"),
+    "hub_all_masked": (150, 600, 4, 8, "hub_all_masked"),
 }
 
+CSRC = Path(ops.__file__).resolve().parent / "csrc"
+
+
+def _constant(source: str, name: str) -> int:
+    """The value of ``constexpr ... name = <n>;`` (or ``int64_t{a} << b``)
+    in a kernel source under ``csrc/``: the CPU twins below run the
+    kernels' own schedule sizes, not copies of them."""
+    text = (CSRC / source).read_text()
+    m = re.search(rf"constexpr\s+\w+\s+{name}\s*=\s*"
+                  rf"(?:int64_t\{{(\d+)\}}|(\d+))(?:\s*<<\s*(\d+))?\s*;",
+                  text)
+    assert m, f"{name} not found in {source}"
+    return int(m.group(1) or m.group(2)) << int(m.group(3) or 0)
+
+
+# the schedules of the kernels: csrc/row_pieces.cuh's, which both
+# segment_max.cu and edge_softmax.cu use (a warp per row, pieces of
+# PIECE edges past a row's first PIECE), and edge_softmax.cu's
+# merge-path chunks of CHUNK items (rows plus edges) from LARGE_PLAN on
+PIECE = _constant("row_pieces.cuh", "kPiece")
+CHUNK = _constant("edge_softmax.cu", "kChunk")
+LARGE_PLAN = _constant("edge_softmax.cu", "kLargePlan")
 
 @pytest.fixture(scope="module", autouse=True)
 def _one_thread():
@@ -59,6 +89,10 @@ def _case(name: str, seed: int = 0):
     n, e, h, d, extra = CASES[name]
     rng = np.random.default_rng(seed)
     ids = np.sort(rng.integers(0, n, e)).astype(np.int32)
+    if extra.startswith("hub"):
+        ids = np.sort(np.concatenate(
+            [ids, np.full(HUB[1], HUB[0], np.int32)]))
+        e = len(ids)
     if extra != "bucket":
         ids = rng.permutation(ids).astype(np.int32)    # unsorted edge axis
     logits = rng.normal(size=(e, h)).astype(np.float32) * 3
@@ -68,6 +102,8 @@ def _case(name: str, seed: int = 0):
         masked = rng.random(e) < 0.3
     elif extra == "all_masked":
         masked = ids < 20
+    elif extra == "hub_all_masked":
+        masked = ids == HUB[0]
     logits[masked] = NEG
     values[masked] = 0.0
     masked_rows = np.unique(ids[masked])
@@ -132,7 +168,7 @@ def test_edge_softmax_matches_pallas_kernel(name, oracle):
     # m = NEG and den = 0, as edge_softmax_csc gives them
     np.testing.assert_allclose(m.numpy(), w_m, rtol=RTOL, atol=ATOL)
     np.testing.assert_allclose(den.numpy(), w_den, rtol=RTOL, atol=ATOL)
-    if len(masked_rows) and name == "all_masked_rows":
+    if name in ("all_masked_rows", "hub_all_masked"):
         counts = np.bincount(ids, minlength=n)[masked_rows]
         np.testing.assert_array_equal(den.numpy()[masked_rows],
                                       np.repeat(counts[:, None], 4, 1))
@@ -216,10 +252,23 @@ def test_cuda_kernels_match_plain_versions(name, cuda):
     out, m, den = ops.edge_softmax_fwd_op(lg, v, plan)
     torch.cuda.synchronize()
     flat = v.flatten(1)
-    torch.testing.assert_close(
-        got.flatten(1),
-        segment_sum_ref(flat, plan.perm, plan.indptr, plan.num_segments),
-        rtol=RTOL, atol=ATOL)
+    if not name.startswith("hub"):
+        torch.testing.assert_close(
+            got.flatten(1),
+            segment_sum_ref(flat, plan.perm, plan.indptr, plan.num_segments),
+            rtol=RTOL, atol=ATOL)
+    else:
+        # a 700-edge float32 sum in plan order and the plain version's
+        # atomic index_add_ on the card differ past atol 1e-6 where the
+        # row's values cancel (5.0e-6 measured): the hub is held against
+        # a float64 sum, within rtol of its row's sum of |x| (the scale
+        # of a float32 sum's rounding error)
+        x = flat.double()
+        want = segment_sum_ref(x, plan.perm, plan.indptr, plan.num_segments)
+        scale = segment_sum_ref(x.abs(), plan.perm, plan.indptr,
+                                plan.num_segments)
+        err = (got.flatten(1).double() - want).abs()
+        assert (err <= ATOL + RTOL * scale).all(), float(err.max())
     w_out, w_m, w_den = edge_softmax_ref(lg, v, plan.perm, plan.indptr,
                                          plan.num_segments)
     torch.testing.assert_close(out, w_out, rtol=RTOL, atol=ATOL)
@@ -231,14 +280,62 @@ def test_cuda_kernels_match_plain_versions(name, cuda):
 
 @pytest.mark.cuda
 def test_cuda_kernels_are_deterministic(cuda):
-    ids, n, logits, values, _, _ = _case("multihead")
-    plan = build_csc_plan(ids, n).to(cuda)
-    lg, v = torch.from_numpy(logits).to(cuda), torch.from_numpy(values).to(cuda)
-    a = ops.segment_sum_op(v, plan)
-    b = ops.segment_sum_op(v, plan)
-    assert torch.equal(a, b)
-    assert torch.equal(ops.edge_softmax_op(lg, v, plan),
-                       ops.edge_softmax_op(lg, v, plan))
+    for name in ("multihead", "hub", "hub_all_masked"):
+        ids, n, logits, values, _, _ = _case(name)
+        plan = build_csc_plan(ids, n).to(cuda)
+        lg = torch.from_numpy(logits).to(cuda)
+        v = torch.from_numpy(values).to(cuda)
+        a = ops.segment_sum_op(v, plan)
+        b = ops.segment_sum_op(v, plan)
+        assert torch.equal(a, b), name
+        for x, y in zip(ops.edge_softmax_fwd_op(lg, v, plan),
+                        ops.edge_softmax_fwd_op(lg, v, plan)):
+            assert torch.equal(x, y), name
+
+
+@pytest.mark.cuda
+def test_cuda_chunk_schedule_matches_plain_version(cuda):
+    """``edge_softmax.cu``'s merge-path chunks, which run plans of
+    LARGE_PLAN rows plus edges or more: hubs at the first and the last
+    row beside empty rows, an all-masked hub, masked edges and pad edges
+    behind them, within rtol/atol 1e-5 of the plain version; the
+    all-masked hub, cut by chunk edges, keeps m = NEG and den = its edge
+    count; empty rows give m = NEG, den = 0 and out = 0; two launches
+    are bitwise equal."""
+    rng = np.random.default_rng(5)
+    n, h, d = LARGE_PLAN // 5, 4, 8
+    hubs = ((0, 3000), (n // 2, 4000), (n - 1, 3000))
+    ids = np.sort(np.concatenate(
+        [rng.integers(3, n - 3, LARGE_PLAN - n)]
+        + [np.full(deg, r) for r, deg in hubs])).astype(np.int32)
+    e = len(ids)
+    e_pad = e + 5000                    # pad edges carry garbage
+    logits = rng.normal(size=(e_pad, h)).astype(np.float32) * 3
+    values = rng.normal(size=(e_pad, h, d)).astype(np.float32)
+    masked = (rng.random(e) < 0.2) | (ids == n // 2)
+    logits[:e][masked] = NEG
+    values[:e][masked] = 0.0
+    plan = build_bucket_csc_plan(ids, n, e_pad)
+    assert plan.num_segments + plan.num_edges >= LARGE_PLAN
+    plan = plan.to(cuda)
+    lg = torch.from_numpy(logits).to(cuda)
+    v = torch.from_numpy(values).to(cuda)
+    before = ops.launches["edge_softmax"]
+    got = ops.edge_softmax_fwd_op(lg, v, plan)
+    again = ops.edge_softmax_fwd_op(lg, v, plan)
+    torch.cuda.synchronize()
+    assert ops.launches["edge_softmax"] == before + 2
+    for a, b, w in zip(got, again, edge_softmax_ref(
+            lg, v, plan.perm, plan.indptr, plan.num_segments)):
+        torch.testing.assert_close(a, w, rtol=1e-5, atol=1e-5)
+        assert torch.equal(a, b)
+    out, m, den = (t.cpu().numpy() for t in got)
+    deg = np.diff(plan.indptr.cpu().numpy())
+    assert deg[n // 2] > 4 * CHUNK
+    assert (den[n // 2] == deg[n // 2]).all() and (m[n // 2] == NEG).all()
+    assert not out[n // 2].any()
+    for r in (1, 2, n - 3, n - 2):
+        assert (m[r] == NEG).all() and not den[r].any() and not out[r].any()
 
 
 @pytest.mark.cuda
@@ -273,35 +370,177 @@ def test_reference_backend_refuses_device_tensors():
         get_backend("reference").segment_sum(data, torch.zeros(4), 3)
 
 
-def _edge_softmax_twin(logits, values, perm, indptr):
-    """The CUDA kernel's recurrence, step for step, in float32 numpy: per
-    row, walk the edges in plan order keeping (m, l, acc) per head and
-    rescaling by exp(m_prev - m_new); out = acc / max(l, 1e-20)."""
+def _count_rows(indptr, lo: int, hi: int, by_item: bool, d: int) -> int:
+    """The kernels' warp search, #{r in [lo, hi) : (r if by_item else 0)
+    + indptr[r+1] < d}: 32 probes a round narrow [lo, hi), as the lanes
+    of a warp do; held against ``np.searchsorted``."""
+    key = (np.arange(len(indptr) - 1) if by_item else 0) + indptr[1:]
+    want = int(np.searchsorted(key[:hi], d, side="left"))
+    while hi > lo:
+        step = (hi - lo + 31) // 32
+        c = sum(p < hi and (p if by_item else 0) + indptr[p + 1] < d
+                for p in range(lo, lo + 32 * step, step))
+        if c == 0:
+            hi = lo
+        else:
+            nxt = lo + c * step
+            lo += (c - 1) * step + 1
+            if c < 32 and nxt < hi:
+                hi = nxt
+    assert lo == want
+    return lo
+
+
+def _split_chunks(indptr, chunk: int, reduce, put):
+    """``edge_softmax.cu``'s large-plan schedule: merge-path chunks of
+    ``chunk`` items (row r's edges, then its end marker). Each chunk
+    reduces its row pieces in plan order (``reduce(row, a, b)``) and
+    ``put``s each: ``put(row, part, None)`` for a whole row, else into
+    slot (unit, 1) where the row starts and (unit, 0) after. Returns
+    {unit: row} for the rows the second launch merges."""
+    n = len(indptr) - 1
+    items, merge_rows = n + int(indptr[n]), {}
+    for k, d0 in enumerate(range(0, items, chunk)):
+        d1 = min(d0 + chunk, items)
+        i0 = _count_rows(indptr, 0, n, True, d0)
+        i1 = _count_rows(indptr, i0, min(i0 + chunk, n), True, d1)
+        j0, j1 = d0 - i0, d1 - i1
+        if i0 < i1 and indptr[i0] < j0:
+            merge_rows[k] = i0
+        for r in range(i0, min(i1, n - 1) + 1):
+            start, ends_here = int(indptr[r]), r < i1
+            if not ends_here and start >= j1:
+                break
+            part = reduce(r, max(start, j0),
+                          int(indptr[r + 1]) if ends_here else j1)
+            put(r, part, None if ends_here and start >= j0
+                else (k, 0 if start < j0 else 1))
+    return merge_rows
+
+
+def _split_rows(indptr, num_edges: int, piece: int, reduce, put):
+    """``row_pieces.cuh``'s first launch: a warp per row takes its
+    first ``piece`` edges (slot (start // piece, 1) when the row is
+    longer); a warp per multiple of ``piece`` along the edge axis takes
+    what lies there past its row's first ``piece`` (slot (q, 0))."""
+    n = len(indptr) - 1
+    merge_rows = {}
+    for r in range(n):
+        s, e = int(indptr[r]), int(indptr[r + 1])
+        b = min(e, s + piece)
+        put(r, reduce(r, s, b), None if b == e else (s // piece, 1))
+    for q in range(-(-num_edges // piece)):
+        p0 = q * piece
+        if p0 >= indptr[n]:
+            continue
+        r = _count_rows(indptr, 0, n, False, p0 + 1)
+        s, e = int(indptr[r]), int(indptr[r + 1])
+        a, b = max(p0, s + piece), min(p0 + piece, e)
+        if a < b:
+            put(r, reduce(r, a, b), (q, 0))
+            if b == e:
+                merge_rows[q] = r
+    return merge_rows
+
+
+def _schedule(n: int, num_edges: int, schedule=None):
+    """``schedule``, or ``edge_softmax.cu``'s choice for a plan of n rows
+    and num_edges edges: ("chunks", CHUNK) or ("rows", PIECE)."""
+    if schedule is not None:
+        return schedule
+    return ("chunks", CHUNK) if n + num_edges >= LARGE_PLAN else ("rows",
+                                                                  PIECE)
+
+
+def _split_and_merge(indptr, num_edges: int, schedule, reduce, merge,
+                     finish) -> int:
+    """Both launches of a kernel, on the CPU. ``schedule`` is ("chunks",
+    items) or ("rows", edges), by default ``edge_softmax.cu``'s choice for the
+    plan; the second launch folds each cut row's slots in plan order,
+    from slot 1 of the unit where the row starts to slot 0 of the unit
+    that holds its end (``merge``), and ``finish``es it. Returns the
+    number of cut rows."""
+    indptr = np.asarray(indptr).astype(np.int64)
+    kind, size = _schedule(len(indptr) - 1, num_edges, schedule)
+    slots = {}
+
+    def put(r, part, slot):
+        if slot is None:
+            finish(r, part)
+        else:
+            assert slot not in slots, f"slot {slot} written twice"
+            slots[slot] = part
+
+    merge_rows = (_split_chunks(indptr, size, reduce, put) if kind == "chunks"
+                  else _split_rows(indptr, num_edges, size, reduce, put))
+    for k, r in merge_rows.items():
+        first = ((r if kind == "chunks" else 0) + int(indptr[r])) // size
+        part = slots.pop((first, 1))
+        for q in range(first + 1, k + 1):
+            part = merge(part, slots.pop((q, 0)))
+        finish(r, part)
+    assert not slots, "a partial was left unmerged"
+    return len(merge_rows)
+
+
+def _edge_softmax_twin(logits, values, perm, indptr, schedule=None):
+    """``edge_softmax.cu`` step for step, in float32 numpy: the plan's
+    schedule (or ``schedule``); per row piece of the rows schedule, 4
+    edges at a time, m_new = max(m, x_1..x_4), one rescale by
+    exp(m - m_new), the edges' p = exp(x - m_new) summed in edge order;
+    in a chunk, edge by edge (the kernel's one-exponential update is
+    this one exactly: exp(0) = 1); cut rows' (m, l, acc) merged in plan
+    order; out = acc / max(l, 1e-20). Returns (out, m, den, rows cut)."""
     f = np.float32
     n, (h, d) = len(indptr) - 1, values.shape[1:]
-    out = np.zeros((n, h, d), f)
-    m_out = np.full((n, h), f(NEG), f)
-    den = np.zeros((n, h), f)
-    for i in range(n):
+    schedule = _schedule(n, len(perm), schedule)
+    step = 1 if schedule[0] == "chunks" else 4
+    out = np.full((n, h, d), np.nan, f)
+    m_out = np.full((n, h), np.nan, f)
+    den = np.full((n, h), np.nan, f)
+
+    def reduce(r, a, b):
         m, l, acc = np.full(h, f(NEG), f), np.zeros(h, f), np.zeros((h, d), f)
-        for e in perm[indptr[i]:indptr[i + 1]]:
-            m_new = np.maximum(m, logits[e])
-            alpha, p = np.exp(m - m_new), np.exp(logits[e] - m_new)
-            l = l * alpha + p
-            acc = acc * alpha[:, None] + p[:, None] * values[e]
+        for t in range(a, b, step):
+            es = perm[t:min(t + step, b)]
+            x, v = logits[es], values[es]
+            m_new = np.maximum(m, x.max(0))
+            alpha, p = np.exp(m - m_new), np.exp(x - m_new)
+            ps, pv = np.zeros(h, f), np.zeros((h, d), f)
+            for u in range(len(es)):
+                ps = ps + p[u]
+                pv = pv + p[u][:, None] * v[u]
+            l = l * alpha + ps
+            acc = acc * alpha[:, None] + pv
             m = m_new
-        out[i] = acc / np.maximum(l, f(1e-20))[:, None]
-        m_out[i], den[i] = m, l
-    return out, m_out, den
+        return m, l, acc
+
+    def merge(a, b):
+        (m, l, acc), (m2, l2, acc2) = a, b
+        mx = np.maximum(m, m2)
+        s1, s2 = np.exp(m - mx), np.exp(m2 - mx)
+        return mx, l * s1 + l2 * s2, acc * s1[:, None] + acc2 * s2[:, None]
+
+    def finish(r, part):
+        m, l, acc = part
+        assert np.isnan(den[r]).all(), f"row {r} written twice"
+        out[r] = acc / np.maximum(l, f(1e-20))[:, None]
+        m_out[r], den[r] = m, l
+
+    cut = _split_and_merge(indptr, len(perm), schedule, reduce, merge,
+                           finish)
+    assert not np.isnan(den).any(), "a row was never written"
+    return out, m_out, den, cut
 
 
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_cuda_kernel_recurrence_matches_plain_version(name):
-    """The online recurrence of ``edge_softmax.cu``, run here on the CPU,
-    agrees with the plain version — on all-masked rows exactly."""
+    """The chunked online recurrence of ``edge_softmax.cu`` and its merge,
+    run here on the CPU, agree with the plain version — on all-masked
+    rows exactly."""
     ids, n, logits, values, masked_rows, bucket = _case(name)
     plan, _ = _plans(name, ids, n, bucket, jax_plans=False)
-    t_out, t_m, t_den = _edge_softmax_twin(
+    t_out, t_m, t_den, cut = _edge_softmax_twin(
         logits, values, plan.perm.numpy(), plan.indptr.numpy())
     out, m, den = edge_softmax_ref(torch.from_numpy(logits),
                                    torch.from_numpy(values), plan.perm,
@@ -309,6 +548,96 @@ def test_cuda_kernel_recurrence_matches_plain_version(name):
     np.testing.assert_allclose(t_out, out.numpy(), rtol=RTOL, atol=ATOL)
     np.testing.assert_allclose(t_m, m.numpy(), rtol=RTOL, atol=ATOL)
     np.testing.assert_allclose(t_den, den.numpy(), rtol=RTOL, atol=ATOL)
-    if name == "all_masked_rows":      # every edge of these rows masked
+    if name in ("all_masked_rows", "hub_all_masked"):  # every edge masked
         np.testing.assert_array_equal(t_den[masked_rows],
                                       den.numpy()[masked_rows])
+    if name.startswith("hub"):     # the hub is cut into pieces
+        assert cut >= 1
+
+
+# schedules with units far below the kernels' PIECE and CHUNK, so that
+# short rows are cut too
+SPLITS = {"chunks_5": ("chunks", 5), "chunks_16": ("chunks", 16),
+          "rows_1": ("rows", 1), "rows_2": ("rows", 2)}
+
+
+@pytest.mark.parametrize("split", sorted(SPLITS))
+@pytest.mark.parametrize("name", ["all_masked_rows", "bucket_pad",
+                                  "empty_rows", "hub_all_masked", "masked"])
+def test_split_and_merge_of_edge_softmax(name, split):
+    """Rows cut into pieces and merged in plan order stay within
+    rtol/atol 1e-5 of the plain version under either schedule; an
+    all-masked row that is cut still ends with m = NEG and den = its
+    edge count, an empty row with m = NEG, den = 0 and out = 0."""
+    ids, n, logits, values, masked_rows, bucket = _case(name)
+    plan, _ = _plans(name, ids, n, bucket, jax_plans=False)
+    perm, indptr = plan.perm.numpy(), plan.indptr.numpy()
+    t_out, t_m, t_den, cut = _edge_softmax_twin(logits, values, perm,
+                                                indptr, SPLITS[split])
+    out, m, den = edge_softmax_ref(torch.from_numpy(logits),
+                                   torch.from_numpy(values), plan.perm,
+                                   plan.indptr, plan.num_segments)
+    assert cut > 0
+    np.testing.assert_allclose(t_out, out.numpy(), rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(t_m, m.numpy(), rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(t_den, den.numpy(), rtol=RTOL, atol=ATOL)
+    deg = np.diff(indptr)
+    if len(masked_rows) and name != "masked":
+        np.testing.assert_array_equal(
+            t_den[masked_rows], np.repeat(deg[masked_rows, None], 4, 1))
+        assert (t_m[masked_rows] == np.float32(NEG)).all()
+        assert not t_out[masked_rows].any()
+    empty = deg == 0
+    assert (t_m[empty] == np.float32(NEG)).all()
+    assert not t_den[empty].any() and not t_out[empty].any()
+
+
+def _segment_max_twin(data, perm, indptr, piece: int):
+    """``segment_max.cu``'s split and merge in numpy (row_pieces.cuh's
+    schedule, pieces of ``piece`` edges): each row piece's max from NEG,
+    NaN-propagating, and the cut rows' pieces folded in plan order.
+    Returns (out, rows cut)."""
+    n = len(indptr) - 1
+    out = np.full((n,) + data.shape[1:], np.inf, np.float32)
+
+    def finish(r, part):
+        out[r] = part
+
+    cut = _split_and_merge(
+        indptr, len(perm), ("rows", piece),
+        lambda r, a, b: np.max(data[perm[a:b]], axis=0,
+                               initial=np.float32(NEG)),
+        np.maximum, finish)
+    return out, cut
+
+
+@pytest.mark.parametrize("piece", [1, 2, 3, 7, 16, PIECE])
+def test_split_and_merge_of_segment_max(piece):
+    """segment_max's split and merge, at the kernel's piece size and at
+    smaller ones that cut short rows too, exactly against the plain
+    version: a hub with a NaN inside, an all-masked hub, hubs at the
+    first and the last row next to empty rows, and pad edges behind
+    them."""
+    rng = np.random.default_rng(3)
+    n, d = 60, 8
+    ids = rng.integers(2, n - 2, 300)
+    ids = np.sort(np.concatenate([ids] + [np.full(deg, r) for r, deg in
+                                          ((0, 400), (30, 350),
+                                           (n - 1, 500))]))
+    data = rng.normal(size=(len(ids), d)).astype(np.float32)
+    data[ids == 30] = NEG                       # an all-masked hub
+    hub = np.flatnonzero(ids == n - 1)
+    data[hub[len(hub) // 2], 3] = np.nan        # a NaN inside a hub
+    e = len(ids)
+    data = np.concatenate([data, rng.normal(size=(64, d)).astype(
+        np.float32)])                           # pad edges behind
+    plan = build_bucket_csc_plan(ids.astype(np.int32), n, e + 64)
+    perm, indptr = plan.perm.numpy(), plan.indptr.numpy()
+    got, cut = _segment_max_twin(data, perm, indptr, piece)
+    want = segment_max_ref(torch.from_numpy(data), plan.perm, plan.indptr,
+                           n).numpy()
+    assert cut >= 3                             # every hub is cut
+    np.testing.assert_array_equal(got, want)
+    assert np.isnan(got[n - 1, 3]) and not np.isnan(got[n - 1, :3]).any()
+    assert (got[30] == np.float32(NEG)).all()
+    assert (got[[1, n - 2]] == np.float32(NEG)).all()   # empty neighbours

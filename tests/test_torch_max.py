@@ -37,7 +37,10 @@ BWD_TOL = 1e-6
 # name -> (nodes, edges, trailing shape, extra); extra: "ties" draws the
 # data from {0, 1, 2}, "all_masked" sets every edge of rows 0..19 to NEG
 # (the combine's mask), "bucket" pads the edge axis with garbage pad edges
-# that join no row, "nan" puts NaN in a few entries
+# that join no row, "nan" puts NaN in a few entries, "hub" gives row
+# HUB[0] HUB[1] more edges (a hub among short rows, with a NaN inside),
+# "hub_all_masked" sets every edge of that hub to NEG
+HUB = (7, 700)
 CASES = {
     "multihead": (150, 600, (4, 8), ""),
     "ties": (100, 800, (8,), "ties"),
@@ -48,6 +51,8 @@ CASES = {
     "width_130": (120, 400, (130,), ""),
     "width_256": (60, 300, (256,), "ties"),
     "no_edges": (50, 0, (8,), ""),
+    "hub": (100, 400, (8,), "hub"),
+    "hub_all_masked": (100, 400, (8,), "hub_all_masked"),
 }
 LAYOUTS = ("contiguous", "transposed", "expanded")
 
@@ -70,6 +75,10 @@ def _case(name: str, seed: int = 0):
     n, e, trailing, extra = CASES[name]
     rng = np.random.default_rng(seed)
     ids = np.sort(rng.integers(0, n, e)).astype(np.int32)
+    if extra.startswith("hub"):
+        ids = np.sort(np.concatenate(
+            [ids, np.full(HUB[1], HUB[0], np.int32)]))
+        e = len(ids)
     if extra != "bucket":
         ids = rng.permutation(ids).astype(np.int32)    # unsorted edge axis
     if extra == "ties":
@@ -81,6 +90,10 @@ def _case(name: str, seed: int = 0):
     elif extra == "nan":
         data.reshape(e, -1)[rng.choice(e, 6, replace=False),
                             rng.integers(0, 8, 6)] = np.nan
+    elif extra == "hub":
+        data[np.flatnonzero(ids == HUB[0])[HUB[1] // 2], 2] = np.nan
+    elif extra == "hub_all_masked":
+        data[ids == HUB[0]] = NEG
     bucket = None
     if extra == "bucket":
         n, e_pad = 128, 512
@@ -137,8 +150,12 @@ def test_segment_max_matches_pallas_kernel(name, oracle):
     got = ops.segment_max_op(torch.from_numpy(data), plan).numpy()
     assert got.shape == want.shape
     np.testing.assert_array_equal(got, want)
-    if name == "nan":
+    if name in ("nan", "hub"):
         assert np.isnan(got).any()
+    if name == "hub":       # the NaN inside the hub makes its entry NaN
+        assert np.isnan(got[HUB[0], 2]) and not np.isnan(got[HUB[0], 3])
+    if name == "hub_all_masked":
+        assert (got[HUB[0]] == np.float32(NEG)).all()
     if name in ("empty_rows", "no_edges"):
         empty = np.bincount(ids, minlength=n) == 0
         assert (got[empty] == np.float32(NEG)).all()
@@ -324,14 +341,16 @@ def test_cuda_max_kernels_match_plain_versions(name, layout, cuda):
 
 @pytest.mark.cuda
 def test_cuda_max_kernels_are_deterministic(cuda):
-    ids, n, data, g, _ = _case("ties")
-    plan = build_csc_plan(ids, n).to(cuda)
-    d = torch.from_numpy(data).to(cuda)
-    gt = torch.from_numpy(g).to(cuda)
-    a, b = ops.segment_max_op(d, plan), ops.segment_max_op(d, plan)
-    assert torch.equal(a, b)
-    assert torch.equal(ops.segment_max_bwd_op(gt, a, d, plan),
-                       ops.segment_max_bwd_op(gt, a, d, plan))
+    for name in ("ties", "hub"):
+        ids, n, data, g, _ = _case(name)
+        plan = build_csc_plan(ids, n).to(cuda)
+        d = torch.from_numpy(data).to(cuda)
+        gt = torch.from_numpy(g).to(cuda)
+        a, b = ops.segment_max_op(d, plan), ops.segment_max_op(d, plan)
+        assert torch.equal(a.nan_to_num(), b.nan_to_num()), name
+        assert torch.equal(a.isnan(), b.isnan()), name
+        assert torch.equal(ops.segment_max_bwd_op(gt, a, d, plan),
+                           ops.segment_max_bwd_op(gt, a, d, plan)), name
 
 
 @pytest.mark.cuda
