@@ -27,12 +27,16 @@ Phases (each raises on failure, so the script exits non-zero):
    own 20,000-node alipay_like plan, and ``edge_softmax`` over two plans
    of 1.1 million rows plus edges, which it runs as merge-path chunks;
    on those power-law rows ``segment_sum`` is held against a float64
-   sum, within 1e-5 of each row's sum of |x|;
+   sum, within 1e-5 of each row's sum of |x|, also at widths 4, 8, 32,
+   64, 128 and 130 over hub rows of 65 to 5,000 edges; and rows of 65 to
+   5,000 edges behind a leading row of 0, 1, 17 or 63 edges must give the
+   same bits through ``segment_sum``, ``edge_softmax`` and
+   ``segment_max`` (row cuts counted from the row's start);
 4. serve GAT-E (alipay_like, 20,000 nodes, published widths) on the card
    through ``repro_torch.launch.serve_gnn``: 512 requests, 4 clients,
    cache on; every response held against the same port run on the CPU,
-   a cache hit held against a full recompute, the kernel's launch count
-   read;
+   a cache hit held against a full recompute (16 seeded targets and the
+   graph's highest in-degree node), the kernel's launch count read;
 5. serve GCN (reddit_like + self-loops, hidden 128), the same way;
 6. kernel times at layer 0 of a full-graph step (GAT-E on a
    1,000,000-node alipay_like graph, GCN on reddit_like; the segment-max
@@ -43,15 +47,19 @@ Phases (each raises on failure, so the script exits non-zero):
    plan) beside torch's ``index_add_``; ``edge_softmax`` and
    ``segment_max`` also on a hub-free plan of the same N and E, on the
    cells' layer-0 plans and a bucket each, and ``edge_softmax`` on
-   power-law plans either side of its schedule switch, one JSON ``plan
-   row`` each, with the profiled device ms beside the CUDA-event time;
+   power-law plans either side of its schedule switch; the GAT-E
+   gathers' backward (``segment_sum`` at widths 32 and 4) over the 1M
+   source plan and the cells' 20,000-node source and destination plans,
+   and ``edge_softmax_bwd`` at both sizes; one JSON ``plan row`` each,
+   with the profiled device ms beside the CUDA-event time;
 7. train GAT-E (alipay_like, 20,000 nodes, the config's widths and lr)
    on the card through ``repro_torch.api.make_trainer`` and ``fit``, 30
    steps under each of global, mini (compact) and cluster (compact, halo
    1), and the same jobs on the CPU from the same seed: step-1 gradients
    and every step's loss held against the CPU's, the global loss must
    fall, the backward kernel must launch the same number of times on
-   every step; then the same 20 global steps run twice on the card must
+   every step, and each Sum-stage kernel's profiled device ms a step is
+   printed; then the same 20 global steps run twice on the card must
    agree bit for bit;
 8. train GCN (reddit_like + self-loops, hidden 128), the same way;
 9. serve SAGE-max (reddit_like without self-loops, the Reddit config's
@@ -534,6 +542,79 @@ def _check_case(plan, lg, v, rng, worst: dict, name: str,
     print(f"  {name}: ok", flush=True)
 
 
+OFFSET_DEGREES = (65, 412, 2832, 5000)
+OFFSET_LEADS = (0, 1, 17, 63)
+
+
+def check_offsets() -> None:
+    """A row gives the same bits wherever it lies in a plan (ROADMAP
+    C.14): rows of 65 to 5,000 edges behind a leading row of 0, 1, 17 or
+    63 edges, through ``segment_sum`` at widths 32 and 4, ``edge_softmax``
+    (4 heads of 8) and ``segment_max``; each launched twice, bitwise
+    equal, and held against its plain version."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.plan import build_csc_plan
+    from repro_torch.kernels.ref import edge_softmax_ref, segment_max_ref
+    for deg in OFFSET_DEGREES:
+        rows = []
+        for lead in OFFSET_LEADS:
+            row, head = (np.random.default_rng(s) for s in (deg, 9 + lead))
+            lg = np.concatenate([head.normal(size=(lead, 4)),
+                                 row.normal(size=(deg, 4)) * 3])
+            v = np.concatenate([head.normal(size=(lead, 4, 8)),
+                                row.normal(size=(deg, 4, 8))])
+            lg, v = (torch.from_numpy(a.astype(np.float32)).to(DEVICE)
+                     for a in (lg, v))
+            plan = build_csc_plan(np.repeat(np.int32([0, 1]), [lead, deg]),
+                                  3).to(DEVICE)
+            flat = v.flatten(1)
+
+            def softmax_ok(out, what):
+                for x, w in zip(out, edge_softmax_ref(lg, v, plan.perm,
+                                                      plan.indptr, 3)):
+                    torch.testing.assert_close(x, w, rtol=RTOL, atol=ATOL,
+                                               msg=what)
+
+            def max_ok(out, what):
+                torch.testing.assert_close(out[0], segment_max_ref(
+                    flat, plan.perm, plan.indptr, 3), rtol=0, atol=0,
+                    msg=what)
+            # name -> (kernel call, check against the plain version)
+            calls = {
+                "segment_sum d32": (
+                    lambda: (ops.segment_sum_op(flat, plan),),
+                    lambda out, what: _sum_f64_err(out[0], flat, plan, what)),
+                "segment_sum d4": (
+                    lambda: (ops.segment_sum_op(lg, plan),),
+                    lambda out, what: _sum_f64_err(out[0], lg, plan, what)),
+                "edge_softmax": (lambda: ops.edge_softmax_fwd_op(lg, v, plan),
+                                 softmax_ok),
+                "segment_max": (lambda: (ops.segment_max_op(flat, plan),),
+                                max_ok),
+            }
+            got = {}
+            for name, (kern, check) in calls.items():
+                a, b = kern(), kern()
+                torch.cuda.synchronize()
+                if not all(torch.equal(x, y) for x, y in zip(a, b)):
+                    raise AssertionError(f"{name}: two launches differ")
+                check(a, f"{name}, {deg} edges behind {lead}")
+                got[name] = [x[1].cpu() for x in a]
+            rows.append(got)
+        for lead, got in zip(OFFSET_LEADS[1:], rows[1:]):
+            for name, outs in got.items():
+                if not all(torch.equal(x, y)
+                           for x, y in zip(rows[0][name], outs)):
+                    raise AssertionError(
+                        f"{name}: a row of {deg} edges behind {lead} edges "
+                        "differs from the same row at offset 0")
+        print(f"  offsets: a row of {deg} edges behind 0, 1, 17, 63 edges: "
+              "bitwise equal (segment_sum d32/d4, edge_softmax, "
+              "segment_max)", flush=True)
+
+
 def check_kernels() -> dict:
     """Max abs error of each kernel against its plain version over every
     case; raises past rtol/atol 1e-5."""
@@ -544,6 +625,7 @@ def check_kernels() -> dict:
     rng = np.random.default_rng(0)
     chunk_hubs = ((0, 5000), (100_000, 6000), (199_999, 5000))
     chunk_empty = (1, 2, 199_997, 199_998)
+    sum_hubs = ((0, 65), (1500, 412), (2000, 2832), (2999, 5000))
     cases = {
         # the serving path's buckets: GAT-E's 4 heads of 8 in its
         # (4096, 16384) bucket and GCN's 128 in its (4096, 131072) one,
@@ -582,6 +664,13 @@ def check_kernels() -> dict:
                                n_pad=4096),
         "hub_heads_4x16": dict(n=700, e=5000, h=4, d=16,
                                hub=((350, 5000),)),
+        # segment_sum at the widths that give its warps 32, 16, 8, 4, 2
+        # and 1 sub-warps (4 and 32: the GAT-E gathers' backward), over
+        # hub rows of 65 to 5,000 edges, empty rows and pad edges
+        **{f"sum_hubs_d{d}": dict(n=3000, e=9000, h=1, d=d, mask=0.1,
+                                  hub=sum_hubs, empty=(1, 2, 2997),
+                                  e_pad=32768, n_pad=4096)
+           for d in (4, 8, 32, 64, 128, 130)},
         # plans of 2^19 rows plus edges or more, which edge_softmax.cu
         # runs as merge-path chunks of 256 items: hubs at the first and
         # last rows beside empty rows, an all-masked hub cut by a few
@@ -617,6 +706,7 @@ def check_kernels() -> dict:
     if ops.segment_sum_bwd_op(g, plan).any() or d_lg.any() or d_v.any():
         raise AssertionError("backward with no rows gave non-zero gradients")
     print("  no_rows: ok", flush=True)
+    check_offsets()
     check_max_kernels(rng, worst, block.csc_plan)
     check_lm_kernels(rng, worst)
 
@@ -696,18 +786,25 @@ def serve(config: str, label: str, requests: int = 512,
     print(f"  card vs CPU over {requests} responses: max_abs_err={err:.3e} "
           f"(tolerance {SERVE_TOL}) pass")
 
-    # a cache hit against a full recompute, on the card
+    # a cache hit against a full recompute, on the card: 16 seeded
+    # targets and the graph's highest in-degree node, whose row the
+    # kernels cut into pieces when it has more than 64 in-edges
     rng = np.random.default_rng(1)
-    targets = rng.choice(g.num_nodes, 16, replace=False)
+    indeg = np.bincount(g.dst, minlength=g.num_nodes)
+    hub = int(indeg.argmax())
+    targets = np.union1d(rng.choice(g.num_nodes, 16, replace=False), [hub])
     cached = build_server(g, model, layers, hidden, seed=0, device=DEVICE,
                           **kw)
     full = cached.submit(targets)
     hits0 = cached.cache.hits
+    if not cached.cache.coverage(np.array([hub]))[0]:
+        raise AssertionError(f"{model}: the hub {hub} is not a cache hit")
     again = cached.submit(targets)
     if cached.cache.hits == hits0:
         raise AssertionError(f"{model}: the second submit hit no cache row")
     same = bool(np.array_equal(again, full))
-    print(f"  cache hit vs full recompute: "
+    print(f"  cache hit vs full recompute ({len(targets)} targets, the hub "
+          f"{hub} with {int(indeg[hub])} in-edges among them): "
           f"{cached.cache.hits - hits0} hits, max_abs_err="
           f"{float(np.abs(again - full).max()):.3e}, bitwise={same}")
     if not same:
@@ -862,6 +959,75 @@ def _max_row(plan, data) -> dict:
                 shape=f"E={E} N={N} D={D}")
 
 
+def _bwd_row(plan, logit, value, gen) -> dict:
+    """``edge_softmax_bwd`` on one plan, after the forward: held against
+    its plain version, then timed beside it (CUDA events; profiled device
+    ms) and its bound."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import edge_softmax_bwd_ref
+    E, H, D = value.shape
+    N = plan.num_segments
+    out, m, den = ops.edge_softmax_fwd_op(logit, value, plan)
+    cot = torch.randn((N, H, D), generator=gen, device=DEVICE)
+    bwd = (lambda: ops.edge_softmax_bwd_op(cot, logit, value, out, m, den,
+                                           plan))
+    bwd_plain = (lambda: edge_softmax_bwd_ref(
+        cot, logit, value, m, den, (out * cot).sum(-1), plan.edge_dst))
+    for a, b in zip(bwd(), bwd_plain()):
+        torch.testing.assert_close(a, b, rtol=RTOL, atol=ATOL)
+    ms = _time_ms(bwd)
+    plain = _time_ms(bwd_plain, 100.0)
+    # reads g, out, logits, values, m, den, perm and indptr; writes
+    # d_logits and d_values
+    nbytes = 4 * (2 * N * H * D + 2 * E * H + 2 * E * H * D + 2 * N * H
+                  + E + N + 1)
+    bound, by = _bound(nbytes, 3 * E * H * D + 5 * E * H + 2 * N * H * D)
+    return dict(ms=ms, device_ms=_device_ms(bwd), plain_ms=plain,
+                bound_ms=bound, bound_by=by, library_ms=None,
+                shape=f"E={E} N={N} H={H} D={D}")
+
+
+def _sum_row(plan, idx, width: int, gen) -> dict:
+    """``segment_sum`` over ``plan`` (the plan over ``idx``) on seeded
+    (E, width) data: held against a float64 sum, then timed beside its
+    plain version, ``index_add_`` over ``idx`` (atomic: what torch's own
+    backward of the gather runs) and its bound."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import segment_sum_ref
+    E, N = plan.num_edges, plan.num_segments
+    data = torch.randn((E, width), generator=gen, device=DEVICE)
+    _sum_f64_err(ops.segment_sum_op(data, plan), data, plan,
+                 f"segment_sum at width {width}")
+    kern = (lambda: ops.segment_sum_op(data, plan))
+    ms = _time_ms(kern)
+    plain = _time_ms(lambda: segment_sum_ref(data, plan.perm, plan.indptr,
+                                             N), 100.0)
+    idx = idx.long()
+    lib = _time_ms(lambda: torch.zeros(N, width, device=DEVICE).index_add_(
+        0, idx, data), 100.0)
+    bound, by = _bound(4 * (E * width + N * width + E + N + 1), E * width)
+    return dict(ms=ms, device_ms=_device_ms(kern), plain_ms=plain,
+                bound_ms=bound, bound_by=by, library_ms=lib,
+                shape=f"E={E} N={N} D={width}")
+
+
+def gat_e_cell_rows(gen) -> None:
+    """The GAT-E cells' own layer-0 plans (20,000-node alipay_like): the
+    gathers' backward (``segment_sum``) over the source and the
+    destination plans at widths 32 and 4, and ``edge_softmax_bwd``."""
+    _, block, logit, value = _layer0_inputs("gnn_gat_e_alipay")
+    label = "alipay_like, 20000 nodes (GAT-E cells)"
+    _plan_row("edge_softmax_bwd", label, _bwd_row(block.csc_plan, logit,
+                                                  value, gen))
+    for name, plan, idx in (("source", block.src_plan, block.src),
+                            ("destination", block.csc_plan, block.dst)):
+        for width in (32, 4):
+            _plan_row("segment_sum", f"{label}, {name} plan, width {width}",
+                      _sum_row(plan, idx, width, gen))
+
+
 def _plan_row(kernel: str, plan: str, row: dict) -> None:
     print("  plan row " + json.dumps({"kernel": kernel, "plan": plan,
                                       **row}), flush=True)
@@ -971,9 +1137,7 @@ def kernel_times() -> dict:
     plain version there."""
     import torch
     from repro_torch.kernels import ops
-    from repro_torch.kernels.ref import (edge_softmax_bwd_ref,
-                                         segment_sum_bwd_ref,
-                                         segment_sum_ref)
+    from repro_torch.kernels.ref import segment_sum_bwd_ref, segment_sum_ref
     rows = {}
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     with torch.inference_mode():
@@ -986,30 +1150,21 @@ def kernel_times() -> dict:
         rows["edge_softmax"] = _softmax_row(plan, logit, value)
         _plan_row("edge_softmax", f"alipay_like, {N} nodes (power law)",
                   rows["edge_softmax"])
-        out, m, den = ops.edge_softmax_fwd_op(logit, value, plan)
-        cot = torch.randn((N, H, D), generator=gen, device=DEVICE)
-        bwd = (lambda: ops.edge_softmax_bwd_op(cot, logit, value, out, m,
-                                               den, plan))
-        bwd_plain = (lambda: edge_softmax_bwd_ref(
-            cot, logit, value, m, den, (out * cot).sum(-1), plan.edge_dst))
-        for a, b in zip(bwd(), bwd_plain()):
-            torch.testing.assert_close(a, b, rtol=RTOL, atol=ATOL)
-        ms = _time_ms(bwd)
-        plain = _time_ms(bwd_plain, 100.0)
-        # reads g, out, logits, values, m, den, edge_dst; writes d_logits
-        # and d_values
-        nbytes = 4 * (2 * N * H * D + 2 * E * H + 2 * E * H * D
-                      + 2 * N * H + E)
-        bound, by = _bound(nbytes, 3 * E * H * D + 5 * E * H + 2 * N * H * D)
-        rows["edge_softmax_bwd"] = dict(ms=ms, plain_ms=plain,
-                                        bound_ms=bound, bound_by=by,
-                                        library_ms=None,
-                                        shape=f"E={E} N={N} H={H} D={D}")
-        del logit, value, out, m, den, cot
+        rows["edge_softmax_bwd"] = _bwd_row(plan, logit, value, gen)
+        _plan_row("edge_softmax_bwd", f"alipay_like, {N} nodes (power law)",
+                  rows["edge_softmax_bwd"])
+        # the GAT-E gathers' backward over the source plan, at the widths
+        # of n (4 heads of 8) and of the logit halves (4 heads)
+        for width in (32, 4):
+            _plan_row("segment_sum", f"alipay_like, {N} nodes, source plan, "
+                      f"width {width} (gathers' backward)",
+                      _sum_row(block.src_plan, block.src, width, gen))
+        del logit, value
         rows.update(_max_times(plan, gen))
         del g, block, plan
         torch.cuda.empty_cache()
         plan_rows(E, N, H, D, gen)
+        gat_e_cell_rows(gen)
 
         # GCN: segment_sum and its backward at a full-graph layer 0
         g, block, _, value = _layer0_inputs("gnn_gcn_reddit")
@@ -1021,7 +1176,8 @@ def kernel_times() -> dict:
             ops.segment_sum_op(flat, plan),
             segment_sum_ref(flat, plan.perm, plan.indptr, N),
             rtol=RTOL, atol=ATOL)
-        ms = _time_ms(lambda: ops.segment_sum_op(flat, plan))
+        kern = (lambda: ops.segment_sum_op(flat, plan))
+        ms = _time_ms(kern)
         plain = _time_ms(lambda: segment_sum_ref(flat, plan.perm,
                                                  plan.indptr, N))
         dst = block.dst.long()
@@ -1029,9 +1185,12 @@ def kernel_times() -> dict:
             0, dst, flat))
         nbytes = 4 * (E * D + E + (N + 1) + N * D)
         bound, by = _bound(nbytes, E * D)
-        rows["segment_sum"] = dict(ms=ms, plain_ms=plain, bound_ms=bound,
+        rows["segment_sum"] = dict(ms=ms, device_ms=_device_ms(kern),
+                                   plain_ms=plain, bound_ms=bound,
                                    bound_by=by, library_ms=lib,
                                    shape=f"E={E} N={N} D={D}")
+        _plan_row("segment_sum", "reddit_like (GCN cells)",
+                  rows["segment_sum"])
         cot = torch.randn((N, D), generator=gen, device=DEVICE)
         torch.testing.assert_close(
             ops.segment_sum_bwd_op(cot, plan),
@@ -1529,6 +1688,12 @@ def _fit_job(job, steps: int):
     return trainer, views, losses, grads, time.perf_counter() - t0
 
 
+# the port's Sum-stage kernel sources: a profiled CUDA kernel counts for
+# the first whose name, with an underscore after it, is in its own
+_FAMILIES = ("segment_sum_bwd", "segment_sum", "edge_softmax_bwd",
+             "edge_softmax", "segment_max_bwd", "segment_max")
+
+
 def _profile(trainer, views, step_ms: float, steps: int = 5) -> None:
     """Device time per step by kernel over ``steps`` more steps, from a
     ``torch.profiler`` trace, and the device's busy share against the
@@ -1559,6 +1724,16 @@ def _profile(trainer, views, step_ms: float, steps: int = 5) -> None:
         print("    and the port's other Sum-stage kernels:")
     for ms, n, key in port:
         print(f"      {ms:.4f} ms/step over {n:.0f} calls  {key[:90]}")
+    # each Sum-stage kernel's device ms a step, its launches (the rows or
+    # chunks and the merge) summed
+    fams = {}
+    for ms, n, key in kernels:
+        name = next((f for f in _FAMILIES if f"{f}_" in key), None)
+        if name:
+            t, c = fams.get(name, (0.0, 0.0))
+            fams[name] = (t + ms, c + n)
+    print("    Sum-stage kernels, device ms/step: " + ", ".join(
+        f"{k} {t:.4f} ({c:.0f} CUDA launches)" for k, (t, c) in fams.items()))
 
 
 def _src_plan_s(trainer, views, steps: int):

@@ -15,9 +15,13 @@
 // row's degree sets the time.
 // - Below kLargePlan (2^19) rows plus edges, every plan the cells run
 //   (their buckets and layers): the row-and-piece schedule of
-//   row_pieces.cuh, which segment_max.cu shares: a warp per row takes
-//   its first kPiece edges, and the rest of a long row is cut at the
-//   multiples of kPiece along the edge axis, one more warp per piece.
+//   row_pieces.cuh, which segment_sum.cu, segment_max.cu and
+//   edge_softmax_bwd.cu share: a warp per row takes its first kPiece
+//   edges, and the rest of a long row is cut into pieces of kPiece
+//   edges counted from the row's start, one more warp per piece. A
+//   row's cuts, and so its bits, are the same wherever it lies in the
+//   plan: a served cache hit (the top layer over a 1-hop view) equals a
+//   full recompute (over a K-hop view) on hub rows too.
 // - From kLargePlan on: merge-path chunks. The plan's rows and real
 //   edges form one sequence in plan order: row r's edges
 //   perm[indptr[r]:indptr[r+1]], then an end marker for r, N + E items
@@ -30,9 +34,13 @@
 //   rows and pieces: a warp per 6-edge row is a chain of dependent
 //   loads (indptr, perm, then the edges) that chunks stream through.
 //   At 0.14 million items (the GAT-E cells' 20k-node plan) chunks take
-//   1.9x: too few chunks to fill the card, each a serial walk.
-// A warp finds its first row with a 32-way search over indptr (a few
-// rounds of 32 parallel probes), stages its edge ids (and, for a chunk,
+//   1.9x: too few chunks to fill the card, each a serial walk. Chunks
+//   cut rows where the item count falls, so a long row's bits depend on
+//   its offset in the plan: offset invariance holds below kLargePlan
+//   only.
+// A warp finds its first row with a 32-way search (over piece_ptr for a
+// piece, over indptr for a chunk: a few rounds of 32 parallel probes),
+// stages its edge ids (and, for a chunk,
 // its rows' offsets) in shared memory, and walks its row pieces in plan
 // order. Lane j holds the pair (h, d) = (j / D, j % D), in passes of 32
 // when H*D > 32 (GAT-E's 4 heads of 8 fill one warp exactly), and keeps
@@ -45,9 +53,9 @@
 // exponential each, so that a chunk of 40 short rows is not 40 round
 // trips. A piece that is a whole row is written straight out:
 // out = acc / max(l, 1e-20), m, den = l. A row that is cut leaves its
-// state (acc, m, l) per piece in scratch slots: slot 1 of the unit
-// (chunk, or piece index) where it starts, slot 0 of every later one it
-// reaches. The second launch (edge_softmax_merge)
+// state (acc, m, l) per unit in scratch slots: for a chunk, slot 1 of
+// the chunk where it starts and slot 0 of every later one it reaches;
+// for rows and pieces, as row_pieces.cuh lays them out. The second launch (edge_softmax_merge)
 // gives each cut row to the warp of the unit that holds its end, which
 // folds the slots in plan order, (m, l, acc) <- (max(m, m'),
 // l*s + l'*s', acc*s + acc'*s') with s = exp(m - max), s' =
@@ -154,6 +162,7 @@ edge_softmax_kernel(const float* __restrict__ logits,
                     const float* __restrict__ values,
                     const int* __restrict__ perm,
                     const int* __restrict__ indptr,
+                    const int* __restrict__ piece_ptr,
                     float* __restrict__ out, float* __restrict__ m_out,
                     float* __restrict__ den_out, float* __restrict__ carry,
                     int* __restrict__ merge_row, int n, int64_t heads,
@@ -168,8 +177,7 @@ edge_softmax_kernel(const float* __restrict__ logits,
   const int64_t hd = heads * dim;
   const int64_t slot = hd + 2 * heads;
   if (!kChunks) {  // a row, or a piece of one (row_pieces.cuh)
-    const Unit u = unit_of(indptr, n, k, merge_row, lane);
-    if (!u.live) return;
+    const Unit u = unit_of(indptr, piece_ptr, n, k, merge_row, lane);
     for (int t = lane; t < u.b - u.a; t += 32) s_ids[w][t] = perm[u.a + t];
     __syncwarp();
     float* dst = u.slot < 0 ? nullptr : carry + u.slot * slot;
@@ -263,11 +271,13 @@ edge_softmax_kernel(const float* __restrict__ logits,
 }
 
 // One warp per chunk or piece: finish the cut row whose end it holds,
-// folding the row's partials in plan order, from the unit where it
-// starts (slot 1) to this one (slot 0 of each).
+// folding the row's partials in plan order: slot 1 of the chunk where it
+// starts and slot 0 of each later chunk to this one; slot 1 of its first
+// piece (its row unit's) and slot 0 of each of its pieces.
 template <bool kChunks>
 __global__ void __launch_bounds__(32 * kWarpsPerBlock)
 edge_softmax_merge(const int* __restrict__ indptr,
+                   const int* __restrict__ piece_ptr,
                    const float* __restrict__ carry,
                    const int* __restrict__ merge_row,
                    float* __restrict__ out, float* __restrict__ m_out,
@@ -282,12 +292,12 @@ edge_softmax_merge(const int* __restrict__ indptr,
   const int64_t hd = heads * dim;
   const int64_t slot = hd + 2 * heads;
   const int64_t first = kChunks ? ((int64_t)r + indptr[r]) / kChunk
-                                : first_piece(indptr, r);
+                                : (int64_t)piece_ptr[r];
   for (int64_t j = lane; j < hd; j += 32) {
     const int64_t h = j / dim;
     const float* s = carry + (first * 2 + 1) * slot;
     State st{s[hd + h], s[hd + heads + h], s[j]};
-    for (int64_t q = first + 1; q <= k; ++q) {
+    for (int64_t q = kChunks ? first + 1 : first; q <= k; ++q) {
       s = carry + q * 2 * slot;
       const float m2 = s[hd + h];
       const float m_new = fmaxf(st.m, m2);
@@ -307,68 +317,74 @@ bool chunked(int64_t num_segments, int64_t num_edges) {
   return num_segments + num_edges >= kLargePlan;
 }
 
-Schedule plan_schedule(int64_t num_segments, int64_t num_edges) {
+Schedule plan_schedule(int64_t num_segments, int64_t num_edges,
+                       int64_t num_pieces) {
   if (!chunked(num_segments, num_edges))
-    return schedule_for(num_segments, num_edges);
+    return schedule_for(num_segments, num_pieces);
   const int64_t chunks = (num_segments + num_edges + kChunk - 1) / kChunk;
   return {chunks, chunks};
 }
 
 template <bool kChunks>
 void launch(const float* logits, const float* values, const int* perm,
-            const int* indptr, float* out, float* m_out, float* den_out,
-            char* scratch, int64_t num_segments, const Schedule& sc,
+            const int* indptr, const int* piece_ptr, float* out,
+            float* m_out, float* den_out, char* scratch, int64_t num_segments, const Schedule& sc,
             int64_t heads, int64_t dim, cudaStream_t s) {
   int* merge_row = reinterpret_cast<int*>(scratch);
   float* carry = reinterpret_cast<float*>(scratch + carry_offset(sc.units));
   const dim3 block(32 * kWarpsPerBlock);
   edge_softmax_kernel<kChunks><<<blocks_for(sc.warps), block, 0, s>>>(
-      logits, values, perm, indptr, out, m_out, den_out, carry, merge_row,
-      (int)num_segments, heads, dim, sc.warps);
+      logits, values, perm, indptr, piece_ptr, out, m_out, den_out, carry,
+      merge_row, (int)num_segments, heads, dim, sc.warps);
   if (sc.units > 0)
     edge_softmax_merge<kChunks><<<blocks_for(sc.units), block, 0, s>>>(
-        indptr, carry, merge_row, out, m_out, den_out, heads, dim,
-        sc.units);
+        indptr, piece_ptr, carry, merge_row, out, m_out, den_out, heads,
+        dim, sc.units);
 }
 
 }  // namespace
 
 // Bytes of scratch edge_softmax_f32 needs for a plan of num_segments
-// rows and num_edges edges (pad edges included) at heads x dim.
+// rows, num_edges edges (pad edges included) and num_pieces pieces at
+// heads x dim.
 extern "C" int64_t edge_softmax_scratch_bytes(int64_t num_segments,
                                               int64_t num_edges,
+                                              int64_t num_pieces,
                                               int64_t heads, int64_t dim) {
-  return scratch_bytes(plan_schedule(num_segments, num_edges).units,
-                       (heads * dim + 2 * heads) * 4);
+  return scratch_bytes(
+      plan_schedule(num_segments, num_edges, num_pieces).units,
+      (heads * dim + 2 * heads) * 4);
 }
 
 // logits (E, heads) f32, values (E, heads, dim) f32, perm (E,) int32,
-// indptr (num_segments+1,) int32, scratch (edge_softmax_scratch_bytes)
-// -> out (num_segments, heads, dim), m and den (num_segments, heads)
+// indptr and piece_ptr (num_segments+1,) int32, scratch
+// (edge_softmax_scratch_bytes) -> out (num_segments, heads, dim), m and den (num_segments, heads)
 // f32. Two launches on `stream` (one when there are no edges). Returns
 // cudaGetLastError().
 extern "C" int edge_softmax_f32(const void* logits, const void* values,
                                 const void* perm, const void* indptr,
-                                void* out, void* m_out, void* den_out,
-                                void* scratch, int64_t num_segments,
-                                int64_t num_edges, int64_t heads,
+                                const void* piece_ptr, void* out,
+                                void* m_out, void* den_out, void* scratch,
+                                int64_t num_segments, int64_t num_edges,
+                                int64_t num_pieces, int64_t heads,
                                 int64_t dim, void* stream) {
   if (num_segments <= 0 || heads <= 0 || dim <= 0) return 0;
-  const Schedule sc = plan_schedule(num_segments, num_edges);
+  const Schedule sc = plan_schedule(num_segments, num_edges, num_pieces);
   const auto* lg = static_cast<const float*>(logits);
   const auto* va = static_cast<const float*>(values);
   const auto* pm = static_cast<const int*>(perm);
   const auto* ip = static_cast<const int*>(indptr);
+  const auto* pp = static_cast<const int*>(piece_ptr);
   auto* o = static_cast<float*>(out);
   auto* mo = static_cast<float*>(m_out);
   auto* dn = static_cast<float*>(den_out);
   auto* scr = static_cast<char*>(scratch);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (chunked(num_segments, num_edges))
-    launch<true>(lg, va, pm, ip, o, mo, dn, scr, num_segments, sc, heads,
-                 dim, s);
+    launch<true>(lg, va, pm, ip, pp, o, mo, dn, scr, num_segments, sc,
+                 heads, dim, s);
   else
-    launch<false>(lg, va, pm, ip, o, mo, dn, scr, num_segments, sc, heads,
-                  dim, s);
+    launch<false>(lg, va, pm, ip, pp, o, mo, dn, scr, num_segments, sc,
+                  heads, dim, s);
   return (int)cudaGetLastError();
 }

@@ -1,22 +1,30 @@
-// The row-and-piece schedule that segment_max.cu and edge_softmax.cu
-// share, so that no row's degree sets a kernel's time.
+// The row-and-piece schedule that segment_sum.cu, segment_max.cu,
+// edge_softmax.cu and edge_softmax_bwd.cu share, so that no row's
+// degree sets a kernel's time, and the 16-byte column groups that
+// segment_sum.cu and edge_softmax_bwd.cu read rows by.
 //
-// The first launch has one warp per unit. Unit k < N is row k: its
-// first kPiece edges, [s, min(e, s + kPiece)) with s = indptr[k] and
-// e = indptr[k + 1]. Unit N + q is piece q: the edges of
-// [q*kPiece, (q+1)*kPiece) along the plan's edge axis that lie past
-// their row's first kPiece, so a row of d edges costs 1 + d / kPiece
-// warps, each a bounded walk (the 20,000-node alipay_like layer's
-// 412-edge row is 7 warps' work). Only the indptr[N] real edges are
-// cut: pad edges sort past indptr[N] and join no row.
+// A row's units are cut relative to the row: with s = indptr[r] and
+// e = indptr[r + 1], its row unit is its first kPiece edges,
+// [s, min(e, s + kPiece)), and its piece j >= 1 is
+// [s + j*kPiece, min(e, s + (j+1)*kPiece)). Where a row is cut is then a
+// function of its length alone, not of its offset in the plan, so the
+// same row in two plans (a served target's top layer over a 1-hop view
+// and over a K-hop one) is cut the same way and sums in the same order.
+// A row of d edges has max(0, ceil((d - kPiece) / kPiece)) pieces;
+// piece_ptr (N+1, the plan's, kernels/plan.py) is their prefix sum over
+// the rows, so row r's pieces are piece_ptr[r] .. piece_ptr[r+1] - 1 and
+// the plan has num_pieces = piece_ptr[N] of them. Only the indptr[N]
+// real edges are cut: pad edges sort past indptr[N] and join no row.
 //
-// A unit that holds a whole row writes it out. A row that is cut
-// leaves one partial per unit in scratch: slot 1 of the piece index
-// where it starts (indptr[r] / kPiece) from its row unit, slot 0 of
-// each piece unit it reaches. The second launch gives each cut row to
-// the warp of the piece that holds its end (merge_row[q] = r, else
-// -1), which folds slot 1 of the first piece and slot 0 of each later
-// one, in plan order, and writes the row.
+// The first launch has one warp per unit: unit k < N is row k's row
+// unit, unit N + p is piece p, which finds its row by a 32-way warp
+// search over piece_ptr (the 20,000-node alipay_like layer's 412-edge
+// row is 7 warps' work). A unit that holds a whole row writes it out. A
+// row that is cut leaves one partial per unit in scratch: slot 1 of its
+// first piece piece_ptr[r] from its row unit, slot 0 of each piece. The
+// second launch gives each cut row to the warp of its last piece
+// (merge_row[p] = r, else -1), which folds slot 1 of the first piece and
+// slot 0 of each piece, in row order, and writes the row.
 //
 // Deterministic: the units are a function of the plan alone
 // (compile-time sizes; nothing depends on the SM count or timing),
@@ -24,6 +32,7 @@
 // and every merge runs in a fixed order.
 #pragma once
 
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace row_pieces {
@@ -33,19 +42,18 @@ constexpr int kPiece = 64;  // a warp's edges of one row
 constexpr unsigned kFullMask = 0xffffffffu;
 constexpr float kNeg = -1e30f;  // the port's masking sentinel, kernels/ref.py
 
-// #{r in [lo, hi) : (by_item ? r : 0) + indptr[r+1] < d}, given that
-// every r < lo counts: without by_item, the rows that end by edge
-// d - 1; with it (edge_softmax.cu's merge-path chunks), the rows whose
-// end marker comes before item d. The key rises with r, so the warp
-// narrows [lo, hi) by 32 probes a round; every lane returns the same
-// value.
-__device__ inline int count_rows(const int* __restrict__ indptr, int lo,
-                                 int hi, bool by_item, int64_t d, int lane) {
+// #{r in [lo, hi) : (by_item ? r : 0) + ptr[r+1] < d}, given that every
+// r < lo counts: without by_item, over piece_ptr, the rows whose pieces
+// end by piece d - 1; with it (edge_softmax.cu's merge-path chunks,
+// over indptr), the rows whose end marker comes before item d. The key
+// rises with r, so the warp narrows [lo, hi) by 32 probes a round;
+// every lane returns the same value.
+__device__ inline int count_rows(const int* __restrict__ ptr, int lo, int hi,
+                                 bool by_item, int64_t d, int lane) {
   while (hi > lo) {
     const int step = (hi - lo + 31) / 32;
     const int p = lo + lane * step;
-    const bool less =
-        p < hi && (by_item ? (int64_t)p : 0) + indptr[p + 1] < d;
+    const bool less = p < hi && (by_item ? (int64_t)p : 0) + ptr[p + 1] < d;
     const int c = __popc(__ballot_sync(kFullMask, less));
     if (c == 0) {
       hi = lo;
@@ -59,43 +67,41 @@ __device__ inline int count_rows(const int* __restrict__ indptr, int lo,
 }
 
 // Unit k's work: edges [a, b) of row `row`, written out whole when
-// slot < 0, else as the partial at slot index `slot` (unit * 2 + 0 or
-// 1). `live` is false for a piece that holds none of its row's edges;
-// a row unit is live even when its row is empty. Lane 0 of a piece
-// unit also sets merge_row[q]. Every lane must call it.
+// slot < 0, else as the partial at slot index `slot` (piece * 2 + 0 or
+// 1). A row unit may be an empty row.
 struct Unit {
   int row, a, b;
   int64_t slot;
-  bool live;
 };
 
-__device__ inline Unit unit_of(const int* __restrict__ indptr, int n,
-                               int64_t k, int* __restrict__ merge_row,
-                               int lane) {
-  if (k < n) {
-    const int s = indptr[k], e = indptr[k + 1];
-    const int b = e - s > kPiece ? s + kPiece : e;
-    return {(int)k, s, b, b == e ? -1 : (int64_t)(s / kPiece) * 2 + 1,
-            true};
-  }
-  const int64_t q = k - n;
-  const int64_t p0 = q * kPiece;
-  if (p0 >= indptr[n]) {
-    if (lane == 0) merge_row[q] = -1;
-    return {0, 0, 0, -1, false};
-  }
-  const int r = count_rows(indptr, 0, n, false, p0 + 1, lane);
-  const int s = indptr[r], e = indptr[r + 1];
-  const int a = p0 > s + kPiece ? (int)p0 : s + kPiece;
-  const int b = p0 + kPiece < e ? (int)(p0 + kPiece) : e;
-  if (lane == 0) merge_row[q] = (a < b && b == e) ? r : -1;
-  return {r, a, b, q * 2, a < b};
+// The row unit of row k < n.
+__device__ inline Unit row_unit(const int* __restrict__ indptr,
+                                const int* __restrict__ piece_ptr, int k) {
+  const int s = indptr[k], e = indptr[k + 1];
+  const int b = e - s > kPiece ? s + kPiece : e;
+  return {k, s, b, b == e ? -1 : (int64_t)piece_ptr[k] * 2 + 1};
 }
 
-// The piece index whose slot 1 holds cut row r's first partial.
-__device__ inline int64_t first_piece(const int* __restrict__ indptr,
-                                      int r) {
-  return indptr[r] / kPiece;
+// Piece p < piece_ptr[n]. Lane 0 also sets merge_row[p], unless
+// merge_row is null (a kernel with no merge). Every lane must call it.
+__device__ inline Unit piece_unit(const int* __restrict__ indptr,
+                                  const int* __restrict__ piece_ptr, int n,
+                                  int64_t p, int* __restrict__ merge_row,
+                                  int lane) {
+  const int r = count_rows(piece_ptr, 0, n, false, p + 1, lane);
+  const int s = indptr[r], e = indptr[r + 1];
+  const int a = s + (int)(p - piece_ptr[r] + 1) * kPiece;
+  const int b = a + kPiece < e ? a + kPiece : e;
+  if (lane == 0 && merge_row) merge_row[p] = b == e ? r : -1;
+  return {r, a, b, p * 2};
+}
+
+__device__ inline Unit unit_of(const int* __restrict__ indptr,
+                               const int* __restrict__ piece_ptr, int n,
+                               int64_t k, int* __restrict__ merge_row,
+                               int lane) {
+  return k < n ? row_unit(indptr, piece_ptr, (int)k)
+               : piece_unit(indptr, piece_ptr, n, k - n, merge_row, lane);
 }
 
 // A plan's schedule: the first launch's warps (rows, then pieces) and
@@ -104,9 +110,8 @@ struct Schedule {
   int64_t warps, units;
 };
 
-inline Schedule schedule_for(int64_t num_segments, int64_t num_edges) {
-  const int64_t pieces = (num_edges + kPiece - 1) / kPiece;
-  return {num_segments + pieces, pieces};
+inline Schedule schedule_for(int64_t num_segments, int64_t num_pieces) {
+  return {num_segments + num_pieces, num_pieces};
 }
 
 // Scratch layout: merge_row (units int32), then the partials from this
@@ -121,6 +126,41 @@ inline int64_t scratch_bytes(int64_t units, int64_t slot_bytes) {
 
 inline unsigned blocks_for(int64_t warps) {
   return (unsigned)((warps + kWarpsPerBlock - 1) / kWarpsPerBlock);
+}
+
+// The lanes a row of `count` columns takes: the smallest power of two
+// >= count, at most 32.
+__host__ __device__ inline int pow2_lanes(int64_t count) {
+  int l = 1;
+  while (l < 32 && l < count) l <<= 1;
+  return l;
+}
+
+// Group c (floats 4c..4c+3) of a row of `dim` floats: one 16-byte access
+// when kVec (dim % 4 == 0, the row 16-byte aligned), else up to 4 scalar
+// ones that stop at dim.
+template <bool kVec>
+__device__ __forceinline__ float4 load4(const float* __restrict__ row,
+                                        int64_t c, int64_t dim) {
+  if (kVec) return reinterpret_cast<const float4*>(row)[c];
+  const int64_t i = 4 * c;
+  return make_float4(row[i], i + 1 < dim ? row[i + 1] : 0.f,
+                     i + 2 < dim ? row[i + 2] : 0.f,
+                     i + 3 < dim ? row[i + 3] : 0.f);
+}
+
+template <bool kVec>
+__device__ __forceinline__ void store4(float* __restrict__ row, int64_t c,
+                                       int64_t dim, const float4& v) {
+  if (kVec) {
+    reinterpret_cast<float4*>(row)[c] = v;
+    return;
+  }
+  const int64_t i = 4 * c;
+  row[i] = v.x;
+  if (i + 1 < dim) row[i + 1] = v.y;
+  if (i + 2 < dim) row[i + 2] = v.z;
+  if (i + 3 < dim) row[i + 3] = v.w;
 }
 
 }  // namespace row_pieces

@@ -21,9 +21,9 @@
 //
 // Design: the row-and-piece schedule of row_pieces.cuh, so that no
 // row's degree sets the time: a warp per row takes its first kPiece
-// edges, and the rest of a long row is cut at the multiples of kPiece
-// along the edge axis, one more warp per piece (the 1,000,000-node
-// alipay_like plan's 2,832-edge row is 45 warps' work). A warp stages
+// edges, and the rest of a long row is cut into pieces of kPiece edges
+// counted from the row's start, one more warp per piece (the
+// 1,000,000-node alipay_like plan's 2,832-edge row is 45 warps' work). A warp stages
 // its edge ids in shared memory. Lanes stride over the feature axis
 // with 16-byte loads when D % 4 == 0; when a row is narrower than the
 // warp (D 64: 16 float4s), the warp splits into 2 (or more) sub-warps
@@ -83,8 +83,7 @@ struct Lanes {
 };
 
 __device__ __forceinline__ Lanes lanes_for(int64_t width, int lane) {
-  int l = 1;
-  while (l < 32 && l < width) l <<= 1;
+  const int l = pow2_lanes(width);
   return {l, 32 / l, lane / l};
 }
 
@@ -130,11 +129,13 @@ __device__ __forceinline__ void piece(const T* __restrict__ data,
 
 // T is float4 (D % 4 == 0, 16-byte aligned) or float; `width` counts Ts.
 // carry: (pieces, 2, width) partials; merge_row: per piece, the row
-// whose end it holds and whose partials the second launch folds, or -1.
+// whose last piece it is and whose partials the second launch folds, or
+// -1.
 template <typename T>
 __global__ void __launch_bounds__(32 * kWarpsPerBlock)
 segment_max_kernel(const T* __restrict__ data, const int* __restrict__ perm,
-                   const int* __restrict__ indptr, T* __restrict__ out,
+                   const int* __restrict__ indptr,
+                   const int* __restrict__ piece_ptr, T* __restrict__ out,
                    T* __restrict__ carry, int* __restrict__ merge_row,
                    int n, int64_t width, int64_t warps) {
   __shared__ int s_ids[kWarpsPerBlock][kPiece];
@@ -142,8 +143,7 @@ segment_max_kernel(const T* __restrict__ data, const int* __restrict__ perm,
   const int w = threadIdx.x >> 5;
   const int64_t k = (int64_t)blockIdx.x * kWarpsPerBlock + w;
   if (k >= warps) return;  // uniform across the warp
-  const Unit u = unit_of(indptr, n, k, merge_row, lane);
-  if (!u.live) return;
+  const Unit u = unit_of(indptr, piece_ptr, n, k, merge_row, lane);
   for (int t = lane; t < u.b - u.a; t += 32) s_ids[w][t] = perm[u.a + t];
   __syncwarp();
   piece(data, s_ids[w], u.b - u.a,
@@ -151,12 +151,13 @@ segment_max_kernel(const T* __restrict__ data, const int* __restrict__ perm,
         width, lanes_for(width, lane), lane);
 }
 
-// One warp per piece: finish the cut row whose end it holds, folding
-// the row's partials in plan order, from slot 1 of its first piece to
-// slot 0 of this one.
+// One warp per piece: finish the cut row whose last piece it is,
+// folding the row's partials in row order, slot 1 of its first piece
+// (its row unit's), then slot 0 of each of its pieces.
 template <typename T>
 __global__ void __launch_bounds__(32 * kWarpsPerBlock)
-segment_max_merge(const int* __restrict__ indptr, const T* __restrict__ carry,
+segment_max_merge(const int* __restrict__ piece_ptr,
+                  const T* __restrict__ carry,
                   const int* __restrict__ merge_row, T* __restrict__ out,
                   int64_t width, int64_t units) {
   const int lane = threadIdx.x & 31;
@@ -165,48 +166,50 @@ segment_max_merge(const int* __restrict__ indptr, const T* __restrict__ carry,
   if (k >= units) return;
   const int r = merge_row[k];
   if (r < 0) return;  // uniform across the warp
-  const int64_t first = first_piece(indptr, r);
+  const int64_t first = piece_ptr[r];
   for (int64_t c = lane; c < width; c += 32) {
     T acc = carry[(first * 2 + 1) * width + c];
-    for (int64_t q = first + 1; q <= k; ++q)
+    for (int64_t q = first; q <= k; ++q)
       max_to(acc, carry[(q * 2) * width + c]);
     out[(int64_t)r * width + c] = acc;
   }
 }
 
 template <typename T>
-void launch(const T* data, const int* perm, const int* indptr, T* out,
-            char* scratch, int64_t num_segments, int64_t num_edges,
-            int64_t width, cudaStream_t s) {
-  const Schedule sc = schedule_for(num_segments, num_edges);
+void launch(const T* data, const int* perm, const int* indptr,
+            const int* piece_ptr, T* out, char* scratch, int64_t num_segments,
+            int64_t num_pieces, int64_t width, cudaStream_t s) {
+  const Schedule sc = schedule_for(num_segments, num_pieces);
   int* merge_row = reinterpret_cast<int*>(scratch);
   T* carry = reinterpret_cast<T*>(scratch + carry_offset(sc.units));
   const dim3 block(32 * kWarpsPerBlock);
   segment_max_kernel<T><<<blocks_for(sc.warps), block, 0, s>>>(
-      data, perm, indptr, out, carry, merge_row, (int)num_segments, width,
-      sc.warps);
+      data, perm, indptr, piece_ptr, out, carry, merge_row,
+      (int)num_segments, width, sc.warps);
   if (sc.units > 0)
     segment_max_merge<T><<<blocks_for(sc.units), block, 0, s>>>(
-        indptr, carry, merge_row, out, width, sc.units);
+        piece_ptr, carry, merge_row, out, width, sc.units);
 }
 
 }  // namespace
 
 // Bytes of scratch segment_max_f32 needs for a plan of num_segments rows
-// and num_edges edges (pad edges included) at width dim.
+// and num_pieces pieces at width dim.
 extern "C" int64_t segment_max_scratch_bytes(int64_t num_segments,
-                                             int64_t num_edges, int64_t dim) {
-  return scratch_bytes(schedule_for(num_segments, num_edges).units,
+                                             int64_t num_pieces,
+                                             int64_t dim) {
+  return scratch_bytes(schedule_for(num_segments, num_pieces).units,
                        dim * 4);
 }
 
-// data (E, dim) f32, perm (E,) int32, indptr (num_segments+1,) int32,
-// scratch (segment_max_scratch_bytes, 16-byte aligned) -> out
-// (num_segments, dim) f32. Two launches on `stream` (one when there are
-// no edges). Returns cudaGetLastError().
+// data (E, dim) f32, perm (E,) int32, indptr and piece_ptr
+// (num_segments+1,) int32, scratch (segment_max_scratch_bytes, 16-byte
+// aligned) -> out (num_segments, dim) f32. Two launches on `stream` (one
+// when no row is cut). Returns cudaGetLastError().
 extern "C" int segment_max_f32(const void* data, const void* perm,
-                               const void* indptr, void* out, void* scratch,
-                               int64_t num_segments, int64_t num_edges,
+                               const void* indptr, const void* piece_ptr,
+                               void* out, void* scratch,
+                               int64_t num_segments, int64_t num_pieces,
                                int64_t dim, void* stream) {
   if (num_segments <= 0 || dim <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -214,12 +217,14 @@ extern "C" int segment_max_f32(const void* data, const void* perm,
                     (uintptr_t)out % 16 == 0 && (uintptr_t)scratch % 16 == 0;
   if (vec4) {
     launch(static_cast<const float4*>(data), static_cast<const int*>(perm),
-           static_cast<const int*>(indptr), static_cast<float4*>(out),
-           static_cast<char*>(scratch), num_segments, num_edges, dim / 4, s);
+           static_cast<const int*>(indptr),
+           static_cast<const int*>(piece_ptr), static_cast<float4*>(out),
+           static_cast<char*>(scratch), num_segments, num_pieces, dim / 4, s);
   } else {
     launch(static_cast<const float*>(data), static_cast<const int*>(perm),
-           static_cast<const int*>(indptr), static_cast<float*>(out),
-           static_cast<char*>(scratch), num_segments, num_edges, dim, s);
+           static_cast<const int*>(indptr),
+           static_cast<const int*>(piece_ptr), static_cast<float*>(out),
+           static_cast<char*>(scratch), num_segments, num_pieces, dim, s);
   }
   return (int)cudaGetLastError();
 }

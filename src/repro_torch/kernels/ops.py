@@ -6,9 +6,10 @@ For a tensor on the CPU a wrapper runs the kernel's plain version
 (:mod:`repro_torch.kernels.ref`); for a CUDA tensor it launches the
 kernel or raises — there is no fallback. Each call that launches adds
 one to ``launches[name]``, so a run can show that its path went through
-the kernel; ``segment_max`` and ``edge_softmax`` make two CUDA launches
-a call (their rows or chunks, then the merge of the rows they cut) and
-count one. The backward wrappers are what the autograd Functions of
+the kernel; ``segment_sum``, ``segment_max`` and ``edge_softmax`` make
+two CUDA launches a call when a row is cut (their rows and pieces, or
+chunks, then the merge of the rows they cut) and count one. The
+backward wrappers are what the autograd Functions of
 :mod:`repro_torch.core.aggregate` call.
 """
 from __future__ import annotations
@@ -64,46 +65,56 @@ def _raise_on(rc: int, name: str) -> None:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
 
 
+def _scratch(name: str, *sizes: int, device) -> torch.Tensor:
+    """The scratch of ``segment_sum``, ``segment_max`` or
+    ``edge_softmax`` (the partials of the rows their schedule cuts),
+    sized by the kernel source from the plan's sizes and the widths; from
+    the caching allocator, never zeroed."""
+    nbytes = build.kernel(name, f"{name}_scratch_bytes")(*sizes)
+    return torch.empty(nbytes, dtype=torch.uint8, device=device)
+
+
+def _plan_index(plan: CSCPlan) -> tuple:
+    """The plan arrays the row-and-piece kernels read."""
+    return plan.perm, plan.indptr, plan.piece_ptr
+
+
 def _segment_sum_cuda(data: torch.Tensor, plan: CSCPlan) -> torch.Tensor:
-    _check_cuda("segment_sum", (plan.perm, plan.indptr), data)
-    n, d = plan.num_segments, data.shape[1]
+    """One op, two CUDA launches when a row is cut
+    (``csrc/segment_sum.cu``): rows several to a warp when they are
+    narrow, a warp per 64-edge piece of a long row, then the merge of the
+    rows that were cut."""
+    _check_cuda("segment_sum", _plan_index(plan), data)
+    n, x, d = plan.num_segments, plan.num_pieces, data.shape[1]
     out = torch.empty((n, d), dtype=torch.float32, device=data.device)
     if n == 0 or d == 0:
         return out
     fn = build.kernel("segment_sum")
+    scratch = _scratch("segment_sum", x, d, device=data.device)
     with torch.cuda.device(data.device):
         stream = torch.cuda.current_stream(data.device).cuda_stream
-        rc = fn(_ptr(data), _ptr(plan.perm), _ptr(plan.indptr), _ptr(out),
-                n, d, stream)
+        rc = fn(_ptr(data), *map(_ptr, _plan_index(plan)), _ptr(out),
+                _ptr(scratch), n, x, d, stream)
     _raise_on(rc, "segment_sum")
     launches["segment_sum"] += 1
     return out
 
 
-def _scratch(name: str, *sizes: int, device) -> torch.Tensor:
-    """The scratch of ``segment_max`` or ``edge_softmax`` (the partials
-    of the rows their schedule cuts), sized by the kernel source from the
-    plan's rows and edges and the widths; from the caching allocator,
-    never zeroed."""
-    nbytes = build.kernel(name, f"{name}_scratch_bytes")(*sizes)
-    return torch.empty(nbytes, dtype=torch.uint8, device=device)
-
-
 def _segment_max_cuda(data: torch.Tensor, plan: CSCPlan) -> torch.Tensor:
-    """One op, two CUDA launches (``csrc/segment_max.cu``): a warp per row
-    and per 64-edge piece of a long row, then the merge of the rows that
-    were cut."""
-    _check_cuda("segment_max", (plan.perm, plan.indptr), data)
-    n, e, d = plan.num_segments, plan.num_edges, data.shape[1]
+    """One op, two CUDA launches when a row is cut
+    (``csrc/segment_max.cu``): a warp per row and per 64-edge piece of a
+    long row, then the merge of the rows that were cut."""
+    _check_cuda("segment_max", _plan_index(plan), data)
+    n, x, d = plan.num_segments, plan.num_pieces, data.shape[1]
     out = torch.empty((n, d), dtype=torch.float32, device=data.device)
     if n == 0 or d == 0:
         return out
     fn = build.kernel("segment_max")
-    scratch = _scratch("segment_max", n, e, d, device=data.device)
+    scratch = _scratch("segment_max", n, x, d, device=data.device)
     with torch.cuda.device(data.device):
         stream = torch.cuda.current_stream(data.device).cuda_stream
-        rc = fn(_ptr(data), _ptr(plan.perm), _ptr(plan.indptr), _ptr(out),
-                _ptr(scratch), n, e, d, stream)
+        rc = fn(_ptr(data), *map(_ptr, _plan_index(plan)), _ptr(out),
+                _ptr(scratch), n, x, d, stream)
     _raise_on(rc, "segment_max")
     launches["segment_max"] += 1
     return out
@@ -115,20 +126,21 @@ def _edge_softmax_cuda(logits: torch.Tensor, values: torch.Tensor,
     and per 64-edge piece of a long row, or from 2^19 rows plus edges a
     warp per merge-path chunk, then the merge of the rows that were
     cut."""
-    _check_cuda("edge_softmax", (plan.perm, plan.indptr), logits, values)
-    n, e, (_, h, d) = plan.num_segments, plan.num_edges, values.shape
+    _check_cuda("edge_softmax", _plan_index(plan), logits, values)
+    n, e, x = plan.num_segments, plan.num_edges, plan.num_pieces
+    _, h, d = values.shape
     out = torch.empty((n, h, d), dtype=torch.float32, device=values.device)
     m = torch.empty((n, h), dtype=torch.float32, device=values.device)
     den = torch.empty((n, h), dtype=torch.float32, device=values.device)
     if n == 0 or h == 0 or d == 0:
         return out, m.fill_(NEG), den.zero_()
     fn = build.kernel("edge_softmax")
-    scratch = _scratch("edge_softmax", n, e, h, d, device=values.device)
+    scratch = _scratch("edge_softmax", n, e, x, h, d, device=values.device)
     with torch.cuda.device(values.device):
         stream = torch.cuda.current_stream(values.device).cuda_stream
-        rc = fn(_ptr(logits), _ptr(values), _ptr(plan.perm),
-                _ptr(plan.indptr), _ptr(out), _ptr(m), _ptr(den),
-                _ptr(scratch), n, e, h, d, stream)
+        rc = fn(_ptr(logits), _ptr(values), *map(_ptr, _plan_index(plan)),
+                _ptr(out), _ptr(m), _ptr(den), _ptr(scratch), n, e, x, h, d,
+                stream)
     _raise_on(rc, "edge_softmax")
     launches["edge_softmax"] += 1
     return out, m, den
@@ -151,25 +163,42 @@ def _segment_sum_bwd_cuda(g: torch.Tensor, plan: CSCPlan) -> torch.Tensor:
     return out
 
 
-def _edge_softmax_bwd_cuda(g, logits, values, m, den, og, plan: CSCPlan):
-    _check_cuda("edge_softmax_bwd", (plan.edge_dst,), g, logits, values, m,
-                den, og)
+_SECTOR_FLOATS = 8   # float32s in a 32-byte sector of device memory
+
+
+def _edge_softmax_bwd_cuda(g, logits, values, out, m, den, plan: CSCPlan):
+    """One launch (``csrc/edge_softmax_bwd.cu``) over the destination
+    plan's rows (several to a warp), 64-edge pieces and 64-edge runs of
+    pad edges; each unit takes ``og = out . g`` of its row in
+    registers."""
+    _check_cuda("edge_softmax_bwd", _plan_index(plan), g, logits, values,
+                out, m, den)
     n, h, d = g.shape
     if n == 0:
         return torch.zeros_like(logits), torch.zeros_like(values)
-    d_logits = torch.empty_like(logits)
+    e = plan.num_edges
+    # d_logits' rows padded to whole 32-byte sectors (zeros past column
+    # h) where the call's traffic exceeds the L2 cache, which would
+    # otherwise complete each half-written sector by a read; a view of
+    # the first h columns is returned
+    traffic = 4 * e * h * (2 * d + 2)
+    l2 = torch.cuda.get_device_properties(g.device).L2_cache_size
+    stride = -(-h // _SECTOR_FLOATS) * _SECTOR_FLOATS if traffic > l2 else h
+    d_logits = torch.empty((e, stride), dtype=torch.float32,
+                           device=g.device)
     d_values = torch.empty_like(values)
-    if plan.num_edges == 0 or h == 0 or d == 0:
-        return d_logits, d_values
+    if e == 0 or h == 0 or d == 0:
+        return d_logits[:, :h], d_values
     fn = build.kernel("edge_softmax_bwd")
     with torch.cuda.device(g.device):
         stream = torch.cuda.current_stream(g.device).cuda_stream
         rc = fn(_ptr(g), _ptr(logits), _ptr(values), _ptr(m), _ptr(den),
-                _ptr(og), _ptr(plan.edge_dst), _ptr(d_logits),
-                _ptr(d_values), plan.num_edges, n, h, d, stream)
+                _ptr(out), *map(_ptr, _plan_index(plan)), _ptr(d_logits),
+                _ptr(d_values), e, n, plan.num_pieces,
+                e - plan.num_real_edges, h, stride, d, stream)
     _raise_on(rc, "edge_softmax_bwd")
     launches["edge_softmax_bwd"] += 1
-    return d_logits, d_values
+    return d_logits[:, :h], d_values
 
 
 def _segment_max_bwd_cuda(g: torch.Tensor, fwd_out: torch.Tensor,
@@ -317,8 +346,9 @@ def edge_softmax_bwd_op(g: torch.Tensor, logits: torch.Tensor,
     operands and statistics: g / out (N, H, D) cotangent and forward
     output, logits (E, H), values (E, H, D), m / den (N, H). Returns
     ``(d_logits, d_values)``, single-head shapes lifted and lowered as in
-    the forward. ``og = out . g`` is the node-sized contraction taken here,
-    outside the kernel (the reference's ``ops.py:462``)."""
+    the forward. ``og = out . g``, the node-sized contraction, is the
+    plain version's input (the reference's ``ops.py:462``); the kernel
+    takes it per row in registers."""
     if logits.shape[0] != plan.num_edges:
         raise ValueError(f"logits edge axis {logits.shape[0]} != plan "
                          f"num_edges {plan.num_edges}")
@@ -338,14 +368,13 @@ def edge_softmax_bwd_op(g: torch.Tensor, logits: torch.Tensor,
                          f"{tuple(den.shape)} do not fit {n} rows of "
                          f"{tuple(values.shape[1:])}")
     # autograd may hand the cotangent over expanded (stride 0)
-    g = g.contiguous()
-    og = (out * g).sum(-1)
+    g, out = g.contiguous(), out.contiguous()
     if _route(g) == "cpu":
-        d_logits, d_values = edge_softmax_bwd_ref(g, logits, values, m, den,
-                                                  og, plan.edge_dst)
+        d_logits, d_values = edge_softmax_bwd_ref(
+            g, logits, values, m, den, (out * g).sum(-1), plan.edge_dst)
     else:
-        d_logits, d_values = _edge_softmax_bwd_cuda(g, logits, values, m,
-                                                    den, og, plan)
+        d_logits, d_values = _edge_softmax_bwd_cuda(g, logits, values, out,
+                                                    m, den, plan)
     if single:
         return d_logits[:, 0], d_values[:, 0, :]
     return d_logits, d_values

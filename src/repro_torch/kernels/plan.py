@@ -2,13 +2,20 @@
 
 The TPU plan (``repro/kernels/ops.py:CSCPlan``) pads every 128-row
 destination block to a common lane count for a one-hot matmul; that
-geometry is a TPU adaptation. On the GPU one warp walks one destination
-row, so the plan keeps only the contracts:
+geometry is a TPU adaptation. On the GPU warps walk destination rows
+and pieces of rows, so the plan keeps only the contracts:
 
 - ``perm`` (E,): edge ids sorted by destination, stable;
 - ``indptr`` (N+1,): row ``i`` owns ``perm[indptr[i]:indptr[i+1]]``;
 - ``edge_dst`` (E,): each edge's destination row, the inverse map the
-  backward kernels read (pad edges hold ``num_segments``).
+  backward kernels read (pad edges hold ``num_segments``);
+- ``piece_ptr`` (N+1,): the prefix sum over the rows of each row's
+  pieces, ``max(0, ceil((deg - PIECE) / PIECE))``: the kernels' row
+  and piece schedule (``csrc/row_pieces.cuh``) cuts a row of more than
+  ``PIECE`` edges into pieces counted from the row's start, so a row's
+  cuts are a function of its length alone; ``num_pieces`` is
+  ``piece_ptr[N]`` and ``num_real_edges`` is ``indptr[N]``, kept on the
+  host so that a launch sizes its grid without reading the device.
 
 Edges whose segment id is ``num_segments`` or more (the pad edges of a
 bucket) sort past ``indptr[-1]`` and join no row, so the kernels read
@@ -26,6 +33,9 @@ from dataclasses import dataclass, replace
 import numpy as np
 import torch
 
+# edges per unit of the kernels' schedule, csrc/row_pieces.cuh's kPiece
+PIECE = 64
+
 
 @dataclass(frozen=True)
 class CSCPlan:
@@ -34,11 +44,15 @@ class CSCPlan:
     edge_dst: torch.Tensor     # (E,) int32, pad edges = num_segments
     num_segments: int
     num_edges: int
+    piece_ptr: torch.Tensor    # (N+1,) int32, pieces before each row
+    num_pieces: int
+    num_real_edges: int        # indptr[N]; the rest are pad edges
 
     def to(self, device, copy: bool = False) -> "CSCPlan":
         return replace(self, perm=self.perm.to(device, copy=copy),
                        indptr=self.indptr.to(device, copy=copy),
-                       edge_dst=self.edge_dst.to(device, copy=copy))
+                       edge_dst=self.edge_dst.to(device, copy=copy),
+                       piece_ptr=self.piece_ptr.to(device, copy=copy))
 
 
 def _stable_order(ids: np.ndarray) -> np.ndarray:
@@ -69,9 +83,14 @@ def build_csc_plan(segment_ids: np.ndarray, num_segments: int) -> CSCPlan:
     counts = np.bincount(ids[valid], minlength=num_segments)
     indptr = np.zeros(num_segments + 1, np.int64)
     np.cumsum(counts, out=indptr[1:])
+    piece_ptr = np.zeros(num_segments + 1, np.int64)
+    np.cumsum(np.maximum(0, -(-(counts - PIECE) // PIECE)),
+              out=piece_ptr[1:])
     return CSCPlan(torch.from_numpy(perm),
                    torch.from_numpy(indptr.astype(np.int32)),
-                   torch.from_numpy(edge_dst), int(num_segments), E)
+                   torch.from_numpy(edge_dst), int(num_segments), E,
+                   torch.from_numpy(piece_ptr.astype(np.int32)),
+                   int(piece_ptr[-1]), int(indptr[-1]))
 
 
 def build_bucket_csc_plan(dst_local: np.ndarray, n_pad: int,

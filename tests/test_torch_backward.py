@@ -23,7 +23,8 @@ except ImportError:      # a machine without the JAX package: only the
 
 from repro_torch.core.aggregate import _CSCEdgeSoftmax, _CSCSegmentSum
 from repro_torch.kernels import ops
-from repro_torch.kernels.plan import build_bucket_csc_plan, build_csc_plan
+from repro_torch.kernels.plan import (PIECE, build_bucket_csc_plan,
+                                      build_csc_plan)
 from repro_torch.kernels.ref import (NEG, edge_softmax_bwd_ref,
                                      edge_softmax_ref, segment_sum_bwd_ref)
 
@@ -205,6 +206,85 @@ def test_cpu_backward_wrappers_launch_nothing():
     assert ops.launches == before
 
 
+def _edge_softmax_bwd_twin(g, logits, values, m, den, out, plan):
+    """``edge_softmax_bwd.cu``'s walk in float32 numpy over its units:
+    each row's first PIECE edges (several rows a warp), then one warp per
+    piece p (its row found over piece_ptr, its edges PIECE at a time from
+    the row's start), then one per PIECE pad edges past indptr[N], which
+    read row N - 1 as the clip does. Each unit takes og = out . g of its
+    row once and gives every edge of it p, d_values and d_logits; every
+    edge is written once."""
+    f = np.float32
+    perm, indptr = plan.perm.numpy(), plan.indptr.numpy().astype(np.int64)
+    ptr = plan.piece_ptr.numpy().astype(np.int64)
+    n, E = plan.num_segments, plan.num_edges
+    units = []
+    for r in range(n):
+        s, e = indptr[r], indptr[r + 1]
+        units.append((r, s, min(e, s + PIECE)))
+    for p in range(plan.num_pieces):
+        r = int(np.searchsorted(ptr[1:], p, side="right"))
+        a = indptr[r] + (p - ptr[r] + 1) * PIECE
+        units.append((r, a, min(indptr[r + 1], a + PIECE)))
+    units += [(n - 1, a, min(E, a + PIECE)) for a in range(indptr[n], E,
+                                                           PIECE)]
+    d_lg = np.full(logits.shape, np.nan, f)
+    d_v = np.full(values.shape, np.nan, f)
+    # a pad edge read against an empty last row (m = NEG, den = 0) gets
+    # p = inf, as in the kernel, the plain version and the TPU kernel
+    with np.errstate(over="ignore"):
+        for r, a, b in units:
+            _bwd_unit(g, logits, values, m, den, out, perm, r, a, b,
+                      d_lg, d_v)
+    assert not np.isnan(d_lg).any(), "an edge was never written"
+    return d_lg, d_v
+
+
+def _bwd_unit(g, logits, values, m, den, out, perm, r, a, b, d_lg, d_v):
+    """One warp's unit: row r's og, then edges perm[a:b]."""
+    f = np.float32
+    og = (out[r] * g[r]).sum(-1)
+    for e in perm[a:b]:
+        assert np.isnan(d_lg[e]).all(), f"edge {e} written twice"
+        p = np.where(logits[e] > f(NEG / 2), np.exp(logits[e] - m[r])
+                     / np.maximum(den[r], f(1e-20)), f(0))
+        d_v[e] = p[:, None] * g[r]
+        d_lg[e] = p * ((values[e] * g[r]).sum(-1) - og)
+
+
+@pytest.mark.parametrize("name", sorted(set(CASES) - {"no_edges"}))
+def test_backward_kernel_walk_matches_plain_version(name):
+    """The CUDA backward's walk over the destination plan's rows, pieces
+    and pad units, run here on the CPU, agrees with the plain version
+    (which the oracle tests hold against the JAX kernel) on every edge,
+    pad edges with live logits included; a 300-edge hub is cut into
+    pieces."""
+    ids, n, logits, values, g, bucket = _case(name)
+    if bucket is None:                  # a hub among the rows
+        ids = np.concatenate([ids, np.full(300, n // 2, np.int32)])
+        rng = np.random.default_rng(1)
+        logits = np.concatenate([logits, rng.normal(size=(300,) + logits
+                                                    .shape[1:]).astype(
+                                                        np.float32) * 3])
+        values = np.concatenate([values, rng.normal(
+            size=(300,) + values.shape[1:]).astype(np.float32)])
+    plan, _ = _plans(ids, n, bucket, jax_plans=False)
+    lg, v = torch.from_numpy(logits), torch.from_numpy(values)
+    out, m, den = ops.edge_softmax_fwd_op(lg, v, plan)
+    got = _edge_softmax_bwd_twin(g, logits, values, m.numpy(), den.numpy(),
+                                 out.numpy(), plan)
+    want = ops.edge_softmax_bwd_op(torch.from_numpy(g), lg, v, out, m, den,
+                                   plan)
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a, b.numpy(), rtol=TOL, atol=TOL)
+    if bucket is not None:      # pad edges with live logits read row N - 1
+        pads = ids >= n
+        assert np.abs(logits[pads]).min() < 1e3
+        assert np.abs(got[1][pads]).max() > 0
+    else:
+        assert plan.num_pieces >= 4
+
+
 # -- the autograd Functions ---------------------------------------------------
 
 
@@ -311,3 +391,74 @@ def test_cuda_backward_kernels_are_deterministic(cuda):
     assert all(torch.equal(x, y) for x, y in zip(a, b))
     assert torch.equal(ops.segment_sum_bwd_op(gt, plan),
                        ops.segment_sum_bwd_op(gt, plan))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("heads,dim", [(4, 8), (4, 16), (8, 4), (40, 4),
+                                       (4, 32), (1, 130), (2, 3)])
+def test_cuda_backward_on_hub_rows(heads, dim, cuda):
+    """``edge_softmax_bwd.cu`` over hub rows of 65, 412, 2,832 and 5,000
+    edges (cut into pieces), empty rows, an all-masked hub and pad edges
+    with live logits behind them: at the compile-time widths (D 8, 16 and
+    4, with 4, 2 and 1 rows a row warp; 40 heads, more than a warp's
+    lanes), a 16-byte one (D 32) and the scalar one (D 130, D 3); within
+    rtol/atol 1e-5 of the plain version, the same bits twice."""
+    rng = np.random.default_rng(3)
+    n = 400
+    ids = np.sort(np.concatenate(
+        [rng.integers(10, n - 10, 3000)]
+        + [np.full(deg, r) for r, deg in ((0, 65), (5, 412), (200, 2832),
+                                          (n - 1, 5000), (7, 700))]))
+    e, e_pad = len(ids), len(ids) + 150
+    logits = (rng.normal(size=(e_pad, heads)) * 3).astype(np.float32)
+    values = rng.normal(size=(e_pad, heads, dim)).astype(np.float32)
+    logits[:e][ids == 7] = NEG                     # an all-masked hub
+    values[:e][ids == 7] = 0.0
+    plan = build_bucket_csc_plan(ids.astype(np.int32), n, e_pad).to(cuda)
+    lg, v = (torch.from_numpy(a).to(cuda) for a in (logits, values))
+    g = torch.from_numpy(rng.normal(size=(n, heads, dim)).astype(
+        np.float32)).to(cuda)
+    out, m, den = ops.edge_softmax_fwd_op(lg, v, plan)
+    got = ops.edge_softmax_bwd_op(g, lg, v, out, m, den, plan)
+    again = ops.edge_softmax_bwd_op(g, lg, v, out, m, den, plan)
+    want = edge_softmax_bwd_ref(g, lg, v, m, den, (out * g).sum(-1),
+                                plan.edge_dst)
+    torch.cuda.synchronize()
+    for a, b, w in zip(got, again, want):
+        torch.testing.assert_close(a, w, rtol=TOL, atol=TOL)
+        assert torch.equal(a, b)
+    masked = torch.from_numpy(np.flatnonzero(ids == 7)).to(cuda)
+    assert not got[0][masked].any() and not got[1][masked].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("heads,dim", [(4, 8), (3, 4), (1, 130)])
+def test_cuda_backward_pads_logit_rows_past_the_l2(heads, dim, cuda):
+    """Where the call's traffic exceeds the L2 cache, d_logits comes back
+    as a view of rows padded to whole 32-byte sectors (zeros past the
+    heads): the same values as the plain version, the same bits twice."""
+    rng = np.random.default_rng(4)
+    l2 = torch.cuda.get_device_properties(cuda).L2_cache_size
+    e = 2 * l2 // (4 * heads * (2 * dim + 2)) + 1
+    n = e // 6
+    ids = np.sort(rng.integers(0, n, e)).astype(np.int32)
+    plan = build_csc_plan(ids, n).to(cuda)
+    lg = torch.from_numpy((rng.normal(size=(e, heads)) * 3).astype(
+        np.float32)).to(cuda)
+    v = torch.from_numpy(rng.normal(size=(e, heads, dim)).astype(
+        np.float32)).to(cuda)
+    g = torch.from_numpy(rng.normal(size=(n, heads, dim)).astype(
+        np.float32)).to(cuda)
+    out, m, den = ops.edge_softmax_fwd_op(lg, v, plan)
+    d_lg, d_v = ops.edge_softmax_bwd_op(g, lg, v, out, m, den, plan)
+    again = ops.edge_softmax_bwd_op(g, lg, v, out, m, den, plan)
+    want = edge_softmax_bwd_ref(g, lg, v, m, den, (out * g).sum(-1),
+                                plan.edge_dst)
+    torch.cuda.synchronize()
+    stride = -(-heads // 8) * 8
+    assert d_lg.shape == (e, heads) and d_lg.stride() == (stride, 1)
+    rows = torch.as_strided(d_lg, (e, stride), (stride, 1))
+    assert not rows[:, heads:].any()
+    for a, b, w in zip((d_lg, d_v), again, want):
+        torch.testing.assert_close(a, w, rtol=TOL, atol=TOL)
+        assert torch.equal(a, b)

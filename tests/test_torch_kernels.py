@@ -63,10 +63,11 @@ def _constant(source: str, name: str) -> int:
     return int(m.group(1) or m.group(2)) << int(m.group(3) or 0)
 
 
-# the schedules of the kernels: csrc/row_pieces.cuh's, which both
-# segment_max.cu and edge_softmax.cu use (a warp per row, pieces of
-# PIECE edges past a row's first PIECE), and edge_softmax.cu's
-# merge-path chunks of CHUNK items (rows plus edges) from LARGE_PLAN on
+# the schedules of the kernels: csrc/row_pieces.cuh's, which
+# segment_sum.cu, segment_max.cu, edge_softmax.cu and edge_softmax_bwd.cu
+# use (a warp per row, pieces of PIECE edges past a row's first PIECE,
+# counted from the row's start), and edge_softmax.cu's merge-path chunks
+# of CHUNK items (rows plus edges) from LARGE_PLAN on
 PIECE = _constant("row_pieces.cuh", "kPiece")
 CHUNK = _constant("edge_softmax.cu", "kChunk")
 LARGE_PLAN = _constant("edge_softmax.cu", "kLargePlan")
@@ -397,7 +398,7 @@ def _split_chunks(indptr, chunk: int, reduce, put):
     reduces its row pieces in plan order (``reduce(row, a, b)``) and
     ``put``s each: ``put(row, part, None)`` for a whole row, else into
     slot (unit, 1) where the row starts and (unit, 0) after. Returns
-    {unit: row} for the rows the second launch merges."""
+    {unit: (row, the slots the second launch folds, in order)}."""
     n = len(indptr) - 1
     items, merge_rows = n + int(indptr[n]), {}
     for k, d0 in enumerate(range(0, items, chunk)):
@@ -406,7 +407,9 @@ def _split_chunks(indptr, chunk: int, reduce, put):
         i1 = _count_rows(indptr, i0, min(i0 + chunk, n), True, d1)
         j0, j1 = d0 - i0, d1 - i1
         if i0 < i1 and indptr[i0] < j0:
-            merge_rows[k] = i0
+            first = (i0 + int(indptr[i0])) // chunk
+            merge_rows[k] = (i0, [(first, 1)] + [(q, 0) for q in
+                                                 range(first + 1, k + 1)])
         for r in range(i0, min(i1, n - 1) + 1):
             start, ends_here = int(indptr[r]), r < i1
             if not ends_here and start >= j1:
@@ -418,28 +421,42 @@ def _split_chunks(indptr, chunk: int, reduce, put):
     return merge_rows
 
 
+def _piece_ptr(indptr, piece: int) -> np.ndarray:
+    """``csrc/row_pieces.cuh``'s piece_ptr, a row at a time: a row of d
+    edges has a piece for each ``piece`` edges past its first ``piece``."""
+    counts, ptr = [], [0]
+    for r in range(len(indptr) - 1):
+        d, extra = int(indptr[r + 1] - indptr[r]), 0
+        while d > piece * (extra + 1):
+            extra += 1
+        ptr.append(ptr[-1] + extra)
+    return np.asarray(ptr, np.int64)
+
+
 def _split_rows(indptr, num_edges: int, piece: int, reduce, put):
-    """``row_pieces.cuh``'s first launch: a warp per row takes its
-    first ``piece`` edges (slot (start // piece, 1) when the row is
-    longer); a warp per multiple of ``piece`` along the edge axis takes
-    what lies there past its row's first ``piece`` (slot (q, 0))."""
+    """``row_pieces.cuh``'s first launch: a warp per row takes its first
+    ``piece`` edges (slot (piece_ptr[r], 1) when the row is longer); a
+    warp per piece p finds its row r by the warp search over piece_ptr
+    and takes the row's edges [s + j*piece, s + (j+1)*piece), j = p -
+    piece_ptr[r] + 1, counted from the row's start s (slot (p, 0)).
+    Returns {last piece of a cut row: (row, the slots it folds)}."""
     n = len(indptr) - 1
+    ptr = _piece_ptr(indptr, piece)
     merge_rows = {}
     for r in range(n):
         s, e = int(indptr[r]), int(indptr[r + 1])
         b = min(e, s + piece)
-        put(r, reduce(r, s, b), None if b == e else (s // piece, 1))
-    for q in range(-(-num_edges // piece)):
-        p0 = q * piece
-        if p0 >= indptr[n]:
-            continue
-        r = _count_rows(indptr, 0, n, False, p0 + 1)
+        put(r, reduce(r, s, b), None if b == e else (int(ptr[r]), 1))
+    for p in range(int(ptr[n])):
+        r = _count_rows(ptr, 0, n, False, p + 1)
         s, e = int(indptr[r]), int(indptr[r + 1])
-        a, b = max(p0, s + piece), min(p0 + piece, e)
-        if a < b:
-            put(r, reduce(r, a, b), (q, 0))
-            if b == e:
-                merge_rows[q] = r
+        a = s + (p - int(ptr[r]) + 1) * piece
+        b = min(e, a + piece)
+        assert a < b <= num_edges
+        put(r, reduce(r, a, b), (p, 0))
+        if b == e:
+            merge_rows[p] = (r, [(int(ptr[r]), 1)] + [
+                (q, 0) for q in range(int(ptr[r]), p + 1)])
     return merge_rows
 
 
@@ -456,10 +473,8 @@ def _split_and_merge(indptr, num_edges: int, schedule, reduce, merge,
                      finish) -> int:
     """Both launches of a kernel, on the CPU. ``schedule`` is ("chunks",
     items) or ("rows", edges), by default ``edge_softmax.cu``'s choice for the
-    plan; the second launch folds each cut row's slots in plan order,
-    from slot 1 of the unit where the row starts to slot 0 of the unit
-    that holds its end (``merge``), and ``finish``es it. Returns the
-    number of cut rows."""
+    plan; the second launch folds each cut row's slots in plan order
+    (``merge``) and ``finish``es it. Returns the number of cut rows."""
     indptr = np.asarray(indptr).astype(np.int64)
     kind, size = _schedule(len(indptr) - 1, num_edges, schedule)
     slots = {}
@@ -473,11 +488,10 @@ def _split_and_merge(indptr, num_edges: int, schedule, reduce, merge,
 
     merge_rows = (_split_chunks(indptr, size, reduce, put) if kind == "chunks"
                   else _split_rows(indptr, num_edges, size, reduce, put))
-    for k, r in merge_rows.items():
-        first = ((r if kind == "chunks" else 0) + int(indptr[r])) // size
-        part = slots.pop((first, 1))
-        for q in range(first + 1, k + 1):
-            part = merge(part, slots.pop((q, 0)))
+    for r, folds in merge_rows.values():
+        part = slots.pop(folds[0])
+        for key in folds[1:]:
+            part = merge(part, slots.pop(key))
         finish(r, part)
     assert not slots, "a partial was left unmerged"
     return len(merge_rows)
@@ -641,3 +655,188 @@ def test_split_and_merge_of_segment_max(piece):
     assert np.isnan(got[n - 1, 3]) and not np.isnan(got[n - 1, :3]).any()
     assert (got[30] == np.float32(NEG)).all()
     assert (got[[1, n - 2]] == np.float32(NEG)).all()   # empty neighbours
+
+
+def test_plan_piece_size_is_the_kernels():
+    from repro_torch.kernels import plan as plan_mod
+    assert plan_mod.PIECE == PIECE
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_plan_piece_ptr_matches_its_twin(name):
+    """``build_csc_plan``'s piece_ptr against a row-at-a-time count of
+    each row's pieces, over hubs, empty rows and a bucket's pad edges
+    (which join no row and so are never cut)."""
+    ids, n, _, _, _, bucket = _case(name)
+    plan, _ = _plans(name, ids, n, bucket, jax_plans=False)
+    indptr = plan.indptr.numpy()
+    want = _piece_ptr(indptr, PIECE)
+    np.testing.assert_array_equal(plan.piece_ptr.numpy(), want)
+    assert plan.piece_ptr.dtype == torch.int32
+    assert plan.num_pieces == int(want[-1])
+    assert plan.num_real_edges == int(indptr[-1])
+    if name.startswith("hub"):
+        assert plan.num_pieces == -(-(HUB[1] - PIECE) // PIECE) or \
+            plan.num_pieces > 0
+
+
+def _segment_sum_twin(data, perm, indptr, piece: int = PIECE):
+    """``segment_sum.cu``'s order of summation, in float32 numpy: a row
+    unit (a row's first ``piece`` edges) summed in edge order by one
+    sub-warp; a piece by the warp's S = 32 / L sub-warps (L the power of
+    two >= ceil(D / 4), at most 32), sub-warp i summing edges i, i + S,
+    ... of the piece in order, then merged by the xor tree; a cut row's
+    partials added in row order. Returns (out, rows cut); the kernel's
+    output is bitwise this."""
+    f = np.float32
+    n, d = len(indptr) - 1, data.shape[1]
+    lanes = 1
+    while lanes < 32 and lanes < -(-d // 4):
+        lanes *= 2
+    subs = 32 // lanes
+    out = np.full((n, d), np.nan, f)
+
+    def seq(ids):
+        acc = np.zeros(d, f)
+        for e in ids:
+            acc = acc + data[e]
+        return acc
+
+    def reduce(r, a, b):
+        ids = perm[a:b]
+        if a == indptr[r]:
+            return seq(ids)
+        parts, step = [seq(ids[i::subs]) for i in range(subs)], 1
+        while step < subs:
+            parts = [parts[i] + parts[i ^ step] for i in range(subs)]
+            step *= 2
+        return parts[0]
+
+    def finish(r, part):
+        assert np.isnan(out[r]).all(), f"row {r} written twice"
+        out[r] = part
+
+    cut = _split_and_merge(indptr, len(perm), ("rows", piece), reduce,
+                           lambda a, b: a + b, finish)
+    return out, cut
+
+
+def _sum_case(d: int, seed: int = 0, degrees=(65, 130, 412)):
+    """A plan with hub rows of ``degrees`` edges (at most 4, the first
+    and the last row among them), rows of 17, 40 and 64 edges, short and
+    empty rows, and pad edges with garbage behind them; data (E_pad, d)
+    float32."""
+    rng = np.random.default_rng(seed)
+    n = 80
+    ids = [rng.integers(8, n - 8, 300)]
+    ids += [np.full(deg, r) for r, deg in zip((0, n - 1, 6, 7), degrees)]
+    ids += [np.full(deg, r) for r, deg in ((3, 17), (4, 40), (5, 64))]
+    ids = np.sort(np.concatenate(ids)).astype(np.int32)
+    ids = ids[~np.isin(ids, (1, 2, n - 3, n - 2))]          # empty rows
+    data = rng.normal(size=(len(ids) + 70, d)).astype(np.float32)
+    return build_bucket_csc_plan(ids, n, len(ids) + 70), data
+
+
+@pytest.mark.parametrize("d", [1, 3, 4, 8, 32, 64, 128, 130])
+def test_segment_sum_twin_near_float64(d):
+    """The kernel's order of summation stays within 1e-5 of each row's
+    sum of |x| of a float64 sum (the scale of a float32 sum's rounding
+    error), at the widths that give 32, 16, 8, 4, 2 and 1 sub-warps."""
+    plan, data = _sum_case(d)
+    got, cut = _segment_sum_twin(data, plan.perm.numpy(), plan.indptr.numpy())
+    assert cut == 3
+    x = torch.from_numpy(data).double()
+    want = segment_sum_ref(x, plan.perm, plan.indptr, plan.num_segments)
+    scale = segment_sum_ref(x.abs(), plan.perm, plan.indptr,
+                            plan.num_segments)
+    err = np.abs(got - want.numpy())
+    assert (err <= ATOL + RTOL * scale.numpy()).all(), float(err.max())
+    assert not got[[1, 2]].any()                     # empty rows give 0
+
+
+def _behind(lead: int, deg: int, h: int = 4, d: int = 8):
+    """A row of ``deg`` edges (row 1) behind a row of ``lead`` edges (row
+    0): the row's logits and values are the same whatever ``lead``."""
+    row = np.random.default_rng(deg)
+    head = np.random.default_rng(1000 + lead)
+    logits = np.concatenate([head.normal(size=(lead, h)),
+                             row.normal(size=(deg, h)) * 3]).astype(np.float32)
+    values = np.concatenate([head.normal(size=(lead, h, d)),
+                             row.normal(size=(deg, h, d))]).astype(np.float32)
+    ids = np.repeat(np.int32([0, 1, 2]), [lead, deg, 0])
+    return build_csc_plan(ids, 3), logits, values
+
+
+LEADS = (0, 1, 17, 63)
+
+
+@pytest.mark.parametrize("deg", [65, 130, 412])
+@pytest.mark.parametrize("kernel", ["edge_softmax", "segment_sum"])
+def test_row_cuts_are_offset_invariant(kernel, deg):
+    """A row longer than PIECE gives the same bits wherever it lies in
+    the plan: behind a leading row of 0, 1, 17 or 63 edges, the
+    kernels' split and merge (their CPU twins) cut it at the same edges
+    and sum it in the same order. A served cache hit (the top layer over
+    a 1-hop view) and a full recompute (over a K-hop view) see the same
+    row at different offsets."""
+    rows = []
+    for lead in LEADS:
+        plan, logits, values = _behind(lead, deg)
+        perm, indptr = plan.perm.numpy(), plan.indptr.numpy()
+        if kernel == "edge_softmax":
+            out, m, den, cut = _edge_softmax_twin(logits, values, perm,
+                                                  indptr)
+            rows.append((out[1], m[1], den[1]))
+        else:
+            out, cut = _segment_sum_twin(values.reshape(len(perm), -1),
+                                         perm, indptr)
+            rows.append((out[1],))
+        assert cut >= 1
+    for lead, row in zip(LEADS[1:], rows[1:]):
+        for a, b in zip(rows[0], row):
+            assert a.tobytes() == b.tobytes(), f"behind {lead} edges"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 4, 8, 32, 64, 128, 130])
+def test_cuda_segment_sum_is_its_twin_bitwise(d, cuda):
+    """``segment_sum.cu`` on hub rows of 65 to 5,000 edges, rows of up
+    to 64 edges, empty rows and pad edges: bitwise its CPU twin's
+    order of summation (adds only, so no contraction can part them),
+    within the float64 gate, and the same bits on a second launch."""
+    plan, data = _sum_case(d, degrees=(65, 412, 2832, 5000))
+    want, cut = _segment_sum_twin(data, plan.perm.numpy(),
+                                  plan.indptr.numpy())
+    assert cut == 4
+    cplan, x = plan.to(cuda), torch.from_numpy(data).to(cuda)
+    before = ops.launches["segment_sum"]
+    got = ops.segment_sum_op(x, cplan)
+    again = ops.segment_sum_op(x, cplan)
+    torch.cuda.synchronize()
+    assert ops.launches["segment_sum"] == before + 2
+    assert torch.equal(got, again)
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["edge_softmax", "segment_sum",
+                                    "segment_max"])
+def test_cuda_row_cuts_are_offset_invariant(kernel, cuda):
+    """On the card, a row of 65, 412, 2,832 or 5,000 edges gives the same
+    bits behind a leading row of 0, 1, 17 or 63 edges."""
+    for deg in (65, 412, 2832, 5000):
+        rows = []
+        for lead in LEADS:
+            plan, logits, values = _behind(lead, deg)
+            plan = plan.to(cuda)
+            lg, v = (torch.from_numpy(a).to(cuda) for a in (logits, values))
+            if kernel == "edge_softmax":
+                got = ops.edge_softmax_fwd_op(lg, v, plan)
+            elif kernel == "segment_sum":
+                got = (ops.segment_sum_op(v, plan),)
+            else:
+                got = (ops.segment_max_op(v, plan),)
+            rows.append([t[1].cpu() for t in got])
+        for lead, row in zip(LEADS[1:], rows[1:]):
+            for a, b in zip(rows[0], row):
+                assert torch.equal(a, b), f"{deg} edges behind {lead}"
