@@ -219,7 +219,9 @@ def _cotangent(rng, shape, contiguous: bool):
 
 
 def _check_backward(plan, lg, v, out, m, den, g, worst: dict, name: str):
-    """Both backward kernels against their plain versions on one case."""
+    """Both backward kernels against their plain versions on one case;
+    ``segment_sum_bwd`` exactly (a gather is a copy), under its rule's
+    schedule and under each of its two schedules."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.kernels.ref import (edge_softmax_bwd_ref,
@@ -228,13 +230,17 @@ def _check_backward(plan, lg, v, out, m, den, g, worst: dict, name: str):
     d_lg, d_v = ops.edge_softmax_bwd_op(g, lg, v, out, m, den, plan)
     gc = g.contiguous()
     want = segment_sum_bwd_ref(gc.flatten(1), plan.edge_dst)
+    forced = [ops._segment_sum_bwd_cuda(gc.flatten(1), plan, s)
+              for s in ops.SUM_BWD_SCHEDULES]
     w_lg, w_v = edge_softmax_bwd_ref(gc, lg, v, m, den, (out * gc).sum(-1),
                                      plan.edge_dst)
     torch.cuda.synchronize()
-    for kname, pairs in (("segment_sum_bwd", [(got.flatten(1), want)]),
-                         ("edge_softmax_bwd", [(d_lg, w_lg), (d_v, w_v)])):
+    for kname, pairs, tol in (
+            ("segment_sum_bwd", [(x, want) for x in [got.flatten(1)]
+                                 + forced], 0.0),
+            ("edge_softmax_bwd", [(d_lg, w_lg), (d_v, w_v)], RTOL)):
         for a, b in pairs:
-            torch.testing.assert_close(a, b, rtol=RTOL, atol=ATOL,
+            torch.testing.assert_close(a, b, rtol=tol, atol=tol,
                                        msg=f"{kname} on {name}")
             if a.numel():
                 worst[kname] = max(worst[kname], float((a - b).abs().max()))
@@ -713,6 +719,8 @@ def check_kernels() -> dict:
     def tol(k: str) -> str:
         if k.startswith("segment_max"):
             return "exact"
+        if k == "segment_sum_bwd":
+            return "exact, both schedules"
         if k in ("flash_attention", "wkv6"):
             t = RTOL if k == "flash_attention" else WKV_TOL
             return (f"f32 rtol/atol {t}; bf16 worst element "
@@ -1062,6 +1070,15 @@ def _max_times(plan, gen) -> dict:
     return rows
 
 
+def _dest_plan(dataset: str, model: str, **graph_kw):
+    """The destination plan of a full-graph block of ``dataset`` (as
+    ``model`` sees it: GCN adds self-loops), on the card."""
+    from repro_torch.graph import build_block
+    from repro_torch.launch.serve_gnn import resolve_graph
+    g = resolve_graph(dataset, model, seed=0, **graph_kw)
+    return build_block(g, csc_plan=True).csc_plan.to(DEVICE)
+
+
 def plan_rows(E: int, N: int, H: int, D: int, gen) -> None:
     """``edge_softmax`` and ``segment_max`` on more plans, one JSON row
     each: a hub-free plan with the 1,000,000-node plan's N and E (uniform
@@ -1072,9 +1089,7 @@ def plan_rows(E: int, N: int, H: int, D: int, gen) -> None:
     rows)."""
     import numpy as np
     import torch
-    from repro_torch.graph import build_block
     from repro_torch.kernels.plan import build_bucket_csc_plan, build_csc_plan
-    from repro_torch.launch.serve_gnn import resolve_graph
     ids = np.sort(np.random.default_rng(0).integers(0, N, E))
     plan = build_csc_plan(ids.astype(np.int32), N).to(DEVICE)
     del ids
@@ -1091,8 +1106,7 @@ def plan_rows(E: int, N: int, H: int, D: int, gen) -> None:
     _, block, logit, value = _layer0_inputs("gnn_gat_e_alipay")
     _plan_row("edge_softmax", "alipay_like, 20000 nodes (GAT-E cells)",
               _softmax_row(block.csc_plan, logit, value))
-    g = resolve_graph("reddit_like", "sage_max", seed=0)
-    plan = build_block(g, csc_plan=True).csc_plan.to(DEVICE)
+    plan = _dest_plan("reddit_like", "sage_max")
     data = torch.randn((plan.num_edges, MAX_WIDTH), generator=gen,
                        device=DEVICE)
     _plan_row("segment_max", "reddit_like (SAGE-max cells)",
@@ -1102,8 +1116,7 @@ def plan_rows(E: int, N: int, H: int, D: int, gen) -> None:
     # plans of 0.35, 0.7 and 1.4 million items, between the cells' 20k
     # plan (0.14 million) and the 1M one (7 million)
     for nodes in (50_000, 100_000, 200_000):
-        g = resolve_graph("alipay_like", "gat_e", seed=0, num_nodes=nodes)
-        plan = build_block(g, csc_plan=True).csc_plan.to(DEVICE)
+        plan = _dest_plan("alipay_like", "gat_e", num_nodes=nodes)
         e = plan.num_edges
         _plan_row("edge_softmax", f"alipay_like, {nodes} nodes (power law)",
                   _softmax_row(plan, torch.randn(
@@ -1131,13 +1144,133 @@ def plan_rows(E: int, N: int, H: int, D: int, gen) -> None:
         _plan_row(kernel, label, row)
 
 
+# GCN's hidden width, the only width the system sends this kernel (its
+# Sum stage's backward; the gathers' backward is segment_sum), and two
+# narrower ones on either side of the schedules' crossover
+SUM_BWD_WIDTHS = (128, 32, 4)
+SUM_BWD_SWEEP = (4, 8, 16, 32, 64, 128)   # widths timed under both schedules
+
+
+def _sum_bwd_rule(width: int):
+    """The schedule ``segment_sum_bwd``'s rule takes for rows of
+    ``width`` floats; None in an older tree whose kernel has one schedule
+    (timed beside this one, as the README's recipe for parent and change
+    in one call does)."""
+    from repro_torch.kernels import ops
+    rule = getattr(ops, "sum_bwd_schedule", None)
+    return rule(width) if rule else None
+
+
+def _sum_bwd_bytes(E: int, N: int, width: int) -> int:
+    """What ``segment_sum_bwd`` must move whichever schedule runs: g and
+    one E-long index read, d_data written."""
+    return 4 * (N * width + E * width + E)
+
+
+def _sum_bwd_row(plan, width: int, gen) -> dict:
+    """``segment_sum_bwd`` on a destination plan on a seeded (N, width)
+    cotangent, under its rule's schedule: held exactly against its plain
+    version, then timed (CUDA events; profiled device ms) beside it,
+    ``index_select`` over the clipped destinations (one PyTorch call for
+    the same function) and its bound."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import segment_sum_bwd_ref
+    E, N = plan.num_edges, plan.num_segments
+    cot = torch.randn((N, width), generator=gen, device=DEVICE)
+    kern = (lambda: ops.segment_sum_bwd_op(cot, plan))
+    torch.testing.assert_close(kern(), segment_sum_bwd_ref(
+        cot, plan.edge_dst), rtol=0, atol=0)
+    ms = _time_ms(kern)
+    plain = _time_ms(lambda: segment_sum_bwd_ref(cot, plan.edge_dst), 100.0)
+    idx = plan.edge_dst.clamp_max(N - 1)
+    lib = _time_ms(lambda: cot.index_select(0, idx), 100.0)
+    bound, by = _bound(_sum_bwd_bytes(E, N, width), 0)
+    return dict(ms=ms, device_ms=_device_ms(kern), plain_ms=plain,
+                bound_ms=bound, bound_by=by, library_ms=lib,
+                schedule=_sum_bwd_rule(width),
+                shape=f"E={E} N={N} D={width}")
+
+
+def _sum_bwd_sweep(label: str, plan, gen, widths=SUM_BWD_SWEEP) -> None:
+    """Both of ``segment_sum_bwd``'s schedules on one plan at each of
+    ``widths``, each held exactly against the plain version, then
+    timed (CUDA events; profiled device ms): one JSON line a width, with
+    the cotangent's size against the L2 cache and the rule's choice."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import segment_sum_bwd_ref
+    E, N = plan.num_edges, plan.num_segments
+    l2 = torch.cuda.get_device_properties(DEVICE).L2_cache_size
+    for width in widths:
+        cot = torch.randn((N, width), generator=gen, device=DEVICE)
+        want = segment_sum_bwd_ref(cot, plan.edge_dst)
+        row = {"kernel": "segment_sum_bwd", "plan": label,
+               "shape": f"E={E} N={N} D={width}",
+               "g_over_l2": 4 * N * width / l2,
+               "rule": _sum_bwd_rule(width)}
+        for schedule in ops.SUM_BWD_SCHEDULES:
+            kern = (lambda: ops._segment_sum_bwd_cuda(cot, plan, schedule))
+            torch.testing.assert_close(kern(), want, rtol=0, atol=0)
+            row[f"{schedule}_ms"] = _time_ms(kern)
+            row[f"{schedule}_device_ms"] = _device_ms(kern)
+        row["bound_ms"] = _bound(_sum_bwd_bytes(E, N, width), 0)[0]
+        del want
+        print("  sum_bwd sweep " + json.dumps(row), flush=True)
+
+
+def sum_bwd_times(gen=None, plan=None, sweep: bool = False) -> dict:
+    """``segment_sum_bwd`` where the card does real work and on the GCN
+    cells' plan: the 1,000,000-node alipay_like destination plan (built
+    here unless ``plan`` is given) at widths 128, 32 and 4 and the
+    reddit_like plan at the GCN config's hidden width, under the rule's
+    schedule, one plan row each; with ``sweep``, both schedules at
+    widths 4 to 128 on those plans and on 200,000- and 50,000-node
+    alipay_like plans, whose cotangents lie on either side of the L2
+    cache's size, and at widths 4 to 32 on a plan of 4,000,000 rows and
+    24,000,000 edges in random order (uniform destinations), whose
+    narrow cotangents outgrow it too. Returns the GCN cells' row."""
+    import numpy as np
+    import torch
+    from repro_torch.config import get_gnn_config
+    from repro_torch.kernels.plan import build_csc_plan
+    gen = gen or torch.Generator(device=DEVICE).manual_seed(0)
+    if plan is None:
+        plan = _dest_plan("alipay_like", "gat_e", num_nodes=KERNEL_NODES)
+    label = f"alipay_like, {plan.num_segments} nodes"
+    for width in SUM_BWD_WIDTHS:
+        _plan_row("segment_sum_bwd", f"{label}, destination plan, width "
+                  f"{width}", _sum_bwd_row(plan, width, gen))
+    plans = {label: plan}
+    if sweep:
+        for nodes in (200_000, 50_000):
+            plans[f"alipay_like, {nodes} nodes"] = _dest_plan(
+                "alipay_like", "gat_e", num_nodes=nodes)
+    cfg, dataset = get_gnn_config("gnn_gcn_reddit")
+    gcn = _dest_plan(dataset, cfg.model)
+    width = cfg.hidden_dim
+    record = _sum_bwd_row(gcn, width, gen)
+    _plan_row("segment_sum_bwd", f"reddit_like (GCN cells), width {width}",
+              record)
+    plans["reddit_like (GCN cells)"] = gcn
+    if sweep:
+        for name, p in plans.items():
+            _sum_bwd_sweep(name, p, gen)
+        del plans, plan, gcn
+        n = 4 * KERNEL_NODES
+        ids = np.random.default_rng(2).integers(0, n, 6 * n)
+        _sum_bwd_sweep(f"uniform, {n} nodes", build_csc_plan(
+            ids.astype(np.int32), n).to(DEVICE), gen, SUM_BWD_SWEEP[:4])
+    return record
+
+
 def kernel_times() -> dict:
     """Kernel, plain-version and library times at full-graph sizes,
     forward and backward, each kernel's output first held against its
     plain version there."""
     import torch
     from repro_torch.kernels import ops
-    from repro_torch.kernels.ref import segment_sum_bwd_ref, segment_sum_ref
+    from repro_torch.kernels.ref import segment_sum_ref
     rows = {}
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     with torch.inference_mode():
@@ -1161,12 +1294,16 @@ def kernel_times() -> dict:
                       _sum_row(block.src_plan, block.src, width, gen))
         del logit, value
         rows.update(_max_times(plan, gen))
+        # segment_sum_bwd on the same destination plan (its schedules'
+        # crossover is sum_bwd_times(sweep=True), run on its own)
+        rows["segment_sum_bwd"] = sum_bwd_times(gen, plan)
         del g, block, plan
         torch.cuda.empty_cache()
         plan_rows(E, N, H, D, gen)
         gat_e_cell_rows(gen)
 
-        # GCN: segment_sum and its backward at a full-graph layer 0
+        # GCN: segment_sum at a full-graph layer 0 (sum_bwd_times above
+        # times its backward)
         g, block, _, value = _layer0_inputs("gnn_gcn_reddit")
         plan = block.csc_plan
         flat = value.flatten(1)
@@ -1191,18 +1328,6 @@ def kernel_times() -> dict:
                                    shape=f"E={E} N={N} D={D}")
         _plan_row("segment_sum", "reddit_like (GCN cells)",
                   rows["segment_sum"])
-        cot = torch.randn((N, D), generator=gen, device=DEVICE)
-        torch.testing.assert_close(
-            ops.segment_sum_bwd_op(cot, plan),
-            segment_sum_bwd_ref(cot, plan.edge_dst), rtol=RTOL, atol=ATOL)
-        ms = _time_ms(lambda: ops.segment_sum_bwd_op(cot, plan))
-        plain = _time_ms(lambda: segment_sum_bwd_ref(cot, plan.edge_dst))
-        idx = plan.edge_dst.clamp_max(N - 1)
-        lib = _time_ms(lambda: cot.index_select(0, idx))
-        bound, by = _bound(4 * (N * D + E + E * D), 0)
-        rows["segment_sum_bwd"] = dict(ms=ms, plain_ms=plain, bound_ms=bound,
-                                       bound_by=by, library_ms=lib,
-                                       shape=f"E={E} N={N} D={D}")
 
         # the NN-G gather's backward (ROADMAP C.7): the segment_sum kernel
         # over the source plan, against index_select's own backward, an

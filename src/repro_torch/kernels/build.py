@@ -34,14 +34,14 @@ _WKV6 = [_P] * 7 + [_I] * 4 + [_P]
 # kernels have one entry point per input type (``wkv6`` per input and
 # output type); bf16 attention has a source of its own; segment_sum,
 # segment_max and edge_softmax also say how many bytes of scratch a plan
-# needs
+# needs, and segment_sum_bwd which of its two schedules its rule takes
 SIGNATURES = {
     "segment_sum": {"segment_sum_f32": [_P] * 6 + [_I] * 3 + [_P],
                     "segment_sum_scratch_bytes": ([_I] * 2, _I)},
     "edge_softmax": {"edge_softmax_f32": [_P] * 9 + [_I] * 5 + [_P],
                      "edge_softmax_scratch_bytes": ([_I] * 5, _I)},
-    "segment_sum_bwd": {"segment_sum_bwd_f32":
-                        [_P, _P, _P, _I, _I, _I, _P]},
+    "segment_sum_bwd": {"segment_sum_bwd_f32": [_P] * 6 + [_I] * 6 + [_P],
+                        "segment_sum_bwd_rows": ([_I], _I)},
     "edge_softmax_bwd": {"edge_softmax_bwd_f32":
                          [_P] * 11 + [_I] * 7 + [_P]},
     "segment_max": {"segment_max_f32": [_P] * 6 + [_I] * 3 + [_P],

@@ -23,12 +23,11 @@
 // inverse map are read; one compare and one multiply per element, so the
 // floor is (2*E*D + 2*N*D) * 4 + E * 4 bytes over 3.35 TB/s.
 //
-// Design: segment_sum_bwd.cu's. Edge-parallel and scatter-free: one
-// thread per (edge, column) element, 16-byte loads and stores when
-// D % 4 == 0, so a warp reads and writes whole 128-byte lines; each
-// output element has one writer and no atomics, so the result is the
-// same on every run. The cotangent and forward rows that many edges
-// share stay in L2.
+// Design: edge-parallel and scatter-free: one thread per (edge, column)
+// element, 16-byte loads and stores when D % 4 == 0, so a warp reads and
+// writes whole 128-byte lines; each output element has one writer and no
+// atomics, so the result is the same on every run. The cotangent and
+// forward rows that many edges share stay in L2.
 #include <cuda_runtime.h>
 #include <stdint.h>
 

@@ -146,18 +146,42 @@ def _edge_softmax_cuda(logits: torch.Tensor, values: torch.Tensor,
     return out, m, den
 
 
-def _segment_sum_bwd_cuda(g: torch.Tensor, plan: CSCPlan) -> torch.Tensor:
-    _check_cuda("segment_sum_bwd", (plan.edge_dst,), g)
+SUM_BWD_SCHEDULES = ("rows", "edges")
+
+
+def sum_bwd_schedule(dim: int) -> str:
+    """The schedule ``csrc/segment_sum_bwd.cu`` takes by its own rule for
+    a cotangent of rows of ``dim`` floats: "rows" (walk the destination
+    plan, each row of g read once) from 16 floats a row, else "edges" (a
+    gather in edge order). For reports; a launch does not ask it."""
+    rule = build.kernel("segment_sum_bwd", "segment_sum_bwd_rows")
+    return SUM_BWD_SCHEDULES[0 if rule(dim) else 1]
+
+
+def _segment_sum_bwd_cuda(g: torch.Tensor, plan: CSCPlan,
+                          schedule: Optional[str] = None) -> torch.Tensor:
+    """One launch (``csrc/segment_sum_bwd.cu``) under the kernel's rule:
+    the destination plan's rows (several to a warp), 64-edge pieces and
+    64-edge runs of pad edges, each unit holding its row of g in
+    registers; or a sub-warp per edge through ``edge_dst``. ``schedule``
+    forces one of :data:`SUM_BWD_SCHEDULES`, a hook for tests and
+    timings."""
+    _check_cuda("segment_sum_bwd", _plan_index(plan) + (plan.edge_dst,), g)
     (n, d), e = g.shape, plan.num_edges
     if n == 0:
         return g.new_zeros((e, d))
     out = torch.empty((e, d), dtype=torch.float32, device=g.device)
     if e == 0 or d == 0:
         return out
+    if schedule not in (None,) + SUM_BWD_SCHEDULES:
+        raise ValueError(f"segment_sum_bwd: no schedule {schedule!r}")
+    rows = -1 if schedule is None else int(schedule == "rows")
     fn = build.kernel("segment_sum_bwd")
     with torch.cuda.device(g.device):
         stream = torch.cuda.current_stream(g.device).cuda_stream
-        rc = fn(_ptr(g), _ptr(plan.edge_dst), _ptr(out), e, n, d, stream)
+        rc = fn(_ptr(g), *map(_ptr, _plan_index(plan)), _ptr(plan.edge_dst),
+                _ptr(out), e, n, plan.num_pieces, plan.num_real_edges, d,
+                rows, stream)
     _raise_on(rc, "segment_sum_bwd")
     launches["segment_sum_bwd"] += 1
     return out

@@ -4,13 +4,19 @@ On the CPU the backward wrappers run the kernels' plain versions
 (``repro_torch.kernels.ref``); they are held, over every edge including a
 bucket's pad edges, against the JAX package's Pallas backward kernels
 run in interpret mode at rtol/atol 1e-5 (the sums are taken in another
-order, so equality is not the bar). ``gradcheck`` holds the two autograd
-Functions to finite differences in float64. The tests marked ``cuda``
-hold each CUDA kernel against its plain version on the card and skip
-where there is none:
+order, so equality is not the bar). A CPU twin walks
+``segment_sum_bwd.cu``'s two schedules with the kernel's own units and
+gives the plain version's bits (a gather is a copy). ``gradcheck``
+holds the two autograd Functions to finite differences in float64. The
+tests marked ``cuda`` hold each CUDA kernel against its plain version
+on the card (``segment_sum_bwd`` exactly, under both schedules) and
+skip where there is none:
 
     python -m pytest -m cuda tests/test_torch_backward.py
 """
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -285,6 +291,115 @@ def test_backward_kernel_walk_matches_plain_version(name):
         assert plan.num_pieces >= 4
 
 
+def _kernel_piece() -> int:
+    """``csrc/row_pieces.cuh``'s kPiece: the twin below walks the
+    kernel's own unit size, not a copy of it."""
+    src = (Path(ops.__file__).resolve().parent / "csrc" / "row_pieces.cuh")
+    m = re.search(r"constexpr\s+int\s+kPiece\s*=\s*(\d+)\s*;",
+                  src.read_text())
+    assert m, "kPiece not found in row_pieces.cuh"
+    return int(m.group(1))
+
+
+def _segment_sum_bwd_twin(g, plan, schedule: str):
+    """``segment_sum_bwd.cu`` in numpy, unit by unit. "rows": each row's
+    row unit (its first kPiece edges, one sub-warp), then a warp per
+    piece p (its row found over piece_ptr, its edges kPiece at a time
+    from the row's start), then a warp per kPiece pad edges past
+    indptr[N], which read row N - 1; a warp's S = 32 / L sub-warps (L the
+    power of two >= ceil(D / 4), at most 32) take alternate edges of a
+    piece or pad unit. "edges": each edge its clipped edge_dst row. Every
+    edge is written once, with a copy of its row."""
+    piece = _kernel_piece()
+    n, E, d = plan.num_segments, plan.num_edges, g.shape[1]
+    if n == 0:
+        return np.zeros((E, d), np.float32)
+    perm, dst = plan.perm.numpy(), plan.edge_dst.numpy()
+    indptr = plan.indptr.numpy().astype(np.int64)
+    ptr = plan.piece_ptr.numpy().astype(np.int64)
+    lanes = 1
+    while lanes < 32 and lanes < -(-d // 4):
+        lanes *= 2
+    subs = 32 // lanes
+    out = np.full((E, d), np.nan, np.float32)
+
+    def put(r, edges):
+        for e in edges:
+            assert np.isnan(out[e]).all(), f"edge {e} written twice"
+            out[e] = g[r]
+
+    def warp(r, a, b):
+        for sub in range(subs):
+            put(r, perm[a + sub:b:subs])
+
+    if schedule == "edges":
+        for e in range(E):
+            put(min(int(dst[e]), n - 1), [e])
+    else:
+        for r in range(n):
+            put(r, perm[indptr[r]:min(indptr[r + 1], indptr[r] + piece)])
+        for p in range(plan.num_pieces):
+            r = int(np.searchsorted(ptr[1:], p, side="right"))
+            a = indptr[r] + (p - ptr[r] + 1) * piece
+            warp(r, a, min(indptr[r + 1], a + piece))
+        for a in range(indptr[n], E, piece):
+            warp(n - 1, a, min(E, a + piece))
+    assert not np.isnan(out).any(), "an edge was never written"
+    return out
+
+
+SUM_BWD_DIMS = (1, 3, 4, 8, 33, 128, 130)
+SUM_BWD_HUBS = (130, 412, 2832)
+
+
+def _sum_bwd_case(name: str, d: int, seed: int = 0):
+    """(plan, g (N, d) float32): "hubs" has rows of 130, 412 and 2,832
+    edges (the first and the last row among them), rows of 17, 40 and 64,
+    short rows, empty rows and 70 pad edges, its edge axis unsorted;
+    "no_rows" has N = 0 (every edge a pad edge); "no_edges" E = 0."""
+    rng = np.random.default_rng(seed)
+    n = 80
+    if name == "no_rows":
+        return build_csc_plan(np.zeros(6, np.int32), 0), np.zeros((0, d),
+                                                                   np.float32)
+    if name == "no_edges":
+        ids = np.zeros(0, np.int32)
+    else:
+        ids = [rng.integers(8, n - 8, 300)]
+        ids += [np.full(deg, r) for r, deg in zip((0, n - 1, 6),
+                                                  SUM_BWD_HUBS)]
+        ids += [np.full(deg, r) for r, deg in ((3, 17), (4, 40), (5, 64))]
+        ids = np.concatenate(ids)
+        ids = rng.permutation(ids[~np.isin(ids, (1, 2, n - 3, n - 2))])
+    g = rng.normal(size=(n, d)).astype(np.float32)
+    pads = 70 if len(ids) else 0
+    return build_bucket_csc_plan(ids.astype(np.int32), n,
+                                 len(ids) + pads), g
+
+
+@pytest.mark.parametrize("schedule", ops.SUM_BWD_SCHEDULES)
+@pytest.mark.parametrize("d", SUM_BWD_DIMS)
+@pytest.mark.parametrize("name", ["hubs", "no_rows", "no_edges"])
+def test_segment_sum_bwd_twin_is_the_plain_version_bitwise(name, d,
+                                                          schedule):
+    """Both schedules of ``segment_sum_bwd.cu``, walked on the CPU with
+    the kernel's units, write every edge once and give the plain
+    version's bits: hub rows cut into pieces, empty rows, pad edges
+    (row N - 1), N = 0 and E = 0, at widths that give 32, 16, 4 and 1
+    sub-warps a warp, ragged last groups (D 1, 3, 33) and a row of more
+    groups than a warp has lanes (D 130, two passes)."""
+    plan, g = _sum_bwd_case(name, d)
+    got = _segment_sum_bwd_twin(g, plan, schedule)
+    want = segment_sum_bwd_ref(torch.from_numpy(g), plan.edge_dst).numpy()
+    assert got.shape == want.shape == (plan.num_edges, d)
+    assert got.tobytes() == want.tobytes()
+    if name == "hubs":
+        assert plan.num_pieces == sum(-(-(deg - PIECE) // PIECE)
+                                      for deg in SUM_BWD_HUBS)
+        pads = plan.edge_dst.numpy() == plan.num_segments
+        assert pads.sum() == 70 and (got[pads] == g[-1]).all()
+
+
 # -- the autograd Functions ---------------------------------------------------
 
 
@@ -364,9 +479,9 @@ def test_cuda_backward_kernels_match_plain_versions(name, layout, cuda):
     d_lg, d_v = ops.edge_softmax_bwd_op(gt, lg, v, out, m, den, plan)
     torch.cuda.synchronize()
     gc = gt.contiguous()
-    torch.testing.assert_close(
+    torch.testing.assert_close(          # a gather is a copy
         got.flatten(1), segment_sum_bwd_ref(gc.flatten(1), plan.edge_dst),
-        rtol=TOL, atol=TOL)
+        rtol=0, atol=0)
     w_lg, w_v = edge_softmax_bwd_ref(gc, lg, v, m, den, (out * gc).sum(-1),
                                      plan.edge_dst)
     torch.testing.assert_close(d_lg, w_lg, rtol=TOL, atol=TOL)
@@ -462,3 +577,62 @@ def test_cuda_backward_pads_logit_rows_past_the_l2(heads, dim, cuda):
     for a, b, w in zip((d_lg, d_v), again, want):
         torch.testing.assert_close(a, w, rtol=TOL, atol=TOL)
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("schedule", ops.SUM_BWD_SCHEDULES)
+@pytest.mark.parametrize("d", SUM_BWD_DIMS)
+@pytest.mark.parametrize("name", ["hubs", "no_rows", "no_edges"])
+def test_cuda_segment_sum_bwd_is_exact(name, d, schedule, cuda):
+    """``segment_sum_bwd.cu`` under each schedule on the twin's cases:
+    the plain version's bits and the twin's, the same bits on a second
+    launch, one launch counted a call."""
+    plan, g = _sum_bwd_case(name, d)
+    cplan, gt = plan.to(cuda), torch.from_numpy(g).to(cuda)
+    before = ops.launches["segment_sum_bwd"]
+    got = ops._segment_sum_bwd_cuda(gt, cplan, schedule)
+    again = ops._segment_sum_bwd_cuda(gt, cplan, schedule)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, segment_sum_bwd_ref(gt, cplan.edge_dst),
+                               rtol=0, atol=0)
+    assert torch.equal(got, again)
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  _segment_sum_bwd_twin(g, plan, schedule))
+    launched = int(plan.num_segments > 0 and plan.num_edges > 0)
+    assert ops.launches["segment_sum_bwd"] == before + 2 * launched
+
+
+@pytest.mark.cuda
+def test_cuda_sum_bwd_rule_is_the_kernels(cuda):
+    """The schedule the kernel's entry point takes by its own rule, as
+    ``ops.sum_bwd_schedule`` reports it, is the source's rule: rows from
+    a row of kRowsMinRowBytes (64 bytes, D 16), edges below."""
+    src = (Path(ops.__file__).resolve().parent / "csrc"
+           / "segment_sum_bwd.cu").read_text()
+    m = re.search(r"constexpr\s+int64_t\s+kRowsMinRowBytes\s*=\s*(\d+)\s*;",
+                  src)
+    assert m, "kRowsMinRowBytes not found in segment_sum_bwd.cu"
+    for d in SUM_BWD_DIMS + (15, 16):
+        want = "rows" if 4 * d >= int(m.group(1)) else "edges"
+        assert ops.sum_bwd_schedule(d) == want, d
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [8, 32, 128])
+@pytest.mark.parametrize("schedule", ops.SUM_BWD_SCHEDULES)
+def test_cuda_segment_sum_bwd_is_offset_invariant(schedule, d, cuda):
+    """A row of 65, 130, 412 or 2,832 edges (row 1) behind a leading row
+    of 0, 1, 17 or 63 edges: its edges get the same bits, its row of g,
+    wherever the row's units and pieces fall in the plan."""
+    for deg in (65, 130, 412, 2832):
+        g = torch.from_numpy(np.random.default_rng(deg).normal(
+            size=(3, d)).astype(np.float32)).to(cuda)
+        rows = []
+        for lead in (0, 1, 17, 63):
+            plan = build_csc_plan(np.repeat(np.int32([0, 1, 2]),
+                                            [lead, deg, 0]), 3).to(cuda)
+            got = ops._segment_sum_bwd_cuda(g, plan, schedule)
+            rows.append(got[lead:lead + deg].cpu())
+        for lead, row in zip((1, 17, 63), rows[1:]):
+            assert torch.equal(rows[0], row), f"{deg} edges behind {lead}"
+        assert torch.equal(rows[0], g[1].cpu().expand(deg, d))
