@@ -6,7 +6,8 @@ and check them.
     python3 chip_smoke.py --only kernels   # phases 1-3: build and check
     python3 chip_smoke.py --only gnn-times # and the GNN kernels' times
     python3 chip_smoke.py --only lm-times  # and the LM kernels' times
-    python3 chip_smoke.py --only lm        # and the LM phases 11-12
+    python3 chip_smoke.py --only lm        # and the LM phases 12-13
+    python3 chip_smoke.py --only runtime   # phases 1-2 and the runtime's 11
 
 Phases (each raises on failure, so the script exits non-zero):
 
@@ -53,10 +54,13 @@ Phases (each raises on failure, so the script exits non-zero):
    and ``edge_softmax_bwd`` at both sizes; one JSON ``plan row`` each,
    with the profiled device ms beside the CUDA-event time;
 7. train GAT-E (alipay_like, 20,000 nodes, the config's widths and lr)
-   on the card through ``repro_torch.api.make_trainer`` and ``fit``, 30
-   steps under each of global, mini (compact) and cluster (compact, halo
-   1), and the same jobs on the CPU from the same seed: step-1 gradients
-   and every step's loss held against the CPU's, the global loss must
+   on the card through ``repro_torch.api.make_trainer`` and ``fit``
+   (builder threads at the default count), 30 steps under each of
+   global, mini (compact) and cluster (compact, halo 1), and the same
+   jobs on the CPU from the same seed: step-1 gradients and every
+   step's loss held against the CPU's, the same jobs on the card with
+   inline staging must give the same losses bit for bit (their steps/s
+   printed beside the threads'), the global loss must
    fall, the backward kernel must launch the same number of times on
    every step, and each Sum-stage kernel's profiled device ms a step is
    printed; then the same 20 global steps run twice on the card must
@@ -65,7 +69,24 @@ Phases (each raises on failure, so the script exits non-zero):
 9. serve SAGE-max (reddit_like without self-loops, the Reddit config's
    widths with the model swapped), as in phases 4-5;
 10. train SAGE-max (the same job), as in phases 7-8;
-11. serve Qwen3-4B at full width and depth (36 layers, d 2560) through
+11. the fault-tolerant runtime on the GAT-E and GCN mini cells at the
+    configs' widths, 30 steps each through ``api.make_trainer`` and
+    ``fit``: inline staging, builder threads 1 and 3, sampler processes
+    (2) and the chaos run (the reference's chaos plan and a sampler
+    killed mid-build, 3 processes, a checkpoint every 5 steps) must agree
+    bit for bit in losses and final parameters; a 15-step run with
+    checkpoints and a fresh trainer's ``resume=True`` for 15 more must be
+    the uninterrupted run, the stream's cursor at 30; skip_view and
+    rollback (a checkpoint every 2 steps) with a divergence injected at
+    view 4 must end at step 29 and equal, bit for bit, a run over views
+    0-3 and 5-29; the card's step-15 checkpoint must take one step on the
+    CPU within ``LOSS_TOL`` of the card's step-16 loss; the process pool
+    must not degrade to threads. Then, for the mini and cluster cells of
+    both configs, ``stage_s`` (``first_stage_s`` of it the first view's
+    wait, which holds a sampler pool's start), ``step_s`` and steps/s
+    for inline staging, builder threads and sampler processes (default
+    count), one JSON ``runtime row`` each;
+12. serve Qwen3-4B at full width and depth (36 layers, d 2560) through
     ``repro_torch.launch.serve.BatchServer``: first the float32 parity
     gates on left-padded prompts (prefill plus 8 decode steps: the
     ``flash_attention`` kernel against its plain version at full depth
@@ -76,7 +97,7 @@ Phases (each raises on failure, so the script exits non-zero):
     batch 4) with its tokens/s, the kernel's launches per prefill batch,
     a profile of one short batch and the bf16 kernel-vs-plain
     difference;
-12. serve RWKV-6 1.6B (24 layers, d 2048) the same way through the
+13. serve RWKV-6 1.6B (24 layers, d 2048) the same way through the
     ``wkv6`` kernel (prompts of whole 128-token chunks, 512-2048; the
     parity gates also cover the prefill's final states).
 
@@ -89,7 +110,7 @@ float32) in float32 and bfloat16 (element by element) against their
 plain versions; phase 6 times them at the Qwen3-4B and RWKV-6 1.6B
 prefill shapes and at the served batch's, ``flash_attention`` beside
 ``scaled_dot_product_attention`` (timed only: the port never calls it)
-and that call's share of the bf16 element gate. Phases 11-12 also print
+and that call's share of the bf16 element gate. Phases 12-13 also print
 each LM kernel's profiled device ms per batch and gate two identical
 bf16 prefills bitwise equal. The GNN cache hits of phases 4, 5 and 9
 must equal a full recompute bit for bit.
@@ -126,6 +147,13 @@ SERVE_TOL = 1e-4                   # card vs CPU responses
 GRAD_TOL = 1e-4                    # card vs CPU step-1 gradients, relative
 LOSS_TOL = 1e-3                    # card vs CPU losses, * max(1, |loss|)
 TRAIN_STEPS = 30
+RUNTIME_STEPS = 30                 # phase 11's runs
+# the reference's chaos plan (tests/test_faults.py) and a sampler process
+# killed mid-build: every fault is retried or recovered, so the run is
+# bitwise the fault-free one
+CHAOS_PLAN = {"worker_kill": {1}, "view_build": {0, 2}, "device_put": {0},
+              "checkpoint_save": {0}, "proc_kill": {3}}
+FAST = dict(backoff_base=0.0, backoff_cap=0.0, jitter=0.0)
 DEVICE = "cuda"
 KERNEL_NODES = 1_000_000           # alipay_like nodes for the GAT-E timing
 KERNELS = {
@@ -1498,7 +1526,7 @@ def lm_kernel_times() -> dict:
     return rows
 
 
-# -- phases 11 and 12: LM serving ----------------------------------------------
+# -- phases 12 and 13: LM serving ----------------------------------------------
 
 
 @contextlib.contextmanager
@@ -1660,7 +1688,7 @@ def _state_rel(got_pre, want_pre) -> float:
 def serve_lm(arch: str, kernel: str, lengths, serve_lengths,
              new_tokens: int = LM_NEW_TOKENS) -> dict:
     """The parity gates and the bf16 serving run of one LM (see the
-    module docstring, phases 11-12); returns the serving run's launch
+    module docstring, phases 12-13); returns the serving run's launch
     counts."""
     import copy
     import gc
@@ -1795,19 +1823,20 @@ def serve_lm(arch: str, kernel: str, lengths, serve_lengths,
 # -- phases 7 and 8: training --------------------------------------------------
 
 
-def _fit_job(job, steps: int):
+def _fit_job(job, steps: int, prefetch: bool = True):
     """Make the job's trainer and fit ``steps`` steps, the first alone so
     its gradients can be read. Returns (trainer, views, losses, step-1
     grads on the CPU, seconds of steps 2.. with the device drained)."""
     import torch
     from repro_torch import api
     trainer, views, *_ = api.make_trainer(job)
-    losses = trainer.fit(views, steps=1)["losses"]
+    losses = trainer.fit(views, steps=1, prefetch=prefetch)["losses"]
     grads = {k: p.grad.detach().cpu() for k, p in trainer.params.items()}
     if trainer.device.type == "cuda":
         torch.cuda.synchronize()
     t0 = time.perf_counter()
-    losses += trainer.fit(views, steps=steps - 1)["losses"]
+    losses += trainer.fit(views, steps=steps - 1,
+                          prefetch=prefetch)["losses"]
     if trainer.device.type == "cuda":
         torch.cuda.synchronize()
     return trainer, views, losses, grads, time.perf_counter() - t0
@@ -1912,6 +1941,12 @@ def train(config: str, label: str, bwd_kernel: str, bwd_per_step: int,
         launches = dict(ops.launches)
         for k, n in launches.items():
             total[k] = total.get(k, 0) + n
+        # the same job with inline staging (the parent's), next to the
+        # card run and before the CPU job, whose threads would slow it:
+        # fit's default builder threads share the GIL with the step's
+        # launches, and a global stream is staged inline either way
+        inl, _, inl_losses, _, inl_wall = _fit_job(
+            dataclasses.replace(job, dataset=g), TRAIN_STEPS, prefetch=False)
         _, _, want, want_grads, _ = _fit_job(
             dataclasses.replace(job, device="cpu"), TRAIN_STEPS)
         g_err = max(float((grads[k] - want_grads[k]).abs().max())
@@ -1925,10 +1960,22 @@ def train(config: str, label: str, bwd_kernel: str, bwd_per_step: int,
               f"{(TRAIN_STEPS - 1) / wall:.2f} steps/s over steps 2-"
               f"{TRAIN_STEPS}; host staging {t['stage_s']:.4f} s, device "
               f"step {t['step_s']:.4f} s (host clock, all steps)")
+        ti = inl.timing
+        print(f"    inline staging: {(TRAIN_STEPS - 1) / inl_wall:.2f} "
+              f"steps/s over steps 2-{TRAIN_STEPS} (builder threads "
+              f"{(TRAIN_STEPS - 1) / wall:.2f}); host staging "
+              f"{ti['stage_s']:.4f} s, device step {ti['step_s']:.4f} s; "
+              f"losses {'bitwise equal' if inl_losses == losses else 'DIFFER'}")
+        if inl_losses != losses:
+            raise AssertionError(f"{strategy}: inline staging's losses "
+                                 "differ from the builder threads'")
         src_s = _src_plan_s(card, views, TRAIN_STEPS)
         if src_s is not None:
-            print(f"    source plans (gather backward): {src_s:.4f} s of "
-                  f"the staging, {100 * src_s / t['stage_s']:.1f}%")
+            # the builder threads stage ahead: stage_s is the loop's
+            # wait for a staged view, not the staging's own time
+            print(f"    source plans (gather backward): {src_s:.4f} s to "
+                  f"build for these views, beside the loop's "
+                  f"{t['stage_s']:.4f} s wait for staged views")
         print(f"    loss {losses[0]:.5f} -> {losses[-1]:.5f} (CPU "
               f"{want[0]:.5f} -> {want[-1]:.5f}); card vs CPU: step-1 "
               f"gradients max rel err {g_err:.3e} (tolerance {GRAD_TOL}), "
@@ -1979,16 +2026,198 @@ def train(config: str, label: str, bwd_kernel: str, bwd_per_step: int,
     return total
 
 
+# -- phase 11: the fault-tolerant runtime ---------------------------------------
+
+
+def _rt_run(job, steps: int = RUNTIME_STEPS, policy=None, injector=None,
+            **fit_kw):
+    """A fresh trainer for ``job`` (``api.make_trainer``; rebuilt around
+    the same model with a runtime when an ``injector`` is given), fit
+    ``steps`` steps over the job's own stream with ``fit_kw``. Returns
+    (trainer, stream, fit's result, wall seconds with the device
+    drained)."""
+    import torch
+    from repro_torch import api
+    from repro_torch.core.trainer import CompactTrainer
+    trainer, stream, *_ = api.make_trainer(job)
+    if injector is not None:
+        trainer = CompactTrainer(
+            trainer.model, trainer.g, trainer.opt,
+            gcn_norm=trainer.stager.gcn_norm, device=trainer.device,
+            fault_policy=policy, injector=injector)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = trainer.fit(stream, steps=steps, **fit_kw)
+    torch.cuda.synchronize()
+    return trainer, stream, out, time.perf_counter() - t0
+
+
+def _params(trainer) -> dict:
+    return {k: v.detach().cpu().clone()
+            for k, v in trainer.model.state_dict().items()}
+
+
+def _bitwise(what: str, got, want) -> None:
+    """Gate: losses and final parameters equal bit for bit."""
+    (lg, pg), (lw, pw) = got, want
+    same = lg == lw and pg.keys() == pw.keys() and all(
+        bool((pg[k] == pw[k]).all()) for k in pw)
+    print(f"    {what}: {len(lg)} losses and the final parameters "
+          f"{'bitwise equal' if same else 'NOT bitwise equal'}")
+    if not same:
+        raise AssertionError(f"{what}: not bitwise equal to the reference "
+                             "run")
+
+
+def runtime(label: str) -> dict:
+    """Phase 11: the GAT-E and GCN mini cells under the fault-tolerant
+    runtime, 30 steps each, at the configs' full widths on the card:
+    inline staging, builder threads 1 and 3, sampler processes and the
+    chaos run agree bit for bit; a 15 + 15 step checkpoint-resume split
+    is the uninterrupted run; skip_view and rollback equal a run that
+    never saw the poison view; a card checkpoint steps on the CPU within
+    LOSS_TOL of the card's next loss. Then ``stage_s``, ``step_s`` and
+    steps/s per staging mode for the mini and cluster cells. Returns the
+    phase's launch counts."""
+    import dataclasses
+    import importlib
+    import math
+    import os
+    import tempfile
+    import numpy as np
+    from repro_torch import api
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve_gnn import resolve_graph
+    from repro_torch.runtime import FaultInjector, FaultPolicy, procpool
+    if not procpool.shared_memory_available():
+        raise AssertionError("shared memory is unavailable: the sampler "
+                             "processes cannot start")
+    cores = os.cpu_count()
+    workers = max(1, min(4, (cores or 2) - 1))
+    print(f"  host: {cores} CPU cores, default prefetch workers {workers}")
+    ops.reset_launches()
+    for config, kernels in (
+            ("gnn_gat_e_alipay", ("edge_softmax", "edge_softmax_bwd",
+                                  "segment_sum")),
+            ("gnn_gcn_reddit", ("segment_sum", "segment_sum_bwd"))):
+        mod = importlib.import_module(f"repro_torch.configs.{config}")
+        cfg, dataset = _config(config)
+        g = resolve_graph(dataset, cfg.model, seed=0)
+
+        def job(strategy, **kw):
+            t = mod.TRAIN[strategy]
+            return api.TrainJob(
+                dataset=g, model=cfg.model, strategy=strategy,
+                num_layers=cfg.num_layers, hidden=cfg.hidden_dim, lr=t.lr,
+                weight_decay=t.weight_decay, seed=t.seed, compact=True,
+                halo_hops=t.cluster_halo_hops, eval_every=0, device=DEVICE,
+                **kw)
+
+        before = dict(ops.launches)
+        mini = job("mini")
+        print(f"  [{label}, {cfg.model}, mini, {RUNTIME_STEPS} steps]")
+        tr, _, out, _ = _rt_run(mini, prefetch=False)
+        ref = (out["losses"], _params(tr))
+        if not np.isfinite(ref[0]).all():
+            raise AssertionError(f"{cfg.model}: bad losses {ref[0]}")
+        for what, kw in (("thread workers 1", dict(prefetch_workers=1)),
+                         ("thread workers 3", dict(prefetch_workers=3)),
+                         ("process workers 2", dict(
+                             prefetch_workers=2, prefetch_mode="process"))):
+            tr, _, out, _ = _rt_run(mini, **kw)
+            _bitwise(f"{what} vs inline", (out["losses"], _params(tr)), ref)
+        inj = FaultInjector(CHAOS_PLAN, seed=0)
+        with tempfile.TemporaryDirectory() as d:
+            tr, _, out, _ = _rt_run(
+                mini, policy=FaultPolicy(**FAST), injector=inj,
+                prefetch_workers=3, prefetch_mode="process",
+                checkpoint_dir=d, checkpoint_every=5)
+        print(f"    chaos faults fired: {dict(inj.fired)}")
+        if inj.total_fired() < 3:
+            raise AssertionError(f"chaos: only {inj.fired} fired")
+        _bitwise("chaos, process workers 3, checkpoint_every 5",
+                 (out["losses"], _params(tr)), ref)
+
+        half = RUNTIME_STEPS // 2
+        with tempfile.TemporaryDirectory() as d:
+            _rt_run(mini, steps=half, checkpoint_dir=d, checkpoint_every=5)
+            tr, stream, out, _ = _rt_run(mini, steps=RUNTIME_STEPS - half,
+                                         checkpoint_dir=d, resume=True)
+            _bitwise(f"resume: steps {half + 1}-{RUNTIME_STEPS} after a "
+                     f"{half}-step run", (out["losses"], _params(tr)),
+                     (ref[0][half:], ref[1]))
+            if stream.cursor != RUNTIME_STEPS:
+                raise AssertionError(f"resume: the stream's cursor reads "
+                                     f"{stream.cursor}")
+            cpu, views, *_ = api.make_trainer(
+                dataclasses.replace(mini, device="cpu"))
+            cpu.restore(d)
+            loss = cpu.fit(views, steps=1, prefetch=False)["losses"][0]
+            err = abs(loss - ref[0][half]) / max(1.0, abs(ref[0][half]))
+            print(f"    the card's step-{half} checkpoint on the CPU: step "
+                  f"{half + 1} loss {loss:.6f}, card {ref[0][half]:.6f}, "
+                  f"rel err {err:.3e} (tolerance {LOSS_TOL})")
+            if not err <= LOSS_TOL:
+                raise AssertionError(f"cross-device: {err:.3e}")
+
+        clean, stream, *_ = api.make_trainer(mini)
+        want = clean.fit(stream, steps=4, prefetch=False)["losses"]
+        stream.seek(5)
+        want += clean.fit(stream, steps=RUNTIME_STEPS - 5,
+                          prefetch=False)["losses"]
+        for action in ("skip_view", "rollback"):
+            with tempfile.TemporaryDirectory() as d:
+                tr, _, out, _ = _rt_run(
+                    mini, policy=FaultPolicy(on_divergence=action, **FAST),
+                    injector=FaultInjector({"diverge": {4}}),
+                    checkpoint_dir=d, checkpoint_every=2)
+            if (tr.step_num != RUNTIME_STEPS - 1
+                    or not all(map(math.isfinite, out["losses"]))):
+                raise AssertionError(f"{action}: ended at step "
+                                     f"{tr.step_num}, losses {out['losses']}")
+            _bitwise(f"{action}, diverge at view 4, ends at step "
+                     f"{tr.step_num}, vs views 0-3 and 5-{RUNTIME_STEPS - 1}",
+                     (out["losses"], _params(tr)), (want, _params(clean)))
+
+        for strategy in ("mini", "cluster"):
+            for mode, kw in (("inline", dict(prefetch=False)),
+                             (f"thread x{workers}", {}),
+                             (f"process x{workers}",
+                              dict(prefetch_mode="process"))):
+                tr, _, out, wall = _rt_run(job(strategy), **kw)
+                t = tr.timing
+                # the first view's wait holds a sampler pool's start (its
+                # samplers import torch), other_s the fit's set-up and the
+                # pool's close; the loop's rate counts neither
+                loop = t["stage_s"] - t["first_stage_s"] + t["step_s"]
+                row = {"config": config, "strategy": strategy,
+                       "mode": mode, "steps": RUNTIME_STEPS,
+                       "stage_s": t["stage_s"],
+                       "first_stage_s": t["first_stage_s"],
+                       "step_s": t["step_s"],
+                       "other_s": wall - t["stage_s"] - t["step_s"],
+                       "wall_s": wall, "steps_per_s": RUNTIME_STEPS / wall,
+                       "loop_steps_per_s": RUNTIME_STEPS / loop,
+                       "cores": cores, "card": label}
+                print("    runtime row " + json.dumps(row))
+        if procpool._DEGRADE_WARNED:
+            raise AssertionError("process mode degraded to threads")
+        for k in kernels:
+            if ops.launches[k] - before.get(k, 0) <= 0:
+                raise AssertionError(f"{cfg.model}: no {k} launches")
+    return dict(ops.launches)
+
+
 def lm_phases(phase) -> list:
-    """Phases 11 and 12; returns each serving run's launch counts."""
+    """Phases 12 and 13; returns each serving run's launch counts."""
     import numpy as np
     rng = np.random.default_rng(0)
     lo, hi = LM_PROMPTS
-    phase("11. serve Qwen3-4B (full width, 36 layers)")
+    phase("12. serve Qwen3-4B (full width, 36 layers)")
     got = [serve_lm("qwen3-4b", "flash_attention", (512, 301, 77, 160),
                     [int(n) for n in rng.integers(lo, hi + 1,
                                                   LM_REQUESTS)])]
-    phase("12. serve RWKV-6 1.6B (full width, 24 layers)")
+    phase("13. serve RWKV-6 1.6B (full width, 24 layers)")
     # whole chunks of 128, so every padded batch length is one too
     got.append(serve_lm("rwkv6-1.6b", "wkv6", (512, 384, 128, 256),
                         [int(n) for n in rng.choice(
@@ -1999,12 +2228,14 @@ def lm_phases(phase) -> list:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only",
-                    choices=["kernels", "gnn-times", "lm-times", "lm"],
+                    choices=["kernels", "gnn-times", "lm-times", "lm",
+                             "runtime"],
                     default=None,
                     help="kernels: stop after phase 3 (build and check the "
                     "kernels); gnn-times: phases 1-3 and the GNN kernels' "
                     "times; lm-times: phases 1-3 and the LM kernels' "
-                    "times; lm: those and phases 11-12")
+                    "times; lm: those and phases 12-13; runtime: phases "
+                    "1-2 and 11")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -2030,6 +2261,11 @@ def main(argv=None) -> int:
     build.build_all()
     print(f"built {sorted(build.SIGNATURES)} in "
           f"{time.perf_counter() - t0:.1f}s")
+
+    if args.only == "runtime":
+        phase("11. the fault-tolerant runtime (GAT-E, GCN)")
+        runtime(label)
+        return 0
 
     phase("3. kernels vs plain, on the card")
     errs = check_kernels()
@@ -2100,6 +2336,9 @@ def main(argv=None) -> int:
         raise AssertionError(f"SAGE-max training: {got['segment_max']} "
                              "segment_max launches, expected 2 per step")
     count(got)
+
+    phase("11. the fault-tolerant runtime (GAT-E, GCN)")
+    count(runtime(label))
 
     for got in lm_phases(phase):
         count(got)

@@ -9,9 +9,9 @@ counterpart of ``repro/api.py``)::
 
 ``train`` runs the bucketed :class:`~repro_torch.core.trainer.
 CompactTrainer` on ``job.device`` — the card unless the job says
-``device="cpu"``. The distributed engine (``engine_partitions > 0``,
-ROADMAP A.9) and the fault-tolerant runtime and checkpoints (A.8) are
-refused with an error.
+``device="cpu"`` — under the job's prefetch pool, fault policy and
+checkpoints. The distributed engine (``engine_partitions > 0``, ROADMAP
+A.9) is refused with an error.
 """
 from __future__ import annotations
 
@@ -50,13 +50,14 @@ class TrainJob:
     clusters_per_batch: int = 0        # cluster (0 = num_clusters // 20)
     halo_hops: int = 0
     neighbor_cap: int = 0
-    # not ported yet: the engine (A.9), the runtime and checkpoints (A.8)
-    engine_partitions: int = 0
+    engine_partitions: int = 0         # not ported yet (ROADMAP A.9)
     prefetch_workers: Optional[int] = None
-    prefetch_mode: str = "thread"
+    prefetch_mode: str = "thread"      # thread | process (sampler procs)
+    # fault tolerance and checkpoints (repro_torch.runtime)
     fault_policy: Optional[Any] = None
     checkpoint_dir: Optional[str] = None
     checkpoint_every: int = 0
+    keep_checkpoints: Optional[int] = None   # None = the policy's
     resume: bool = False
     log_every: int = 1
     device: Optional[str] = None       # None = the card; "cpu" to ask
@@ -73,7 +74,7 @@ class ServeConfig:
     staleness: int = 0                 # max version age for a cache hit
     buckets: Optional[Any] = None      # BucketSpec (None = graph ladder)
     slots: int = 2
-    checkpoint_dir: Optional[str] = None   # refused until ROADMAP A.8
+    checkpoint_dir: Optional[str] = None   # serve params from a checkpoint
 
 
 @dataclass
@@ -96,13 +97,6 @@ def _refuse_unported(job: TrainJob) -> None:
         raise NotImplementedError(
             "engine_partitions: the distributed engine is not ported yet "
             "(ROADMAP A.9)")
-    if (job.fault_policy is not None or job.checkpoint_dir
-            or job.checkpoint_every or job.resume
-            or job.prefetch_mode != "thread"
-            or (job.prefetch_workers or 0) > 1):
-        raise NotImplementedError(
-            "fault_policy / checkpoints / resume / prefetch pools: the "
-            "runtime is not ported yet (ROADMAP A.8)")
 
 
 def _build(job: TrainJob):
@@ -148,20 +142,40 @@ def make_trainer(job: TrainJob):
     _refuse_unported(job)
     g, model, opt, views, eval_view, eval_mask = _build(job)
     trainer = CompactTrainer(model, g, opt, gcn_norm=job.model == "gcn",
-                             device=job.device)
+                             device=job.device,
+                             fault_policy=job.fault_policy)
     return trainer, views, eval_view, eval_mask, g, model
 
 
 def train(job: TrainJob, log=print) -> TrainResult:
     """Run the job end to end: build graph, model and views, fit, check
     the trainer's contract, evaluate. Deterministic in ``job.seed``, bit
-    for bit, on the CPU and on the card: every scatter of the backward is
-    a plan-order segment sum, with no atomics."""
+    for bit, on the CPU and on the card, for any prefetch pool: every
+    scatter of the backward is a plan-order segment sum, with no atomics.
+    A :class:`~repro_torch.runtime.TrainingInterrupted` (raised by
+    ``fit`` between steps after a signal handler's request) saves a
+    checkpoint into ``job.checkpoint_dir`` on its way out."""
+    from repro_torch.runtime.faults import TrainingInterrupted
     trainer, views, eval_view, eval_mask, g, model = make_trainer(job)
     t0 = time.perf_counter()
-    out = trainer.fit(views, steps=job.steps, eval_every=job.eval_every,
-                      eval_view=eval_view, eval_mask=eval_mask,
-                      log_every=job.log_every, log=log)
+    try:
+        out = trainer.fit(views, steps=job.steps, eval_every=job.eval_every,
+                          eval_view=eval_view, eval_mask=eval_mask,
+                          prefetch_workers=job.prefetch_workers,
+                          prefetch_mode=job.prefetch_mode,
+                          checkpoint_every=job.checkpoint_every,
+                          checkpoint_dir=job.checkpoint_dir,
+                          keep_checkpoints=job.keep_checkpoints,
+                          resume=job.resume,
+                          log_every=job.log_every, log=log)
+    except TrainingInterrupted:
+        # fit's finally already retired the prefetch pool; keep the
+        # progress so that resume picks the run back up
+        if job.checkpoint_dir:
+            trainer.save(job.checkpoint_dir, job.keep_checkpoints)
+            log(f"interrupted at step {trainer.step_num} — checkpoint "
+                f"saved to {job.checkpoint_dir}")
+        raise
     wall = time.perf_counter() - t0
     trainer.assert_trace_contract()
     history = [{"step": e["step"], "loss": e["loss"],
@@ -200,14 +214,16 @@ def infer(result: TrainResult,
 
 def serve(result: TrainResult, config: Optional[ServeConfig] = None):
     """An online :class:`~repro_torch.serving.GNNServer` over the trained
-    model, on the model's device."""
+    model, on the model's device. ``config.checkpoint_dir`` serves the
+    params of its newest valid checkpoint (written by either package)
+    instead of the in-memory ones."""
     from repro_torch.serving import GNNServer
     config = config or ServeConfig()
+    params = result.params
     if config.checkpoint_dir:
-        raise NotImplementedError("checkpoint_dir: the port has no "
-                                  "checkpoint format yet (ROADMAP A.8)")
+        params = checkpoint_params(config.checkpoint_dir)
     device = next(result.model.parameters()).device
-    return GNNServer(result.model, result.params, result.graph,
+    return GNNServer(result.model, params, result.graph,
                      buckets=config.buckets, cache=config.cache,
                      staleness=config.staleness,
                      max_batch=config.max_batch,
@@ -217,5 +233,13 @@ def serve(result: TrainResult, config: Optional[ServeConfig] = None):
                      device=device)
 
 
+def checkpoint_params(directory: str):
+    """The ``state_dict`` of the newest valid checkpoint in
+    ``directory``."""
+    from repro_torch.checkpoint import load_checkpoint
+    from repro_torch.weights import params_from_jax
+    return params_from_jax(load_checkpoint(directory)["params"])
+
+
 __all__ = ["TrainJob", "ServeConfig", "TrainResult", "train", "infer",
-           "serve", "make_trainer"]
+           "serve", "make_trainer", "checkpoint_params"]

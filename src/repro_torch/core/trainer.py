@@ -1,5 +1,6 @@
-"""The bucketed single-device trainer (the counterpart of the reference's
-``core/trainer.py:BaseTrainer`` and ``CompactTrainer``).
+"""The bucketed single-device trainer and its fault-tolerant runtime (the
+counterpart of the reference's ``core/trainer.py:BaseTrainer`` and
+``CompactTrainer``).
 
 The paper's training strategies (global-, mini- and cluster-batch,
 §2.3/§4.3) are all streams of views, so one loop drives every strategy:
@@ -10,18 +11,38 @@ one step: forward, masked cross-entropy, ``backward()``, optimizer
 update. On the card the Sum stage's forward and backward are the CUDA
 kernels (:mod:`repro_torch.core.aggregate`).
 
-Not ported yet, and refused with an error that names the ROADMAP item:
-the prefetch pools and sampler processes, the fault-tolerance runtime
-and checkpoints (A.8). Views are built inline on the calling thread.
+Views are built ahead of the step by a pool of builder threads or of
+sampler processes (:mod:`repro_torch.runtime`). View i is a pure
+function of ``(seed, i)`` and the pools emit in index order, so the
+trajectory is bit-identical for any worker count, in either mode, and
+with prefetch off.
+
+**Fault tolerance**: the trainer takes a ``fault_policy`` (retry and
+backoff, per-stage timeouts, divergence action) and an ``injector``
+(deterministic chaos for tests). View builds, device staging, step
+dispatch and checkpoint saves and loads become retryable units; prefetch
+workers are supervised; ``check_finite`` guards each step's loss and
+``on_divergence`` picks ``raise | skip_view | rollback``.
+``fit(..., resume=True)`` resumes from the newest *valid* checkpoint.
+Every retried unit is a pure function of its inputs, so the trajectory
+under injected faults is bit-identical to a fault-free run.
+
+Unlike the reference's immutable arrays, the optimizer updates the
+parameters and moments in place: undoing a step copies a snapshot back
+into the live tensors, and a guarded step (only) takes that snapshot
+first, so the default path copies nothing.
 
 Usage::
 
     trainer = CompactTrainer(model, g, adam(5e-3))    # on the card
-    out = trainer.fit(strategy_views(g, "mini", 2, compact=True), steps=30)
+    out = trainer.fit(strategy_views(g, "mini", 2, compact=True), steps=30,
+                      checkpoint_dir="ck", checkpoint_every=10)
 """
 from __future__ import annotations
 
 import itertools
+import math
+import os
 import threading
 import time
 from typing import Mapping, Optional
@@ -29,34 +50,67 @@ from typing import Mapping, Optional
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import (latest_step, load_checkpoint,
+                                    save_checkpoint)
 from repro_torch.core.mpgnn import accuracy_block, loss_block
 from repro_torch.core.views import (CompactBlockBuilder, CompactView,
-                                    GraphView)
+                                    GlobalViewStream, GraphView, ViewStream)
 from repro_torch.device import resolve_device
+from repro_torch.runtime.faults import (DivergenceError, FaultInjector,
+                                        FaultPolicy, Retrier,
+                                        TrainingInterrupted,
+                                        sync_with_timeout, take_interrupt)
+from repro_torch.runtime.prefetch import StreamPrefetcher, ViewPrefetcher
+from repro_torch.runtime.procpool import (ProcessViewService,
+                                          ProcPoolUnavailable,
+                                          warn_unavailable_once)
+from repro_torch.weights import (opt_state_from_jax, opt_state_to_jax,
+                                 params_from_jax, params_to_jax)
 
-RUNTIME_TODO = ("the fault-tolerant runtime, prefetch pools and "
-                "checkpoints are not ported yet (ROADMAP A.8)")
+_END = object()
 
 
 class RetraceError(AssertionError):
     """The step's per-bucket contract was broken (or never exercised)."""
 
 
-class BaseTrainer:
-    """The shared trainer surface: the ``fit`` loop (loss sync policy,
-    eval cadence, host/device timing). Subclasses provide
-    ``_make_prepare()`` (a ``view -> staged`` callable), ``_dispatch(
-    staged)`` (one step, returning the loss as a tensor on the device),
-    ``evaluate`` and ``assert_trace_contract``."""
+def _make_runtime(fault_policy: Optional[FaultPolicy],
+                  injector: Optional[FaultInjector]) -> Optional[Retrier]:
+    """A Retrier when any fault handling is configured, else None (the
+    production default: no retry wrappers, no per-step loss sync)."""
+    if fault_policy is None and injector is None:
+        return None
+    return Retrier(fault_policy or FaultPolicy(), injector)
 
-    def _init_common(self, opt, fault_policy, injector) -> None:
-        if fault_policy is not None or injector is not None:
-            raise NotImplementedError(f"fault_policy/injector: {RUNTIME_TODO}")
+
+class BaseTrainer:
+    """The shared trainer surface: the ``fit`` loop (prefetch pipelines,
+    loss sync policy, divergence handling, eval and checkpoint cadence,
+    host/device timing) and ``save``/``restore``/``reset``. Subclasses
+    provide ``_make_prepare()`` (a ``view -> staged`` callable, which
+    prefetch workers call concurrently), ``_dispatch(staged)`` (one step,
+    returning the loss as a tensor on the device), ``evaluate`` and
+    ``assert_trace_contract``, and hold ``params`` (``state_dict`` names
+    to the live parameters) and ``opt_state``."""
+
+    def _init_common(self, opt, prefetch_depth: int,
+                     fault_policy: Optional[FaultPolicy],
+                     injector: Optional[FaultInjector]) -> None:
         self.opt = opt
+        self.runtime = _make_runtime(fault_policy, injector)
         self.step_num = 0
-        # host-clock seconds: view build + staging + copy to the device,
-        # and the step (its launches, plus any wait on the device)
-        self.timing = {"stage_s": 0.0, "step_s": 0.0}
+        self.history: list = []
+        self.prefetch_depth = prefetch_depth
+        # the view stream's position, checkpointed so that restore() can
+        # move the stream itself
+        self.view_cursor = 0
+        self._resume_cursor: Optional[int] = None
+        # host-clock seconds: waiting for the next staged view (its build,
+        # staging and copy to the device when prefetch is off; the wait
+        # for each fit's first view, which holds a pool's start, also in
+        # first_stage_s), and the step (its launches, plus any wait on
+        # the device)
+        self.timing = {"stage_s": 0.0, "first_stage_s": 0.0, "step_s": 0.0}
 
     def _make_prepare(self):
         raise NotImplementedError
@@ -70,13 +124,16 @@ class BaseTrainer:
     def assert_trace_contract(self) -> None:
         raise NotImplementedError
 
+    # -- the training loop ----------------------------------------------------
+
     def fit(self, views, steps: Optional[int] = None,
-            prefetch_workers: Optional[int] = None,
+            prefetch: bool = True, prefetch_workers: Optional[int] = None,
             prefetch_mode: str = "thread",
             eval_every: int = 0, eval_view=None,
             eval_mask: Optional[np.ndarray] = None,
             checkpoint_every: int = 0,
             checkpoint_dir: Optional[str] = None,
+            keep_checkpoints: Optional[int] = None,
             max_in_flight: int = 2,
             log_every: int = 0, log=print,
             resume: bool = False) -> dict:
@@ -86,48 +143,286 @@ class BaseTrainer:
         Losses stay on the device: before dispatching step *i* the loop
         reads the loss of step *i - max_in_flight* (one scalar wait, which
         bounds how far the host runs ahead of the device), and the rest
-        are read at the end. ``prefetch_workers`` above 1, the process
-        mode, checkpoints and resume are refused (ROADMAP A.8)."""
-        if prefetch_workers is not None and prefetch_workers > 1:
-            raise NotImplementedError(
-                f"prefetch_workers={prefetch_workers}: {RUNTIME_TODO}")
-        if prefetch_mode == "process":
-            raise NotImplementedError(f"prefetch_mode='process': "
-                                      f"{RUNTIME_TODO}")
-        if prefetch_mode != "thread":
+        are read at the end.
+
+        ``resume=True`` restores the newest *valid* checkpoint in
+        ``checkpoint_dir`` first (a fresh start if there is none) and
+        moves a ViewStream to its recorded cursor. With a policy whose
+        ``check_finite`` is on, or whose ``on_divergence`` is not
+        ``"raise"``, every step's loss is read and guarded: a non-finite
+        loss undoes the step, then ``skip_view`` moves on and
+        ``rollback`` restores the last valid checkpoint and continues past
+        the poison view. A ``step`` timeout arms a watchdog around the
+        loss read. ``keep_checkpoints`` is the retention of ``save``.
+        A signal handler's :func:`~repro_torch.runtime.faults.
+        request_interrupt` raises ``TrainingInterrupted`` between steps,
+        never inside one.
+
+        Over an indexable :class:`ViewStream` with ``prefetch`` on, views
+        are built by ``prefetch_workers`` builder threads (``"thread"``,
+        default ``min(4, cpu_count - 1)``) or sampler processes
+        (``"process"``, :class:`~repro_torch.runtime.procpool.
+        ProcessViewService`; where shared memory is unavailable it
+        degrades to threads with one warning). The trajectory is
+        bit-identical for any worker count, either mode and
+        ``prefetch=False``. A :class:`GlobalViewStream` (one static view)
+        is staged inline, since a pool would only hand back the same
+        block. Plain iterators use the single-thread double-buffered
+        pipeline. After a fit the stream's cursor counts
+        the views the loop consumed, not those built ahead."""
+        rt = self.runtime
+        if prefetch_mode not in ("thread", "process"):
             raise ValueError(f"prefetch_mode={prefetch_mode!r} — expected "
                              "'thread' or 'process'")
-        if checkpoint_dir or checkpoint_every or resume:
-            raise NotImplementedError(f"checkpoints/resume: {RUNTIME_TODO}")
+        if resume and checkpoint_dir and latest_step(checkpoint_dir) \
+                is not None:
+            self.restore(checkpoint_dir)
         prepare = self._make_prepare()
-        it = iter(itertools.islice(views, steps) if steps is not None
-                  else views)
+        stream = views if isinstance(views, ViewStream) else None
+        # any fit consumes a pending restore cursor, so that it cannot
+        # move a later, unrelated stream
+        resume_cur, self._resume_cursor = self._resume_cursor, None
+        if stream is not None and resume_cur is not None \
+                and stream.cursor < resume_cur:
+            stream.seek(resume_cur)
+        staged_iter = self._staged_views(views, stream, prepare, steps,
+                                         prefetch, prefetch_workers,
+                                         prefetch_mode)
+        policy = rt.policy if rt is not None else None
+        inj = rt.injector if rt is not None else None
+        # the finite guard reads every loss (serialising host and device):
+        # on only when asked for, or when the divergence action needs it
+        guard = policy is not None and (policy.check_finite
+                                        or policy.on_divergence != "raise")
+        watchdog = policy.timeout("step") if policy is not None else None
+        sync_now = guard or watchdog is not None
+        events = rt.events if rt is not None else []
         losses, pending, evals = [], [], []
-        while True:
-            t0 = time.perf_counter()
-            view = next(it, None)
-            if view is None:
-                break
-            staged = prepare(view)
-            t1 = time.perf_counter()
-            if max_in_flight > 0 and len(pending) >= max_in_flight:
-                losses.append(float(pending.pop(0)))
-            loss = self._dispatch(staged)
-            self.timing["stage_s"] += t1 - t0
-            self.timing["step_s"] += time.perf_counter() - t1
-            self.step_num += 1
-            pending.append(loss)
-            if (eval_every and eval_view is not None
-                    and self.step_num % eval_every == 0):
-                rec = {"step": self.step_num, "loss": float(loss),
-                       "eval_acc": self.evaluate(eval_view, eval_mask)}
-                evals.append(rec)
-                if log_every:
-                    log(f"step {rec['step']:5d}  loss {rec['loss']:.4f}  "
-                        f"eval_acc {rec['eval_acc']:.4f}")
+        try:
+            # idx counts the views this fit consumed, monotonic across a
+            # rollback, so a keyed "diverge" fires once per poison view
+            for idx in itertools.count():
+                # the state is whole here: the last step's update, counters
+                # and checkpoint are done
+                signum = take_interrupt()
+                if signum is not None:
+                    raise TrainingInterrupted(signum)
+                t0 = time.perf_counter()
+                staged = next(staged_iter, _END)
+                if staged is _END:
+                    break
+                t1 = time.perf_counter()
+                if max_in_flight > 0 and len(pending) >= max_in_flight:
+                    losses.append(float(pending.pop(0)))
+                prev = self._snapshot() if guard else None
+                if rt is None:
+                    loss = self._dispatch(staged)
+                else:
+                    # a transient failure re-dispatches the same (params,
+                    # staged): the injected fault fires before the step
+                    loss = rt("step", lambda: self._dispatch(staged),
+                              key=self.step_num)
+                self.timing["stage_s"] += t1 - t0
+                if idx == 0:
+                    self.timing["first_stage_s"] += t1 - t0
+                self.timing["step_s"] += time.perf_counter() - t1
+                self.step_num += 1
+                self.view_cursor = (stream.cursor if stream is not None
+                                    else self.step_num)
+                if sync_now:
+                    loss_val = sync_with_timeout(lambda: float(loss),
+                                                 watchdog)
+                    if inj is not None and inj.fires("diverge", key=idx):
+                        loss_val = float("nan")   # simulated divergence
+                    if guard and not math.isfinite(loss_val):
+                        self._diverged(prev, loss_val, checkpoint_dir,
+                                       events)
+                        continue
+                    losses.append(loss_val)
+                else:
+                    pending.append(loss)
+                if (eval_every and eval_view is not None
+                        and self.step_num % eval_every == 0):
+                    rec = {"step": self.step_num, "loss": float(loss),
+                           "eval_acc": self.evaluate(eval_view, eval_mask)}
+                    evals.append(rec)
+                    if log_every:
+                        log(f"step {rec['step']:5d}  loss {rec['loss']:.4f}"
+                            f"  eval_acc {rec['eval_acc']:.4f}")
+                if (checkpoint_every and checkpoint_dir
+                        and self.step_num % checkpoint_every == 0):
+                    self.save(checkpoint_dir, keep_checkpoints)
+        finally:
+            if isinstance(staged_iter, (ViewPrefetcher, StreamPrefetcher,
+                                        ProcessViewService)):
+                staged_iter.close()
+            if isinstance(staged_iter, ProcessViewService) and rt is None:
+                # with a runtime the service already appended its
+                # supervision events into rt.events
+                events.extend(staged_iter.events)
         losses.extend(float(x) for x in pending)
+        self.history.extend(evals)
         return {"losses": losses, "evals": evals, "steps": self.step_num,
-                "events": []}
+                "events": list(events)}
+
+    def _staged_views(self, views, stream, prepare, steps, prefetch,
+                      workers, mode):
+        """The iterator of staged views for one fit."""
+        rt = self.runtime
+        # inline staging is still a retryable view_build stage under a
+        # runtime (the prefetchers wrap build and prepare themselves)
+        prep = prepare if rt is None else (
+            lambda v: rt("view_build", lambda: prepare(v)))
+        if stream is None:
+            if steps is not None:
+                views = itertools.islice(views, steps)
+            if prefetch:
+                return ViewPrefetcher(views, prepare, self.prefetch_depth,
+                                      runtime=rt)
+            return (prep(v) for v in views)
+        if not prefetch or isinstance(stream, GlobalViewStream):
+            bounded = (itertools.islice(stream, steps) if steps is not None
+                       else stream)
+            return (prep(v) for v in bounded)
+        if workers is None:
+            workers = max(1, min(4, (os.cpu_count() or 2) - 1))
+        if mode == "process":
+            try:
+                return ProcessViewService(stream, prepare, steps,
+                                          workers=workers,
+                                          depth=self.prefetch_depth,
+                                          runtime=rt)
+            except ProcPoolUnavailable as e:
+                warn_unavailable_once(str(e))
+        return StreamPrefetcher(stream, prepare, steps, workers=workers,
+                                depth=self.prefetch_depth, runtime=rt)
+
+    # -- state: snapshots, divergence, checkpoints -----------------------------
+
+    def _snapshot(self) -> tuple:
+        """A copy of (parameters, optimizer state, step): the optimizer
+        writes in place, so this is what undoing a step needs."""
+        with torch.no_grad():
+            params = {k: p.detach().clone() for k, p in self.params.items()}
+            state = {k: ({n: t.clone() for n, t in v.items()}
+                         if isinstance(v, dict) else v)
+                     for k, v in self.opt_state.items()}
+        return params, state, self.step_num
+
+    def _load_state(self, params: Mapping, opt_state: Mapping,
+                    step_num: int) -> None:
+        """Copy a state into the live parameters and moments. The model
+        trains the tensors in ``self.params``: rebinding them would leave
+        it training the old ones."""
+        for what, want, have in (
+                ("params", set(params), set(self.params)),
+                ("optimizer state", set(opt_state), set(self.opt_state))):
+            if want != have:
+                raise ValueError(
+                    f"{what} do not match the trainer's: missing "
+                    f"{sorted(have - want)}, unexpected {sorted(want - have)}")
+        with torch.no_grad():
+            for k, p in self.params.items():
+                p.copy_(params[k])
+            for k, v in opt_state.items():
+                if isinstance(v, dict):
+                    live = self.opt_state[k]
+                    if set(v) != set(live):
+                        raise ValueError(f"optimizer state {k!r} does not "
+                                         "match the parameters")
+                    for n, t in v.items():
+                        live[n].copy_(t)
+                else:
+                    self.opt_state[k] = v
+        self.step_num = int(step_num)
+
+    def _diverged(self, prev: tuple, loss_val: float,
+                  checkpoint_dir: Optional[str], events: list) -> None:
+        """Apply ``runtime.policy.on_divergence`` to a non-finite step:
+        the poison update is undone first (``prev`` is the pre-step
+        snapshot)."""
+        self._load_state(*prev)
+        action = self.runtime.policy.on_divergence
+        events.append({"stage": "diverge", "step": prev[2] + 1,
+                       "loss": loss_val, "action": action,
+                       "view_cursor": self.view_cursor})
+        if action == "skip_view":
+            return   # poison view consumed, update undone: move on
+        if action == "rollback":
+            if checkpoint_dir:
+                try:
+                    # falls back past any corrupt file to the newest valid
+                    self.restore(checkpoint_dir)
+                except FileNotFoundError:
+                    # no checkpoint yet: the raise below says so
+                    pass
+                else:
+                    # the stream already stands past the poison view; the
+                    # restored cursor must not rewind a later fit
+                    self._resume_cursor = None
+                    return
+            raise DivergenceError(
+                f"non-finite loss {loss_val} at step {prev[2] + 1} with "
+                "on_divergence='rollback' but no valid checkpoint to "
+                "roll back to (pass checkpoint_dir and checkpoint_every)")
+        raise DivergenceError(
+            f"non-finite loss {loss_val} at step {prev[2] + 1} "
+            f"(view cursor {self.view_cursor})")
+
+    def save(self, directory: str, keep: Optional[int] = None) -> str:
+        """Write ``step_<N>.npz`` in the reference's tree and format
+        (``params`` and ``opt_state`` as the JAX package holds them, and
+        int64 ``step`` and ``view_cursor``), so either package loads it,
+        keeping the newest ``keep`` (0 = all; None = the policy's
+        ``keep_checkpoints``, all without a policy)."""
+        rt = self.runtime
+        if keep is None:
+            keep = rt.policy.keep_checkpoints if rt is not None else 0
+
+        def do():
+            return save_checkpoint(directory, self.step_num, {
+                "params": params_to_jax(self.params),
+                "opt_state": opt_state_to_jax(self.opt_state),
+                "step": np.asarray(self.step_num, np.int64),
+                "view_cursor": np.asarray(self.view_cursor, np.int64),
+            }, keep=keep)
+
+        if rt is None:
+            return do()
+        # a failed save never poisons disk (atomic rename): retry it
+        return rt("checkpoint_save", do)
+
+    def restore(self, directory: str, step: Optional[int] = None) -> int:
+        """Load parameters, optimizer state and step from a checkpoint of
+        either package (the newest valid one unless ``step`` is given),
+        into the live tensors. The next ``fit`` over a
+        :class:`ViewStream` moves the stream to the checkpoint's
+        cursor."""
+        rt = self.runtime
+        if rt is None:
+            ck = load_checkpoint(directory, step)
+        else:
+            ck = rt("checkpoint_load",
+                    lambda: load_checkpoint(directory, step))
+        self._load_state(params_from_jax(ck["params"]),
+                         opt_state_from_jax(ck["opt_state"]),
+                         int(ck["step"]))
+        if "view_cursor" in ck:      # older checkpoints predate the key
+            self.view_cursor = int(ck["view_cursor"])
+            self._resume_cursor = self.view_cursor
+        return self.step_num
+
+    def reset(self, params: Optional[Mapping] = None) -> None:
+        """Fresh optimizer state and counters, with ``params`` (a
+        ``state_dict``; default: the parameters the trainer started
+        from) copied into the live parameters."""
+        self._load_state(params if params is not None else self._initial,
+                         self.opt_state, 0)
+        self.opt_state = self.opt.init(self.params)
+        self.history = []
+        self.view_cursor = 0
+        self._resume_cursor = None
+        self.timing = {"stage_s": 0.0, "first_stage_s": 0.0, "step_s": 0.0}
 
 
 class CompactTrainer(BaseTrainer):
@@ -148,8 +443,10 @@ class CompactTrainer(BaseTrainer):
 
     def __init__(self, model, g, opt, params: Optional[Mapping] = None,
                  buckets=None, slots: int = 2, gcn_norm: bool = True,
-                 device=None, fault_policy=None, injector=None):
-        self._init_common(opt, fault_policy, injector)
+                 device=None, prefetch_depth: int = 2,
+                 fault_policy: Optional[FaultPolicy] = None,
+                 injector: Optional[FaultInjector] = None):
+        self._init_common(opt, prefetch_depth, fault_policy, injector)
         self.device = resolve_device(device)
         if params is not None:
             model.load_state_dict(params)
@@ -161,10 +458,17 @@ class CompactTrainer(BaseTrainer):
             csc_plan=csc, src_plan=csc)
         self.params = dict(self.model.named_parameters())
         self.opt_state = opt.init(self.params)
+        # what reset() goes back to, on the host
+        self._initial = {k: p.detach().cpu().clone()
+                         for k, p in self.params.items()}
         # (n_pad, e_pad) -> steps run on blocks of that shape
         self.step_calls: dict = {}
-        # staging fills per-bucket ring buffers: one fill at a time, and
-        # the block is copied to the device before the lock releases
+        # staging fills per-bucket ring buffers, and prefetch workers call
+        # _prepare concurrently: one fill at a time, and the block is
+        # copied to the device before the lock releases. The copy from
+        # pageable memory returns once the host buffer has been read, so
+        # the next fill of the slot cannot race it; the copy and the step
+        # go to the same (default) stream, so the step reads it complete
         self._stage_lock = threading.Lock()
         self._static: Optional[tuple] = None   # (GraphView, device block)
 
@@ -172,7 +476,11 @@ class CompactTrainer(BaseTrainer):
         with self._stage_lock:
             if self._static is not None and self._static[0] is view:
                 return self._static[1]
-            block = self.stager.stage(view).to(self.device, copy=True)
+            host = self.stager.stage(view)
+            rt = self.runtime
+            block = (host.to(self.device, copy=True) if rt is None
+                     else rt("device_put",
+                             lambda: host.to(self.device, copy=True)))
             if isinstance(view, GraphView):
                 # a static view stages once; the step only reads it
                 self._static = (view, block)

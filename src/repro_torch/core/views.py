@@ -488,6 +488,11 @@ class ViewStream:
         global view)."""
         return ViewBuilder(self.g, self.K)
 
+    def seek(self, i: int) -> None:
+        """Move the stream to view ``i`` (the cursor is the stream's whole
+        state, so a checkpoint's cursor resumes it exactly)."""
+        self.cursor = int(i)
+
     def __iter__(self) -> Iterator:
         return self
 

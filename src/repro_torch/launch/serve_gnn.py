@@ -1,12 +1,14 @@
 """Online GNN serving entrypoint + load-test harness (the counterpart of
 ``repro/launch/serve_gnn.py``).
 
-Builds the graph and a model with seeded random weights, stands up a
+Builds the graph and a model, stands up a
 :class:`~repro_torch.serving.GNNServer` on the card (``--device cpu``
 runs the kernels' plain versions on the CPU), replays a seeded request
 trace from concurrent client threads and prints the latency/QPS/cache
-report. Training arrives with the training slice, so ``--steps`` must
-be 0 and ``--checkpoint-dir`` is refused.
+report. The model's weights are seeded random ones by default
+(``--steps 0``); ``--steps N`` trains them through
+:func:`repro_torch.api.train` first, and ``--checkpoint-dir`` serves the
+params of that directory's newest valid checkpoint (of either package).
 
     PYTHONPATH=src python -m repro_torch.launch.serve_gnn \
         --dataset alipay_like --model gat_e --hidden 32 --requests 512
@@ -129,9 +131,11 @@ def make_model(g: Graph, model: str, num_layers: int, hidden: int,
 
 
 def build_server(g: Graph, model: str, num_layers: int, hidden: int,
-                 seed: int = 0, device=None, **server_kw) -> GNNServer:
-    """A server over ``g`` for :func:`make_model`'s model."""
-    return GNNServer(make_model(g, model, num_layers, hidden, seed), None,
+                 seed: int = 0, device=None, params=None,
+                 **server_kw) -> GNNServer:
+    """A server over ``g`` for :func:`make_model`'s model, with ``params``
+    (a ``state_dict``) loaded when given."""
+    return GNNServer(make_model(g, model, num_layers, hidden, seed), params,
                      g, gcn_norm=model == "gcn", device=device, **server_kw)
 
 
@@ -144,10 +148,13 @@ def main(argv=None):
     ap.add_argument("--layers", type=int, default=2)
     ap.add_argument("--hidden", type=int, default=64)
     ap.add_argument("--steps", type=int, default=0,
-                    help="training steps before serving; must be 0 until "
-                         "the training slice lands (ROADMAP A.7)")
+                    help="training steps (api.train, global strategy) "
+                         "before serving; the default 0 serves the seeded "
+                         "random weights, as chip_smoke.py's serving "
+                         "phases do")
     ap.add_argument("--checkpoint-dir", default=None,
-                    help="not supported yet (ROADMAP A.8)")
+                    help="serve the params of this directory's newest "
+                         "valid checkpoint instead")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--requests", type=int, default=500)
     ap.add_argument("--clients", type=int, default=4)
@@ -160,20 +167,31 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="cuda (the default) or cpu")
     args = ap.parse_args(argv)
-    if args.steps != 0:
-        raise SystemExit("--steps: the port cannot train yet; training "
-                         "arrives with ROADMAP A.7 (pass --steps 0)")
-    if args.checkpoint_dir:
-        raise SystemExit("--checkpoint-dir: the port has no checkpoint "
-                         "format yet (ROADMAP A.8)")
 
-    g = resolve_graph(args.dataset, args.model, seed=args.seed)
-    server = build_server(g, args.model, args.layers, args.hidden,
-                          seed=args.seed, device=args.device,
-                          cache=not args.no_cache,
-                          staleness=args.staleness,
-                          max_batch=args.max_batch,
-                          max_wait_ms=args.max_wait_ms).start()
+    import repro_torch.api as api
+    if args.steps > 0:
+        result = api.train(api.TrainJob(
+            dataset=args.dataset, model=args.model, num_layers=args.layers,
+            hidden=args.hidden, steps=args.steps, seed=args.seed,
+            eval_every=max(1, args.steps - 1), device=args.device))
+        print(f"[{result.trainer.device}] trained {args.steps} steps: "
+              f"final test acc {result.final_acc:.4f}")
+        g = result.graph
+        server = api.serve(result, api.ServeConfig(
+            max_batch=args.max_batch, max_wait_ms=args.max_wait_ms,
+            cache=not args.no_cache, staleness=args.staleness,
+            checkpoint_dir=args.checkpoint_dir))
+    else:
+        g = resolve_graph(args.dataset, args.model, seed=args.seed)
+        params = (api.checkpoint_params(args.checkpoint_dir)
+                  if args.checkpoint_dir else None)
+        server = build_server(g, args.model, args.layers, args.hidden,
+                              seed=args.seed, device=args.device,
+                              params=params, cache=not args.no_cache,
+                              staleness=args.staleness,
+                              max_batch=args.max_batch,
+                              max_wait_ms=args.max_wait_ms)
+    server.start()
     try:
         trace = request_trace(g, args.requests, seed=args.seed)
         _, wall = run_clients(server, trace, args.clients)

@@ -1,12 +1,14 @@
 """Parameters, gradients and optimizer state carried over from the JAX
-package (a gradient tree is shaped as the params: ``params_from_jax``
-names it too).
+package and back (a gradient tree is shaped as the params:
+``params_from_jax`` names it too).
 
 The JAX package keeps a model's parameters as a nested dict/list tree;
 the port keeps the same names and layouts as ``nn.Module`` attributes,
 so the tree's paths joined with ``.`` are the port model's
 ``state_dict`` keys (``{"layers": [{"w": ...}]}`` -> ``"layers.0.w"``).
 The LM zoo's stacked blocks are unrolled by :func:`lm_params_from_jax`.
+:func:`params_to_jax` and :func:`opt_state_to_jax` go the other way, for
+checkpoints that the reference loads.
 """
 from __future__ import annotations
 
@@ -55,6 +57,46 @@ def opt_state_from_jax(tree) -> dict:
     for k in ("m", "v", "mu"):
         if k in tree:
             out[k] = dict(params_from_jax(tree[k]))
+    return out
+
+
+def params_to_jax(state_dict: Mapping[str, torch.Tensor]) -> dict:
+    """The inverse of :func:`params_from_jax`: the JAX package's nested
+    params tree, as numpy arrays on the host, from a ``state_dict`` (or
+    any mapping of ``state_dict`` names to tensors). A numeric path
+    segment indexes a list (``"layers.0.w"`` -> ``{"layers": [{"w":
+    ...}]}``), as the reference holds its layers, so a checkpoint of this
+    tree records the reference's spec."""
+    tree: dict = {}
+    for key, value in state_dict.items():
+        *path, leaf = key.split(".")
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = value.detach().cpu().numpy().copy()
+
+    def lists(node):
+        if not isinstance(node, dict):
+            return node
+        node = {k: lists(v) for k, v in node.items()}
+        if all(k.isdigit() for k in node):
+            if sorted(map(int, node)) != list(range(len(node))):
+                raise ValueError(f"list indices {sorted(node)} are not "
+                                 "0..n-1")
+            return [node[str(i)] for i in range(len(node))]
+        return node
+
+    return lists(tree)
+
+
+def opt_state_to_jax(state: Mapping) -> dict:
+    """The reference's optimizer state from the port's: ``{"step": int32
+    scalar, "m", "v"}`` (adam, adamw) or ``{"step"[, "mu"]}`` (sgd), each
+    moment as a params tree (:func:`params_to_jax`)."""
+    out = {"step": np.asarray(state["step"], np.int32)}
+    for k in ("m", "v", "mu"):
+        if k in state:
+            out[k] = params_to_jax(state[k])
     return out
 
 

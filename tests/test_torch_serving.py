@@ -13,12 +13,14 @@ from repro.config import GNNConfig as JaxConfig
 from repro.graph.datasets import make_dataset as jax_dataset
 from repro.models import make_gnn as jax_make_gnn
 from repro.serving import GNNServer as JaxServer
+import repro_torch.api as api
 from repro_torch.config import GNNConfig
 from repro_torch.core.mpgnn import forward_block
 from repro_torch.device import resolve_device
 from repro_torch.graph import base_block, make_dataset
 from repro_torch.launch.serve_gnn import (build_server, main,
-                                          request_trace, run_clients)
+                                          request_trace, resolve_graph,
+                                          run_clients)
 from repro_torch.models import make_gnn
 from repro_torch.serving import (GNNServer, ServerClosedError,
                                  ServerOverloadedError)
@@ -289,5 +291,34 @@ def test_serve_gnn_main_runs_on_cpu(capsys):
                  "cpu"]) == 0
     out = capsys.readouterr().out
     assert "served 24 requests" in out and "[cpu]" in out
-    with pytest.raises(SystemExit, match="ROADMAP"):
-        main(["--steps", "10", "--device", "cpu"])
+
+
+@pytest.mark.parametrize("source", ["steps", "checkpoint"])
+def test_serve_gnn_main_trains_or_serves_a_checkpoint(source, tmp_path,
+                                                      capsys):
+    """``--steps 5`` trains before serving; ``--checkpoint-dir`` serves
+    that checkpoint's params, the trained ones, over seeded weights."""
+    from repro_torch.launch.train import main as train_main
+    job = ["--dataset", "cora", "--model", "gcn", "--hidden", "16",
+           "--device", "cpu"]
+    serve = job + ["--requests", "24", "--clients", "2"]
+    if source == "steps":
+        assert main(serve + ["--steps", "5"]) == 0
+        out = capsys.readouterr().out
+        assert "trained 5 steps" in out and "served 24 requests" in out
+        return
+    ck = str(tmp_path / "ck")
+    assert train_main(["gnn", *job, "--steps", "3", "--checkpoint-dir", ck,
+                       "--checkpoint-every", "3"]) == 0
+    assert main(serve + ["--checkpoint-dir", ck]) == 0
+    assert "served 24 requests" in capsys.readouterr().out
+    g = resolve_graph("cora", "gcn")
+    targets = np.arange(6)
+    params = api.checkpoint_params(ck)
+    server = build_server(g, "gcn", 2, 16, device="cpu", params=params,
+                          cache=False)
+    assert all(torch.equal(server.model.state_dict()[k], params[k])
+               for k in params)
+    seeded = build_server(g, "gcn", 2, 16, device="cpu", cache=False)
+    assert not np.array_equal(server.submit(targets),
+                              seeded.submit(targets))

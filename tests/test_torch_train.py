@@ -12,7 +12,9 @@ The same numpy inputs and the JAX-initialised parameters (carried over by
   and final parameters within 1e-4 (float32 sums in another order, grown
   over the steps);
 - the quickstart loop (GCN on cora, global batch, 30 steps);
-- the training entry point, and its refusals of what is not ported.
+- the training entry point, its runtime flags (prefetch pools, sampler
+  processes, checkpoints, divergence policy, resume), and its refusals
+  of what is not ported.
 """
 import os
 import subprocess
@@ -39,6 +41,7 @@ from repro.models import make_gnn as jax_make_gnn
 from repro.nn.layers import softmax_cross_entropy as jax_xent
 import repro_torch.api as api
 import repro_torch.optim as topt
+from repro_torch.checkpoint import checkpoint_steps
 from repro_torch.config import GNNConfig
 from repro_torch.core.clustering import label_propagation_clusters
 from repro_torch.core.mpgnn import loss_block
@@ -390,17 +393,9 @@ def test_quickstart_loop_matches_jax():
 def test_trainer_refuses_what_is_not_ported():
     _, pg = _graphs("reddit_like", "gcn")
     _, _, model = _models("gcn", pg)
-    with pytest.raises(NotImplementedError, match="A.8"):
-        CompactTrainer(model, pg, topt.adam(), device="cpu",
-                       fault_policy=object())
     trainer = CompactTrainer(model, pg, topt.adam(), device="cpu")
     with pytest.raises(RetraceError):
         trainer.assert_trace_contract()
-    views = strategy_views(pg, "global", 2)
-    for kw in (dict(prefetch_workers=2), dict(prefetch_mode="process"),
-               dict(checkpoint_dir="ck"), dict(resume=True)):
-        with pytest.raises(NotImplementedError, match="A.8"):
-            trainer.fit(views, steps=1, **kw)
 
 
 # -- the facade and the entry point -------------------------------------------
@@ -419,10 +414,8 @@ def test_api_train_infer_serve_on_cpu():
     server = api.serve(result, api.ServeConfig(max_batch=4, cache=False))
     np.testing.assert_allclose(server.submit([0, 3, 9]), logits, rtol=1e-4,
                                atol=1e-5)
-    for kw in (dict(engine_partitions=2), dict(checkpoint_dir="ck"),
-               dict(prefetch_mode="process")):
-        with pytest.raises(NotImplementedError):
-            api.make_trainer(api.TrainJob(device="cpu", **kw))
+    with pytest.raises(NotImplementedError, match="A.9"):
+        api.make_trainer(api.TrainJob(device="cpu", engine_partitions=2))
 
 
 def test_train_cli_runs_on_cpu():
@@ -437,11 +430,6 @@ def test_train_cli_runs_on_cpu():
 
 @pytest.mark.parametrize("argv,item", [
     (["gnn", "--engine-partitions", "2"], "A.9"),
-    (["gnn", "--prefetch-mode", "process"], "A.8"),
-    (["gnn", "--prefetch-workers", "4"], "A.8"),
-    (["gnn", "--checkpoint-dir", "ck"], "A.8"),
-    (["gnn", "--on-divergence", "rollback"], "A.8"),
-    (["gnn", "--resume"], "A.8"),
     (["lm"], "A.12"),
 ])
 def test_train_cli_refuses_unported_flags(argv, item, capsys):
@@ -449,3 +437,39 @@ def test_train_cli_refuses_unported_flags(argv, item, capsys):
         train_main(argv)
     assert e.value.code == 2
     assert f"ROADMAP {item}" in capsys.readouterr().err
+
+
+CLI_JOB = ["gnn", "--dataset", "cora", "--strategy", "mini", "--compact",
+           "--hidden", "16", "--device", "cpu"]
+
+
+@pytest.mark.parametrize("flags,steps,seed_steps", [
+    (["--prefetch-mode", "process", "--prefetch-workers", "2"], 4, 0),
+    (["--prefetch-workers", "2"], 4, 0),
+    (["--checkpoint-dir", "{ck}", "--checkpoint-every", "2",
+      "--keep-checkpoints", "1"], 4, 0),
+    (["--on-divergence", "rollback", "--checkpoint-dir", "{ck}",
+      "--checkpoint-every", "2"], 4, 0),
+    (["--resume", "--checkpoint-dir", "{ck}"], 2, 4),
+    (["--fault-retries", "1", "--fault-backoff", "0", "--check-finite",
+      "--step-timeout", "120"], 4, 0),
+], ids=["process", "workers", "checkpoints", "rollback", "resume",
+        "policy"])
+def test_train_cli_runtime_flags_run_on_cpu(flags, steps, seed_steps,
+                                            tmp_path, capsys):
+    """The runtime's flags train to the end; ``--resume`` continues a
+    directory another run checkpointed (4 + 2 steps)."""
+    ck = str(tmp_path / "ck")
+    if seed_steps:
+        assert train_main(CLI_JOB + ["--steps", str(seed_steps),
+                                     "--checkpoint-dir", ck,
+                                     "--checkpoint-every", "2"]) == 0
+    argv = CLI_JOB + ["--steps", str(steps)] + [f.format(ck=ck)
+                                                for f in flags]
+    assert train_main(argv) == 0
+    out = capsys.readouterr().out
+    assert f"final test acc: " in out
+    assert f"at step {seed_steps + steps} " in out
+    if "--checkpoint-every" in flags:
+        keep = 1 if "--keep-checkpoints" in flags else 2
+        assert checkpoint_steps(ck) == [2, 4][-keep:]
