@@ -8,6 +8,7 @@ and check them.
     python3 chip_smoke.py --only lm-times  # and the LM kernels' times
     python3 chip_smoke.py --only lm        # and the LM phases 12-13
     python3 chip_smoke.py --only runtime   # phases 1-2 and the runtime's 11
+    python3 chip_smoke.py --only graphs    # phases 1-2 and the graphs' 14
 
 Phases (each raises on failure, so the script exits non-zero):
 
@@ -92,7 +93,7 @@ Phases (each raises on failure, so the script exits non-zero):
     ``flash_attention`` kernel against its plain version at full depth
     on the card, one launch per layer on the kernel path and none on
     the plain one; then card against CPU at depth 2, decode fed seeded
-    tokens and then the CPU's own argmax), then a bf16 serving run of 64
+    tokens and then the CPU's own argmax), then a bf16 serving run of 40
     requests (prompts uniform in 512-2048 tokens, 128 new tokens each,
     batch 4) with its tokens/s, the kernel's launches per prefill batch,
     a profile of one short batch and the bf16 kernel-vs-plain
@@ -100,6 +101,26 @@ Phases (each raises on failure, so the script exits non-zero):
 13. serve RWKV-6 1.6B (24 layers, d 2048) the same way through the
     ``wkv6`` kernel (prompts of whole 128-token chunks, 512-2048; the
     parity gates also cover the prefill's final states).
+14. CUDA graphs per bucket (run after phase 11): the GNN train step
+    (forward, backward, Adam) and the served forward are one CUDA graph
+    per bucket on the card, the default, so phases 4-11 already run
+    under replay; here every training cell (GAT-E, GCN and SAGE-max at
+    the configs' widths under global, mini and cluster on compact views,
+    and dense mini and cluster for GAT-E and GCN) runs 30 steps eagerly
+    (``cuda_graphs=False``) and 30 under replay: losses, step-1 gradients
+    and final parameters bitwise equal, exactly one capture per touched
+    bucket (``assert_compiled_per_bucket``); the dense cells also against
+    the CPU (phases 7-8's tolerances) and against the compact cell on the
+    same stream indices (losses within 1e-3 * max(1, |loss|): cuBLAS may
+    pick other algorithms for other row counts); then steady steps/s
+    eager against replay in alternating order and the busy share under
+    replay, one JSON ``graphs row`` each. The three served models: 512
+    responses in fixed batches bitwise equal eager against replay, a
+    cache hit bitwise a recompute under replay, one capture per bucket,
+    and QPS and p50/p99 eager against replay (``serve row``). Last, ten
+    alternating pairs of builder threads against inline staging under
+    replay on the GAT-E and GCN mini cells, every fit's losses bitwise
+    equal (``pairs row``).
 
 Phase 3 also holds ``flash_attention`` (causal, non-causal, window,
 ``seq_len < T``, ``kv_start`` with fully masked rows, GQA 1 and 4, D 32,
@@ -184,7 +205,7 @@ KERNELS = {
         "replaces": "src/repro/kernels/wkv6.py:78"},
 }
 MAX_WIDTH = 64                     # the Reddit config's feature width
-LM_REQUESTS = 64                   # LM serving run: seeded requests,
+LM_REQUESTS = 40                   # LM serving run: seeded requests,
 LM_PROMPTS = (512, 2048)           # prompt lengths uniform in this range,
 LM_NEW_TOKENS = 128                # new tokens each,
 LM_BATCH = 4                       # in batches of 4
@@ -1823,13 +1844,17 @@ def serve_lm(arch: str, kernel: str, lengths, serve_lengths,
 # -- phases 7 and 8: training --------------------------------------------------
 
 
-def _fit_job(job, steps: int, prefetch: bool = True):
-    """Make the job's trainer and fit ``steps`` steps, the first alone so
-    its gradients can be read. Returns (trainer, views, losses, step-1
-    grads on the CPU, seconds of steps 2.. with the device drained)."""
+def _fit_job(job, steps: int, prefetch: bool = True,
+             cuda_graphs: bool = True):
+    """Make the job's trainer (``cuda_graphs=False``: every step eager)
+    and fit ``steps`` steps, the first alone so its gradients can be
+    read. Returns (trainer, views, losses, step-1 grads on the CPU,
+    seconds of steps 2.. with the device drained)."""
     import torch
     from repro_torch import api
     trainer, views, *_ = api.make_trainer(job)
+    if not cuda_graphs:
+        trainer = _eager(trainer)
     losses = trainer.fit(views, steps=1, prefetch=prefetch)["losses"]
     grads = {k: p.grad.detach().cpu() for k, p in trainer.params.items()}
     if trainer.device.type == "cuda":
@@ -1848,10 +1873,19 @@ _FAMILIES = ("segment_sum_bwd", "segment_sum", "edge_softmax_bwd",
              "edge_softmax", "segment_max_bwd", "segment_max")
 
 
-def _profile(trainer, views, step_ms: float, steps: int = 5) -> None:
+def _eager(trainer):
+    """The same trainer (its model, graph, optimizer and staging) with
+    every step eager: no CUDA graph."""
+    from repro_torch.core.trainer import CompactTrainer
+    return CompactTrainer(trainer.model, trainer.g, trainer.opt,
+                          gcn_norm=trainer.stager.gcn_norm,
+                          device=trainer.device, cuda_graphs=False)
+
+
+def _profile(trainer, views, step_ms: float, steps: int = 5) -> float:
     """Device time per step by kernel over ``steps`` more steps, from a
     ``torch.profiler`` trace, and the device's busy share against the
-    unprofiled step time ``step_ms``."""
+    unprofiled step time ``step_ms``; returns the busy ms per step."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1888,6 +1922,7 @@ def _profile(trainer, views, step_ms: float, steps: int = 5) -> None:
             fams[name] = (t + ms, c + n)
     print("    Sum-stage kernels, device ms/step: " + ", ".join(
         f"{k} {t:.4f} ({c:.0f} CUDA launches)" for k, (t, c) in fams.items()))
+    return busy
 
 
 def _src_plan_s(trainer, views, steps: int):
@@ -2208,6 +2243,285 @@ def runtime(label: str) -> dict:
     return dict(ops.launches)
 
 
+# -- phase 14: CUDA graphs per bucket ----------------------------------------------
+
+
+GRAPH_PAIRS = 10          # threads against inline, alternating pairs
+DENSE_REL = 1e-3          # dense vs compact losses, * max(1, |loss|)
+
+
+def _graph_cells():
+    """(config, model swap, strategy, compact) of every training cell the
+    phase holds replay against eager in: the three models under the three
+    strategies (mini and cluster compact), and dense mini and cluster for
+    GAT-E and GCN."""
+    cells = [(config, model, strategy, True)
+             for config, model in (("gnn_gat_e_alipay", None),
+                                   ("gnn_gcn_reddit", None),
+                                   ("gnn_gcn_reddit", "sage_max"))
+             for strategy in ("global", "mini", "cluster")]
+    cells += [(config, None, strategy, False)
+              for config in ("gnn_gat_e_alipay", "gnn_gcn_reddit")
+              for strategy in ("mini", "cluster")]
+    return cells
+
+
+def _timed_fit(trainer, views, steps: int, **fit_kw):
+    """``reset()`` the trainer, move the stream to view 0 and fit
+    ``steps`` steps with the device drained on both sides: the same
+    trajectory as the trainer's first fit, over buckets it has seen.
+    Returns (losses, wall seconds)."""
+    import torch
+    trainer.reset()
+    views.seek(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = trainer.fit(views, steps=steps, **fit_kw)["losses"]
+    torch.cuda.synchronize()
+    return losses, time.perf_counter() - t0
+
+
+def _graph_train(label: str) -> dict:
+    """Replay against eager in every training cell: 30 steps each way,
+    losses, final parameters and step-1 gradients bitwise equal, one
+    capture per touched bucket; then steady steps/s, eager against
+    replay in alternating order, and the busy share under replay. The
+    dense cells also against the CPU and against the compact cell on the
+    same stream indices. Returns the compact cells' replay losses."""
+    import dataclasses
+    import importlib
+    import numpy as np
+    from repro_torch import api
+    from repro_torch.launch.serve_gnn import resolve_graph
+    graphs, compact_losses = {}, {}
+    for i, (config, model_name, strategy, compact) in enumerate(
+            _graph_cells()):
+        mod = importlib.import_module(f"repro_torch.configs.{config}")
+        cfg, dataset = _config(config, model_name)
+        if (dataset, cfg.model) not in graphs:
+            graphs[(dataset, cfg.model)] = resolve_graph(dataset, cfg.model,
+                                                         seed=0)
+        g = graphs[(dataset, cfg.model)]
+        t = mod.TRAIN[strategy]
+        job = api.TrainJob(
+            dataset=g, model=cfg.model, strategy=strategy,
+            num_layers=cfg.num_layers, hidden=cfg.hidden_dim, lr=t.lr,
+            weight_decay=t.weight_decay, seed=t.seed, compact=compact,
+            halo_hops=t.cluster_halo_hops, eval_every=0, device=DEVICE)
+        name = f"{cfg.model} {strategy}" + ("" if compact else " dense")
+        order = (False, True) if i % 2 == 0 else (True, False)
+        runs = {}
+        for graphs_on in order:
+            runs[graphs_on] = _fit_job(job, TRAIN_STEPS,
+                                       cuda_graphs=graphs_on)
+        (eager, ev, el, eg, ewall), (rep, rv, rl, rg, rwall) = (
+            runs[False], runs[True])
+        same = (el == rl and all(torch_equal(eg[k], rg[k]) for k in eg)
+                and _params(eager).keys() == _params(rep).keys()
+                and all(torch_equal(a, b) for a, b in zip(
+                    _params(eager).values(), _params(rep).values())))
+        if not np.isfinite(rl).all():
+            raise AssertionError(f"{name}: bad losses {rl}")
+        rep.assert_compiled_per_bucket()
+        touched = {k: 1 for k in rep.buckets_touched}
+        if rep.captures != touched:
+            raise AssertionError(f"{name}: captures {rep.captures}, "
+                                 f"buckets touched {sorted(touched)}")
+        print(f"  [{label}] {name}: {TRAIN_STEPS} steps eager and under "
+              f"replay: losses, step-1 gradients and final parameters "
+              f"{'bitwise equal' if same else 'DIFFER'}; captures "
+              f"{dict(rep.captures)} = one per touched bucket")
+        if not same:
+            raise AssertionError(f"{name}: replay differs from eager")
+        # steady state: every bucket captured, the same views again
+        wall = {}
+        for graphs_on in order:
+            tr, views = (rep, rv) if graphs_on else (eager, ev)
+            losses, wall[graphs_on] = _timed_fit(tr, views, TRAIN_STEPS)
+            if losses != rl:
+                raise AssertionError(f"{name}: a refit after reset() "
+                                     f"differs (graphs={graphs_on})")
+        if rep.captures != touched:
+            raise AssertionError(f"{name}: the refit captured again "
+                                 f"({rep.captures})")
+        rv.seek(0)
+        busy = _profile(rep, rv, 1e3 * wall[True] / TRAIN_STEPS)
+        row = {"cell": name, "config": config, "steps": TRAIN_STEPS,
+               "buckets": len(touched),
+               "steps_per_s_eager": TRAIN_STEPS / wall[False],
+               "steps_per_s_replay": TRAIN_STEPS / wall[True],
+               "first_fit_steps_per_s_eager": (TRAIN_STEPS - 1) / ewall,
+               "first_fit_steps_per_s_replay": (TRAIN_STEPS - 1) / rwall,
+               "busy_ms_per_step_replay": busy,
+               "busy_share_replay": busy * TRAIN_STEPS / (1e3 * wall[True]),
+               "order": "eager first" if not order[0] else "replay first",
+               "card": label}
+        print("    graphs row " + json.dumps(row))
+        if compact:
+            compact_losses[(config, model_name, strategy)] = rl
+            continue
+        # the dense view on the card against the CPU, and against the
+        # compact view of the same stream index
+        _, _, want, want_grads, _ = _fit_job(
+            dataclasses.replace(job, device="cpu"), TRAIN_STEPS)
+        g_err = max(float((rg[k] - want_grads[k]).abs().max())
+                    / max(float(want_grads[k].abs().max()), 1e-30)
+                    for k in want_grads)
+        l_err = max(abs(a - b) / max(1.0, abs(b)) for a, b in zip(rl, want))
+        ref = compact_losses[(config, model_name, strategy)]
+        d_err = max(abs(a - b) / max(1.0, abs(b)) for a, b in zip(rl, ref))
+        print(f"    dense card vs CPU: step-1 gradients max rel err "
+              f"{g_err:.3e} (tolerance {GRAD_TOL}), losses max rel err "
+              f"{l_err:.3e} (tolerance {LOSS_TOL}); dense vs compact on "
+              f"the same views: losses max rel err {d_err:.3e} (tolerance "
+              f"{DENSE_REL}); loss {rl[0]:.5f} -> {rl[-1]:.5f}")
+        if g_err > GRAD_TOL or l_err > LOSS_TOL:
+            raise AssertionError(f"{name}: card vs CPU {g_err:.3e} / "
+                                 f"{l_err:.3e}")
+        if d_err > DENSE_REL:
+            raise AssertionError(f"{name}: dense vs compact {d_err:.3e}")
+    return compact_losses
+
+
+def torch_equal(a, b) -> bool:
+    import torch
+    return a.shape == b.shape and bool(torch.equal(a, b))
+
+
+def _graph_pairs(label: str) -> None:
+    """Builder threads against inline staging under replay, in
+    ``GRAPH_PAIRS`` alternating pairs on the GAT-E and GCN mini cells:
+    one trainer per cell (its buckets captured once), every fit from
+    ``reset()`` over the same views; every fit's losses bitwise equal."""
+    import importlib
+    from repro_torch import api
+    from repro_torch.launch.serve_gnn import resolve_graph
+    for config in ("gnn_gat_e_alipay", "gnn_gcn_reddit"):
+        mod = importlib.import_module(f"repro_torch.configs.{config}")
+        cfg, dataset = _config(config)
+        t = mod.TRAIN["mini"]
+        job = api.TrainJob(
+            dataset=resolve_graph(dataset, cfg.model, seed=0),
+            model=cfg.model, strategy="mini", num_layers=cfg.num_layers,
+            hidden=cfg.hidden_dim, lr=t.lr, weight_decay=t.weight_decay,
+            seed=t.seed, compact=True, eval_every=0, device=DEVICE)
+        trainer, views, *_ = api.make_trainer(job)
+        ref = trainer.fit(views, steps=TRAIN_STEPS)["losses"]  # captures
+        rates = {"threads": [], "inline": []}
+        for pair in range(GRAPH_PAIRS):
+            modes = (("threads", {}), ("inline", dict(prefetch=False)))
+            for mode, kw in (modes if pair % 2 == 0 else modes[::-1]):
+                losses, wall = _timed_fit(trainer, views, TRAIN_STEPS, **kw)
+                if losses != ref:
+                    raise AssertionError(f"{cfg.model} mini, {mode}: "
+                                         "losses differ")
+                rates[mode].append(TRAIN_STEPS / wall)
+        trainer.assert_compiled_per_bucket()
+        med = {m: float(sorted(r)[len(r) // 2]) for m, r in rates.items()}
+        row = {"cell": f"{cfg.model} mini", "pairs": GRAPH_PAIRS,
+               "steps": TRAIN_STEPS, "threads_steps_per_s": rates["threads"],
+               "inline_steps_per_s": rates["inline"], "median": med,
+               "threads_over_inline": med["threads"] / med["inline"],
+               "card": label}
+        print(f"  [{label}] {cfg.model} mini under replay, {GRAPH_PAIRS} "
+              f"alternating pairs, losses bitwise equal in all: builder "
+              f"threads {med['threads']:.2f} steps/s, inline "
+              f"{med['inline']:.2f} (medians)")
+        print("    pairs row " + json.dumps(row))
+
+
+def _graph_serve(label: str, requests: int = 512) -> None:
+    """Served responses under replay bitwise equal to eager (the same
+    fixed batches through ``submit``), a cache hit bitwise a recompute,
+    one capture per bucket; then QPS and p50/p99 eager against replay
+    over 4 clients, in alternating order, each server after an untimed
+    pass of the trace (its buckets captured) with its cache aged out."""
+    import numpy as np
+    from repro_torch.launch.serve_gnn import (build_server, request_trace,
+                                              resolve_graph, run_clients)
+    from repro_torch.serving.server import ServeStats
+    kw = dict(max_batch=16, max_wait_ms=2.0)
+    for i, (config, model_name) in enumerate((
+            ("gnn_gat_e_alipay", None), ("gnn_gcn_reddit", None),
+            ("gnn_gcn_reddit", "sage_max"))):
+        cfg, dataset = _config(config, model_name)
+        model, hidden, layers = cfg.model, cfg.hidden_dim, cfg.num_layers
+        g = resolve_graph(dataset, model, seed=0)
+        trace = request_trace(g, requests, seed=0)
+        out, srv = {}, {}
+        for graphs_on in (False, True):
+            srv[graphs_on] = build_server(g, model, layers, hidden, seed=0,
+                                          device=DEVICE,
+                                          cuda_graphs=graphs_on, **kw)
+            out[graphs_on] = np.concatenate([
+                srv[graphs_on].submit(trace[j:j + 16])
+                for j in range(0, requests, 16)])
+            srv[graphs_on].assert_compiled_per_bucket()
+        same = bool(np.array_equal(out[False], out[True]))
+        tr = srv[True].server_stats()["trace"]
+        print(f"  [{label}] serve {model}: {requests} responses in batches "
+              f"of 16, replay vs eager {'bitwise equal' if same else 'DIFFER'}"
+              f"; captures full {sum(tr['full']['captures'].values())} over "
+              f"{len(tr['full']['buckets'])} buckets, hit "
+              f"{sum(tr['hit']['captures'].values())} over "
+              f"{len(tr['hit']['buckets'])}")
+        if not same:
+            raise AssertionError(f"{model}: served replay differs from eager")
+        # a cache hit against a full recompute, under replay
+        rng = np.random.default_rng(1)
+        indeg = np.bincount(g.dst, minlength=g.num_nodes)
+        targets = np.union1d(rng.choice(g.num_nodes, 16, replace=False),
+                             [int(indeg.argmax())])
+        cached = build_server(g, model, layers, hidden, seed=0,
+                              device=DEVICE, **kw)
+        full = cached.submit(targets)
+        hits0 = cached.cache.hits
+        again = cached.submit(targets)
+        if cached.cache.hits == hits0 or not np.array_equal(again, full):
+            raise AssertionError(f"{model}: under replay a cache hit is not "
+                                 "bitwise a full recompute")
+        cached.assert_compiled_per_bucket()
+        print(f"    cache hit vs full recompute under replay "
+              f"({len(targets)} targets): bitwise equal")
+        order = (False, True) if i % 2 == 0 else (True, False)
+        for graphs_on in order:
+            s = srv[graphs_on]
+            s.start()
+            try:
+                run_clients(s, trace, 4)      # untimed: the last captures
+                s.cache.advance()             # every entry stale again
+                s.stats = ServeStats()
+                before = _captures(s)
+                _, wall = run_clients(s, trace, 4)
+                late = _captures(s) - before
+            finally:
+                s.stop()
+            s.assert_compiled_per_bucket()
+            lat = s.server_stats()["latency_ms"]
+            # a bucket first touched in the timed run is captured there
+            row = {"model": model, "mode": "replay" if graphs_on else
+                   "eager", "requests": requests, "qps": requests / wall,
+                   "p50_ms": lat["p50"], "p99_ms": lat["p99"],
+                   "captures_in_timed_run": late, "card": label}
+            print("    serve row " + json.dumps(row))
+
+
+def _captures(server) -> int:
+    trace = server.server_stats()["trace"]
+    return sum(sum(trace[p]["captures"].values()) for p in ("full", "hit"))
+
+
+def graph_phase(label: str) -> dict:
+    """Phase 14: CUDA graphs per bucket against eager, training and
+    serving; returns the phase's launch counts."""
+    from repro_torch.kernels import ops
+    ops.reset_launches()
+    _graph_train(label)
+    _graph_serve(label)
+    _graph_pairs(label)
+    return dict(ops.launches)
+
+
 def lm_phases(phase) -> list:
     """Phases 12 and 13; returns each serving run's launch counts."""
     import numpy as np
@@ -2229,13 +2543,13 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only",
                     choices=["kernels", "gnn-times", "lm-times", "lm",
-                             "runtime"],
+                             "runtime", "graphs"],
                     default=None,
                     help="kernels: stop after phase 3 (build and check the "
                     "kernels); gnn-times: phases 1-3 and the GNN kernels' "
                     "times; lm-times: phases 1-3 and the LM kernels' "
                     "times; lm: those and phases 12-13; runtime: phases "
-                    "1-2 and 11")
+                    "1-2 and 11; graphs: phases 1-2 and 14")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -2265,6 +2579,10 @@ def main(argv=None) -> int:
     if args.only == "runtime":
         phase("11. the fault-tolerant runtime (GAT-E, GCN)")
         runtime(label)
+        return 0
+    if args.only == "graphs":
+        phase("14. CUDA graphs per bucket against eager")
+        graph_phase(label)
         return 0
 
     phase("3. kernels vs plain, on the card")
@@ -2339,6 +2657,9 @@ def main(argv=None) -> int:
 
     phase("11. the fault-tolerant runtime (GAT-E, GCN)")
     count(runtime(label))
+
+    phase("14. CUDA graphs per bucket against eager")
+    count(graph_phase(label))
 
     for got in lm_phases(phase):
         count(got)

@@ -31,8 +31,9 @@ class TrainJob:
 
     ``dataset`` is a registered dataset name (GCN gets self-loops) or an
     already-built :class:`Graph` (used as-is). Strategy knobs that don't
-    apply to the chosen strategy are ignored. Mini and cluster need
-    ``compact=True`` until the dense mask views are ported (ROADMAP A.7).
+    apply to the chosen strategy are ignored. Mini and cluster train on
+    dense mask views over the whole graph, or on compact sampled
+    subgraphs with ``compact=True``.
     """
     dataset: Union[str, Graph] = "cora"
     model: str = "gcn"                 # gcn | sage | sage_max | gat | gat_e

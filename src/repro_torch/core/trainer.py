@@ -6,10 +6,13 @@ The paper's training strategies (global-, mini- and cluster-batch,
 §2.3/§4.3) are all streams of views, so one loop drives every strategy:
 each view is staged into a size-bucketed block (a
 :class:`~repro_torch.core.views.CompactBlockBuilder` ring, or the graph's
-base block for the global view), copied to the device, and run through
-one step: forward, masked cross-entropy, ``backward()``, optimizer
-update. On the card the Sum stage's forward and backward are the CUDA
-kernels (:mod:`repro_torch.core.aggregate`).
+base block with a dense view's masks), copied to the device, and run
+through one step: forward, masked cross-entropy, ``backward()``,
+optimizer update. On the card the Sum stage's forward and backward are
+the CUDA kernels (:mod:`repro_torch.core.aggregate`), and the whole step
+is one CUDA graph per bucket, captured once and replayed (the
+reference's step compiled once per bucket, and its certificate,
+:meth:`CompactTrainer.assert_compiled_per_bucket`).
 
 Views are built ahead of the step by a pool of builder threads or of
 sampler processes (:mod:`repro_torch.runtime`). View i is a pure
@@ -40,6 +43,8 @@ Usage::
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import itertools
 import math
 import os
@@ -56,6 +61,9 @@ from repro_torch.core.mpgnn import accuracy_block, loss_block
 from repro_torch.core.views import (CompactBlockBuilder, CompactView,
                                     GlobalViewStream, GraphView, ViewStream)
 from repro_torch.device import resolve_device
+from repro_torch.graph.csr import GraphBlock, base_block
+from repro_torch.kernels import ops
+from repro_torch.optim.optimizers import write_scalars
 from repro_torch.runtime.faults import (DivergenceError, FaultInjector,
                                         FaultPolicy, Retrier,
                                         TrainingInterrupted,
@@ -72,6 +80,115 @@ _END = object()
 
 class RetraceError(AssertionError):
     """The step's per-bucket contract was broken (or never exercised)."""
+
+
+def _assert_once_per_bucket(traces: int, touched: int, what: str) -> None:
+    """The bucketed contract, shared by the train step
+    (:meth:`CompactTrainer.assert_compiled_per_bucket`) and the serving
+    paths (:class:`~repro_torch.serving.server.BucketedFn`): exactly one
+    capture (the reference's trace) per touched bucket shape."""
+    if touched == 0:
+        raise RetraceError(
+            f"{what} never ran — exercise it before asserting the "
+            "once-per-bucket contract")
+    if traces != touched:
+        raise RetraceError(
+            f"{what} was captured {traces} times over {touched} touched "
+            f"bucket shapes (expected exactly one capture per bucket): "
+            "an input was staged with a shape or layout not determined by "
+            "its bucket")
+
+
+def block_tensors(block: GraphBlock) -> tuple:
+    """A block's tensors in a fixed order: its fields, then each plan's;
+    absent ones are skipped (see :func:`block_layout`)."""
+    out = []
+    for f in dataclasses.fields(block):
+        v = getattr(block, f.name)
+        if isinstance(v, torch.Tensor):
+            out.append(v)
+        elif v is not None:        # a plan
+            out.extend((v.perm, v.indptr, v.edge_dst, v.piece_ptr))
+    return tuple(out)
+
+
+def block_layout(block: GraphBlock) -> tuple:
+    """Which of a block's fields are present, and its tensors' shapes: with
+    the bucket, what a captured graph's inputs must match."""
+    return tuple((f.name, getattr(block, f.name) is not None)
+                 for f in dataclasses.fields(block)) + tuple(
+        tuple(t.shape) for t in block_tensors(block))
+
+
+def static_block(block: GraphBlock, keep=frozenset()) -> GraphBlock:
+    """A copy of ``block`` on its device that a captured graph reads:
+    fresh tensors, except those whose storage is in ``keep`` (tensors that
+    never change, such as the graph's base block on the device), which it
+    shares."""
+    def own(t):
+        return t if t.data_ptr() in keep else t.clone()
+    moved = {}
+    for f in dataclasses.fields(block):
+        v = getattr(block, f.name)
+        if isinstance(v, torch.Tensor):
+            moved[f.name] = own(v)
+        elif v is not None:
+            moved[f.name] = dataclasses.replace(
+                v, perm=own(v.perm), indptr=own(v.indptr),
+                edge_dst=own(v.edge_dst), piece_ptr=own(v.piece_ptr))
+    return dataclasses.replace(block, **moved)
+
+
+def load_block(static: GraphBlock, block: GraphBlock) -> None:
+    """Copy ``block`` into the captured graph's inputs ``static`` (the
+    same layout) on the current stream; shared tensors are skipped."""
+    with torch.no_grad():
+        for dst, src in zip(block_tensors(static), block_tensors(block)):
+            if dst.data_ptr() != src.data_ptr():
+                dst.copy_(src)
+
+
+class CapturedStep:
+    """One bucket's captured graph: the inputs it reads (``static``), the
+    outputs it writes, and the kernel launches of one replay."""
+
+    def __init__(self, graph, static: GraphBlock, out, launches: dict):
+        self.graph = graph
+        self.static = static
+        self.out = out
+        self.launches = launches
+
+    def replay(self, block: GraphBlock):
+        """Load ``block`` into the inputs and replay; the outputs stay
+        valid until the next replay."""
+        load_block(self.static, block)
+        self.graph.replay()
+        ops.add_launches(self.launches)
+        return self.out
+
+
+def capture(fn, static: GraphBlock, side, lock=None) -> CapturedStep:
+    """Capture ``fn(static)`` into a CUDA graph on the stream ``side``
+    (the one its warm-up ran on), holding ``lock`` so that no staging
+    thread touches the device meanwhile. A failed capture raises."""
+    graph = torch.cuda.CUDAGraph()
+    with (lock or contextlib.nullcontext()), ops.capture_tally() as tally:
+        with torch.cuda.graph(graph, stream=side,
+                              capture_error_mode="thread_local"):
+            out = fn(static)
+    return CapturedStep(graph, static, out, dict(tally))
+
+
+def warm_up(fn, static: GraphBlock, side):
+    """Run ``fn(static)`` eagerly on the stream ``side`` (PyTorch's
+    warm-up before a capture on it) and hand its result back to the
+    current stream."""
+    cur = torch.cuda.current_stream(side.device)
+    side.wait_stream(cur)
+    with torch.cuda.stream(side):
+        out = fn(static)
+    cur.wait_stream(side)
+    return out
 
 
 def _make_runtime(fault_policy: Optional[FaultPolicy],
@@ -415,10 +532,10 @@ class BaseTrainer:
     def reset(self, params: Optional[Mapping] = None) -> None:
         """Fresh optimizer state and counters, with ``params`` (a
         ``state_dict``; default: the parameters the trainer started
-        from) copied into the live parameters."""
+        from) copied into the live parameters, and the fresh moments into
+        the live ones (a captured step keeps reading both)."""
         self._load_state(params if params is not None else self._initial,
-                         self.opt_state, 0)
-        self.opt_state = self.opt.init(self.params)
+                         self.opt.init(self.params), 0)
         self.history = []
         self.view_cursor = 0
         self._resume_cursor = None
@@ -430,9 +547,21 @@ class CompactTrainer(BaseTrainer):
 
     Every :class:`~repro_torch.core.views.CompactView` is staged into one
     of a small fixed menu of padded ``(n_pad, e_pad)`` shapes
-    (:class:`~repro_torch.core.views.BucketSpec`); a
-    :class:`~repro_torch.core.views.GraphView` (the global strategy)
-    stages the graph's base block, copied to the device once and reused.
+    (:class:`~repro_torch.core.views.BucketSpec`). A
+    :class:`~repro_torch.core.views.GraphView` (the global view, or a
+    dense mini or cluster view) is the whole graph, the dense path's one
+    bucket: the graph's base block (features, edges, norms, plans) goes to
+    the device once, and a view copies only its masks.
+
+    On the card (``cuda_graphs=True``, the default there) the step is
+    captured once per bucket into a CUDA graph, the counterpart of the
+    reference's step compiled once per bucket: the bucket's first step
+    runs eagerly on a side stream (the warm-up), then forward, backward
+    and the optimizer update are captured together over the bucket's
+    input buffers; every later step in the bucket copies its staged block
+    into those buffers and replays. Replays compute what eager steps
+    compute, bit for bit. ``cuda_graphs=False`` runs every step eagerly,
+    as the CPU always does. Evaluation stays eager.
 
     The trainer trains ``model`` itself, moved to ``device`` (the card
     unless ``device="cpu"``), after loading ``params`` (a ``state_dict``)
@@ -445,7 +574,8 @@ class CompactTrainer(BaseTrainer):
                  buckets=None, slots: int = 2, gcn_norm: bool = True,
                  device=None, prefetch_depth: int = 2,
                  fault_policy: Optional[FaultPolicy] = None,
-                 injector: Optional[FaultInjector] = None):
+                 injector: Optional[FaultInjector] = None,
+                 cuda_graphs: bool = True):
         self._init_common(opt, prefetch_depth, fault_policy, injector)
         self.device = resolve_device(device)
         if params is not None:
@@ -468,37 +598,111 @@ class CompactTrainer(BaseTrainer):
         # copied to the device before the lock releases. The copy from
         # pageable memory returns once the host buffer has been read, so
         # the next fill of the slot cannot race it; the copy and the step
-        # go to the same (default) stream, so the step reads it complete
+        # go to the same (default) stream, so the step reads it complete.
+        # A capture holds it too, so no staging touches the device then
         self._stage_lock = threading.Lock()
-        self._static: Optional[tuple] = None   # (GraphView, device block)
+        self._static: Optional[tuple] = None   # (global view, its block)
+        self._base: Optional[tuple] = None     # (host base, device base)
+        self.graphs_on = bool(cuda_graphs) and self.device.type == "cuda"
+        # (n_pad, e_pad) -> graphs captured for that bucket
+        self.captures: dict = {}
+        self._graphs: dict = {}     # (bucket, layout) -> CapturedStep
+        self._side = None           # the warm-up and capture stream
+        self._scal = None           # the optimizer's scalars, on the card
 
     def _prepare(self, view):
         with self._stage_lock:
             if self._static is not None and self._static[0] is view:
                 return self._static[1]
-            host = self.stager.stage(view)
             rt = self.runtime
-            block = (host.to(self.device, copy=True) if rt is None
-                     else rt("device_put",
-                             lambda: host.to(self.device, copy=True)))
-            if isinstance(view, GraphView):
-                # a static view stages once; the step only reads it
+            put = (self._to_device if rt is None else
+                   lambda v: rt("device_put", lambda: self._to_device(v)))
+            block = put(view)
+            if (isinstance(view, GraphView) and view.node_active is None
+                    and view.edge_active is None):
+                # the global view is static: it stages once
                 self._static = (view, block)
             return block
+
+    def _to_device(self, view) -> GraphBlock:
+        """The view's staged block on the device. A GraphView shares the
+        graph's base block, which goes to the device once, and copies its
+        masks."""
+        host = self.stager.stage(view)
+        if not isinstance(view, GraphView):
+            return host.to(self.device, copy=True)
+        base = base_block(view.graph, gcn_norm=self.stager.gcn_norm,
+                          csc_plan=self.stager.csc_plan)
+        if self._base is None or self._base[0] is not base:
+            self._base = (base, base.to(self.device, copy=True))
+
+        def put(t):
+            return None if t is None else t.to(self.device, copy=True)
+        return dataclasses.replace(
+            self._base[1], loss_mask=put(host.loss_mask),
+            node_active=put(host.node_active),
+            edge_active=put(host.edge_active))
 
     def _make_prepare(self):
         return self._prepare
 
-    def _dispatch(self, block) -> torch.Tensor:
-        key = (block.num_nodes_padded, block.num_edges_padded)
-        self.step_calls[key] = self.step_calls.get(key, 0) + 1
+    def _step(self, block, update) -> torch.Tensor:
+        """Forward, backward and ``update(grads)``."""
         self.model.zero_grad(set_to_none=True)
         loss = loss_block(self.model, block)
         loss.backward()
-        grads = {k: p.grad if p.grad is not None else torch.zeros_like(p)
-                 for k, p in self.params.items()}
-        self.opt.update(grads, self.opt_state, self.params)
+        update({k: p.grad if p.grad is not None else torch.zeros_like(p)
+                for k, p in self.params.items()})
         return loss.detach()
+
+    def _dispatch(self, block) -> torch.Tensor:
+        key = (block.num_nodes_padded, block.num_edges_padded)
+        self.step_calls[key] = self.step_calls.get(key, 0) + 1
+        if not self.graphs_on:
+            return self._step(block, lambda grads: self.opt.update(
+                grads, self.opt_state, self.params))
+        if self._scal is None:
+            self._scal = torch.zeros(len(self.opt.scalars(self.opt_state)),
+                                     dtype=torch.float32, device=self.device)
+            self._side = torch.cuda.Stream(self.device)
+        write_scalars(self._scal, self.opt.scalars(self.opt_state))
+        gkey = (key, block_layout(block))
+        step = self._graphs.get(gkey)
+        if step is None:
+            loss = self._first_step(key, gkey, block)
+        else:
+            loss = step.replay(block)[0].clone()
+            for k, p in self.params.items():
+                p.grad = step.out[1][k]
+        self.opt_state["step"] += 1
+        return loss
+
+    def _first_step(self, key, gkey, block) -> torch.Tensor:
+        """A bucket's first step: eager on the side stream, through the
+        bucket's own input buffers; then the capture over them."""
+        # tensors that never change are shared, not copied per step: the
+        # graph's base block on the device, and the global view's block
+        fixed = [b for b in (self._base and self._base[1],
+                             self._static and self._static[1]) if b]
+        keep = frozenset(t.data_ptr() for b in fixed
+                         for t in block_tensors(b) if t.data_ptr())
+        static = static_block(block, keep)
+
+        def body(b):
+            # the update reads the optimizer's scalars from the tensor
+            # that each replay's write_scalars refreshes
+            loss = self._step(b, lambda grads: self.opt.apply(
+                grads, self.opt_state, self.params, self._scal))
+            return loss, {k: p.grad for k, p in self.params.items()}
+
+        loss, grads = warm_up(body, static, self._side)
+        self.model.zero_grad(set_to_none=True)   # the graph owns its grads
+        self._graphs[gkey] = capture(body, static, self._side,
+                                     self._stage_lock)
+        self.captures[key] = self.captures.get(key, 0) + 1
+        for k, p in self.params.items():
+            p.grad = grads[k]
+        return loss
 
     @property
     def buckets_touched(self) -> set:
@@ -507,7 +711,7 @@ class CompactTrainer(BaseTrainer):
     def evaluate(self, view, mask: Optional[np.ndarray] = None) -> float:
         """Accuracy over ``view``'s block on ``mask`` (default: the
         graph's test mask, else the view's loss mask); a CompactView
-        stages a tight-padded one-off block."""
+        stages a tight-padded one-off block. Eager, never captured."""
         block = view.as_block(gcn_norm=self.stager.gcn_norm,
                               csc_plan=self.stager.csc_plan).to(self.device)
         if mask is None:
@@ -524,13 +728,17 @@ class CompactTrainer(BaseTrainer):
         with torch.no_grad():
             return float(accuracy_block(self.model, block, m))
 
+    def assert_compiled_per_bucket(self) -> None:
+        """The reference's certificate: under CUDA graphs, exactly one
+        capture per touched bucket, so repeat epochs over the same
+        buckets add none. Eager (the CPU, or ``cuda_graphs=False``),
+        nothing is captured, and it checks that the step ran."""
+        touched = len(self.buckets_touched)
+        if self.graphs_on:
+            _assert_once_per_bucket(sum(self.captures.values()), touched,
+                                    "train step")
+        elif touched == 0:
+            _assert_once_per_bucket(0, 0, "train step")
+
     def assert_trace_contract(self) -> None:
-        """Eager PyTorch compiles nothing per bucket, so there is no trace
-        count to certify, as for serving's ``BucketedFn`` (ROADMAP C.5):
-        this checks that the step ran, and ``step_calls`` counts steps per
-        touched bucket. The certificate returns with CUDA graphs per
-        bucket (ROADMAP A.7)."""
-        if not self.step_calls:
-            raise RetraceError(
-                "train step never ran — call fit() before asserting the "
-                "per-bucket contract")
+        self.assert_compiled_per_bucket()

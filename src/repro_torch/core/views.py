@@ -1,9 +1,9 @@
-"""Views, view streams and bucketed staging (paper §2.3/§4.2 host path).
+"""Views, view streams and bucketed staging (paper §2.3/§4.2 host path),
+the counterpart of the reference's ``core/views.py``:
 
-The reference's ``core/views.py`` without its dense mask views:
-
-- :class:`GraphView` — a logic view of the whole graph (per-layer active
-  masks and a loss mask); the global strategy's view.
+- :class:`GraphView` — a logic view of the whole graph (per-layer
+  ``(K, N)``/``(K, E)`` active masks and a loss mask): the global
+  strategy's view and the dense form of the mini and cluster views.
 - :class:`CompactView` — a relabeled sampled subgraph: local-id edge
   list over the sampled nodes, a local→global map and per-hop offsets, so
   host work and device memory scale with the view, not the graph.
@@ -12,13 +12,18 @@ The reference's ``core/views.py`` without its dense mask views:
   rings of reusable numpy buffers.
 - :class:`ClusterViewCache` — per-cluster member and halo node sets,
   computed once per clustering.
-- :class:`ViewBuilder` — ``khop_compact`` and ``cluster_compact`` builds.
+- :class:`ViewBuilder` — dense builds (``khop_view``, ``cluster_view``)
+  into a ring of reusable mask buffers, and compact ones
+  (``khop_compact``, ``cluster_compact``); both draw the same rng
+  numbers, so view i's node and edge sets are the same in either form
+  (``CompactView.to_dense``).
 - :class:`ViewStream` — indexable strategy streams: view i is built from
   an RNG stream derived from ``(seed, i)``, the same draws as the
   reference's, so both packages build the same views.
 
-The dense mask views (``khop_view``, ``cluster_view``) wait for a later
-slice (ROADMAP A.7): a mini or cluster stream must be compact.
+A dense view's masks alias its builder's ring and stay valid until
+``slots`` more views are built from it (``GraphView.copy_masks``
+detaches them).
 
 A staged block's tensors alias ring memory (``torch.from_numpy``) and
 stay valid until ``slots`` more views land in the same bucket; a
@@ -34,14 +39,12 @@ from typing import Iterator, Optional
 import numpy as np
 import torch
 
-from repro_torch.core.subgraph import (_expand_frontier, bfs_layers_fresh,
+from repro_torch.core.subgraph import (_expand_frontier, bfs_layers,
+                                       bfs_layers_fresh, fill_khop_masks,
                                        stamped_in_edges)
 from repro_torch.graph.csr import (Graph, GraphBlock, base_block,
                                    block_from_arrays)
 from repro_torch.kernels.plan import build_bucket_csc_plan
-
-DENSE_VIEWS_TODO = ("dense mask views are not ported yet (ROADMAP A.7); "
-                    "use compact=True")
 
 
 @dataclass
@@ -69,6 +72,29 @@ class GraphView:
                            np.float32)),
                        node_active=as_t(self.node_active),
                        edge_active=as_t(self.edge_active))
+
+    _COUNT_KEYS = ("active_nodes", "active_edges", "targets")
+
+    def active_counts(self) -> dict:
+        """The builder's counts from ``meta``; a view built by hand
+        without them falls back to scanning the masks."""
+        m = self.meta
+        if all(k in m for k in self._COUNT_KEYS):
+            return {k: int(m[k]) for k in self._COUNT_KEYS}
+        n_nodes = (self.graph.num_nodes if self.node_active is None
+                   else int((self.node_active.max(axis=0) > 0).sum()))
+        n_edges = (self.graph.num_edges if self.edge_active is None
+                   else int((self.edge_active.max(axis=0) > 0).sum()))
+        return {"active_nodes": n_nodes, "active_edges": n_edges,
+                "targets": int((self.loss_mask > 0).sum())}
+
+    def copy_masks(self) -> "GraphView":
+        """Detach from any builder buffers (fresh mask arrays)."""
+        return GraphView(
+            self.graph, self.K, self.strategy,
+            None if self.node_active is None else self.node_active.copy(),
+            None if self.edge_active is None else self.edge_active.copy(),
+            self.loss_mask.copy(), dict(self.meta))
 
 
 @dataclass
@@ -102,6 +128,12 @@ class CompactView:
     def num_edges(self) -> int:
         return int(len(self.edge_ids))
 
+    def nbytes(self) -> int:
+        """Host bytes this view owns."""
+        return int(self.nodes.nbytes + self.hop_offsets.nbytes
+                   + self.src_local.nbytes + self.dst_local.nbytes
+                   + self.edge_ids.nbytes + self.loss_local.nbytes)
+
     def layer_bounds(self, k: int) -> tuple:
         """(dst-side, src-side) local-id bounds of layer k."""
         off = self.hop_offsets
@@ -111,6 +143,11 @@ class CompactView:
         d_bound, s_bound = self.layer_bounds(k)
         return (self.dst_local < d_bound) & (self.src_local < s_bound)
 
+    def active_counts(self) -> dict:
+        return {"active_nodes": int(self.hop_offsets[self.K - 1]),
+                "active_edges": self.num_edges,
+                "targets": int((self.loss_local > 0).sum())}
+
     def copy_masks(self) -> "CompactView":
         """Detach (fresh arrays) — the ViewStream iterator contract."""
         return CompactView(self.graph, self.K, self.strategy,
@@ -118,6 +155,22 @@ class CompactView:
                            self.src_local.copy(), self.dst_local.copy(),
                            self.edge_ids.copy(), self.loss_local.copy(),
                            dict(self.meta))
+
+    def to_dense(self) -> GraphView:
+        """The dense ``(K, N)``/``(K, E)`` mask view of the same node and
+        edge sets (equal to the dense builder's at the same stream
+        index)."""
+        g, K = self.graph, self.K
+        na = np.zeros((K, g.num_nodes), np.float32)
+        ea = np.zeros((K, g.num_edges), np.float32)
+        for k in range(K):
+            d_bound, _ = self.layer_bounds(k)
+            na[k, self.nodes[:d_bound]] = 1.0
+            ea[k, self.edge_ids[self.edge_layer_mask(k)]] = 1.0
+        loss = np.zeros(g.num_nodes, np.float32)
+        loss[self.nodes] = self.loss_local
+        return GraphView(g, K, self.strategy, na, ea, loss,
+                         dict(self.meta))
 
     def as_block(self, gcn_norm: bool = True, csc_plan: bool = False,
                  bucket: Optional[tuple] = None) -> GraphBlock:
@@ -294,9 +347,17 @@ class CompactBlockBuilder:
             e = min(_ceil_pow2(view.num_edges), self.g.num_edges)
             return (max(n, view.num_nodes), max(e, view.num_edges))
 
+    def bucket_for(self, view) -> tuple:
+        """The view's ``(n_pad, e_pad)``: a GraphView's is the whole
+        graph's shape, the dense path's single bucket."""
+        if isinstance(view, GraphView):
+            return (view.graph.num_nodes, view.graph.num_edges)
+        return self._pick(view)
+
     def stage(self, view) -> GraphBlock:
         """A bucket-padded block over ring memory; a GraphView stages as
-        its own full-graph block (the graph's cached base block)."""
+        its own full-graph block (the graph's cached base block with the
+        view's masks)."""
         self.stages += 1
         if isinstance(view, GraphView):
             return view.as_block(gcn_norm=self.gcn_norm,
@@ -314,6 +375,26 @@ class CompactBlockBuilder:
                                    self.gcn_norm, self.csc_plan,
                                    features=self.features,
                                    src_plan=self.src_plan)
+
+
+def cluster_view_recompute(g: Graph, clusters: np.ndarray,
+                           chosen: np.ndarray, halo_hops: int,
+                           train: np.ndarray):
+    """A cluster view recomputed from scratch (``np.isin`` membership and
+    halo edge walks), the oracle :meth:`ViewBuilder.cluster_view` is held
+    against. Returns (member bool(N), active bool(N), loss f32(N))."""
+    member = np.isin(clusters, chosen)
+    active = member.copy()
+    for _ in range(halo_hops):
+        # grow along incoming edges (neighbours feeding the members)
+        grow = np.zeros(g.num_nodes, bool)
+        inside = active[g.dst]
+        grow[g.src[inside]] = True
+        active |= grow
+    loss = (member & train).astype(np.float32)
+    if loss.sum() == 0:
+        loss = member.astype(np.float32)
+    return member, active, loss
 
 
 class ClusterViewCache:
@@ -361,15 +442,49 @@ class ClusterViewCache:
                          if len(grown) > 1 else np.asarray(frontier))
         return halos
 
+    def compose(self, chosen, member_out: np.ndarray,
+                active_out: np.ndarray) -> None:
+        """OR the chosen clusters' cached sets into the caller's (N,)
+        bool scratch buffers."""
+        member_out.fill(False)
+        member_out[np.concatenate([self.members[c] for c in chosen])] = True
+        active_out.fill(False)
+        active_out[np.concatenate([self.halo[c] for c in chosen])] = True
+
+
+class _Slot:
+    """One dense view's mask buffers."""
+
+    def __init__(self, K: int, N: int, E: int):
+        self.node = np.zeros((K, N), np.float32)
+        self.edge = np.zeros((K, E), np.float32)
+        self.loss = np.zeros(N, np.float32)
+
 
 class ViewBuilder:
-    """Builds compact views with reusable stamp scratch (single
-    consumer)."""
+    """Builds views for one consumer. Dense builds rotate through
+    ``slots`` preallocated mask buffers, so a dense view's arrays stay
+    valid until ``slots`` more views are built; ``compact=True`` builders
+    own no dense buffers and only make compact views, with reusable stamp
+    scratch."""
 
-    def __init__(self, g: Graph, K: int):
+    def __init__(self, g: Graph, K: int, slots: int = 2,
+                 compact: bool = False):
         self.g = g
         self.K = K
+        self.compact = bool(compact)
+        N, E = g.num_nodes, g.num_edges
         g.csc()     # no-op when cached
+        if self.compact:
+            self._slots = []
+        else:
+            self._slots = [_Slot(K, N, E) for _ in range(max(1, slots))]
+            # shared scratch (single consumer; never escapes into views)
+            self._visited = np.zeros(N, bool)
+            self._in_hop = np.zeros((K + 1, N), bool)
+            self._member = np.zeros(N, bool)
+            self._active = np.zeros(N, bool)
+        self._turn = 0
         self.builds = 0
         self._stamp: Optional[np.ndarray] = None
         self._g2l: Optional[np.ndarray] = None
@@ -386,12 +501,69 @@ class ViewBuilder:
             self._all_train = np.ones(self.g.num_nodes, bool)
         return self._all_train
 
+    def _next_slot(self) -> _Slot:
+        if not self._slots:
+            raise RuntimeError(
+                "this ViewBuilder was created compact=True and owns no "
+                "dense mask buffers; use khop_compact/cluster_compact")
+        slot = self._slots[self._turn % len(self._slots)]
+        self._turn += 1
+        self.builds += 1
+        return slot
+
     def _compact_scratch(self):
         if self._stamp is None:
             self._stamp = np.full(self.g.num_nodes, -1, np.int64)
             self._g2l = np.zeros(self.g.num_nodes, np.int64)
         self._tick += 1
         return self._stamp, self._g2l, self._tick
+
+    def khop_view(self, targets: np.ndarray, neighbor_cap: int = 0,
+                  rng: Optional[np.random.Generator] = None) -> GraphView:
+        """The K-hop dense view of ``targets`` in the next ring slot; the
+        same masks as :func:`~repro_torch.core.subgraph.
+        khop_subgraph_view`."""
+        slot = self._next_slot()
+        hops, visited = bfs_layers(self.g, targets, self.K, neighbor_cap,
+                                   rng, _visited_out=self._visited)
+        fill_khop_masks(self.g, hops, self.K, slot.node, slot.edge,
+                        in_hop=self._in_hop)
+        slot.loss.fill(0.0)
+        uniq = np.unique(targets)
+        slot.loss[uniq] = 1.0
+        # counts recorded at build time, so active_counts() never scans
+        # the masks (layer 0 is the union across layers)
+        return GraphView(self.g, self.K, "mini", slot.node, slot.edge,
+                         slot.loss,
+                         {"targets": int(len(uniq)),
+                          "touched": int(visited.sum()),
+                          "active_nodes": int(len(hops[self.K - 1])),
+                          "active_edges": int(slot.edge[0].sum())})
+
+    def cluster_view(self, chosen: np.ndarray, cache: ClusterViewCache,
+                     train: Optional[np.ndarray] = None) -> GraphView:
+        """The chosen clusters' cached member and halo sets as a dense
+        view in the next ring slot; the same masks as
+        :func:`cluster_view_recompute`."""
+        g = self.g
+        slot = self._next_slot()
+        cache.compose(chosen, self._member, self._active)
+        member, active = self._member, self._active
+        slot.node[:] = active                    # (N,) bool -> (K, N) f32
+        slot.edge[:] = active[g.src] & active[g.dst]
+        train = self._train_mask(train)
+        np.multiply(member, train, out=slot.loss, casting="unsafe")
+        if not slot.loss.any():
+            slot.loss[:] = member
+        n_active = int(active.sum())
+        return GraphView(g, self.K, "cluster", slot.node, slot.edge,
+                         slot.loss,
+                         {"clusters": [int(c) for c in chosen],
+                          "members": int(member.sum()),
+                          "active": n_active,
+                          "active_nodes": n_active,
+                          "active_edges": int(slot.edge[0].sum()),
+                          "targets": int(slot.loss.sum())})
 
     def khop_compact(self, targets: np.ndarray, neighbor_cap: int = 0,
                      rng: Optional[np.random.Generator] = None
@@ -465,6 +637,7 @@ class ViewStream:
     out views detached from the builder's scratch."""
 
     strategy = "?"
+    compact = False   # mini and cluster streams set it per instance
 
     def __init__(self, g: Graph, K: int, seed: int = 0,
                  length: Optional[int] = None):
@@ -485,8 +658,8 @@ class ViewStream:
 
     def make_builder(self) -> Optional[ViewBuilder]:
         """A private ViewBuilder for one consumer (None for the static
-        global view)."""
-        return ViewBuilder(self.g, self.K)
+        global view); a compact stream's owns no dense buffers."""
+        return ViewBuilder(self.g, self.K, compact=self.compact)
 
     def seek(self, i: int) -> None:
         """Move the stream to view ``i`` (the cursor is the stream's whole
@@ -526,17 +699,16 @@ class GlobalViewStream(ViewStream):
 
 
 class MiniBatchViewStream(ViewStream):
-    """Random labeled targets + their K-hop compact view, one independent
-    RNG stream per index."""
+    """Random labeled targets + their K-hop view (dense, or compact with
+    ``compact=True``), one independent RNG stream per index."""
 
     strategy = "mini"
 
     def __init__(self, g: Graph, K: int, batch_nodes: int = 0,
                  neighbor_cap: int = 0, seed: int = 0,
                  length: Optional[int] = None, compact: bool = False):
-        if not compact:
-            raise NotImplementedError(DENSE_VIEWS_TODO)
         super().__init__(g, K, seed=seed, length=length)
+        self.compact = bool(compact)
         self.labeled = np.where(g.train_mask if g.train_mask is not None
                                 else np.ones(g.num_nodes, bool))[0]
         if len(self.labeled) == 0:
@@ -546,14 +718,15 @@ class MiniBatchViewStream(ViewStream):
         self.batch_nodes = batch_nodes or max(1, len(self.labeled) // 100)
         self.neighbor_cap = neighbor_cap
 
-    def build(self, i: int, builder: Optional[ViewBuilder] = None
-              ) -> CompactView:
+    def build(self, i: int, builder: Optional[ViewBuilder] = None):
         rng = self.rng_for(i)
         targets = rng.choice(self.labeled,
                              size=min(self.batch_nodes, len(self.labeled)),
                              replace=False)
         builder = builder or self.make_builder()
-        return builder.khop_compact(targets, self.neighbor_cap, rng)
+        if self.compact:
+            return builder.khop_compact(targets, self.neighbor_cap, rng)
+        return builder.khop_view(targets, self.neighbor_cap, rng)
 
 
 class ClusterViewStream(ViewStream):
@@ -566,9 +739,8 @@ class ClusterViewStream(ViewStream):
                  clusters_per_batch: int = 0, halo_hops: int = 0,
                  seed: int = 0, length: Optional[int] = None,
                  compact: bool = False):
-        if not compact:
-            raise NotImplementedError(DENSE_VIEWS_TODO)
         super().__init__(g, K, seed=seed, length=length)
+        self.compact = bool(compact)
         self.cache = ClusterViewCache(g, clusters, halo_hops)
         C = self.cache.num_clusters
         self.clusters_per_batch = min(
@@ -576,10 +748,11 @@ class ClusterViewStream(ViewStream):
         self.train = (g.train_mask if g.train_mask is not None
                       else np.ones(g.num_nodes, bool))
 
-    def build(self, i: int, builder: Optional[ViewBuilder] = None
-              ) -> CompactView:
+    def build(self, i: int, builder: Optional[ViewBuilder] = None):
         rng = self.rng_for(i)
         chosen = rng.choice(self.cache.num_clusters,
                             size=self.clusters_per_batch, replace=False)
         builder = builder or self.make_builder()
-        return builder.cluster_compact(chosen, self.cache, self.train)
+        if self.compact:
+            return builder.cluster_compact(chosen, self.cache, self.train)
+        return builder.cluster_view(chosen, self.cache, self.train)

@@ -40,10 +40,10 @@ SIGNATURES = {
                     "segment_sum_scratch_bytes": ([_I] * 2, _I)},
     "edge_softmax": {"edge_softmax_f32": [_P] * 9 + [_I] * 5 + [_P],
                      "edge_softmax_scratch_bytes": ([_I] * 5, _I)},
-    "segment_sum_bwd": {"segment_sum_bwd_f32": [_P] * 6 + [_I] * 6 + [_P],
+    "segment_sum_bwd": {"segment_sum_bwd_f32": [_P] * 6 + [_I] * 5 + [_P],
                         "segment_sum_bwd_rows": ([_I], _I)},
     "edge_softmax_bwd": {"edge_softmax_bwd_f32":
-                         [_P] * 11 + [_I] * 7 + [_P]},
+                         [_P] * 11 + [_I] * 6 + [_P]},
     "segment_max": {"segment_max_f32": [_P] * 6 + [_I] * 3 + [_P],
                     "segment_max_scratch_bytes": ([_I] * 3, _I)},
     "segment_max_bwd": {"segment_max_bwd_f32":

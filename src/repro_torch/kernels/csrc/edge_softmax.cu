@@ -177,6 +177,7 @@ edge_softmax_kernel(const float* __restrict__ logits,
   const int64_t hd = heads * dim;
   const int64_t slot = hd + 2 * heads;
   if (!kChunks) {  // a row, or a piece of one (row_pieces.cuh)
+    if (k >= n && !has_piece(piece_ptr, n, k - n)) return;
     const Unit u = unit_of(indptr, piece_ptr, n, k, merge_row, lane);
     for (int t = lane; t < u.b - u.a; t += 32) s_ids[w][t] = perm[u.a + t];
     __syncwarp();
@@ -281,12 +282,12 @@ edge_softmax_merge(const int* __restrict__ indptr,
                    const float* __restrict__ carry,
                    const int* __restrict__ merge_row,
                    float* __restrict__ out, float* __restrict__ m_out,
-                   float* __restrict__ den_out, int64_t heads, int64_t dim,
-                   int64_t units) {
+                   float* __restrict__ den_out, int n, int64_t heads,
+                   int64_t dim, int64_t units) {
   const int lane = threadIdx.x & 31;
   const int64_t k =
       (int64_t)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (k >= units) return;
+  if (k >= units || (!kChunks && !has_piece(piece_ptr, n, k))) return;
   const int r = merge_row[k];
   if (r < 0) return;  // uniform across the warp
   const int64_t hd = heads * dim;
@@ -311,16 +312,18 @@ edge_softmax_merge(const int* __restrict__ indptr,
 }
 
 // A plan's schedule: merge-path chunks from kLargePlan items on, each
-// chunk a unit that holds partials, else row_pieces.cuh's rows and
-// pieces.
+// chunk a unit that holds partials (counted from the rows and all E
+// edges, pads included: a chunk past the real items exits), else
+// row_pieces.cuh's rows and up to max_pieces pieces. Shapes alone set
+// it, so it is the same for every view of a bucket.
 bool chunked(int64_t num_segments, int64_t num_edges) {
   return num_segments + num_edges >= kLargePlan;
 }
 
 Schedule plan_schedule(int64_t num_segments, int64_t num_edges,
-                       int64_t num_pieces) {
+                       int64_t max_pieces) {
   if (!chunked(num_segments, num_edges))
-    return schedule_for(num_segments, num_pieces);
+    return schedule_for(num_segments, max_pieces);
   const int64_t chunks = (num_segments + num_edges + kChunk - 1) / kChunk;
   return {chunks, chunks};
 }
@@ -336,40 +339,42 @@ void launch(const float* logits, const float* values, const int* perm,
   edge_softmax_kernel<kChunks><<<blocks_for(sc.warps), block, 0, s>>>(
       logits, values, perm, indptr, piece_ptr, out, m_out, den_out, carry,
       merge_row, (int)num_segments, heads, dim, sc.warps);
-  if (sc.units > 0)
+  if (sc.units > 0)  // a shape test: the merge runs for every view
     edge_softmax_merge<kChunks><<<blocks_for(sc.units), block, 0, s>>>(
-        indptr, piece_ptr, carry, merge_row, out, m_out, den_out, heads,
-        dim, sc.units);
+        indptr, piece_ptr, carry, merge_row, out, m_out, den_out,
+        (int)num_segments, heads, dim, sc.units);
 }
 
 }  // namespace
 
 // Bytes of scratch edge_softmax_f32 needs for a plan of num_segments
-// rows, num_edges edges (pad edges included) and num_pieces pieces at
-// heads x dim.
+// rows, num_edges edges (pad edges included) and at most max_pieces
+// pieces at heads x dim.
 extern "C" int64_t edge_softmax_scratch_bytes(int64_t num_segments,
                                               int64_t num_edges,
-                                              int64_t num_pieces,
+                                              int64_t max_pieces,
                                               int64_t heads, int64_t dim) {
   return scratch_bytes(
-      plan_schedule(num_segments, num_edges, num_pieces).units,
+      plan_schedule(num_segments, num_edges, max_pieces).units,
       (heads * dim + 2 * heads) * 4);
 }
 
 // logits (E, heads) f32, values (E, heads, dim) f32, perm (E,) int32,
-// indptr and piece_ptr (num_segments+1,) int32, scratch
-// (edge_softmax_scratch_bytes) -> out (num_segments, heads, dim), m and den (num_segments, heads)
-// f32. Two launches on `stream` (one when there are no edges). Returns
+// indptr and piece_ptr (num_segments+1,) int32, max_pieces
+// (row_pieces.cuh's bound for E edges), scratch
+// (edge_softmax_scratch_bytes) -> out (num_segments, heads, dim), m and
+// den (num_segments, heads) f32. Two launches on `stream` (one when the
+// schedule has no unit that holds partials). Returns
 // cudaGetLastError().
 extern "C" int edge_softmax_f32(const void* logits, const void* values,
                                 const void* perm, const void* indptr,
                                 const void* piece_ptr, void* out,
                                 void* m_out, void* den_out, void* scratch,
                                 int64_t num_segments, int64_t num_edges,
-                                int64_t num_pieces, int64_t heads,
+                                int64_t max_pieces, int64_t heads,
                                 int64_t dim, void* stream) {
   if (num_segments <= 0 || heads <= 0 || dim <= 0) return 0;
-  const Schedule sc = plan_schedule(num_segments, num_edges, num_pieces);
+  const Schedule sc = plan_schedule(num_segments, num_edges, max_pieces);
   const auto* lg = static_cast<const float*>(logits);
   const auto* va = static_cast<const float*>(values);
   const auto* pm = static_cast<const int*>(perm);

@@ -45,7 +45,10 @@
 // is no merge: each output element belongs to one edge and is written by
 // one lane, with no atomics, so the result is deterministic. The pad
 // edges, perm[indptr[N]:E], join no row and get units of their own that
-// read row N - 1, as the clip does. Any H and D: 16-byte accesses where
+// read row N - 1, as the clip does. The grid holds max_pieces piece warps
+// and max_pad_runs run warps (row_pieces.cuh's bounds from E); a warp
+// past piece_ptr[N] or past E exits, so one launch fits every view of a
+// bucket. Any H and D: 16-byte accesses where
 // D % 4 == 0 and the operands are aligned, else scalar ones.
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -221,12 +224,13 @@ struct Args {
   const int *perm, *indptr, *piece_ptr;
   float *d_logits, *d_values;
   int n;
-  int64_t num_pieces, num_edges, heads, dl_stride, dim, row_warps, warps;
+  int64_t max_pieces, num_edges, heads, dl_stride, dim, row_warps, warps;
 };
 
 // Warps: row_warps row warps of rows_per_warp(heads) row units each (the
-// lanes of two edges a row), then one per piece, then one per kPiece pad
-// edges, each with all 32 lanes. kG > 0: aligned heads of 4 * kG floats
+// lanes of two edges a row), then max_pieces for the pieces, then
+// max_pad_runs for the kPiece-edge runs of pad edges, each with all 32
+// lanes; a warp with no piece or run exits. kG > 0: aligned heads of 4 * kG floats
 // (unit_bwd_small); else any D.
 template <bool kVec, int kG>
 __global__ void __launch_bounds__(32 * kWarpsPerBlock)
@@ -249,11 +253,13 @@ edge_softmax_bwd_kernel(const Args p) {
     slots = lanes / lh;
   } else {  // a piece, or kPiece pad edges, with all 32 lanes
     const int64_t q = k - p.row_warps;
-    if (q < p.num_pieces) {
+    if (q < p.max_pieces) {
+      if (!has_piece(p.piece_ptr, p.n, q)) return;  // uniform
       const Unit u = piece_unit(p.indptr, p.piece_ptr, p.n, q, nullptr, lane);
       r = u.row, a = u.a, b = u.b;
     } else {
-      const int64_t at = p.indptr[p.n] + (q - p.num_pieces) * kPiece;
+      const int64_t at = p.indptr[p.n] + (q - p.max_pieces) * kPiece;
+      if (at >= p.num_edges) return;  // uniform
       r = p.n - 1;
       a = (int)at;
       b = (int)(at + kPiece < p.num_edges ? at + kPiece : p.num_edges);
@@ -281,9 +287,8 @@ void launch(const Args& p, cudaStream_t s) {
 
 // g and out (num_segments, heads, dim), logits (num_edges, heads), values
 // (num_edges, heads, dim), m and den (num_segments, heads), all f32;
-// perm (num_edges,), indptr and piece_ptr (num_segments+1,) int32, the
-// plan's num_pieces and its pad edges' count num_pads (num_edges -
-// indptr[num_segments]) -> d_logits (num_edges, dl_stride), its first
+// perm (num_edges,), indptr and piece_ptr (num_segments+1,) int32,
+// max_pieces (row_pieces.cuh's bound for num_edges edges) -> d_logits (num_edges, dl_stride), its first
 // heads columns the cotangent and the rest zeros, and d_values
 // (num_edges, heads, dim) f32. A caller pads d_logits' rows to whole
 // 32-byte sectors (dl_stride = 8 at 4 heads) where the call's traffic
@@ -296,14 +301,14 @@ extern "C" int edge_softmax_bwd_f32(const void* g, const void* logits,
                                     const void* perm, const void* indptr,
                                     const void* piece_ptr, void* d_logits,
                                     void* d_values, int64_t num_edges,
-                                    int64_t num_segments, int64_t num_pieces,
-                                    int64_t num_pads, int64_t heads,
+                                    int64_t num_segments, int64_t max_pieces,
+                                    int64_t heads,
                                     int64_t dl_stride, int64_t dim,
                                     void* stream) {
   if (num_edges <= 0 || num_segments <= 0 || heads <= 0 || dim <= 0 ||
       dl_stride < heads)
     return 0;
-  // rows, pieces, then the pad edges in units of kPiece
+  // rows, pieces, then the pad edges in runs of kPiece
   const int64_t subs = rows_per_warp(heads);
   const int64_t row_warps = (num_segments + subs - 1) / subs;
   const Args p{static_cast<const float*>(g),
@@ -318,13 +323,13 @@ extern "C" int edge_softmax_bwd_f32(const void* g, const void* logits,
                static_cast<float*>(d_logits),
                static_cast<float*>(d_values),
                (int)num_segments,
-               num_pieces,
+               max_pieces,
                num_edges,
                heads,
                dl_stride,
                dim,
                row_warps,
-               row_warps + num_pieces + (num_pads + kPiece - 1) / kPiece};
+               row_warps + max_pieces + max_pad_runs(num_edges)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool vec4 = dim % 4 == 0 && (uintptr_t)g % 16 == 0 &&
                     (uintptr_t)values % 16 == 0 && (uintptr_t)out % 16 == 0 &&

@@ -16,15 +16,27 @@
 // the plan has num_pieces = piece_ptr[N] of them. Only the indptr[N]
 // real edges are cut: pad edges sort past indptr[N] and join no row.
 //
+// The host sizes every launch from the plan's shapes alone: a row of
+// d > 0 edges has ceil(d / kPiece) - 1 <= d / kPiece pieces, so
+// max_pieces(E) = E / kPiece bounds num_pieces for any plan of E edges
+// (pad edges included), and ceil(E / kPiece) bounds the kPiece-edge runs
+// of its pad edges. The kernels read the true counts, piece_ptr[N] and
+// indptr[N], from the device, and a unit past them exits at once. So
+// the grid, the scratch and the launches are the same for every view of
+// a bucket, and one CUDA graph captured over one view replays for all of
+// them; the units that run, and their order, are those of the true
+// counts, so the bits are too.
+//
 // The first launch has one warp per unit: unit k < N is row k's row
 // unit, unit N + p is piece p, which finds its row by a 32-way warp
 // search over piece_ptr (the 20,000-node alipay_like layer's 412-edge
 // row is 7 warps' work). A unit that holds a whole row writes it out. A
 // row that is cut leaves one partial per unit in scratch: slot 1 of its
 // first piece piece_ptr[r] from its row unit, slot 0 of each piece. The
-// second launch gives each cut row to the warp of its last piece
-// (merge_row[p] = r, else -1), which folds slot 1 of the first piece and
-// slot 0 of each piece, in row order, and writes the row.
+// second launch, one warp per piece up to max_pieces, gives each cut row
+// to the warp of its last piece (merge_row[p] = r, else -1), which folds
+// slot 1 of the first piece and slot 0 of each piece, in row order, and
+// writes the row.
 //
 // Deterministic: the units are a function of the plan alone
 // (compile-time sizes; nothing depends on the SM count or timing),
@@ -104,14 +116,29 @@ __device__ inline Unit unit_of(const int* __restrict__ indptr,
                : piece_unit(indptr, piece_ptr, n, k - n, merge_row, lane);
 }
 
-// A plan's schedule: the first launch's warps (rows, then pieces) and
-// the pieces, which hold partials and merge them.
+// The bound on the pieces of any plan of num_edges edges.
+inline int64_t max_pieces(int64_t num_edges) { return num_edges / kPiece; }
+
+// The bound on the kPiece-edge runs of its pad edges.
+inline int64_t max_pad_runs(int64_t num_edges) {
+  return (num_edges + kPiece - 1) / kPiece;
+}
+
+// Whether piece p exists in the plan: p < piece_ptr[n], read from the
+// device (every lane reads the same word, so the branch is uniform).
+__device__ inline bool has_piece(const int* __restrict__ piece_ptr, int n,
+                                 int64_t p) {
+  return p < piece_ptr[n];
+}
+
+// A plan's schedule: the first launch's warps (rows, then up to
+// max_pieces pieces) and the pieces, which hold partials and merge them.
 struct Schedule {
   int64_t warps, units;
 };
 
-inline Schedule schedule_for(int64_t num_segments, int64_t num_pieces) {
-  return {num_segments + num_pieces, num_pieces};
+inline Schedule schedule_for(int64_t num_segments, int64_t max_pieces) {
+  return {num_segments + max_pieces, max_pieces};
 }
 
 // Scratch layout: merge_row (units int32), then the partials from this

@@ -32,7 +32,8 @@
 // the piece's end in a fixed order. A piece that is a whole row is
 // written straight to `out`; a cut row leaves a partial max per unit in
 // scratch, which the second launch (segment_max_merge) folds in plan
-// order. Deterministic as row_pieces.cuh says: the same plan and data
+// order. Both launches are sized by the plan's max_pieces, and a piece
+// warp past piece_ptr[N] exits (row_pieces.cuh). Deterministic as row_pieces.cuh says: the same plan and data
 // give the same bits on every run.
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -143,6 +144,7 @@ segment_max_kernel(const T* __restrict__ data, const int* __restrict__ perm,
   const int w = threadIdx.x >> 5;
   const int64_t k = (int64_t)blockIdx.x * kWarpsPerBlock + w;
   if (k >= warps) return;  // uniform across the warp
+  if (k >= n && !has_piece(piece_ptr, n, k - n)) return;
   const Unit u = unit_of(indptr, piece_ptr, n, k, merge_row, lane);
   for (int t = lane; t < u.b - u.a; t += 32) s_ids[w][t] = perm[u.a + t];
   __syncwarp();
@@ -159,11 +161,11 @@ __global__ void __launch_bounds__(32 * kWarpsPerBlock)
 segment_max_merge(const int* __restrict__ piece_ptr,
                   const T* __restrict__ carry,
                   const int* __restrict__ merge_row, T* __restrict__ out,
-                  int64_t width, int64_t units) {
+                  int n, int64_t width, int64_t units) {
   const int lane = threadIdx.x & 31;
   const int64_t k =
       (int64_t)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (k >= units) return;
+  if (k >= units || !has_piece(piece_ptr, n, k)) return;
   const int r = merge_row[k];
   if (r < 0) return;  // uniform across the warp
   const int64_t first = piece_ptr[r];
@@ -178,38 +180,40 @@ segment_max_merge(const int* __restrict__ piece_ptr,
 template <typename T>
 void launch(const T* data, const int* perm, const int* indptr,
             const int* piece_ptr, T* out, char* scratch, int64_t num_segments,
-            int64_t num_pieces, int64_t width, cudaStream_t s) {
-  const Schedule sc = schedule_for(num_segments, num_pieces);
+            int64_t max_pieces, int64_t width, cudaStream_t s) {
+  const Schedule sc = schedule_for(num_segments, max_pieces);
   int* merge_row = reinterpret_cast<int*>(scratch);
   T* carry = reinterpret_cast<T*>(scratch + carry_offset(sc.units));
   const dim3 block(32 * kWarpsPerBlock);
   segment_max_kernel<T><<<blocks_for(sc.warps), block, 0, s>>>(
       data, perm, indptr, piece_ptr, out, carry, merge_row,
       (int)num_segments, width, sc.warps);
-  if (sc.units > 0)
+  if (sc.units > 0)  // a shape test: the merge runs for every view
     segment_max_merge<T><<<blocks_for(sc.units), block, 0, s>>>(
-        piece_ptr, carry, merge_row, out, width, sc.units);
+        piece_ptr, carry, merge_row, out, (int)num_segments, width,
+        sc.units);
 }
 
 }  // namespace
 
 // Bytes of scratch segment_max_f32 needs for a plan of num_segments rows
-// and num_pieces pieces at width dim.
+// and at most max_pieces pieces at width dim.
 extern "C" int64_t segment_max_scratch_bytes(int64_t num_segments,
-                                             int64_t num_pieces,
+                                             int64_t max_pieces,
                                              int64_t dim) {
-  return scratch_bytes(schedule_for(num_segments, num_pieces).units,
+  return scratch_bytes(schedule_for(num_segments, max_pieces).units,
                        dim * 4);
 }
 
 // data (E, dim) f32, perm (E,) int32, indptr and piece_ptr
-// (num_segments+1,) int32, scratch (segment_max_scratch_bytes, 16-byte
-// aligned) -> out (num_segments, dim) f32. Two launches on `stream` (one
-// when no row is cut). Returns cudaGetLastError().
+// (num_segments+1,) int32, max_pieces (row_pieces.cuh's bound for E
+// edges), scratch (segment_max_scratch_bytes, 16-byte aligned) -> out
+// (num_segments, dim) f32. Two launches on `stream` (one when E <
+// kPiece). Returns cudaGetLastError().
 extern "C" int segment_max_f32(const void* data, const void* perm,
                                const void* indptr, const void* piece_ptr,
                                void* out, void* scratch,
-                               int64_t num_segments, int64_t num_pieces,
+                               int64_t num_segments, int64_t max_pieces,
                                int64_t dim, void* stream) {
   if (num_segments <= 0 || dim <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -219,12 +223,12 @@ extern "C" int segment_max_f32(const void* data, const void* perm,
     launch(static_cast<const float4*>(data), static_cast<const int*>(perm),
            static_cast<const int*>(indptr),
            static_cast<const int*>(piece_ptr), static_cast<float4*>(out),
-           static_cast<char*>(scratch), num_segments, num_pieces, dim / 4, s);
+           static_cast<char*>(scratch), num_segments, max_pieces, dim / 4, s);
   } else {
     launch(static_cast<const float*>(data), static_cast<const int*>(perm),
            static_cast<const int*>(indptr),
            static_cast<const int*>(piece_ptr), static_cast<float*>(out),
-           static_cast<char*>(scratch), num_segments, num_pieces, dim, s);
+           static_cast<char*>(scratch), num_segments, max_pieces, dim, s);
   }
   return (int)cudaGetLastError();
 }

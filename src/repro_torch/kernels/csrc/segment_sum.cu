@@ -36,7 +36,8 @@
 //   edges in order; they merge by xor shuffles in a fixed tree. A cut
 //   row leaves a partial per unit in scratch, and the second launch
 //   (segment_sum_merge) adds them in row order: the row unit's, then
-//   each piece's.
+//   each piece's. Both launches are sized by the plan's max_pieces, and
+//   a piece warp past piece_ptr[N] exits (row_pieces.cuh).
 // So a row's order of summation is a function of its length, its edges'
 // order and D alone: the same row gives the same bits in any plan and at
 // any offset (a served cache hit equals a full recompute), and on every
@@ -185,6 +186,7 @@ segment_sum_kernel(const float* __restrict__ data,
   const int l = pow2_lanes(groups);
   const Lanes ln{l, 32 / l, lane / l, lane % l};
   if (k >= row_warps) {  // a piece
+    if (!has_piece(piece_ptr, n, k - row_warps)) return;
     const Unit u = piece_unit(indptr, piece_ptr, n, k - row_warps,
                               merge_row, lane);
     for (int t = lane; t < u.b - u.a; t += 32) s_ids[w][t] = perm[u.a + t];
@@ -223,11 +225,11 @@ __global__ void __launch_bounds__(32 * kWarpsPerBlock)
 segment_sum_merge(const int* __restrict__ piece_ptr,
                   const float4* __restrict__ carry,
                   const int* __restrict__ merge_row, float* __restrict__ out,
-                  int64_t dim, int64_t units) {
+                  int n, int64_t dim, int64_t units) {
   const int lane = threadIdx.x & 31;
   const int64_t k =
       (int64_t)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (k >= units) return;
+  if (k >= units || !has_piece(piece_ptr, n, k)) return;
   const int r = merge_row[k];
   if (r < 0) return;  // uniform across the warp
   const int64_t groups = (dim + 3) / 4;
@@ -249,39 +251,41 @@ int64_t row_warps_for(int64_t num_segments, int64_t dim) {
 template <bool kVec>
 void launch(const float* data, const int* perm, const int* indptr,
             const int* piece_ptr, float* out, char* scratch,
-            int64_t num_segments, int64_t num_pieces, int64_t dim,
+            int64_t num_segments, int64_t max_pieces, int64_t dim,
             cudaStream_t s) {
   const int64_t row_warps = row_warps_for(num_segments, dim);
-  const int64_t warps = row_warps + num_pieces;
+  const int64_t warps = row_warps + max_pieces;
   int* merge_row = reinterpret_cast<int*>(scratch);
   float4* carry =
-      reinterpret_cast<float4*>(scratch + carry_offset(num_pieces));
+      reinterpret_cast<float4*>(scratch + carry_offset(max_pieces));
   const dim3 block(32 * kWarpsPerBlock);
   segment_sum_kernel<kVec><<<blocks_for(warps), block, 0, s>>>(
       data, perm, indptr, piece_ptr, out, carry, merge_row,
       (int)num_segments, dim, row_warps, warps);
-  if (num_pieces > 0)
-    segment_sum_merge<kVec><<<blocks_for(num_pieces), block, 0, s>>>(
-        piece_ptr, carry, merge_row, out, dim, num_pieces);
+  if (max_pieces > 0)  // a shape test: the merge runs for every view
+    segment_sum_merge<kVec><<<blocks_for(max_pieces), block, 0, s>>>(
+        piece_ptr, carry, merge_row, out, (int)num_segments, dim,
+        max_pieces);
 }
 
 }  // namespace
 
-// Bytes of scratch segment_sum_f32 needs for a plan of num_pieces
-// pieces at width dim.
-extern "C" int64_t segment_sum_scratch_bytes(int64_t num_pieces,
+// Bytes of scratch segment_sum_f32 needs for a plan of at most
+// max_pieces pieces at width dim.
+extern "C" int64_t segment_sum_scratch_bytes(int64_t max_pieces,
                                              int64_t dim) {
-  return scratch_bytes(num_pieces, (dim + 3) / 4 * 16);
+  return scratch_bytes(max_pieces, (dim + 3) / 4 * 16);
 }
 
 // data (E, dim) f32, perm (E,) int32, indptr and piece_ptr
-// (num_segments+1,) int32, scratch (segment_sum_scratch_bytes, 16-byte
-// aligned) -> out (num_segments, dim) f32. Two launches on `stream` (one
-// when no row is cut). Returns cudaGetLastError().
+// (num_segments+1,) int32, max_pieces (row_pieces.cuh's bound for E
+// edges), scratch (segment_sum_scratch_bytes, 16-byte aligned) -> out
+// (num_segments, dim) f32. Two launches on `stream` (one when E <
+// kPiece). Returns cudaGetLastError().
 extern "C" int segment_sum_f32(const void* data, const void* perm,
                                const void* indptr, const void* piece_ptr,
                                void* out, void* scratch,
-                               int64_t num_segments, int64_t num_pieces,
+                               int64_t num_segments, int64_t max_pieces,
                                int64_t dim, void* stream) {
   if (num_segments <= 0 || dim <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -292,8 +296,8 @@ extern "C" int segment_sum_f32(const void* data, const void* perm,
   auto* o = static_cast<float*>(out);
   auto* scr = static_cast<char*>(scratch);
   if (dim % 4 == 0 && (uintptr_t)data % 16 == 0 && (uintptr_t)out % 16 == 0)
-    launch<true>(d, pm, ip, pp, o, scr, num_segments, num_pieces, dim, s);
+    launch<true>(d, pm, ip, pp, o, scr, num_segments, max_pieces, dim, s);
   else
-    launch<false>(d, pm, ip, pp, o, scr, num_segments, num_pieces, dim, s);
+    launch<false>(d, pm, ip, pp, o, scr, num_segments, max_pieces, dim, s);
   return (int)cudaGetLastError();
 }

@@ -29,7 +29,9 @@
 //   takes each 64-edge piece of a long row, finding its row through
 //   piece_ptr, and each kPiece of the pad edges perm[indptr[N]:E], which
 //   read row N - 1 as the clip does; there its sub-warps take alternate
-//   edges. A lane loads its group of g[r] once
+//   edges. The grid holds max_pieces piece warps and max_pad_runs run
+//   warps (row_pieces.cuh's bounds from E); a warp past piece_ptr[N] or
+//   past E exits. A lane loads its group of g[r] once
 //   into registers and writes it to out[perm[k]] for each edge k of the
 //   unit, kUnroll ids in flight. Each cotangent row is read once (once a
 //   piece on a long row), perm and indptr sequentially: the bound's
@@ -113,11 +115,12 @@ struct Args {
   const int *perm, *indptr, *piece_ptr, *edge_dst;
   float* out;
   int n;
-  int64_t num_edges, num_pieces, num_real_edges, dim, row_warps, warps;
+  int64_t num_edges, max_pieces, dim, row_warps, warps;
 };
 
-// Warps: row_warps row warps of S row units each, then one per piece,
-// then one per kPiece pad edges.
+// Warps: row_warps row warps of S row units each, then max_pieces for the
+// pieces, then max_pad_runs for the kPiece-edge runs of pad edges; a
+// warp with no piece or run exits.
 template <bool kVec>
 __global__ void __launch_bounds__(32 * kWarpsPerBlock)
 segment_sum_bwd_rows_kernel(const Args p) {
@@ -136,11 +139,13 @@ segment_sum_bwd_rows_kernel(const Args p) {
     a = u.a, b = u.b, first = a, step = 1;
   } else {  // a piece, or kPiece pad edges, by the whole warp
     const int64_t q = k - p.row_warps;
-    if (q < p.num_pieces) {
+    if (q < p.max_pieces) {
+      if (!has_piece(p.piece_ptr, p.n, q)) return;  // uniform
       const Unit u = piece_unit(p.indptr, p.piece_ptr, p.n, q, nullptr, lane);
       r = u.row, a = u.a, b = u.b;
     } else {
-      const int64_t at = p.num_real_edges + (q - p.num_pieces) * kPiece;
+      const int64_t at = p.indptr[p.n] + (q - p.max_pieces) * kPiece;
+      if (at >= p.num_edges) return;  // uniform
       r = p.n - 1;
       a = (int)at;
       b = (int)(at + kPiece < p.num_edges ? at + kPiece : p.num_edges);
@@ -176,8 +181,7 @@ void launch(Args p, bool rows, cudaStream_t s) {
   const int64_t subs = 32 / pow2_lanes((p.dim + 3) / 4);
   if (rows) {
     p.row_warps = (p.n + subs - 1) / subs;
-    const int64_t pads = p.num_edges - p.num_real_edges;
-    p.warps = p.row_warps + p.num_pieces + (pads + kPiece - 1) / kPiece;
+    p.warps = p.row_warps + p.max_pieces + max_pad_runs(p.num_edges);
     segment_sum_bwd_rows_kernel<kVec><<<blocks_for(p.warps), block, 0, s>>>(p);
   } else {
     p.warps = (p.num_edges + subs - 1) / subs;
@@ -194,17 +198,16 @@ extern "C" int64_t segment_sum_bwd_rows(int64_t dim) {
 }
 
 // g (num_segments, dim) f32; perm and edge_dst (num_edges,), indptr and
-// piece_ptr (num_segments+1,) int32, the plan's num_pieces and its real
-// edges' count num_real_edges (indptr[num_segments]) -> out (num_edges,
-// dim) f32. rows: 1 walks the plan's rows (perm, indptr, piece_ptr), 0
+// piece_ptr (num_segments+1,) int32, max_pieces (row_pieces.cuh's bound
+// for num_edges edges) -> out (num_edges, dim) f32. rows: 1 walks the plan's rows (perm, indptr, piece_ptr), 0
 // the edges (edge_dst), below 0 the rule's choice (segment_sum_bwd_rows).
 // One launch on `stream`. Returns cudaGetLastError().
 extern "C" int segment_sum_bwd_f32(const void* g, const void* perm,
                                    const void* indptr, const void* piece_ptr,
                                    const void* edge_dst, void* out,
                                    int64_t num_edges, int64_t num_segments,
-                                   int64_t num_pieces, int64_t num_real_edges,
-                                   int64_t dim, int64_t rows, void* stream) {
+                                   int64_t max_pieces, int64_t dim,
+                                   int64_t rows, void* stream) {
   if (num_edges <= 0 || num_segments <= 0 || dim <= 0) return 0;
   const Args p{static_cast<const float*>(g),
                static_cast<const int*>(perm),
@@ -214,8 +217,7 @@ extern "C" int segment_sum_bwd_f32(const void* g, const void* perm,
                static_cast<float*>(out),
                (int)num_segments,
                num_edges,
-               num_pieces,
-               num_real_edges,
+               max_pieces,
                dim,
                0,
                0};

@@ -7,13 +7,21 @@ For a tensor on the CPU a wrapper runs the kernel's plain version
 kernel or raises — there is no fallback. Each call that launches adds
 one to ``launches[name]``, so a run can show that its path went through
 the kernel; ``segment_sum``, ``segment_max`` and ``edge_softmax`` make
-two CUDA launches a call when a row is cut (their rows and pieces, or
-chunks, then the merge of the rows they cut) and count one. The
-backward wrappers are what the autograd Functions of
-:mod:`repro_torch.core.aggregate` call.
+two CUDA launches a call (their rows and pieces, or chunks, then the
+merge of the rows they cut) and count one. The backward wrappers are
+what the autograd Functions of :mod:`repro_torch.core.aggregate` call.
+
+The Sum-stage wrappers size every grid and scratch from the plan's
+shapes and its bound ``max_pieces``, never from a count that changes
+within a bucket, so a CUDA graph captured over one view of a bucket
+replays for every other. A call made while a graph is being captured
+launches nothing yet: it counts into the capture's tally
+(:func:`capture_tally`), which each replay adds to ``launches``
+(:func:`add_launches`).
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional
 
@@ -32,9 +40,38 @@ launches = {"segment_sum": 0, "edge_softmax": 0, "segment_sum_bwd": 0,
             "flash_attention": 0, "wkv6": 0}
 
 
+_tally: Optional[dict] = None     # the capture in progress, if any
+
+
 def reset_launches() -> None:
     for k in launches:
         launches[k] = 0
+
+
+def add_launches(counts: dict) -> None:
+    """Count the kernel launches of one replay of a captured graph."""
+    for k, n in counts.items():
+        launches[k] += n
+
+
+@contextlib.contextmanager
+def capture_tally():
+    """While a CUDA graph is captured: the wrappers' calls count into the
+    yielded dict instead of ``launches``, since the capture launches
+    nothing; each replay then adds it (:func:`add_launches`)."""
+    global _tally
+    prev, _tally = _tally, {}
+    try:
+        yield _tally
+    finally:
+        _tally = prev
+
+
+def _count(name: str) -> None:
+    if _tally is not None and torch.cuda.is_current_stream_capturing():
+        _tally[name] = _tally.get(name, 0) + 1
+    else:
+        launches[name] += 1
 
 
 def _ptr(t: torch.Tensor):
@@ -68,8 +105,9 @@ def _raise_on(rc: int, name: str) -> None:
 def _scratch(name: str, *sizes: int, device) -> torch.Tensor:
     """The scratch of ``segment_sum``, ``segment_max`` or
     ``edge_softmax`` (the partials of the rows their schedule cuts),
-    sized by the kernel source from the plan's sizes and the widths; from
-    the caching allocator, never zeroed."""
+    sized by the kernel source from the plan's shapes, its
+    ``max_pieces`` and the widths; from the caching allocator, never
+    zeroed."""
     nbytes = build.kernel(name, f"{name}_scratch_bytes")(*sizes)
     return torch.empty(nbytes, dtype=torch.uint8, device=device)
 
@@ -80,12 +118,12 @@ def _plan_index(plan: CSCPlan) -> tuple:
 
 
 def _segment_sum_cuda(data: torch.Tensor, plan: CSCPlan) -> torch.Tensor:
-    """One op, two CUDA launches when a row is cut
-    (``csrc/segment_sum.cu``): rows several to a warp when they are
-    narrow, a warp per 64-edge piece of a long row, then the merge of the
-    rows that were cut."""
+    """One op, two CUDA launches (``csrc/segment_sum.cu``): rows several
+    to a warp when they are narrow, a warp per 64-edge piece of a long
+    row, then the merge of the rows that were cut; both sized by the
+    plan's ``max_pieces``."""
     _check_cuda("segment_sum", _plan_index(plan), data)
-    n, x, d = plan.num_segments, plan.num_pieces, data.shape[1]
+    n, x, d = plan.num_segments, plan.max_pieces, data.shape[1]
     out = torch.empty((n, d), dtype=torch.float32, device=data.device)
     if n == 0 or d == 0:
         return out
@@ -96,16 +134,16 @@ def _segment_sum_cuda(data: torch.Tensor, plan: CSCPlan) -> torch.Tensor:
         rc = fn(_ptr(data), *map(_ptr, _plan_index(plan)), _ptr(out),
                 _ptr(scratch), n, x, d, stream)
     _raise_on(rc, "segment_sum")
-    launches["segment_sum"] += 1
+    _count("segment_sum")
     return out
 
 
 def _segment_max_cuda(data: torch.Tensor, plan: CSCPlan) -> torch.Tensor:
-    """One op, two CUDA launches when a row is cut
-    (``csrc/segment_max.cu``): a warp per row and per 64-edge piece of a
-    long row, then the merge of the rows that were cut."""
+    """One op, two CUDA launches (``csrc/segment_max.cu``): a warp per
+    row and per 64-edge piece of a long row, then the merge of the rows
+    that were cut; both sized by the plan's ``max_pieces``."""
     _check_cuda("segment_max", _plan_index(plan), data)
-    n, x, d = plan.num_segments, plan.num_pieces, data.shape[1]
+    n, x, d = plan.num_segments, plan.max_pieces, data.shape[1]
     out = torch.empty((n, d), dtype=torch.float32, device=data.device)
     if n == 0 or d == 0:
         return out
@@ -116,7 +154,7 @@ def _segment_max_cuda(data: torch.Tensor, plan: CSCPlan) -> torch.Tensor:
         rc = fn(_ptr(data), *map(_ptr, _plan_index(plan)), _ptr(out),
                 _ptr(scratch), n, x, d, stream)
     _raise_on(rc, "segment_max")
-    launches["segment_max"] += 1
+    _count("segment_max")
     return out
 
 
@@ -127,7 +165,7 @@ def _edge_softmax_cuda(logits: torch.Tensor, values: torch.Tensor,
     warp per merge-path chunk, then the merge of the rows that were
     cut."""
     _check_cuda("edge_softmax", _plan_index(plan), logits, values)
-    n, e, x = plan.num_segments, plan.num_edges, plan.num_pieces
+    n, e, x = plan.num_segments, plan.num_edges, plan.max_pieces
     _, h, d = values.shape
     out = torch.empty((n, h, d), dtype=torch.float32, device=values.device)
     m = torch.empty((n, h), dtype=torch.float32, device=values.device)
@@ -142,7 +180,7 @@ def _edge_softmax_cuda(logits: torch.Tensor, values: torch.Tensor,
                 _ptr(out), _ptr(m), _ptr(den), _ptr(scratch), n, e, x, h, d,
                 stream)
     _raise_on(rc, "edge_softmax")
-    launches["edge_softmax"] += 1
+    _count("edge_softmax")
     return out, m, den
 
 
@@ -163,7 +201,8 @@ def _segment_sum_bwd_cuda(g: torch.Tensor, plan: CSCPlan,
     """One launch (``csrc/segment_sum_bwd.cu``) under the kernel's rule:
     the destination plan's rows (several to a warp), 64-edge pieces and
     64-edge runs of pad edges, each unit holding its row of g in
-    registers; or a sub-warp per edge through ``edge_dst``. ``schedule``
+    registers, the grid sized by bounds on the pieces and runs; or a
+    sub-warp per edge through ``edge_dst``. ``schedule``
     forces one of :data:`SUM_BWD_SCHEDULES`, a hook for tests and
     timings."""
     _check_cuda("segment_sum_bwd", _plan_index(plan) + (plan.edge_dst,), g)
@@ -180,10 +219,9 @@ def _segment_sum_bwd_cuda(g: torch.Tensor, plan: CSCPlan,
     with torch.cuda.device(g.device):
         stream = torch.cuda.current_stream(g.device).cuda_stream
         rc = fn(_ptr(g), *map(_ptr, _plan_index(plan)), _ptr(plan.edge_dst),
-                _ptr(out), e, n, plan.num_pieces, plan.num_real_edges, d,
-                rows, stream)
+                _ptr(out), e, n, plan.max_pieces, d, rows, stream)
     _raise_on(rc, "segment_sum_bwd")
-    launches["segment_sum_bwd"] += 1
+    _count("segment_sum_bwd")
     return out
 
 
@@ -193,8 +231,8 @@ _SECTOR_FLOATS = 8   # float32s in a 32-byte sector of device memory
 def _edge_softmax_bwd_cuda(g, logits, values, out, m, den, plan: CSCPlan):
     """One launch (``csrc/edge_softmax_bwd.cu``) over the destination
     plan's rows (several to a warp), 64-edge pieces and 64-edge runs of
-    pad edges; each unit takes ``og = out . g`` of its row in
-    registers."""
+    pad edges, the grid sized by bounds on the pieces and runs; each unit
+    takes ``og = out . g`` of its row in registers."""
     _check_cuda("edge_softmax_bwd", _plan_index(plan), g, logits, values,
                 out, m, den)
     n, h, d = g.shape
@@ -218,10 +256,9 @@ def _edge_softmax_bwd_cuda(g, logits, values, out, m, den, plan: CSCPlan):
         stream = torch.cuda.current_stream(g.device).cuda_stream
         rc = fn(_ptr(g), _ptr(logits), _ptr(values), _ptr(m), _ptr(den),
                 _ptr(out), *map(_ptr, _plan_index(plan)), _ptr(d_logits),
-                _ptr(d_values), e, n, plan.num_pieces,
-                e - plan.num_real_edges, h, stride, d, stream)
+                _ptr(d_values), e, n, plan.max_pieces, h, stride, d, stream)
     _raise_on(rc, "edge_softmax_bwd")
-    launches["edge_softmax_bwd"] += 1
+    _count("edge_softmax_bwd")
     return d_logits[:, :h], d_values
 
 
@@ -240,7 +277,7 @@ def _segment_max_bwd_cuda(g: torch.Tensor, fwd_out: torch.Tensor,
         rc = fn(_ptr(g), _ptr(fwd_out), _ptr(data), _ptr(plan.edge_dst),
                 _ptr(out), e, n, d, stream)
     _raise_on(rc, "segment_max_bwd")
-    launches["segment_max_bwd"] += 1
+    _count("segment_max_bwd")
     return out
 
 

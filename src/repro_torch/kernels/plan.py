@@ -13,9 +13,16 @@ and pieces of rows, so the plan keeps only the contracts:
   pieces, ``max(0, ceil((deg - PIECE) / PIECE))``: the kernels' row
   and piece schedule (``csrc/row_pieces.cuh``) cuts a row of more than
   ``PIECE`` edges into pieces counted from the row's start, so a row's
-  cuts are a function of its length alone; ``num_pieces`` is
+  cuts are a function of its length alone. ``num_pieces`` is
   ``piece_ptr[N]`` and ``num_real_edges`` is ``indptr[N]``, kept on the
-  host so that a launch sizes its grid without reading the device.
+  host for reports and the plain versions; both change from view to view
+  within a bucket.
+- ``max_pieces``: ``E // PIECE``, a bound on ``num_pieces`` that depends
+  on the edge count alone (a row of ``d > 0`` edges has
+  ``ceil(d / PIECE) - 1 <= d / PIECE`` pieces). A kernel launch sizes its
+  grid and scratch from it and reads the true counts from the device
+  (``piece_ptr[N]``, ``indptr[N]``), so one launch, and one CUDA graph
+  captured over it, fits every view of a bucket.
 
 Edges whose segment id is ``num_segments`` or more (the pad edges of a
 bucket) sort past ``indptr[-1]`` and join no row, so the kernels read
@@ -47,6 +54,11 @@ class CSCPlan:
     piece_ptr: torch.Tensor    # (N+1,) int32, pieces before each row
     num_pieces: int
     num_real_edges: int        # indptr[N]; the rest are pad edges
+
+    @property
+    def max_pieces(self) -> int:
+        """A bound on ``num_pieces`` from the edge count alone."""
+        return self.num_edges // PIECE
 
     def to(self, device, copy: bool = False) -> "CSCPlan":
         return replace(self, perm=self.perm.to(device, copy=copy),

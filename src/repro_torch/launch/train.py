@@ -82,8 +82,7 @@ def main(argv=None) -> int:
     g.add_argument("--lr", type=float, default=1e-2)
     g.add_argument("--compact", action="store_true",
                    help="compact sampled-subgraph views for mini/cluster "
-                        "(required until the dense views are ported, "
-                        "ROADMAP A.7)")
+                        "(default: dense mask views over the whole graph)")
     g.add_argument("--halo-hops", type=int, default=0,
                    help="cluster strategy: boundary halo hops")
     g.add_argument("--device", default=None,

@@ -18,11 +18,20 @@ gradient for ``adam`` while ``adamw`` adds the decoupled ``wd * p`` to
 the update, the bias corrections use a float32 step, and the update is
 ``(m / bc1) / (sqrt(v / bc2) + eps)``. ``torch.optim.Adam`` folds the
 corrections into the step size instead, which rounds differently.
+
+The per-step scalars (the schedule's rate and Adam's bias corrections)
+are computed on the host in float32 (``Optimizer.scalars``) and reach
+the arithmetic as a small float32 tensor on the parameters' device
+(``Optimizer.apply``), never as Python numbers baked into a kernel's
+arguments: a CUDA graph captured over ``apply`` reads the tensor, which
+the trainer rewrites before each replay (:func:`write_scalars`), so
+eager steps and replays compute the same thing. ``state["step"]`` stays
+a host int.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Mapping
+from typing import Any, Callable, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -66,12 +75,40 @@ def clip_by_global_norm(grads: Mapping[str, torch.Tensor], max_norm: float):
     return {k: g * scale for k, g in grads.items()}, norm
 
 
+def write_scalars(dst: torch.Tensor, values) -> None:
+    """Write host float32 ``values`` into the float32 tensor ``dst``; on
+    the card through pinned memory, without waiting for the device."""
+    src = torch.tensor(values, dtype=torch.float32,
+                       pin_memory=dst.is_cuda)
+    dst.copy_(src, non_blocking=dst.is_cuda)
+
+
 @dataclass(frozen=True)
 class Optimizer:
     init: Callable[[Mapping[str, torch.Tensor]], Dict[str, Any]]
     # (grads, state, params) -> (params, state), updated in place
     update: Callable[..., Any]
     name: str = "opt"
+    # (state) -> this step's host scalars, float32 values
+    scalars: Optional[Callable[[Mapping], tuple]] = None
+    # (grads, state, params, scal) -> None: the update in place, reading
+    # the scalars from ``scal``, a float32 tensor on the params' device;
+    # state["step"] is left to the caller
+    apply: Optional[Callable[..., None]] = None
+
+
+def _optimizer(init, scalars, apply, name: str) -> Optimizer:
+    """An Optimizer whose ``update`` writes ``scalars(state)`` into a
+    tensor on the parameters' device and runs ``apply`` over it."""
+    def update(grads, state, params):
+        dev = next(iter(params.values())).device
+        vals = scalars(state)
+        scal = torch.empty(len(vals), dtype=torch.float32, device=dev)
+        write_scalars(scal, vals)
+        apply(grads, state, params, scal)
+        state["step"] += 1
+        return params, state
+    return Optimizer(init, update, name, scalars, apply)
 
 
 def _to_sched(lr) -> Schedule:
@@ -93,11 +130,14 @@ def sgd(lr=1e-2, momentum: float = 0.0, weight_decay: float = 0.0,
             state["mu"] = _zeros(params)
         return state
 
+    def scalars(state):
+        return (sched(state["step"]),)
+
     @torch.no_grad()
-    def update(grads, state, params):
+    def apply(grads, state, params, scal):
         if grad_clip:
             grads, _ = clip_by_global_norm(grads, grad_clip)
-        lr_t = sched(state["step"])
+        lr_t = scal[0]
         if weight_decay:
             grads = {k: g + weight_decay * params[k]
                      for k, g in grads.items()}
@@ -108,10 +148,8 @@ def sgd(lr=1e-2, momentum: float = 0.0, weight_decay: float = 0.0,
                 p.sub_(lr_t * mu)
             else:
                 p.sub_(lr_t * grads[k])
-        state["step"] += 1
-        return params, state
 
-    return Optimizer(init, update, "sgd")
+    return _optimizer(init, scalars, apply, "sgd")
 
 
 def _adam_like(lr, b1, b2, eps, weight_decay, decoupled, grad_clip, name):
@@ -120,18 +158,20 @@ def _adam_like(lr, b1, b2, eps, weight_decay, decoupled, grad_clip, name):
     def init(params):
         return {"step": 0, "m": _zeros(params), "v": _zeros(params)}
 
+    def scalars(state):
+        stepf = _f32(state["step"] + 1)
+        return (sched(state["step"]),
+                float(_f32(1) - _f32(b1) ** stepf),
+                float(_f32(1) - _f32(b2) ** stepf))
+
     @torch.no_grad()
-    def update(grads, state, params):
+    def apply(grads, state, params, scal):
         if grad_clip:
             grads, _ = clip_by_global_norm(grads, grad_clip)
-        step = state["step"] + 1
-        lr_t = sched(state["step"])
+        lr_t, bc1, bc2 = scal[0], scal[1], scal[2]
         if weight_decay and not decoupled:   # classic L2 (paper's Adam)
             grads = {k: g + weight_decay * params[k]
                      for k, g in grads.items()}
-        stepf = _f32(step)
-        bc1 = float(_f32(1) - _f32(b1) ** stepf)
-        bc2 = float(_f32(1) - _f32(b2) ** stepf)
         for k, p in params.items():
             g = grads[k]
             m = state["m"][k].mul_(b1).add_((1 - b1) * g)
@@ -140,10 +180,8 @@ def _adam_like(lr, b1, b2, eps, weight_decay, decoupled, grad_clip, name):
             if weight_decay and decoupled:   # AdamW
                 u = u + weight_decay * p
             p.sub_(lr_t * u)
-        state["step"] = step
-        return params, state
 
-    return Optimizer(init, update, name)
+    return _optimizer(init, scalars, apply, name)
 
 
 def adam(lr=1e-3, b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.0,

@@ -15,10 +15,14 @@ counterpart of ``repro/serving/server.py``).
                                                           |
                                              cache.put (write-back)
 
-A staged block is copied to the device (``GraphBlock.to(device,
-copy=True)``) before the next view can overwrite its ring buffers. The
-forward is eager PyTorch; the Sum stage runs the CUDA kernels on the
-card. Why a hit equals a full recompute at ``staleness=0``: hop ordering
+A staged block is copied to the device before the next view can
+overwrite its ring buffers. On the card each path's forward is captured
+once per bucket into a CUDA graph (:class:`BucketedFn`): the bucket's
+first batch runs eagerly and the capture follows, and every later batch
+copies its staged block into the bucket's input buffers and replays;
+``cuda_graphs=False`` serves every batch eagerly, as the CPU does. The
+Sum stage runs the CUDA kernels on the card. Why a hit equals a full
+recompute at ``staleness=0``: hop ordering
 makes the 1-hop node set a prefix of a K-hop view, the write-back stores
 the true h^{K-1} of that prefix, and the 1-hop view aggregates the same
 edges in the same plan order; the kernels sum in plan order without
@@ -53,6 +57,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.tgar import layer_forward_block
+from repro_torch.core.trainer import (_assert_once_per_bucket, block_layout,
+                                      capture, warm_up)
 from repro_torch.core.views import BucketSpec, CompactBlockBuilder, ViewBuilder
 from repro_torch.device import resolve_device
 from repro_torch.graph.csr import Graph
@@ -112,23 +118,65 @@ class ServeStats:
 
 
 class BucketedFn:
-    """A device path with a per-bucket call count. Eager PyTorch compiles
-    nothing per bucket, so there is no trace count to certify; that
-    arrives with CUDA graphs per bucket (ROADMAP A.7)."""
+    """``fn(block)`` over bucket-padded blocks staged on the host, with
+    the reference's once-per-bucket accounting. On the card
+    (``cuda_graphs``) a bucket's first call runs ``fn`` eagerly on a side
+    stream and then captures it into a CUDA graph over the bucket's own
+    input buffers; every later call copies the block into them and
+    replays. Its outputs are the graph's and stay valid until the next
+    call in that bucket. Eager (the CPU, or ``cuda_graphs=False``), each
+    call runs ``fn`` on a fresh device copy of the block.
+    :meth:`assert_compiled_per_bucket` certifies one capture per touched
+    bucket."""
 
-    def __init__(self, fn, name: str = "infer"):
+    def __init__(self, fn, name: str = "infer", device=None,
+                 cuda_graphs: bool = False):
         self.fn = fn
         self.name = name
+        self.device = torch.device("cpu") if device is None else device
+        self.graphs_on = bool(cuda_graphs) and self.device.type == "cuda"
         self.calls: dict = {}      # (n_pad, e_pad) -> calls
+        self.captures: dict = {}   # (n_pad, e_pad) -> graphs captured
+        self._graphs: dict = {}    # (bucket, layout) -> CapturedStep
+        self._side = None
 
     def __call__(self, block):
         key = (block.num_nodes_padded, block.num_edges_padded)
         self.calls[key] = self.calls.get(key, 0) + 1
-        return self.fn(block)
+        if not self.graphs_on:
+            return self.fn(block.to(self.device, copy=True))
+        gkey = (key, block_layout(block))
+        step = self._graphs.get(gkey)
+        if step is not None:
+            return step.replay(block)
+        if self._side is None:
+            self._side = torch.cuda.Stream(self.device)
+        static = block.to(self.device, copy=True)   # the graph's inputs
+        out = warm_up(self.fn, static, self._side)
+        self._graphs[gkey] = capture(self.fn, static, self._side)
+        self.captures[key] = self.captures.get(key, 0) + 1
+        return out
 
     @property
     def buckets_touched(self) -> set:
         return set(self.calls)
+
+    def assert_compiled_per_bucket(self) -> None:
+        """Exactly one capture per touched bucket under CUDA graphs;
+        eager, that the path ran."""
+        touched = len(self.buckets_touched)
+        if self.graphs_on:
+            _assert_once_per_bucket(sum(self.captures.values()), touched,
+                                    f"{self.name} step")
+        elif touched == 0:
+            _assert_once_per_bucket(0, 0, f"{self.name} step")
+
+    def trace(self) -> dict:
+        """Captures and calls per bucket, for ``server_stats()``."""
+        return {"captures": {k: self.captures.get(k, 0)
+                             for k in sorted(self.calls)},
+                "calls": {k: self.calls[k] for k in sorted(self.calls)},
+                "buckets": sorted(self.calls)}
 
 
 class _Pending:
@@ -158,7 +206,8 @@ class GNNServer:
 
     The server serves a private copy of ``model`` on ``device`` (the card
     unless ``device="cpu"``), with ``params`` (a ``state_dict``) loaded
-    into it when given. ``request()`` is the concurrent client API
+    into it when given; on the card each path is a CUDA graph per bucket
+    unless ``cuda_graphs=False``. ``request()`` is the concurrent client API
     (deadline/size-triggered batching on a dispatcher thread, see
     :meth:`start`); ``submit()`` serves one batch synchronously.
     """
@@ -168,7 +217,8 @@ class GNNServer:
                  cache: object = True, staleness: int = 0,
                  max_batch: int = 32, max_wait_ms: float = 2.0,
                  gcn_norm: bool = True, slots: int = 2,
-                 max_queue: Optional[int] = None, device=None):
+                 max_queue: Optional[int] = None, device=None,
+                 cuda_graphs: bool = True):
         self.device = resolve_device(device)
         model = copy.deepcopy(model)
         if params is not None:
@@ -183,7 +233,7 @@ class GNNServer:
         csc = backend == "csc"
         K = model.K
         self.buckets = buckets or BucketSpec.for_graph(g)
-        self._builder = ViewBuilder(g, K)
+        self._builder = ViewBuilder(g, K, compact=True)
         self._stager = CompactBlockBuilder(
             g, K, buckets=self.buckets, slots=slots, gcn_norm=gcn_norm,
             csc_plan=csc)
@@ -196,7 +246,7 @@ class GNNServer:
             cache = None
         self.cache: Optional[EmbeddingCache] = cache or None
         if self.cache is not None:
-            self._hit_builder = ViewBuilder(g, 1)
+            self._hit_builder = ViewBuilder(g, 1, compact=True)
             self._hit_stager = CompactBlockBuilder(
                 g, 1, buckets=self.buckets, slots=slots, gcn_norm=gcn_norm,
                 csc_plan=csc, features=self.cache.table)
@@ -230,8 +280,10 @@ class GNNServer:
                                         backend=backend)
                 return self.model.decode(h)
 
-        self._full_step = BucketedFn(full_fn, name="serve_full")
-        self._hit_step = BucketedFn(hit_fn, name="serve_hit")
+        self._full_step = BucketedFn(full_fn, "serve_full", self.device,
+                                     cuda_graphs)
+        self._hit_step = BucketedFn(hit_fn, "serve_hit", self.device,
+                                    cuda_graphs)
 
         # batching queue state (armed by start())
         self._queue: list = []
@@ -248,7 +300,8 @@ class GNNServer:
         view = self._builder.khop_compact(targets)
         staged = self._stager.stage(view)
         t1 = time.perf_counter()
-        logits, penult = self._full_step(staged.to(self.device, copy=True))
+        # the outputs are read before the path's next call
+        logits, penult = self._full_step(staged)
         logits = logits[:len(targets)].cpu().numpy()
         t2 = time.perf_counter()
         if self.cache is not None:
@@ -264,7 +317,7 @@ class GNNServer:
         view = self._hit_builder.khop_compact(targets)
         staged = self._hit_stager.stage(view)
         t1 = time.perf_counter()
-        logits = self._hit_step(staged.to(self.device, copy=True))
+        logits = self._hit_step(staged)
         logits = logits[:len(targets)].cpu().numpy()
         t2 = time.perf_counter()
         self.stats.view_build_s += t1 - t0
@@ -426,7 +479,15 @@ class GNNServer:
             p.done.set()
         self.stats.record_batch(len(batch), waited)
 
-    # -- observability ---------------------------------------------------------
+    # -- contracts and observability ----------------------------------------
+
+    def assert_compiled_per_bucket(self) -> None:
+        """The reference's serving certificate: each device path captured
+        exactly once per bucket it touched over the whole request trace
+        (the hit path only once it has run)."""
+        self._full_step.assert_compiled_per_bucket()
+        if self._hit_step.buckets_touched:
+            self._hit_step.assert_compiled_per_bucket()
 
     def server_stats(self) -> dict:
         s = self.stats.summary()
@@ -438,6 +499,8 @@ class GNNServer:
             "hit": {k: self._hit_step.calls[k]
                     for k in sorted(self._hit_step.calls)},
         }
+        s["trace"] = {"full": self._full_step.trace(),
+                      "hit": self._hit_step.trace()}
         return s
 
     # -- lifecycle -------------------------------------------------------------

@@ -355,6 +355,36 @@ def test_modes_and_worker_counts_are_bitwise_equal(g, mode, workers):
     assert _no_children()
 
 
+@pytest.mark.parametrize("strategy", ["mini", "cluster"])
+def test_process_mode_dense_streams_are_bitwise_inline(g, strategy):
+    """Sampler processes ship dense mask views (the ``"dense"`` payload)
+    that train bitwise as inline staging's, and hand back the stream's
+    own masks."""
+    def views():
+        return strategy_views(g, strategy, K=2, seed=0, batch_nodes=24,
+                              clusters_per_batch=3, halo_hops=1)
+
+    base = _trainer(g)
+    ref = base.fit(views(), steps=5, prefetch=False)["losses"]
+    tr, stream = _trainer(g), views()
+    got = tr.fit(stream, steps=5, prefetch_workers=2,
+                 prefetch_mode="process")["losses"]
+    assert got == ref and stream.cursor == 5
+    assert _same(_state(tr), _state(base))
+    assert tr.buckets_touched == {(g.num_nodes, g.num_edges)}
+    svc = ProcessViewService(views(), lambda v: v, 3, workers=2)
+    try:
+        shipped = list(svc)
+    finally:
+        svc.close()
+    for i, v in enumerate(shipped):
+        want = views().build(i)
+        for f in ("node_active", "edge_active", "loss_mask"):
+            assert np.array_equal(getattr(v, f), getattr(want, f)), (i, f)
+        assert v.meta == want.meta
+    assert _no_children()
+
+
 @pytest.mark.parametrize("mode", ["thread", "process"])
 def test_cursor_counts_the_views_consumed(g, mode):
     """Two back-to-back fits on one stream (1 step, then 5) are the one

@@ -313,27 +313,26 @@ def test_global_view_block_matches_jax():
     assert pb.node_active is None and pb.csc_plan is not None
 
 
-def test_dense_streams_are_refused():
-    _, pg = _graphs("reddit_like", "gcn")
-    with pytest.raises(NotImplementedError, match="ROADMAP A.7"):
-        strategy_views(pg, "mini", 2)
-
-
 # -- the trainer ---------------------------------------------------------------
 
 
-@pytest.mark.parametrize("key,strategy", [("gcn", "global"), ("gcn", "mini"),
-                                          ("gcn", "cluster"),
-                                          ("gat_e", "global"),
-                                          ("gat_e", "mini"),
-                                          ("gat_e", "cluster")])
-def test_compact_trainer_matches_jax_trainer(key, strategy):
+@pytest.mark.parametrize("key,strategy,compact", [
+    pytest.param(key, strategy, compact,
+                 id=f"{key}-{strategy}" + ("" if compact else "-dense"))
+    for key in ("gcn", "gat_e")
+    for strategy, compact in (("global", True), ("mini", True),
+                              ("cluster", True), ("mini", False),
+                              ("cluster", False))])
+def test_compact_trainer_matches_jax_trainer(key, strategy, compact):
+    """Per-step losses and final parameters against the JAX
+    ``CompactTrainer`` on the same stream: compact views, and the dense
+    mask views (the whole graph, its one bucket)."""
     dataset, kw = MODELS[key]
     jg, pg = _graphs(dataset, kw["model"])
     jmodel, params, model = _models(key, pg)
     clusters = label_propagation_clusters(pg, max_cluster_size=30, seed=0)
     vkw = dict(seed=2, batch_nodes=16, clusters=clusters,
-               clusters_per_batch=2, halo_hops=1, compact=True)
+               clusters_per_batch=2, halo_hops=1, compact=compact)
     gcn = kw["model"] == "gcn"
     jo = jopt.adam(1e-2, weight_decay=5e-4)
     jtrainer = JaxTrainer(jmodel, jg, jo, params=params, gcn_norm=gcn)
