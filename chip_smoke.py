@@ -9,6 +9,7 @@ and check them.
     python3 chip_smoke.py --only lm        # and the LM phases 12-13
     python3 chip_smoke.py --only runtime   # phases 1-2 and the runtime's 11
     python3 chip_smoke.py --only graphs    # phases 1-2 and the graphs' 14
+    python3 chip_smoke.py --only engine    # phases 1-2 and the engine's 15
 
 Phases (each raises on failure, so the script exits non-zero):
 
@@ -121,6 +122,31 @@ Phases (each raises on failure, so the script exits non-zero):
     alternating pairs of builder threads against inline staging under
     replay on the GAT-E and GCN mini cells, every fit's losses bitwise
     equal (``pairs row``).
+15. the distributed engine (run after phase 14): the engine ``Trainer``
+    through ``repro_torch.api.make_trainer`` with ``engine_partitions=4``
+    (``1d_src``), all four partitions on the one card (``LocalComm``: no
+    network time is measured). First ``segment_max`` and
+    ``segment_max_bwd`` at width 4, GAT-E's logits, on shard 0's plan of
+    the 20,000-node alipay_like graph, exactly their plain versions over
+    ties and masked entries, timed (``plan row``). Then GAT-E (the
+    config's widths) on that graph: one Trainer fits 30 steps of global,
+    then mini, then cluster views (compact), with no restart, exactly one
+    capture of the step; step 1 on the card against the CPU engine
+    (loss and gradients within 1e-4) and its loss against one block's
+    (the card ``CompactTrainer``) on the same global view within
+    1e-4 * max(1, |loss|); the replayed fit bitwise equal to an eager
+    one and to a second replayed fit; ``segment_sum``, ``segment_sum_bwd``,
+    ``segment_max`` and ``segment_max_bwd`` launched, and no plain
+    version called. GCN and SAGE-max (the Reddit config) on reddit_like
+    over global views, the same checks. The engine's chaos scenarios,
+    each bitwise its clean run. Last, GAT-E global on a 200,000-node
+    alipay_like graph at P=1 and P=4. Each run prints a JSON ``engine
+    row``: steps/s eager and under replay, the replayed step's busy
+    share, launches per step by kernel, halo values per sync, the floats
+    per value and bytes exchanged per step, and ``build_partitions``
+    seconds. A ``gather row`` per width times ``index_select``, the
+    engine's gathers, beside advanced indexing at the 200k graph's
+    edges.
 
 Phase 3 also holds ``flash_attention`` (causal, non-causal, window,
 ``seq_len < T``, ``kv_start`` with fully masked rows, GQA 1 and 4, D 32,
@@ -2522,6 +2548,387 @@ def graph_phase(label: str) -> dict:
     return dict(ops.launches)
 
 
+# -- phase 15: the distributed engine ---------------------------------------
+
+ENGINE_P = 4                  # partitions, all on the one card (LocalComm)
+ENGINE_STEPS = 30             # steps per strategy
+ENGINE_TOL = 1e-4             # card vs CPU step 1; engine vs one block
+ENGINE_TIMING_NODES = 200_000  # alipay_like nodes for the timing row
+ENGINE_KERNELS = ("segment_sum", "segment_sum_bwd", "segment_max",
+                  "segment_max_bwd")
+# the engine's chaos scenarios on the card: every injection point alone,
+# the combined plan, a sampler process killed, and both divergence
+# recoveries
+ENGINE_CHAOS = ("view_build", "device_put", "step", "checkpoint_save",
+                "worker_kill")
+
+
+def _engine_job(config: str, strategy: str, g, model=None, P=ENGINE_P,
+                device=DEVICE):
+    """The config's job under ``strategy`` on the engine over ``P``
+    partitions (``1d_src``), compact mini and cluster views, the config's
+    global rate for every strategy (one optimizer runs them all)."""
+    import importlib
+    from repro_torch import api
+    mod = importlib.import_module(f"repro_torch.configs.{config}")
+    cfg, _ = _config(config, model)
+    t, glob = mod.TRAIN[strategy], mod.TRAIN["global"]
+    return api.TrainJob(
+        dataset=g, model=cfg.model, strategy=strategy,
+        num_layers=cfg.num_layers, hidden=cfg.hidden_dim, lr=glob.lr,
+        weight_decay=glob.weight_decay, seed=glob.seed, compact=True,
+        halo_hops=t.cluster_halo_hops, eval_every=0, device=device,
+        engine_partitions=P)
+
+
+def _engine_trainer(job, cuda_graphs: bool = True):
+    """``api.make_trainer(job)``: the engine Trainer and the job's views;
+    ``cuda_graphs=False`` rebuilds it around the same engine eager."""
+    from repro_torch import api
+    from repro_torch.core.trainer import Trainer
+    trainer, views, *_ = api.make_trainer(job)
+    if not cuda_graphs:
+        trainer = Trainer(trainer.engine, trainer.opt, cuda_graphs=False)
+    return trainer, views
+
+
+def _engine_streams(job, strategies):
+    """The job's view stream under each strategy (the facade's choices)."""
+    import dataclasses
+    from repro_torch import api
+    return [api._build(dataclasses.replace(job, strategy=s))[3]
+            for s in strategies]
+
+
+@contextlib.contextmanager
+def _no_plain_versions():
+    """Count calls of the kernels' plain versions through the wrappers;
+    the block fails if there is any."""
+    from repro_torch.kernels import ops
+    names = [n for n in dir(ops) if n.endswith("_ref")]
+    calls = {}
+
+    def wrap(name, fn):
+        def counted(*a, **kw):
+            calls[name] = calls.get(name, 0) + 1
+            return fn(*a, **kw)
+        return counted
+
+    saved = {n: getattr(ops, n) for n in names}
+    for n, fn in saved.items():
+        setattr(ops, n, wrap(n, fn))
+    try:
+        yield calls
+    finally:
+        for n, fn in saved.items():
+            setattr(ops, n, fn)
+    if calls:
+        raise AssertionError(f"the engine path called plain versions: "
+                             f"{calls}")
+
+
+def _exchange_widths(trainer, view) -> int:
+    """Floats per halo value that cross the exchange in one eager step
+    (forward and backward), counted on the engine's communicator."""
+    import torch
+    comm = trainer.engine.comm
+    seen = [0]
+
+    class Count(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, buf):
+            seen[0] += buf.shape[-1]
+            return buf.view_as(buf)
+
+        @staticmethod
+        def backward(ctx, g):
+            seen[0] += g.shape[-1]
+            return g
+
+    orig = comm.all_to_all
+    comm.all_to_all = lambda buf: orig(Count.apply(buf))
+    try:
+        trainer.engine.make_loss_and_grad()(view)
+    finally:
+        del comm.all_to_all
+    return seen[0]
+
+
+def _step1(engine, view) -> tuple:
+    """(loss, gradients on the CPU) of the engine's first step over
+    ``view``: nothing is updated."""
+    from repro_torch.core.strategies import shard_view
+    loss, grads = engine.make_loss_and_grad()(
+        engine.stage_view(shard_view(engine.plan, view)))
+    return float(loss), {k: v.detach().cpu().clone()
+                         for k, v in grads.items()}
+
+
+def _rel_grads(got: dict, want: dict) -> float:
+    return max(float((got[k] - want[k]).abs().max())
+               / max(float(want[k].abs().max()), 1e-30) for k in want)
+
+
+def _engine_checks(name: str, job, g, view) -> None:
+    """Step 1 of the card engine against the CPU engine (the kernels'
+    plain versions), and its loss against one block's (the card
+    CompactTrainer's) on the same view."""
+    import dataclasses
+    import torch
+    from repro_torch import api
+    from repro_torch.core.mpgnn import loss_block
+    card, _ = _engine_trainer(job, cuda_graphs=False)
+    cpu, _ = _engine_trainer(dataclasses.replace(job, device="cpu"),
+                             cuda_graphs=False)
+    loss, grads = _step1(card.engine, view)
+    want, want_grads = _step1(cpu.engine, view)
+    g_err = _rel_grads(grads, want_grads)
+    l_err = abs(loss - want) / max(1.0, abs(want))
+    block_tr, *_ = api.make_trainer(dataclasses.replace(
+        job, engine_partitions=0, strategy="global"))
+    with torch.no_grad():
+        one = float(loss_block(block_tr.model, block_tr._prepare(view)))
+    b_err = abs(loss - one) / max(1.0, abs(one))
+    print(f"    {name}: card vs CPU step 1: loss rel err {l_err:.3e}, "
+          f"gradients max rel err {g_err:.3e}; P={job.engine_partitions} "
+          f"engine vs one block on the card: loss {loss:.6f} vs "
+          f"{one:.6f}, rel err {b_err:.3e} (tolerance {ENGINE_TOL})")
+    if max(g_err, l_err, b_err) > ENGINE_TOL:
+        raise AssertionError(f"{name}: engine parity {g_err:.3e} / "
+                             f"{l_err:.3e} / {b_err:.3e}")
+
+
+def _engine_fit(job, streams, cuda_graphs: bool):
+    """A fresh engine Trainer fit ``ENGINE_STEPS`` steps over each stream
+    in turn, with no restart. Returns (trainer, losses, final
+    parameters, wall seconds per stream with the device drained)."""
+    import torch
+    trainer, _ = _engine_trainer(job, cuda_graphs)
+    losses, walls = [], []
+    for st in streams:
+        st.seek(0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses += trainer.fit(st, steps=ENGINE_STEPS)["losses"]
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return trainer, losses, _params(trainer), walls
+
+
+def _steady(trainer, streams) -> list:
+    """Seconds of ``ENGINE_STEPS`` more steps over each stream, on a
+    trainer whose step is already captured (or eager), device drained."""
+    import torch
+    walls = []
+    for st in streams:
+        st.seek(0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.fit(st, steps=ENGINE_STEPS)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return walls
+
+
+def _engine_run(name: str, job, g, strategies, label: str, kernels,
+                repeat: bool = False) -> dict:
+    """One phase-15 run: the card engine's checks, then a replay fit and
+    an eager fit over the strategies' streams (bitwise equal, one
+    capture, each of ``kernels`` launched), a second replay fit when
+    ``repeat`` (bitwise equal), steady steps/s eager and under replay,
+    the exchange volume, the busy share under replay and the launches by
+    kernel. Returns the replay fit's launch counts."""
+    import numpy as np
+    from repro_torch.core.partition import build_partitions, partition_stats
+    from repro_torch.core.strategies import shard_view
+    from repro_torch.kernels import ops
+    streams = _engine_streams(job, strategies)
+    _engine_checks(name, job, g, streams[0].build(0))
+    ops.reset_launches()
+    with _no_plain_versions():
+        rep, rl, rp, rwall = _engine_fit(job, streams, cuda_graphs=True)
+    got = dict(ops.launches)
+    rep.assert_compiled_once()
+    if rep.trace_counts["train_step"] != 1:
+        raise AssertionError(f"{name}: {rep.trace_counts} captures")
+    missing = [k for k in kernels if got[k] <= 0]
+    if missing or not np.isfinite(rl).all():
+        raise AssertionError(f"{name}: kernels {missing} not launched, or "
+                             f"bad losses {rl}")
+    eager, el, ep, ewall = _engine_fit(job, streams, cuda_graphs=False)
+    _bitwise(f"{name}: replay vs eager over {'/'.join(strategies)}",
+             (rl, rp), (el, ep))
+    print(f"    {name}: one engine Trainer over {' -> '.join(strategies)}: "
+          f"captures {rep.trace_counts} (the step captured once); loss "
+          f"{rl[0]:.5f} -> {rl[-1]:.5f}")
+    if repeat:
+        _, l2, p2, _ = _engine_fit(job, streams, cuda_graphs=True)
+        _bitwise(f"{name}: two card fits", (l2, p2), (rl, rp))
+    t0 = time.perf_counter()
+    sg = build_partitions(g, job.engine_partitions,
+                          method=job.partition_method,
+                          gcn_norm=job.model == "gcn")
+    part_s = time.perf_counter() - t0
+    stats = partition_stats(sg)
+    view0 = streams[0].build(0)
+    widths = _exchange_widths(eager, eager.engine.stage_view(
+        shard_view(eager.plan, view0)))
+    steps = ENGINE_STEPS * len(strategies)
+    per_step = {k: v / steps for k, v in got.items() if v}
+    # steady state: the step captured, the same views again
+    swall = {True: _steady(rep, streams), False: _steady(eager, streams)}
+    streams[0].seek(0)
+    busy = _profile(rep, streams[0], 1e3 * swall[True][0] / ENGINE_STEPS)
+    row = {"run": name, "P": job.engine_partitions, "card": label,
+           "shared_card": True, "network_time": "not measured",
+           "strategies": list(strategies),
+           "steps_per_s_eager": [ENGINE_STEPS / w for w in swall[False]],
+           "steps_per_s_replay": [ENGINE_STEPS / w for w in swall[True]],
+           "first_fit_steps_per_s_eager": [ENGINE_STEPS / w for w in ewall],
+           "first_fit_steps_per_s_replay": [ENGINE_STEPS / w
+                                            for w in rwall],
+           "busy_ms_per_step_replay": busy,
+           "busy_share_replay": busy * ENGINE_STEPS
+           / (1e3 * swall[True][0]),
+           "launches_per_step": per_step,
+           "halo_values_per_sync": stats["halo_values_per_sync"],
+           "floats_per_value_per_step": widths,
+           "bytes_exchanged_per_step":
+               4 * stats["halo_values_per_sync"] * widths,
+           "replica_factor": stats["replica_factor"],
+           "edge_balance": stats["edge_balance"],
+           "build_partitions_s": part_s}
+    print("    engine row " + json.dumps(row), flush=True)
+    return got
+
+
+def _engine_chaos(label: str) -> None:
+    """The engine's chaos scenarios on the card, each bitwise its clean
+    run and each re-certifying the one capture."""
+    from repro_torch.runtime import chaos
+    names = []
+    for point in ENGINE_CHAOS:
+        occ = {1} if point == "worker_kill" else {0, 2}
+        names.append((f"{point}/engine", lambda p=point, o=occ:
+                      chaos.run_scenario(f"{p}/engine", {p: o}, "engine",
+                                         device=DEVICE)))
+    names.append(("combined/engine", lambda: chaos.run_scenario(
+        "combined/engine", chaos.SMOKE_PLAN, "engine", device=DEVICE)))
+    names.append(("proc_kill/process/engine", lambda: chaos.run_scenario(
+        "proc_kill/process/engine", {"proc_kill": {1}}, "engine",
+        mode="process", device=DEVICE)))
+    for action in ("skip_view", "rollback"):
+        names.append((f"diverge/{action}/engine", lambda a=action:
+                      chaos.run_divergence(f"diverge/{a}/engine", a,
+                                           "engine", device=DEVICE)))
+    failed = [n for n, run in names if not run()]
+    print(f"    [{label}] engine chaos: {len(names) - len(failed)}/"
+          f"{len(names)} scenarios bitwise equal to their clean runs")
+    if failed:
+        raise AssertionError(f"engine chaos scenarios failed: {failed}")
+
+
+def _engine_max_pair(g, gen) -> dict:
+    """``segment_max`` and ``segment_max_bwd`` at width 4 (GAT-E's
+    logits, the softmax's max pass on the engine path) on shard 0's
+    destination plan: exactly their plain versions, over ties and masked
+    (NEG) entries; timed beside them with their bounds."""
+    import torch
+    from repro_torch.core.partition import build_partitions
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import NEG, segment_max_bwd_ref
+    plan = build_partitions(g, ENGINE_P).plan.csc_plans()[0].to(DEVICE)
+    E, N, D = plan.num_edges, plan.num_segments, 4
+    data = torch.randint(0, 8, (E, D), generator=gen, device="cpu")
+    data = data.float().to(DEVICE)
+    masked = torch.rand((E, 1), generator=gen).to(DEVICE) < 0.1
+    data = torch.where(masked, torch.full_like(data, NEG), data)
+    rows = {"segment_max": _max_row(plan, data)}
+    fwd = ops.segment_max_op(data, plan)
+    cot = torch.randn((N, D), generator=gen).to(DEVICE)
+    torch.testing.assert_close(
+        ops.segment_max_bwd_op(cot, fwd, data, plan),
+        segment_max_bwd_ref(cot, fwd, data, plan.edge_dst), rtol=0, atol=0)
+    ms = _time_ms(lambda: ops.segment_max_bwd_op(cot, fwd, data, plan))
+    plain = _time_ms(lambda: segment_max_bwd_ref(cot, fwd, data,
+                                                 plan.edge_dst), 100.0)
+    bound, by = _bound(4 * (2 * E * D + 2 * N * D) + 4 * E, 2 * E * D)
+    rows["segment_max_bwd"] = dict(ms=ms, plain_ms=plain, bound_ms=bound,
+                                   bound_by=by, library_ms=None,
+                                   shape=f"E={E} N={N} D={D}")
+    for k, row in rows.items():
+        _plan_row(k, f"alipay_like {g.num_nodes} nodes, shard 0 of "
+                  f"{ENGINE_P}, width 4 (exact)", row)
+    return rows
+
+
+def _gather_rows(g) -> None:
+    """Where the engine's device step goes: its gathers are
+    ``index_select`` over the node axis (``core/aggregate.py:take``).
+    Times it beside advanced indexing (the same rows, the same bits) at
+    the 200k graph's edge count and the widths GAT-E gathers (1, 4, 32),
+    with the bytes bound; one JSON ``gather row`` each. Diagnostic: the
+    port calls ``index_select``."""
+    import torch
+    gen = torch.Generator().manual_seed(1)
+    idx = torch.from_numpy(g.dst).to(DEVICE)
+    for width in (1, 4, 32):
+        shape = (g.num_nodes,) + ((width,) if width > 1 else ())
+        v = torch.randn(shape, generator=gen).to(DEVICE)
+        if not torch.equal(v.index_select(0, idx), v[idx]):
+            raise AssertionError("index_select and v[idx] differ")
+        sel = _time_ms(lambda: v.index_select(0, idx))
+        adv = _time_ms(lambda: v[idx])
+        bound, by = _bound(4 * (len(idx) * (width + 1) + v.numel()), 0)
+        print("  gather row " + json.dumps({
+            "rows": len(idx), "table_rows": g.num_nodes, "width": width,
+            "index_select_ms": sel, "advanced_index_ms": adv,
+            "bound_ms": bound, "bound_by": by}), flush=True)
+
+
+def engine_phase(label: str) -> dict:
+    """Phase 15: the distributed engine on the card (all ``ENGINE_P``
+    partitions on the one card, so no network time is measured). Returns
+    the launch counts of its main-path runs (the replayed fits)."""
+    import torch
+    from repro_torch.launch.serve_gnn import resolve_graph
+    from repro_torch.graph import make_dataset
+    gen = torch.Generator().manual_seed(0)
+    counts = {k: 0 for k in KERNELS}
+
+    def add(got):
+        for k in counts:
+            counts[k] += got.get(k, 0)
+
+    ga = resolve_graph("alipay_like", "gat_e", seed=0)
+    _engine_max_pair(ga, gen)
+    print("  GAT-E (alipay_like, 20,000 nodes), P=4, global -> mini -> "
+          "cluster in one Trainer:")
+    add(_engine_run("gat_e", _engine_job("gnn_gat_e_alipay", "global", ga),
+                    ga, ("global", "mini", "cluster"), label, ENGINE_KERNELS,
+                    repeat=True))
+    # GCN's Sum stage and gathers are sums; SAGE-max's Sum stage is the
+    # max pair, its gathers' backward a sum
+    for model, kernels in (("gcn", ("segment_sum", "segment_sum_bwd")),
+                           ("sage_max", ("segment_max", "segment_max_bwd",
+                                         "segment_sum"))):
+        g = resolve_graph("reddit_like", model, seed=0)
+        print(f"  {model} (reddit_like), P=4, global:")
+        add(_engine_run(model, _engine_job("gnn_gcn_reddit", "global", g,
+                                           model=model), g, ("global",),
+                        label, kernels))
+    _engine_chaos(label)
+    gt = make_dataset("alipay_like", seed=0, num_nodes=ENGINE_TIMING_NODES)
+    _gather_rows(gt)
+    for P in (1, ENGINE_P):
+        print(f"  timing: GAT-E global, alipay_like "
+              f"{ENGINE_TIMING_NODES} nodes, P={P}:")
+        add(_engine_run(f"gat_e {ENGINE_TIMING_NODES // 1000}k P={P}",
+                        _engine_job("gnn_gat_e_alipay", "global", gt, P=P),
+                        gt, ("global",), label, ENGINE_KERNELS))
+    return counts
+
+
 def lm_phases(phase) -> list:
     """Phases 12 and 13; returns each serving run's launch counts."""
     import numpy as np
@@ -2543,13 +2950,14 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only",
                     choices=["kernels", "gnn-times", "lm-times", "lm",
-                             "runtime", "graphs"],
+                             "runtime", "graphs", "engine"],
                     default=None,
                     help="kernels: stop after phase 3 (build and check the "
                     "kernels); gnn-times: phases 1-3 and the GNN kernels' "
                     "times; lm-times: phases 1-3 and the LM kernels' "
                     "times; lm: those and phases 12-13; runtime: phases "
-                    "1-2 and 11; graphs: phases 1-2 and 14")
+                    "1-2 and 11; graphs: phases 1-2 and 14; engine: "
+                    "phases 1-2 and 15")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -2583,6 +2991,10 @@ def main(argv=None) -> int:
     if args.only == "graphs":
         phase("14. CUDA graphs per bucket against eager")
         graph_phase(label)
+        return 0
+    if args.only == "engine":
+        phase("15. the distributed engine (P=4 on one card)")
+        engine_phase(label)
         return 0
 
     phase("3. kernels vs plain, on the card")
@@ -2660,6 +3072,9 @@ def main(argv=None) -> int:
 
     phase("14. CUDA graphs per bucket against eager")
     count(graph_phase(label))
+
+    phase("15. the distributed engine (P=4 on one card)")
+    count(engine_phase(label))
 
     for got in lm_phases(phase):
         count(got)

@@ -10,8 +10,10 @@ counterpart of ``repro/api.py``)::
 ``train`` runs the bucketed :class:`~repro_torch.core.trainer.
 CompactTrainer` on ``job.device`` — the card unless the job says
 ``device="cpu"`` — under the job's prefetch pool, fault policy and
-checkpoints. The distributed engine (``engine_partitions > 0``, ROADMAP
-A.9) is refused with an error.
+checkpoints; with ``engine_partitions > 0`` it runs the engine
+:class:`~repro_torch.core.trainer.Trainer` over that many partitions of
+the graph instead, all in this process on the job's device
+(:class:`~repro_torch.core.comm.LocalComm`).
 """
 from __future__ import annotations
 
@@ -51,7 +53,8 @@ class TrainJob:
     clusters_per_batch: int = 0        # cluster (0 = num_clusters // 20)
     halo_hops: int = 0
     neighbor_cap: int = 0
-    engine_partitions: int = 0         # not ported yet (ROADMAP A.9)
+    engine_partitions: int = 0         # >0: the distributed engine
+    partition_method: str = "1d_src"   # 1d_src | 1d_dst | vertex_cut
     prefetch_workers: Optional[int] = None
     prefetch_mode: str = "thread"      # thread | process (sampler procs)
     # fault tolerance and checkpoints (repro_torch.runtime)
@@ -93,13 +96,6 @@ class TrainResult:
     trainer: Optional[Any] = None
 
 
-def _refuse_unported(job: TrainJob) -> None:
-    if job.engine_partitions:
-        raise NotImplementedError(
-            "engine_partitions: the distributed engine is not ported yet "
-            "(ROADMAP A.9)")
-
-
 def _build(job: TrainJob):
     """(graph, model, opt, views, eval_view, eval_mask) for a job."""
     from repro_torch.core.strategies import global_batch_view, strategy_views
@@ -139,12 +135,21 @@ def _build(job: TrainJob):
 def make_trainer(job: TrainJob):
     """``(trainer, views, eval_view, eval_mask, graph, model)`` for the
     job, without running it; ``train()`` is this plus ``fit``."""
-    from repro_torch.core.trainer import CompactTrainer
-    _refuse_unported(job)
     g, model, opt, views, eval_view, eval_mask = _build(job)
-    trainer = CompactTrainer(model, g, opt, gcn_norm=job.model == "gcn",
-                             device=job.device,
-                             fault_policy=job.fault_policy)
+    if job.engine_partitions:
+        from repro_torch.core.engine import HybridParallelEngine
+        from repro_torch.core.partition import build_partitions
+        from repro_torch.core.trainer import Trainer
+        sg = build_partitions(g, job.engine_partitions,
+                              method=job.partition_method,
+                              gcn_norm=job.model == "gcn")
+        trainer = Trainer(HybridParallelEngine(model, sg, device=job.device),
+                          opt, fault_policy=job.fault_policy)
+    else:
+        from repro_torch.core.trainer import CompactTrainer
+        trainer = CompactTrainer(model, g, opt, gcn_norm=job.model == "gcn",
+                                 device=job.device,
+                                 fault_policy=job.fault_policy)
     return trainer, views, eval_view, eval_mask, g, model
 
 

@@ -17,15 +17,18 @@ C.1): where several entries tie for a row's max, ``"csc"`` gives each of
 them the row's full cotangent (segment ids ``[0,0,0,1]``, data
 ``[1,3,3,2]`` -> gradient ``[0,1,1,1]``), ``"reference"`` splits it
 evenly (``[0,.5,.5,1]``), torch's rule and ``jax.ops.segment_max``'s.
-- :func:`combine` — the one Sum-stage implementation on one block.
+- :func:`combine` — the one Sum-stage implementation, on one block or,
+  with a :class:`ShardContext`, on a process's shards of a partitioned
+  graph, whose shard-local partials it finalizes through the halo (the
+  distributed engine, :mod:`repro_torch.core.engine`).
 
-The backends live in this package's own registry. The distributed
-finalize (``ShardContext``) waits for the engine slice.
+The backends live in this package's own registry
+(:func:`register_backend`).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Dict, Optional, Union
+from typing import Any, Callable, Dict, Optional, Union
 
 import torch
 
@@ -221,11 +224,19 @@ class CSCBackend(AggregationBackend):
         return _CSCEdgeSoftmax.apply(logits, values, self._plan(plan))
 
 
-_BACKENDS: Dict[str, Callable[[], AggregationBackend]] = {
-    "reference": ReferenceBackend,
-    "csc": CSCBackend,
-}
+_BACKENDS: Dict[str, Callable[[], AggregationBackend]] = {}
 _INSTANCES: Dict[str, AggregationBackend] = {}
+
+
+def register_backend(name: str, factory: Callable[[], AggregationBackend]):
+    """Register (or replace) the backend ``name``; ``get_backend`` makes
+    one instance of it on first use."""
+    _BACKENDS[name] = factory
+    _INSTANCES.pop(name, None)
+
+
+register_backend("reference", ReferenceBackend)
+register_backend("csc", CSCBackend)
 
 
 def get_backend(backend: Union[None, str, AggregationBackend]
@@ -244,15 +255,109 @@ def get_backend(backend: Union[None, str, AggregationBackend]
     return _INSTANCES[backend]
 
 
+class _PlannedGather(torch.autograd.Function):
+    """``v[idx]`` whose backward is a segment sum over ``plan``, the plan
+    over ``idx`` (``d_v[i]`` sums ``g`` over the edges with ``idx == i``,
+    in plan order). torch's own backward of ``index_select`` is an
+    ``index_add_``, atomic on CUDA and so not the same from run to run;
+    this one is the ``segment_sum`` kernel: no atomics, the same bits on
+    every run. Pad edges join no row of the plan: the combine masks
+    their messages, so their cotangent is 0 and dropping it changes
+    nothing."""
+
+    @staticmethod
+    def forward(ctx, v, idx, plan: CSCPlan):
+        ctx.plan = plan
+        return v.index_select(0, idx)
+
+    @staticmethod
+    def backward(ctx, g):
+        if not ctx.needs_input_grad[0]:
+            return None, None, None
+        # autograd may hand the cotangent over expanded (stride 0)
+        return ops.segment_sum_op(g.contiguous(), ctx.plan), None, None
+
+
+def take(v: torch.Tensor, idx: torch.Tensor,
+         plan: Optional[CSCPlan] = None) -> torch.Tensor:
+    """``v[idx]`` along the leading axis; with ``plan`` (the plan over
+    ``idx``) and a gradient to take, its backward is the deterministic
+    segment sum of :class:`_PlannedGather`."""
+    if plan is not None and v.requires_grad and torch.is_grad_enabled():
+        return _PlannedGather.apply(v, idx, plan)
+    return v.index_select(0, idx)
+
+
+@dataclass(frozen=True)
+class ShardContext:
+    """Halo hooks for finalizing shard-local partial aggregates (the
+    counterpart of the reference's ``ShardContext``).
+
+    A process holds ``L`` shards side by side on one node axis: shard
+    ``l``'s ``[masters ; mirrors]`` rows start at row ``l * (n_master +
+    n_mirror)``. ``reduce(arr, op)`` maps mirror-slot partials (L *
+    n_mirror, ...) to master-aligned values (L * n_master, ...),
+    ``op`` "sum" or "max"; ``bcast(arr)`` maps master values back onto
+    mirror slots. Together they are the paper's mirror→master reduce and
+    master→mirror broadcast phases."""
+    n_master: int
+    n_mirror: int
+    reduce: Callable[[Any, str], Any]
+    bcast: Callable[[Any], Any]
+
+    def split(self, arr: torch.Tensor):
+        """(L * (n_master + n_mirror), ...) -> the masters' rows (L *
+        n_master, ...) and the mirrors' (L * n_mirror, ...)."""
+        n_tot = self.n_master + self.n_mirror
+        a = arr.reshape((arr.shape[0] // n_tot, n_tot) + arr.shape[1:])
+        rest = tuple(arr.shape[1:])
+        return (a[:, :self.n_master].reshape((-1,) + rest),
+                a[:, self.n_master:].reshape((-1,) + rest))
+
+    def join(self, masters: torch.Tensor, mirrors: torch.Tensor):
+        """The inverse of :meth:`split`."""
+        rest = tuple(masters.shape[1:])
+        L = masters.shape[0] // self.n_master
+        return torch.cat(
+            [masters.reshape((L, self.n_master) + rest),
+             mirrors.to(masters.dtype).reshape((L, self.n_mirror) + rest)],
+            dim=1).reshape((-1,) + rest)
+
+
+def _finalize(partial, shard: Optional[ShardContext], op: str):
+    """Local partials over [masters ; mirrors] -> per-master totals. A
+    tie of the local max and the halo's splits the cotangent evenly, as
+    ``jnp.maximum`` does in the reference; ties among the halo's
+    partials follow :func:`repro_torch.core.engine._reduce_array`."""
+    if shard is None:
+        return partial
+    local, mirrored = shard.split(partial)
+    if op == "sum":
+        return local + shard.reduce(mirrored, "sum")
+    return torch.maximum(local, shard.reduce(mirrored, "max"))
+
+
 def combine(mode: str, msg, dst, num_segments: int, edge_mask,
             backend: Union[None, str, AggregationBackend] = None,
-            plan: Optional[CSCPlan] = None):
-    """The Sum stage on one block.
+            plan: Optional[CSCPlan] = None,
+            shard: Optional[ShardContext] = None):
+    """The Sum stage.
 
     msg["value"]: (E, H, D); msg["logit"]: (E, H) when the mode needs it;
-    dst (E,) int; edge_mask (E,) float. Returns (num_segments, H, D).
-    Masked logits go to NEG, values are zeroed on masked edges, and empty
-    max rows give 0 — as ``repro/core/aggregate.py:398-431``.
+    dst (E,) int; edge_mask (E,) float. Returns (num_segments, H, D) —
+    or per-master totals (L * n_master, H, D) when ``shard`` is given and
+    the arrays are a process's shard-local ones (``num_segments = L *
+    (n_master + n_mirror)``). Masked logits go to NEG, values are zeroed
+    on masked edges, and empty max rows give 0 — as
+    ``repro/core/aggregate.py:385-431``.
+
+    Under ``shard`` the softmax is the reference's three passes: the
+    local ``segment_max``, clamped to NEG, max-finalized and broadcast
+    back to the mirrors; then two sum-finalized ``segment_sum`` passes
+    over the shifted exponentials, each edge's row max gathered through
+    ``plan``. Its denominators clamp at 1e-9, the reference's
+    ``aggregate.py:415``; one block's fused ``edge_softmax`` kernel
+    clamps at 1e-20, the TPU kernel's (ROADMAP C.3).
     """
     spec = combine_spec(mode)
     be = get_backend(backend)
@@ -262,18 +367,33 @@ def combine(mode: str, msg, dst, num_segments: int, edge_mask,
         logit = torch.where(edge_mask[:, None] > 0, msg["logit"],
                             torch.full_like(msg["logit"], NEG))
         masked_value = value * edge_mask[:, None, None]
-        return be.edge_softmax(logit, masked_value, dst, num_segments, plan)
+        if shard is None:
+            return be.edge_softmax(logit, masked_value, dst, num_segments,
+                                   plan)
+        lmax = be.segment_max(logit, dst, num_segments, plan)
+        lmax = torch.maximum(lmax, torch.full_like(lmax, NEG))  # clamp empty
+        gmax_m = _finalize(lmax, shard, "max")
+        gmax_all = shard.join(gmax_m, shard.bcast(gmax_m))
+        ex = torch.exp(logit - take(gmax_all, dst, plan)) \
+            * edge_mask[:, None]
+        den = _finalize(be.segment_sum(ex, dst, num_segments, plan),
+                        shard, "sum")
+        num = _finalize(be.segment_sum(ex[..., None] * masked_value, dst,
+                                       num_segments, plan), shard, "sum")
+        return num / torch.clamp_min(den, 1e-9)[..., None]
 
     if spec.name == "max":
         masked = torch.where(edge_mask[:, None, None] > 0, value,
                              torch.full_like(value, NEG))
-        agg = be.segment_max(masked, dst, num_segments, plan)
+        agg = _finalize(be.segment_max(masked, dst, num_segments, plan),
+                        shard, "max")
         # empty destinations aggregate to the identity (0), not -inf/NEG
         return torch.where(agg > NEG / 2, agg, torch.zeros_like(agg))
 
-    total = be.segment_sum(value * edge_mask[:, None, None], dst,
-                           num_segments, plan)
+    total = _finalize(be.segment_sum(value * edge_mask[:, None, None], dst,
+                                     num_segments, plan), shard, "sum")
     if spec.name == "mean":
-        deg = be.segment_sum(edge_mask, dst, num_segments, plan)
+        deg = _finalize(be.segment_sum(edge_mask, dst, num_segments, plan),
+                        shard, "sum")
         total = total / torch.clamp_min(deg, 1e-9)[:, None, None]
     return total

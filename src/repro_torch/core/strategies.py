@@ -5,10 +5,10 @@ are all streams of views, so one trainer loop drives every strategy:
 - :func:`strategy_views` — the indexable :class:`ViewStream` a trainer
   drives (view i a pure function of ``(seed, i)``), dense or compact;
 - :func:`mini_batch_views` / :func:`cluster_batch_views` — the
-  reference's generators: one sequential RNG and detached dense views.
-
-Sharding a view onto a partition plan (``shard_view``) waits for the
-engine (ROADMAP A.9)."""
+  reference's generators: one sequential RNG and detached dense views;
+- :func:`shard_view` — a view's masks mapped onto a partition plan, for
+  the distributed engine (:mod:`repro_torch.core.engine`), with its
+  per-partition loop :func:`shard_view_loop` kept as the oracle."""
 from __future__ import annotations
 
 from typing import Iterator, Optional
@@ -16,13 +16,15 @@ from typing import Iterator, Optional
 import numpy as np
 
 from repro_torch.core.views import (ClusterViewCache, ClusterViewStream,
-                                    GlobalViewStream, GraphView,
+                                    CompactView, GlobalViewStream,
+                                    GraphView,
                                     MiniBatchViewStream, ViewBuilder,
                                     ViewStream)
 from repro_torch.graph.csr import Graph
 
 __all__ = ["GraphView", "ViewStream", "global_batch_view",
-           "mini_batch_views", "cluster_batch_views", "strategy_views"]
+           "mini_batch_views", "cluster_batch_views", "strategy_views",
+           "shard_view", "shard_view_loop"]
 
 
 def global_batch_view(g: Graph, K: int) -> GraphView:
@@ -118,3 +120,102 @@ def strategy_views(g: Graph, strategy: str, K: int, seed: int = 0,
                                  length=steps, compact=compact)
     raise ValueError(f"unknown strategy {strategy!r} "
                      "(expected global|mini|cluster)")
+
+
+# -- sharding a view onto a partition plan (the distributed engine) ----------
+
+
+def shard_view(plan, view) -> dict:
+    """Map a view's global masks onto per-partition local arrays, bit for
+    bit as the reference's ``shard_view``: numpy arrays stacked over the
+    partitions, ``node_active`` (P, K, n_m_pad), ``edge_active`` (P, K,
+    e_pad) and ``loss_mask`` (P, n_m_pad). One ``np.take`` over the
+    stacked ``plan.masters`` / ``plan.edge_orig`` per mask, so the host
+    cost a step is O(1) Python for any P; a CompactView goes through
+    :func:`_shard_compact`."""
+    if isinstance(view, CompactView):
+        return _shard_compact(plan, view)
+    P = plan.P
+    K = view.K
+    n_m_pad = plan.masters.shape[1]
+    e_pad = plan.src_local.shape[1]
+    loss = view.loss_mask[plan.masters] * plan.master_mask
+    if view.node_active is None:
+        node_active = np.broadcast_to(plan.master_mask[:, None, :],
+                                      (P, K, n_m_pad)).copy()
+    else:
+        # (K, P, n_m_pad) -> (P, K, n_m_pad)
+        node_active = (np.take(view.node_active, plan.masters, axis=1)
+                       .transpose(1, 0, 2)
+                       * plan.master_mask[:, None, :])
+    if view.edge_active is None:
+        edge_active = np.broadcast_to(plan.edge_mask[:, None, :],
+                                      (P, K, e_pad)).copy()
+    else:
+        edge_active = (np.take(view.edge_active, plan.edge_orig, axis=1)
+                       .transpose(1, 0, 2)
+                       * plan.edge_mask[:, None, :])
+    return {"node_active": np.ascontiguousarray(node_active, np.float32),
+            "edge_active": np.ascontiguousarray(edge_active, np.float32),
+            "loss_mask": np.ascontiguousarray(loss, np.float32)}
+
+
+def _shard_compact(plan, view: CompactView) -> dict:
+    """Sharded masks straight from a CompactView's id lists: only the
+    view's |nodes| + |edges| entries are scattered into zeroed
+    per-partition buffers through the plan's cached locators, O(view)
+    host work. Bit-exact against ``shard_view(plan, view.to_dense())``:
+    slots the view never touches stay zero, as the dense path's ``*
+    master_mask`` / ``* edge_mask`` leave them."""
+    P, K = plan.P, view.K
+    n_m_pad = plan.masters.shape[1]
+    e_pad = plan.src_local.shape[1]
+    node_active = np.zeros((P, K, n_m_pad), np.float32)
+    edge_active = np.zeros((P, K, e_pad), np.float32)
+    loss = np.zeros((P, n_m_pad), np.float32)
+    nslot = plan.node_locator()
+    owner = plan.owner
+    epart, eslot = plan.edge_locator()
+    lidx = np.flatnonzero(view.loss_local)
+    if len(lidx):
+        ln = view.nodes[lidx]
+        loss[owner[ln], nslot[ln]] = view.loss_local[lidx]
+    off = view.hop_offsets
+    for k in range(K):
+        act = view.nodes[: int(off[K - 1 - k])]
+        if len(act):
+            node_active[owner[act], k, nslot[act]] = 1.0
+        ids = view.edge_ids[view.edge_layer_mask(k)]
+        if len(ids):
+            edge_active[epart[ids], k, eslot[ids]] = 1.0
+    return {"node_active": node_active, "edge_active": edge_active,
+            "loss_mask": loss}
+
+
+def shard_view_loop(plan, view: GraphView) -> dict:
+    """The per-partition loop form of :func:`shard_view` (the
+    reference's parity oracle and naive host baseline), bit-exact
+    against it."""
+    P = plan.P
+    K = view.K
+    n_m_pad = plan.masters.shape[1]
+    e_pad = plan.src_local.shape[1]
+    node_active = np.ones((P, K, n_m_pad), np.float32)
+    edge_active = np.ones((P, K, e_pad), np.float32)
+    loss = np.zeros((P, n_m_pad), np.float32)
+    for p in range(P):
+        mids = plan.masters[p]
+        loss[p] = view.loss_mask[mids] * plan.master_mask[p]
+        if view.node_active is not None:
+            node_active[p] = (view.node_active[:, mids]
+                              * plan.master_mask[p][None, :])
+        else:
+            node_active[p] *= plan.master_mask[p][None, :]
+        eids = plan.edge_orig[p]
+        if view.edge_active is not None:
+            edge_active[p] = (view.edge_active[:, eids]
+                              * plan.edge_mask[p][None, :])
+        else:
+            edge_active[p] *= plan.edge_mask[p][None, :]
+    return {"node_active": node_active, "edge_active": edge_active,
+            "loss_mask": loss}

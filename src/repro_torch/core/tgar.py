@@ -13,8 +13,8 @@ import torch
 from torch import nn
 
 from repro_torch.core import aggregate as agg
+from repro_torch.core.aggregate import _PlannedGather  # noqa: F401
 from repro_torch.graph.csr import GraphBlock
-from repro_torch.kernels import ops
 from repro_torch.kernels.plan import CSCPlan
 
 
@@ -46,43 +46,15 @@ class TGARLayer(nn.Module):
         raise NotImplementedError
 
 
-class _PlannedGather(torch.autograd.Function):
-    """``v[idx]`` whose backward is a segment sum over ``plan``, the plan
-    over ``idx`` (``d_v[i]`` sums ``g`` over the edges with ``idx == i``,
-    in plan order). torch's own backward of ``index_select`` is an
-    ``index_add_``, atomic on CUDA and so not the same from run to run;
-    this one is the ``segment_sum`` kernel: no atomics, the same bits on
-    every run. Pad edges join no row of the plan: the combine masks
-    their messages, so their cotangent is 0 and dropping it changes
-    nothing."""
-
-    @staticmethod
-    def forward(ctx, v, idx, plan: CSCPlan):
-        ctx.plan = plan
-        return v.index_select(0, idx)
-
-    @staticmethod
-    def backward(ctx, g):
-        if not ctx.needs_input_grad[0]:
-            return None, None, None
-        # autograd may hand the cotangent over expanded (stride 0)
-        return ops.segment_sum_op(g.contiguous(), ctx.plan), None, None
-
-
 def tree_take(tree: Dict[str, torch.Tensor], idx: torch.Tensor,
               plan: Optional[CSCPlan] = None):
     """Index the leading axis of every entry (edge-endpoint lookup).
     ``plan`` — the plan over ``idx`` (a block's ``src_plan`` for its
     ``src``, ``csc_plan`` for its ``dst``) — makes the backward the
     deterministic segment sum of :class:`_PlannedGather`; without one
-    (or with no gradient to take) it is plain ``index_select``."""
-    out = {}
-    for k, v in tree.items():
-        if plan is not None and v.requires_grad and torch.is_grad_enabled():
-            out[k] = _PlannedGather.apply(v, idx, plan)
-        else:
-            out[k] = v.index_select(0, idx)
-    return out
+    (or with no gradient to take) it is plain ``index_select``
+    (:func:`repro_torch.core.aggregate.take`)."""
+    return {k: agg.take(v, idx, plan) for k, v in tree.items()}
 
 
 def layer_forward_block(layer: TGARLayer, h: torch.Tensor, block: GraphBlock,

@@ -1,6 +1,8 @@
-"""The bucketed single-device trainer and its fault-tolerant runtime (the
-counterpart of the reference's ``core/trainer.py:BaseTrainer`` and
-``CompactTrainer``).
+"""The trainers and their fault-tolerant runtime (the counterpart of the
+reference's ``core/trainer.py``): ``BaseTrainer``, the bucketed
+single-device ``CompactTrainer`` and the engine ``Trainer``, which
+drives the distributed engine (:mod:`repro_torch.core.engine`) with one
+step captured once.
 
 The paper's training strategies (global-, mini- and cluster-batch,
 §2.3/§4.3) are all streams of views, so one loop drives every strategy:
@@ -58,6 +60,7 @@ import torch
 from repro_torch.checkpoint import (latest_step, load_checkpoint,
                                     save_checkpoint)
 from repro_torch.core.mpgnn import accuracy_block, loss_block
+from repro_torch.core.strategies import shard_view
 from repro_torch.core.views import (CompactBlockBuilder, CompactView,
                                     GlobalViewStream, GraphView, ViewStream)
 from repro_torch.device import resolve_device
@@ -148,26 +151,38 @@ def load_block(static: GraphBlock, block: GraphBlock) -> None:
                 dst.copy_(src)
 
 
+def load_view(static: dict, view: dict) -> None:
+    """:func:`load_block` for a dict of tensors (the engine's staged
+    view)."""
+    with torch.no_grad():
+        for k, dst in static.items():
+            if dst.data_ptr() != view[k].data_ptr():
+                dst.copy_(view[k])
+
+
 class CapturedStep:
     """One bucket's captured graph: the inputs it reads (``static``), the
-    outputs it writes, and the kernel launches of one replay."""
+    outputs it writes, and the kernel launches of one replay. ``load``
+    copies a staged input into ``static``."""
 
-    def __init__(self, graph, static: GraphBlock, out, launches: dict):
+    def __init__(self, graph, static, out, launches: dict,
+                 load=load_block):
         self.graph = graph
         self.static = static
         self.out = out
         self.launches = launches
+        self.load = load
 
-    def replay(self, block: GraphBlock):
+    def replay(self, block):
         """Load ``block`` into the inputs and replay; the outputs stay
         valid until the next replay."""
-        load_block(self.static, block)
+        self.load(self.static, block)
         self.graph.replay()
         ops.add_launches(self.launches)
         return self.out
 
 
-def capture(fn, static: GraphBlock, side, lock=None) -> CapturedStep:
+def capture(fn, static, side, lock=None, load=load_block) -> CapturedStep:
     """Capture ``fn(static)`` into a CUDA graph on the stream ``side``
     (the one its warm-up ran on), holding ``lock`` so that no staging
     thread touches the device meanwhile. A failed capture raises."""
@@ -176,7 +191,7 @@ def capture(fn, static: GraphBlock, side, lock=None) -> CapturedStep:
         with torch.cuda.graph(graph, stream=side,
                               capture_error_mode="thread_local"):
             out = fn(static)
-    return CapturedStep(graph, static, out, dict(tally))
+    return CapturedStep(graph, static, out, dict(tally), load)
 
 
 def warm_up(fn, static: GraphBlock, side):
@@ -414,7 +429,7 @@ class BaseTrainer:
         return StreamPrefetcher(stream, prepare, steps, workers=workers,
                                 depth=self.prefetch_depth, runtime=rt)
 
-    # -- state: snapshots, divergence, checkpoints -----------------------------
+    # -- state: snapshots, divergence, checkpoints ----------------------------
 
     def _snapshot(self) -> tuple:
         """A copy of (parameters, optimizer state, step): the optimizer
@@ -742,3 +757,182 @@ class CompactTrainer(BaseTrainer):
 
     def assert_trace_contract(self) -> None:
         self.assert_compiled_per_bucket()
+
+
+class Trainer(BaseTrainer):
+    """Drives any view stream through a
+    :class:`~repro_torch.core.engine.HybridParallelEngine` with one
+    shape-stable step (the counterpart of the reference's engine
+    ``Trainer``).
+
+    The step's shapes are fixed by the partition plan — ``(P, K,
+    n_m_pad)`` node masks, ``(P, K, e_pad)`` edge masks, ``(P, n_m_pad)``
+    loss masks — so global, mini and cluster views, dense or compact, all
+    run the same step. On the card (``cuda_graphs=True``, the default
+    there, over a capturable communicator) the step — forward over every
+    shard, halo exchanges, backward, NN-Reduce and the optimizer update —
+    is captured once into a CUDA graph, the counterpart of the
+    reference's step compiled once: the first step runs eagerly on a side
+    stream, then the capture; every later step copies its staged masks
+    into the captured inputs and replays. ``trace_counts`` counts the
+    captures of the step and of ``infer`` (evaluation runs eagerly, so
+    none); :meth:`assert_compiled_once` is the reference's certificate.
+
+    The trainer trains the engine's model, after loading ``params`` (a
+    ``state_dict``) when given; ``self.params`` maps names to the live
+    parameters, which the optimizer updates in place.
+    """
+
+    def __init__(self, engine, opt, params: Optional[Mapping] = None,
+                 prefetch_depth: int = 2,
+                 fault_policy: Optional[FaultPolicy] = None,
+                 injector: Optional[FaultInjector] = None,
+                 cuda_graphs: bool = True):
+        self.engine = engine
+        self.plan = engine.plan
+        self._init_common(opt, prefetch_depth, fault_policy, injector)
+        self.device = engine.device
+        self.model = engine.model
+        if params is not None:
+            self.model.load_state_dict(params)
+        self.params = dict(self.model.named_parameters())
+        self.opt_state = opt.init(self.params)
+        self._initial = {k: p.detach().cpu().clone()
+                         for k, p in self.params.items()}
+        self.trace_counts = {"train_step": 0, "infer": 0}
+        self.steps_run = 0
+        self.graphs_on = (bool(cuda_graphs) and self.device.type == "cuda"
+                          and engine.comm.capturable)
+        # builder threads copy staged views to the device; a capture
+        # holds the lock so that none does meanwhile
+        self._stage_lock = threading.Lock()
+        self._graph: Optional[CapturedStep] = None
+        self._side = None           # the warm-up and capture stream
+        self._scal = None           # the optimizer's scalars, on the card
+        self._infer = engine.make_infer()
+        # one-slot (view, sharded arrays) cache; holding the view itself
+        # keeps the identity check sound
+        self._eval_cache: Optional[tuple] = None
+
+    # -- BaseTrainer hooks ----------------------------------------------------
+
+    def _make_prepare(self):
+        rt = self.runtime
+
+        def stage(v):
+            arrays = shard_view(self.plan, v)
+            with self._stage_lock:
+                return self.engine.stage_view(arrays, retry=rt)
+
+        # a static stream (the global strategy yields one view object) is
+        # staged once: the staged tensors are only read, and prefetch
+        # workers that race here at worst stage it twice
+        cache = {"view": None, "staged": None}
+
+        def prepare(v):
+            if cache["view"] is v:
+                return cache["staged"]
+            staged = stage(v)
+            cache["staged"] = staged
+            cache["view"] = v
+            return staged
+
+        return prepare
+
+    def _step(self, view: dict, update) -> torch.Tensor:
+        loss, grads = self.engine.make_loss_and_grad()(view)
+        update(grads)
+        return loss
+
+    def _dispatch(self, staged) -> torch.Tensor:
+        self.steps_run += 1
+        if not self.graphs_on:
+            return self._step(staged, lambda grads: self.opt.update(
+                grads, self.opt_state, self.params))
+        if self._scal is None:
+            self._scal = torch.zeros(len(self.opt.scalars(self.opt_state)),
+                                     dtype=torch.float32, device=self.device)
+            self._side = torch.cuda.Stream(self.device)
+        write_scalars(self._scal, self.opt.scalars(self.opt_state))
+        if self._graph is None:
+            loss = self._first_step(staged)
+        else:
+            out = self._graph.replay(staged)
+            loss = out[0].clone()
+            for k, p in self.params.items():
+                p.grad = out[1][k]
+        self.opt_state["step"] += 1
+        return loss
+
+    def _first_step(self, staged: dict) -> torch.Tensor:
+        """The first step: eager on the side stream through the captured
+        inputs, then the capture over them."""
+        static = {k: v.clone() for k, v in staged.items()}
+
+        def body(view):
+            # the update reads the optimizer's scalars from the tensor
+            # that each replay's write_scalars refreshes
+            loss = self._step(view, lambda grads: self.opt.apply(
+                grads, self.opt_state, self.params, self._scal))
+            return loss, {k: p.grad for k, p in self.params.items()}
+
+        loss, grads = warm_up(body, static, self._side)
+        self.model.zero_grad(set_to_none=True)   # the graph owns its grads
+        self._graph = capture(body, static, self._side, self._stage_lock,
+                              load=load_view)
+        self.trace_counts["train_step"] += 1
+        for k, p in self.params.items():
+            p.grad = grads[k]
+        return loss
+
+    def reset(self, params: Optional[Mapping] = None) -> None:
+        """:meth:`BaseTrainer.reset`, keeping the captured step; the eval
+        cache is dropped."""
+        super().reset(params)
+        self._eval_cache = None
+
+    def assert_trace_contract(self) -> None:
+        self.assert_compiled_once()
+
+    # -- eval -----------------------------------------------------------------
+
+    def evaluate(self, view, mask: Optional[np.ndarray] = None) -> float:
+        """Distributed inference over ``view``; accuracy on ``mask``
+        (default: the graph's test mask, else the view's loss mask)."""
+        if self._eval_cache is None or self._eval_cache[0] is not view:
+            self._eval_cache = (view, shard_view(self.plan, view))
+        logits = self._infer(self._eval_cache[1])
+        preds = self.engine.gather_predictions(logits).argmax(-1)
+        g = view.graph
+        if mask is None:
+            dense = view.to_dense() if isinstance(view, CompactView) \
+                else view
+            mask = (g.test_mask if g.test_mask is not None
+                    else dense.loss_mask > 0)
+        mask = np.asarray(mask) > 0
+        if not mask.any():
+            return 0.0
+        return float((preds[mask] == g.labels[mask]).mean())
+
+    # -- contracts ------------------------------------------------------------
+
+    def assert_compiled_once(self) -> None:
+        """The reference's certificate: after any number of steps across
+        any mix of strategies, the step was captured exactly once (under
+        CUDA graphs) and ``infer`` at most once. Eager (the CPU, or
+        ``cuda_graphs=False``), nothing is captured, and it checks that
+        the step ran."""
+        n = self.trace_counts["train_step"]
+        if self.steps_run == 0:
+            raise RetraceError(
+                "assert_compiled_once: the train step never ran — call "
+                "fit() before asserting the contract")
+        if self.graphs_on and n != 1:
+            raise RetraceError(
+                f"train step was captured {n} times (expected exactly 1): "
+                "view arrays must come from shard_view over one "
+                "PartitionPlan")
+        if self.trace_counts["infer"] > 1:
+            raise RetraceError(
+                f"eval infer was captured {self.trace_counts['infer']} "
+                "times (expected at most 1)")

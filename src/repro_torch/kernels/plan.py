@@ -120,3 +120,16 @@ def build_bucket_csc_plan(dst_local: np.ndarray, n_pad: int,
     ids = np.full(e_pad, n_pad, np.int32)
     ids[:e] = dst_local
     return build_csc_plan(ids, n_pad)
+
+
+def build_csc_plans_stacked(ids: np.ndarray, mask: np.ndarray,
+                            num_segments: int) -> list:
+    """One plan per row of ``ids`` (P, E) over ``num_segments`` segments,
+    all of the same shapes (the counterpart of the reference's
+    ``build_csc_plans_stacked``, without its lane padding): the plans of
+    a partitioning's shards. Entries whose ``mask`` is 0 are pad edges and
+    join no row (``build_csc_plan``'s rule)."""
+    ids = np.asarray(ids)
+    return [build_csc_plan(np.where(np.asarray(m) > 0, row, num_segments),
+                           num_segments) for row, m in zip(ids, mask)]
+

@@ -8,9 +8,10 @@ of ``repro/launch/train.py``), on the card unless ``--device cpu``::
 
 SIGINT and SIGTERM during training stop it after the step in flight,
 save a checkpoint (with ``--checkpoint-dir``), retire the prefetch pool
-and exit with 128 + the signal's number; ``--resume`` picks the run back up. The distributed
-engine (``--engine-partitions``, ROADMAP A.9) is refused with a message
-that names it, and the ``lm`` subcommand waits for the LM zoo (A.12).
+and exit with 128 + the signal's number; ``--resume`` picks the run back
+up. ``--engine-partitions P`` trains with the distributed engine over P
+partitions of the graph (``--partition-method``), all on the one device.
+The ``lm`` subcommand waits for the LM zoo (ROADMAP A.12).
 """
 from __future__ import annotations
 
@@ -88,8 +89,13 @@ def main(argv=None) -> int:
     g.add_argument("--device", default=None,
                    help="cuda (the default) or cpu")
     g.add_argument("--engine-partitions", type=int, default=0,
-                   help="the distributed engine: not ported yet, refused "
-                        "(ROADMAP A.9)")
+                   help="train with the hybrid-parallel engine over this "
+                        "many partitions of the graph, all in this "
+                        "process on the one device (0 = the bucketed "
+                        "single-block trainer)")
+    g.add_argument("--partition-method", default="1d_src",
+                   choices=["1d_src", "1d_dst", "vertex_cut"],
+                   help="how the engine assigns edges to partitions")
     g.add_argument("--prefetch-workers", type=int, default=None,
                    help="view builders (default: min(4, cores-1); the "
                         "trajectory is the same for any count)")
@@ -148,9 +154,6 @@ def main(argv=None) -> int:
 
     if args.cmd == "lm":
         ap.exit(2, "lm: the LM zoo is not ported yet (ROADMAP A.12)\n")
-    if args.engine_partitions:
-        ap.exit(2, "--engine-partitions: the distributed engine is not "
-                   "ported yet (ROADMAP A.9)\n")
 
     import repro_torch.api as api
     from repro_torch.runtime.faults import TrainingInterrupted
@@ -158,6 +161,8 @@ def main(argv=None) -> int:
         dataset=args.dataset, model=args.model, strategy=args.strategy,
         steps=args.steps, num_layers=args.layers, hidden=args.hidden,
         lr=args.lr, compact=args.compact, halo_hops=args.halo_hops,
+        engine_partitions=args.engine_partitions,
+        partition_method=args.partition_method,
         device=args.device, prefetch_workers=args.prefetch_workers,
         prefetch_mode=args.prefetch_mode,
         fault_policy=fault_policy_from(args),

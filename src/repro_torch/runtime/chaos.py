@@ -4,9 +4,10 @@ fault-free and under deterministic injected faults — and requiring the
 loss trajectories **bit-identical**.
 
 - ``python -m repro_torch.runtime.chaos --smoke``: one combined scenario
-  (a killed prefetch worker, failed view builds, a failed device staging
-  and a failed checkpoint save, all in one fit), one process-mode
-  scenario (a sampler process SIGKILLed mid-build) and one rollback.
+  per trainer (a killed prefetch worker, failed view builds, a failed
+  device staging and a failed checkpoint save, all in one fit), one
+  process-mode scenario (a sampler process SIGKILLed mid-build) and one
+  rollback.
 - ``python -m repro_torch.runtime.chaos``: every injection point alone
   and under tighter policies, the process faults ({proc_kill, proc_hang,
   slot_corrupt} x {thread, process}; the baseline is always thread mode,
@@ -14,9 +15,10 @@ loss trajectories **bit-identical**.
   divergence recoveries (skip_view, rollback), which change the
   trajectory by design and are checked for their recovery semantics.
 
-Every scenario runs on ``CompactTrainer``, on the card unless
-``--device cpu``. The engine ``Trainer`` is not ported yet (ROADMAP
-A.9): its scenarios are refused. Exit code 0 iff every scenario holds.
+Every scenario runs on both trainers: ``CompactTrainer`` and the engine
+``Trainer`` (two partitions), on the card unless ``--device cpu``. Each
+also re-certifies the trainer's capture contract: recovery never
+captures again. Exit code 0 iff every scenario holds.
 """
 from __future__ import annotations
 
@@ -30,8 +32,8 @@ from repro_torch.runtime.faults import FaultInjector, FaultPolicy
 
 # quiet, fast policy for chaos runs: no real sleeping between retries
 FAST = dict(backoff_base=0.0, backoff_cap=0.0, jitter=0.0)
-ENGINE_TODO = ("the engine Trainer is not ported yet (ROADMAP A.9); the "
-               "port's chaos scenarios run on CompactTrainer")
+KINDS = ("compact", "engine")
+ENGINE_PARTITIONS = 2
 
 
 def _graph(n=160, seed=0):
@@ -40,29 +42,38 @@ def _graph(n=160, seed=0):
                      p_in=0.05, p_out=0.005, seed=seed).add_self_loops()
 
 
-def _compact_trainer(g, fault_policy=None, injector=None, seed=0,
-                     backend="csc", device=None):
-    """The chaos runs' trainer: 2-layer GCN, hidden 16, Adam 1e-2."""
+def _trainer(kind, g, fault_policy=None, injector=None, seed=0,
+             backend="csc", device=None):
+    """The chaos runs' trainer of ``kind`` ("compact" or "engine"):
+    2-layer GCN, hidden 16, Adam 1e-2; the engine over
+    ``ENGINE_PARTITIONS`` partitions."""
     from repro_torch.config import GNNConfig
-    from repro_torch.core.trainer import CompactTrainer
+    from repro_torch.core.trainer import CompactTrainer, Trainer
     from repro_torch.models import make_gnn
     from repro_torch.optim import adam
+    if kind not in KINDS:
+        raise ValueError(f"unknown trainer kind {kind!r}: expected one of "
+                         f"{KINDS}")
     cfg = GNNConfig(model="gcn", num_layers=2, hidden_dim=16, num_classes=4,
                     feature_dim=8, aggregate_backend=backend)
-    return CompactTrainer(make_gnn(cfg, seed=seed), g, adam(1e-2),
-                          device=device, fault_policy=fault_policy,
-                          injector=injector)
+    model = make_gnn(cfg, seed=seed)
+    if kind == "compact":
+        return CompactTrainer(model, g, adam(1e-2), device=device,
+                              fault_policy=fault_policy, injector=injector)
+    from repro_torch.core.engine import HybridParallelEngine
+    from repro_torch.core.partition import build_partitions
+    engine = HybridParallelEngine(
+        model, build_partitions(g, ENGINE_PARTITIONS), device=device)
+    return Trainer(engine, adam(1e-2), fault_policy=fault_policy,
+                   injector=injector)
 
 
-def _views(g, seed=0):
+def _views(g, seed=0, kind="compact"):
+    """Mini-batch views: compact for ``CompactTrainer``, dense (the masks
+    the engine shards) for the engine."""
     from repro_torch.core.strategies import strategy_views
     return strategy_views(g, "mini", K=2, seed=seed, batch_nodes=24,
-                          compact=True)
-
-
-def _check_kind(trainer_kind: str) -> None:
-    if trainer_kind != "compact":
-        raise NotImplementedError(ENGINE_TODO)
+                          compact=kind == "compact")
 
 
 def run_scenario(name: str, plan: dict, trainer_kind: str = "compact",
@@ -74,17 +85,18 @@ def run_scenario(name: str, plan: dict, trainer_kind: str = "compact",
     trajectory required (and the faults must actually fire). The
     baseline runs fault-free in thread mode, so a ``mode="process"``
     scenario also certifies thread/process parity."""
-    _check_kind(trainer_kind)
     g = _graph()
-    base = _compact_trainer(g, backend=backend, device=device)
-    ref = base.fit(_views(g), steps=steps, prefetch_workers=2)["losses"]
+    kind = trainer_kind
+    base = _trainer(kind, g, backend=backend, device=device)
+    ref = base.fit(_views(g, kind=kind), steps=steps,
+                   prefetch_workers=2)["losses"]
 
     policy = FaultPolicy(**{**FAST, **(policy_kw or {})})
     inj = FaultInjector(plan, seed=0, hang_seconds=hang_seconds)
-    tr = _compact_trainer(g, fault_policy=policy, injector=inj,
-                          backend=backend, device=device)
+    tr = _trainer(kind, g, fault_policy=policy, injector=inj,
+                  backend=backend, device=device)
     with tempfile.TemporaryDirectory() as d:
-        got = tr.fit(_views(g), steps=steps, prefetch_workers=2,
+        got = tr.fit(_views(g, kind=kind), steps=steps, prefetch_workers=2,
                      prefetch_mode=mode, checkpoint_dir=d,
                      checkpoint_every=3)["losses"]
     ok = True
@@ -108,14 +120,14 @@ def run_divergence(name: str, action: str, trainer_kind: str = "compact",
     """Divergence recovery: inject a simulated non-finite loss at view 4
     and check that the policy's action recovered the run (the
     trajectory changes by design, so the check is semantic)."""
-    _check_kind(trainer_kind)
     g = _graph()
     inj = FaultInjector({"diverge": {4}}, seed=0)
-    tr = _compact_trainer(
-        g, fault_policy=FaultPolicy(on_divergence=action, **FAST),
-        injector=inj, backend=backend, device=device)
+    tr = _trainer(trainer_kind, g,
+                  fault_policy=FaultPolicy(on_divergence=action, **FAST),
+                  injector=inj, backend=backend, device=device)
     with tempfile.TemporaryDirectory() as d:
-        out = tr.fit(_views(g), steps=steps, prefetch_workers=2,
+        out = tr.fit(_views(g, kind=trainer_kind), steps=steps,
+                     prefetch_workers=2,
                      checkpoint_dir=d, checkpoint_every=2)
     ok = True
     diverges = [e for e in out["events"] if e.get("stage") == "diverge"]
@@ -188,28 +200,34 @@ def main(argv=None) -> int:
     results = []
     print(f"chaos [{device}]: baseline-vs-injected trajectory invariance")
     if args.smoke:
-        results.append(run_scenario("smoke/compact", SMOKE_PLAN, **kw))
+        for kind in KINDS:
+            results.append(run_scenario(f"smoke/{kind}", SMOKE_PLAN, kind,
+                                        **kw))
         results.append(run_scenario("smoke/procpool", {"proc_kill": {1}},
-                                    mode="process", **kw))
-        results.append(run_divergence("smoke/rollback", "rollback", **kw))
+                                    "engine", mode="process", **kw))
+        results.append(run_divergence("smoke/rollback", "rollback",
+                                      "engine", **kw))
     else:
-        for point in SWEEP_POINTS:
-            for pname, pkw in SWEEP_POLICIES.items():
-                occ = {1} if point == "worker_kill" else {0, 2}
-                results.append(run_scenario(f"{point}/{pname}",
-                                            {point: occ}, policy_kw=pkw,
-                                            **kw))
-        for point in PROC_SWEEP_POINTS:
-            for mode in ("thread", "process"):
-                pkw = _proc_scenario_kw(point, mode)
-                results.append(run_scenario(f"{point}/{mode}",
-                                            {point: {1}}, **pkw, **kw))
-        for backend in backends:
-            results.append(run_scenario(f"combined/compact-{backend}",
-                                        SMOKE_PLAN, backend=backend, **kw))
-        for action in ("skip_view", "rollback"):
-            results.append(run_divergence(f"diverge/{action}", action,
-                                          **kw))
+        for kind in KINDS:
+            for point in SWEEP_POINTS:
+                for pname, pkw in SWEEP_POLICIES.items():
+                    occ = {1} if point == "worker_kill" else {0, 2}
+                    results.append(run_scenario(
+                        f"{point}/{pname}/{kind}", {point: occ}, kind,
+                        policy_kw=pkw, **kw))
+            for point in PROC_SWEEP_POINTS:
+                for mode in ("thread", "process"):
+                    pkw = _proc_scenario_kw(point, mode)
+                    results.append(run_scenario(
+                        f"{point}/{mode}/{kind}", {point: {1}}, kind,
+                        **pkw, **kw))
+            for backend in backends:
+                results.append(run_scenario(
+                    f"combined/{kind}-{backend}", SMOKE_PLAN, kind,
+                    backend=backend, **kw))
+            for action in ("skip_view", "rollback"):
+                results.append(run_divergence(
+                    f"diverge/{action}/{kind}", action, kind, **kw))
     passed = sum(results)
     print(f"chaos: {passed}/{len(results)} scenarios passed")
     return 0 if passed == len(results) else 1

@@ -59,7 +59,7 @@ def _model(name="gcn", seed=0):
     return make_gnn(GNNConfig(model=name, **CFG), seed=seed)
 
 
-# -- the bounds the kernels' grids are sized by ---------------------------------
+# -- the bounds the kernels' grids are sized by -------------------------------
 
 
 def _hub_graph(seed: int, n: int = 600) -> Graph:
@@ -111,7 +111,7 @@ def test_whole_graph_plans_fit_their_bound():
     assert src.num_pieces <= src.max_pieces
 
 
-# -- the certificate -------------------------------------------------------------
+# -- the certificate ----------------------------------------------------------
 
 
 @pytest.mark.parametrize("traces,touched", [(0, 0), (3, 0), (2, 1), (0, 2),
@@ -158,7 +158,7 @@ def test_eager_server_certifies_and_reports_its_trace(g):
         assert sum(trace[path]["calls"].values()) == 1
 
 
-# -- the optimizers' scalars -----------------------------------------------------
+# -- the optimizers' scalars --------------------------------------------------
 
 
 def _python_float_update(kind, lr, state, params, grads, b1=0.9, b2=0.999,
@@ -219,7 +219,7 @@ def test_scalars_as_a_tensor_are_bitwise_the_python_floats(kind, sched):
             assert torch.equal(state[moment][k], want_state[moment][k])
 
 
-# -- on the card ----------------------------------------------------------------
+# -- on the card --------------------------------------------------------------
 
 
 @pytest.fixture
@@ -305,3 +305,78 @@ def test_cuda_served_replay_is_bitwise_eager(g, cuda, model):
     trace = srv.server_stats()["trace"]
     assert trace["full"]["captures"] == {k: 1 for k in
                                          trace["full"]["buckets"]}
+
+
+# -- the engine Trainer: one capture for every strategy -----------------------
+
+
+def _engine_trainer(g, device, graphs: bool, P: int = 3, model="gcn"):
+    from repro_torch.core.engine import HybridParallelEngine
+    from repro_torch.core.partition import build_partitions
+    from repro_torch.core.trainer import Trainer
+    eng = HybridParallelEngine(_model(model), build_partitions(
+        g, P, gcn_norm=model == "gcn"), device=device)
+    return Trainer(eng, adam(1e-2, weight_decay=5e-4), cuda_graphs=graphs)
+
+
+def _switch(tr, g, steps: int = 6):
+    """Global, then mini and cluster (dense and compact) through one
+    trainer; returns every loss."""
+    losses = []
+    for strategy in ("global", "mini", "cluster"):
+        for compact in (False, True):
+            losses += tr.fit(strategy_views(
+                g, strategy, 2, seed=1, batch_nodes=12,
+                clusters_per_batch=3, halo_hops=1, compact=compact),
+                steps=steps)["losses"]
+    return losses
+
+
+def test_engine_trainer_eager_certifies_that_it_ran(g):
+    tr = _engine_trainer(g, "cpu", graphs=True)
+    assert not tr.graphs_on
+    with pytest.raises(RetraceError, match="never ran"):
+        tr.assert_compiled_once()
+    _switch(tr, g, steps=2)
+    tr.assert_compiled_once()
+    assert tr.trace_counts == {"train_step": 0, "infer": 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["gcn", "gat", "sage_max"])
+def test_cuda_engine_replay_is_bitwise_eager(g, cuda, model):
+    """Across a global -> mini -> cluster switch the step is captured
+    exactly once, and every replay is its eager twin bit for bit."""
+    runs = {}
+    for graphs in (False, True):
+        tr = _engine_trainer(g, cuda, graphs, model=model)
+        losses = _switch(tr, g)
+        runs[graphs] = (losses, {k: p.detach().cpu().clone()
+                                 for k, p in tr.params.items()})
+        tr.assert_compiled_once()
+    assert tr.graphs_on and tr.trace_counts["train_step"] == 1
+    assert runs[True][0] == runs[False][0]
+    for k, v in runs[False][1].items():
+        assert torch.equal(runs[True][1][k], v), k
+
+
+@pytest.mark.cuda
+def test_cuda_engine_restore_and_reset_keep_the_captured_step_live(
+        g, cuda, tmp_path):
+    def views():
+        return strategy_views(g, "mini", 2, seed=2, batch_nodes=12,
+                              compact=True)
+    runs = []
+    for graphs in (False, True):
+        tr = _engine_trainer(g, cuda, graphs)
+        first = tr.fit(views(), steps=6, checkpoint_dir=str(
+            tmp_path / str(graphs)), checkpoint_every=3)["losses"]
+        tr.restore(str(tmp_path / str(graphs)), step=3)
+        again = tr.fit(views(), steps=3)["losses"]
+        tr.reset()
+        fresh = tr.fit(views(), steps=4)["losses"]
+        runs.append((first, again, fresh))
+    assert runs[0] == runs[1]
+    first, again, fresh = runs[1]
+    assert again == first[3:] and fresh == first[:4]
+    tr.assert_compiled_once()

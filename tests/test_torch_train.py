@@ -13,8 +13,9 @@ The same numpy inputs and the JAX-initialised parameters (carried over by
   over the steps);
 - the quickstart loop (GCN on cora, global batch, 30 steps);
 - the training entry point, its runtime flags (prefetch pools, sampler
-  processes, checkpoints, divergence policy, resume), and its refusals
-  of what is not ported.
+  processes, checkpoints, divergence policy, resume), the distributed
+  engine through the facade and the entry point, and the refusal of
+  what is not ported.
 """
 import os
 import subprocess
@@ -46,7 +47,7 @@ from repro_torch.config import GNNConfig
 from repro_torch.core.clustering import label_propagation_clusters
 from repro_torch.core.mpgnn import loss_block
 from repro_torch.core.strategies import global_batch_view, strategy_views
-from repro_torch.core.trainer import CompactTrainer, RetraceError
+from repro_torch.core.trainer import CompactTrainer, RetraceError, Trainer
 from repro_torch.core.views import CompactBlockBuilder, ViewBuilder
 from repro_torch.graph import make_dataset
 from repro_torch.launch.train import main as train_main
@@ -413,8 +414,13 @@ def test_api_train_infer_serve_on_cpu():
     server = api.serve(result, api.ServeConfig(max_batch=4, cache=False))
     np.testing.assert_allclose(server.submit([0, 3, 9]), logits, rtol=1e-4,
                                atol=1e-5)
-    with pytest.raises(NotImplementedError, match="A.9"):
-        api.make_trainer(api.TrainJob(device="cpu", engine_partitions=2))
+    # engine_partitions builds the engine Trainer, which fits
+    trainer, views, *_ = api.make_trainer(
+        api.TrainJob(device="cpu", engine_partitions=2, hidden=16))
+    assert isinstance(trainer, Trainer) and trainer.plan.P == 2
+    out = trainer.fit(views, steps=3)
+    assert len(out["losses"]) == 3 and np.isfinite(out["losses"]).all()
+    trainer.assert_trace_contract()
 
 
 def test_train_cli_runs_on_cpu():
@@ -428,7 +434,6 @@ def test_train_cli_runs_on_cpu():
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["gnn", "--engine-partitions", "2"], "A.9"),
     (["lm"], "A.12"),
 ])
 def test_train_cli_refuses_unported_flags(argv, item, capsys):
@@ -436,6 +441,13 @@ def test_train_cli_refuses_unported_flags(argv, item, capsys):
         train_main(argv)
     assert e.value.code == 2
     assert f"ROADMAP {item}" in capsys.readouterr().err
+
+
+def test_train_cli_runs_the_engine(capsys):
+    """``--engine-partitions`` trains with the distributed engine."""
+    assert train_main(["gnn", "--dataset", "cora", "--engine-partitions",
+                       "2", "--steps", "5", "--device", "cpu"]) == 0
+    assert "[cpu] final test acc: " in capsys.readouterr().out
 
 
 CLI_JOB = ["gnn", "--dataset", "cora", "--strategy", "mini", "--compact",
