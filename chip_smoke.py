@@ -10,6 +10,7 @@ and check them.
     python3 chip_smoke.py --only runtime   # phases 1-2 and the runtime's 11
     python3 chip_smoke.py --only graphs    # phases 1-2 and the graphs' 14
     python3 chip_smoke.py --only engine    # phases 1-2 and the engine's 15
+    python3 chip_smoke.py --only examples  # phases 1-2 and the examples' 16
 
 Phases (each raises on failure, so the script exits non-zero):
 
@@ -98,7 +99,13 @@ Phases (each raises on failure, so the script exits non-zero):
     requests (prompts uniform in 512-2048 tokens, 128 new tokens each,
     batch 4) with its tokens/s, the kernel's launches per prefill batch,
     a profile of one short batch and the bf16 kernel-vs-plain
-    difference;
+    difference. The serving run decodes through one CUDA graph per
+    bucket (batch, cache length), captured once: a server on the same
+    weights decoding eagerly (``cuda_graphs=False``) must give the
+    replay's tokens and every round's logits bit for bit on the first
+    batch (32 new tokens), and decode tokens/s eager and replayed on that
+    batch (128 new tokens, eager / replay / replay / eager) are printed
+    with a JSON ``decode row``;
 13. serve RWKV-6 1.6B (24 layers, d 2048) the same way through the
     ``wkv6`` kernel (prompts of whole 128-token chunks, 512-2048; the
     parity gates also cover the prefill's final states).
@@ -137,7 +144,9 @@ Phases (each raises on failure, so the script exits non-zero):
     1e-4 * max(1, |loss|); the replayed fit bitwise equal to an eager
     one and to a second replayed fit; ``segment_sum``, ``segment_sum_bwd``,
     ``segment_max`` and ``segment_max_bwd`` launched, and no plain
-    version called. GCN and SAGE-max (the Reddit config) on reddit_like
+    version called (the halo max's backward counts its ties with
+    ``segment_sum`` and hands out the shares with ``segment_max_bwd``,
+    ROADMAP C.20). GCN and SAGE-max (the Reddit config) on reddit_like
     over global views, the same checks. The engine's chaos scenarios,
     each bitwise its clean run. Last, GAT-E global on a 200,000-node
     alipay_like graph at P=1 and P=4. Each run prints a JSON ``engine
@@ -147,6 +156,18 @@ Phases (each raises on failure, so the script exits non-zero):
     seconds. A ``gather row`` per width times ``index_select``, the
     engine's gathers, beside advanced indexing at the 200k graph's
     edges.
+16. the examples (run after phase 15), each ``main`` on the card:
+    ``examples/quickstart_torch.py`` (GCN on cora, 100 Adam steps, then
+    the facade: ``api.train`` -> ``api.serve``, certified once per
+    bucket), its losses within 1e-4 of the same script's CPU run, which
+    the phase also makes, and its test accuracy within 0.01;
+    ``examples/strategy_comparison_torch.py`` (the five rows of Tables
+    2-4 in miniature, 120 steps each, through one engine ``Trainer`` at
+    P=4): exactly one capture across the rows, and the global row run
+    again bitwise equal, one JSON ``strategy row`` each;
+    ``examples/distributed_training_torch.py`` (GAT-E on 8,000 alipay_like
+    nodes at P=8, 60 steps per strategy): one capture, and two fits
+    bitwise equal.
 
 Phase 3 also holds ``flash_attention`` (causal, non-causal, window,
 ``seq_len < T``, ``kv_start`` with fully masked rows, GQA 1 and 4, D 32,
@@ -235,6 +256,7 @@ LM_REQUESTS = 40                   # LM serving run: seeded requests,
 LM_PROMPTS = (512, 2048)           # prompt lengths uniform in this range,
 LM_NEW_TOKENS = 128                # new tokens each,
 LM_BATCH = 4                       # in batches of 4
+DECODE_CHECK_TOKENS = 32           # replay vs eager decode, new tokens
 
 
 def card_label() -> str:
@@ -1732,6 +1754,65 @@ def _state_rel(got_pre, want_pre) -> float:
                                                               want_pre))
 
 
+def _decode_graphs(arch: str, server, reqs, new_tokens: int) -> None:
+    """The decode-graph gates at the served bucket (phases 12-13): the
+    serving run captured its decode round once; a server on the same
+    weights with ``cuda_graphs=False`` decodes the first batch eagerly,
+    and its tokens and every round's logits must equal the replay's bit
+    for bit; decode tokens/s eager and under replay, in turns, on the
+    same batch (a record, not a gate)."""
+    import gc
+    import torch
+    from repro_torch.launch.serve import BatchServer, Request
+    B, bucket = server.batch_size, server.bucket
+    server.assert_compiled_per_bucket()
+    if server.captures != {bucket: 1}:
+        raise AssertionError(f"{arch}: decode captures {server.captures}, "
+                             f"expected one for the bucket {bucket}")
+    eager = BatchServer(arch, batch_size=B, cache_len=server.cache_len,
+                        reduced=False, seed=0, device=DEVICE,
+                        cuda_graphs=False,
+                        state_dict=server.model.state_dict())
+    first = reqs[:B]
+    rates = {"eager": [], "replay": []}
+    for name in ("eager", "replay", "replay", "eager"):
+        srv = eager if name == "eager" else server
+        srv.stats = type(srv.stats)()
+        srv.run([Request(r.rid, r.prompt, new_tokens) for r in first])
+        rates[name].append(srv.stats.decode_tokens / srv.stats.decode_s)
+    outs = {}
+    for name, srv in (("eager", eager), ("replay", server)):
+        batch = [Request(r.rid, r.prompt, DECODE_CHECK_TOKENS)
+                 for r in first]
+        srv.round_logits = []
+        srv.run(batch)
+        outs[name] = ([r.out for r in batch], srv.round_logits)
+        srv.round_logits = None
+    (et, el), (rt, rl) = outs["eager"], outs["replay"]
+    same = et == rt and len(el) == len(rl) and all(
+        bool(torch.equal(a, b)) for a, b in zip(el, rl))
+    server.assert_compiled_per_bucket()
+    print(f"  decode rounds as CUDA graphs, bucket (batch, cache) "
+          f"{bucket}: captures {server.captures}; decode tok/s eager "
+          f"{', '.join(f'{x:.1f}' for x in rates['eager'])}, replayed "
+          f"{', '.join(f'{x:.1f}' for x in rates['replay'])} (batch of "
+          f"{B}, prompts {[len(r.prompt) for r in first]}, {new_tokens} "
+          f"new tokens, eager / replay / replay / eager); replay vs eager "
+          f"over {len(rl)} rounds: tokens and logits "
+          f"{'bitwise equal' if same else 'NOT bitwise equal'}")
+    print("  decode row " + json.dumps({
+        "arch": arch, "bucket": list(bucket), "captures": 1,
+        "decode_tok_s_eager": rates["eager"],
+        "decode_tok_s_replay": rates["replay"],
+        "new_tokens": new_tokens, "prompts": [len(r.prompt) for r in first],
+        "bitwise": same}), flush=True)
+    del eager
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not same:
+        raise AssertionError(f"{arch}: replayed decode differs from eager")
+
+
 def serve_lm(arch: str, kernel: str, lengths, serve_lengths,
              new_tokens: int = LM_NEW_TOKENS) -> dict:
     """The parity gates and the bf16 serving run of one LM (see the
@@ -1846,6 +1927,8 @@ def serve_lm(arch: str, kernel: str, lengths, serve_lengths,
     if launches[kernel] != cfg.num_layers * n_batches:
         raise AssertionError(f"{arch}: {launches[kernel]} {kernel} "
                              f"launches, expected one per layer per batch")
+
+    _decode_graphs(arch, server, reqs, new_tokens)
 
     # a trace of one batch short enough to profile: the first prompts,
     # 16 new tokens
@@ -2908,7 +2991,7 @@ def engine_phase(label: str) -> dict:
                     ga, ("global", "mini", "cluster"), label, ENGINE_KERNELS,
                     repeat=True))
     # GCN's Sum stage and gathers are sums; SAGE-max's Sum stage is the
-    # max pair, its gathers' backward a sum
+    # max pair, its gathers' backward and its halo max's tie count sums
     for model, kernels in (("gcn", ("segment_sum", "segment_sum_bwd")),
                            ("sage_max", ("segment_max", "segment_max_bwd",
                                          "segment_sum"))):
@@ -2926,6 +3009,110 @@ def engine_phase(label: str) -> dict:
         add(_engine_run(f"gat_e {ENGINE_TIMING_NODES // 1000}k P={P}",
                         _engine_job("gnn_gat_e_alipay", "global", gt, P=P),
                         gt, ("global",), label, ENGINE_KERNELS))
+    return counts
+
+
+# -- phase 16: the examples --------------------------------------------------
+
+
+EXAMPLE_STEPS = 100                # the quickstart's, the verify skill's
+STRATEGY_STEPS = 120               # steps per strategy-comparison row
+DISTRIBUTED_STEPS = 180            # 60 per strategy, P=8
+EXAMPLE_LOSS_TOL = 1e-4            # card vs CPU quickstart losses
+EXAMPLE_ACC_TOL = 0.01             # card vs CPU test accuracy
+
+
+def _example(name: str):
+    """``examples/<name>.py`` as a module (its ``main`` not run)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"_ex_{name}", ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def examples_phase(label: str) -> dict:
+    """Phase 16: the three examples' ``main`` on the card. Returns the
+    launch counts of the card runs."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    counts = {k: 0 for k in KERNELS}
+
+    def add():
+        for k in counts:
+            counts[k] += ops.launches[k]
+        ops.reset_launches()
+
+    ops.reset_launches()
+    print(f"  quickstart: GCN on cora, {EXAMPLE_STEPS} Adam steps, on the "
+          "card (then the facade) and on the CPU:")
+    t0 = time.perf_counter()
+    card = _example("quickstart_torch").main("csc", DEVICE, EXAMPLE_STEPS)
+    card_s = time.perf_counter() - t0
+    add()
+    t0 = time.perf_counter()
+    cpu = _example("quickstart_torch").main("csc", "cpu", EXAMPLE_STEPS,
+                                            facade=False)
+    cpu_s = time.perf_counter() - t0
+    ops.reset_launches()
+    diff = float(np.abs(np.subtract(card["losses"], cpu["losses"])).max())
+    acc_diff = abs(card["test_acc"] - cpu["test_acc"])
+    print(f"    quickstart card vs CPU: loss {card['losses'][0]:.4f} -> "
+          f"{card['losses'][-1]:.4f} (CPU {cpu['losses'][0]:.4f} -> "
+          f"{cpu['losses'][-1]:.4f}), max |dloss| {diff:.3e} over "
+          f"{EXAMPLE_STEPS} steps (limit {EXAMPLE_LOSS_TOL}); test acc "
+          f"{card['test_acc']:.4f} vs {cpu['test_acc']:.4f} (limit "
+          f"{EXAMPLE_ACC_TOL}); facade test acc {card['facade_acc']:.4f}, "
+          f"server captures {_captures(card['server'])}; "
+          f"{card_s:.1f}s on the card with the facade, {cpu_s:.1f}s on "
+          f"the CPU [{label}]")
+    if (diff > EXAMPLE_LOSS_TOL or acc_diff > EXAMPLE_ACC_TOL
+            or not np.isfinite(card["losses"]).all()):
+        raise AssertionError(f"quickstart: card vs CPU losses {diff:.3e}, "
+                             f"accuracy {acc_diff:.4f}")
+
+    print(f"  strategy comparison: GCN on reddit_like (3,000 nodes), P=4, "
+          f"{STRATEGY_STEPS} steps per row:")
+    ex = _example("strategy_comparison_torch")
+    out = ex.main(DEVICE, STRATEGY_STEPS)
+    add()
+    tr = out["trainer"]
+    if not tr.graphs_on or tr.trace_counts["train_step"] != 1:
+        raise AssertionError(f"strategy comparison: captures "
+                             f"{tr.trace_counts}, expected one")
+    first = out["rows"][0]
+    again = ex.run(tr, out["graph"], out["clusters"], "global",
+                   STRATEGY_STEPS)
+    ops.reset_launches()
+    _bitwise("strategy comparison: the global row run again",
+             (again["losses"], again["params"]),
+             (first["losses"], first["params"]))
+    tr.assert_compiled_once()
+    for r in out["rows"]:
+        print("    strategy row " + json.dumps({
+            k: r[k] for k in ("strategy", "acc", "ms_per_step",
+                              "peak_active_nodes", "view_kb")}
+            | {"final_loss": r["losses"][-1], "card": label}), flush=True)
+
+    print(f"  distributed training: GAT-E on alipay_like (8,000 nodes), "
+          f"P=8, {DISTRIBUTED_STEPS // 3} steps per strategy, twice:")
+    ex = _example("distributed_training_torch")
+    argv = ["--device", DEVICE, "--steps", str(DISTRIBUTED_STEPS)]
+    a = ex.main(argv)
+    add()
+    b = ex.main(argv)
+    ops.reset_launches()
+    for run in (a, b):
+        tr = run["trainer"]
+        if not tr.graphs_on or tr.trace_counts["train_step"] != 1:
+            raise AssertionError(f"distributed training: captures "
+                                 f"{tr.trace_counts}, expected one")
+    flat = [x for k in ("global", "mini", "cluster") for x in a["losses"][k]]
+    _bitwise("distributed training: two fits at P=8",
+             ([x for k in ("global", "mini", "cluster")
+               for x in b["losses"][k]], b["params"]), (flat, a["params"]))
     return counts
 
 
@@ -2950,14 +3137,14 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only",
                     choices=["kernels", "gnn-times", "lm-times", "lm",
-                             "runtime", "graphs", "engine"],
+                             "runtime", "graphs", "engine", "examples"],
                     default=None,
                     help="kernels: stop after phase 3 (build and check the "
                     "kernels); gnn-times: phases 1-3 and the GNN kernels' "
                     "times; lm-times: phases 1-3 and the LM kernels' "
                     "times; lm: those and phases 12-13; runtime: phases "
                     "1-2 and 11; graphs: phases 1-2 and 14; engine: "
-                    "phases 1-2 and 15")
+                    "phases 1-2 and 15; examples: phases 1-2 and 16")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -2995,6 +3182,10 @@ def main(argv=None) -> int:
     if args.only == "engine":
         phase("15. the distributed engine (P=4 on one card)")
         engine_phase(label)
+        return 0
+    if args.only == "examples":
+        phase("16. the examples")
+        examples_phase(label)
         return 0
 
     phase("3. kernels vs plain, on the card")
@@ -3075,6 +3266,9 @@ def main(argv=None) -> int:
 
     phase("15. the distributed engine (P=4 on one card)")
     count(engine_phase(label))
+
+    phase("16. the examples")
+    count(examples_phase(label))
 
     for got in lm_phases(phase):
         count(got)

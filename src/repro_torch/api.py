@@ -153,15 +153,19 @@ def make_trainer(job: TrainJob):
     return trainer, views, eval_view, eval_mask, g, model
 
 
-def train(job: TrainJob, log=print) -> TrainResult:
+def train(job: TrainJob, log=None) -> TrainResult:
     """Run the job end to end: build graph, model and views, fit, check
     the trainer's contract, evaluate. Deterministic in ``job.seed``, bit
     for bit, on the CPU and on the card, for any prefetch pool: every
     scatter of the backward is a plan-order segment sum, with no atomics.
     A :class:`~repro_torch.runtime.TrainingInterrupted` (raised by
     ``fit`` between steps after a signal handler's request) saves a
-    checkpoint into ``job.checkpoint_dir`` on its way out."""
+    checkpoint into ``job.checkpoint_dir`` on its way out. ``log``
+    takes ``fit``'s progress lines (default: the ``repro_torch.api``
+    logger's ``info``, as the reference's ``api.py:199``)."""
     from repro_torch.runtime.faults import TrainingInterrupted
+    from repro_torch.utils import get_logger
+    log = log or get_logger("api").info
     trainer, views, eval_view, eval_mask, g, model = make_trainer(job)
     t0 = time.perf_counter()
     try:

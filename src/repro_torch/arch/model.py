@@ -145,20 +145,27 @@ class TransformerLM(nn.Module):
         return self._logits(h[:, -1:]), caches, S
 
     @torch.inference_mode()
-    def decode_step(self, batch: dict, caches: list, index: int):
+    def decode_step(self, batch: dict, caches: list, index):
         """One-token step: batch {"tokens": (B, 1)}, optionally the
         prompt's ``valid`` (B, P) and per-row ``positions`` (B, 1).
-        Returns (logits (B, 1, V), caches, index + 1)."""
+        ``index`` is the cache slot the token takes: an int, or a 0-d
+        int64 tensor on the device, which takes no host scalar (a CUDA
+        graph can capture the step) and gives the same bits. Returns
+        (logits (B, 1, V), caches, index + 1)."""
         x = self._embed(batch)
         positions = batch.get("positions")
+        on_device = torch.is_tensor(index)
         if positions is None:
-            positions = torch.full((1, 1), int(index), dtype=torch.int32,
-                                   device=x.device)
-        h, caches = self._backbone(x, positions=positions, caches=caches,
-                                   cache_index=int(index),
-                                   valid=batch.get("valid"))
+            positions = (index.reshape(1, 1).to(torch.int32) if on_device
+                         else torch.full((1, 1), int(index),
+                                         dtype=torch.int32, device=x.device))
+        h, caches = self._backbone(
+            x, positions=positions, caches=caches,
+            cache_index=index if on_device else int(index),
+            valid=batch.get("valid"))
         h = norm_apply(self.cfg, self.final_norm, h)
-        return self._logits(h), caches, int(index) + 1
+        return self._logits(h), caches, (index + 1 if on_device
+                                         else int(index) + 1)
 
 
 def build_model(cfg: ArchConfig, gen: Optional[torch.Generator] = None,

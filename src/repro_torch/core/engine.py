@@ -32,7 +32,8 @@ No scatter here is atomic, so a step is the same bits on every run:
 - the broadcast's gather of master values and the reduce's sum into
   them are a planned gather and a ``segment_sum`` over the shard's plan
   on ``send_idx`` (one the other's backward); the reduce's max is
-  ``segment_max`` over it;
+  ``segment_max`` over it, whose backward splits a tie evenly, as the
+  reference's scatter-max does (:class:`_HaloMax`);
 - valid ``recv_slot`` entries are unique, so moving values between the
   received buffer and the mirror slots is a copy both ways
   (:class:`_SlotCopy`).
@@ -46,13 +47,13 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from repro_torch.core.aggregate import (NEG, ShardContext, _CSCSegmentMax,
-                                        _CSCSegmentSum, combine,
-                                        get_backend, take)
+from repro_torch.core.aggregate import (NEG, ShardContext, _CSCSegmentSum,
+                                        combine, get_backend, take)
 from repro_torch.core.comm import Comm, default_comm
 from repro_torch.core.partition import ShardedGraph
 from repro_torch.core.tgar import TGARLayer, tree_take
 from repro_torch.device import resolve_device
+from repro_torch.kernels import ops
 from repro_torch.kernels.plan import CSCPlan
 
 VIEW_KEYS = ("node_active", "edge_active", "loss_mask")
@@ -99,13 +100,42 @@ def _bcast_array(arr, shard: "Shard", comm: Comm):
     return mir.reshape((-1,) + tuple(arr.shape[1:]))
 
 
+class _HaloMax(torch.autograd.Function):
+    """The halo's max over the send plan (``segment_max``), with the
+    reference's scatter-max rule for ties (``.at[].max``,
+    ``repro/core/engine.py:93-95``; ROADMAP C.20): the ``k`` entries tied
+    at a master's max each take ``g * (1 / k)``. Where the max is ``NEG``
+    the reference's ``NEG``-filled operand ties too, and so do the masked
+    entries it scatters there (``send_idx`` 0 where ``send_mask`` is 0);
+    ``neg_ties`` (rows,) counts both. No atomics: the ``segment_max_bwd``
+    kernel marks the ties, ``segment_sum`` counts them per row, and
+    ``segment_max_bwd`` again hands each tie its row's share."""
+
+    @staticmethod
+    def forward(ctx, data, plan: CSCPlan, neg_ties):
+        out = ops.segment_max_op(data, plan)
+        ctx.plan = plan
+        ctx.save_for_backward(data, out, neg_ties)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        if not ctx.needs_input_grad[0]:
+            return None, None, None
+        data, out, neg_ties = ctx.saved_tensors
+        plan = ctx.plan
+        hits = ops.segment_max_bwd_op(torch.ones_like(out), out, data, plan)
+        ties = ops.segment_sum_op(hits, plan) \
+            + (out == NEG) * neg_ties[:, None]
+        share = g * torch.reciprocal(torch.clamp_min(ties, 1.0))
+        return ops.segment_max_bwd_op(share, out, data, plan), None, None
+
+
 def _reduce_array(mir, shard: "Shard", comm: Comm, op: str = "sum"):
     """Mirror partials (L * n_mir_pad, ...) -> master accumulation (L *
     n_m_pad, ...). ``op="max"``: a master's max over the partials its
-    mirror holders sent, NEG where none did (``segment_max`` over the
-    send plan). Where several holders' partials tie, each takes the
-    master's full cotangent (the ``csc`` kernels' rule, ROADMAP C.1 and
-    C.20; the reference's scatter-max averages them)."""
+    mirror holders sent, NEG where none did, tied holders sharing the
+    cotangent evenly as in the reference (:class:`_HaloMax`)."""
     flat = _flat(mir)
     D = flat.shape[1]
     buf = _SlotCopy.apply(flat, shard.recv_take, shard.recv_mask,
@@ -121,7 +151,7 @@ def _reduce_array(mir, shard: "Shard", comm: Comm, op: str = "sum"):
     elif op == "max":
         got = torch.where(shard.send_mask[:, None] > 0, got,
                           torch.full_like(got, NEG))
-        out = _CSCSegmentMax.apply(got, shard.send_plan)
+        out = _HaloMax.apply(got, shard.send_plan, shard.neg_ties)
     else:
         raise ValueError(f"unknown halo reduce {op!r}")
     return out.reshape((-1,) + tuple(mir.shape[1:]))
@@ -156,6 +186,7 @@ class Shard:
     send_plan: CSCPlan            # over send_ids: rows = master slots
     send_ids: torch.Tensor        # (L * P * s_pad,) int32 master rows
     send_mask: torch.Tensor       # (L * P * s_pad,)
+    neg_ties: torch.Tensor        # (L * n_m_pad,) ties of a NEG max
     recv_take: torch.Tensor       # (L * P * s_pad,) int32 mirror rows
     recv_mask: torch.Tensor       # (L * P * s_pad,)
     mirror_take: torch.Tensor     # (L * n_mir_pad,) int32 received rows
@@ -252,6 +283,10 @@ class HybridParallelEngine:
         mirror_take = np.zeros(L * n_mir, np.int64)
         valid = recv_mask > 0
         mirror_take[recv_take[valid]] = np.flatnonzero(valid.reshape(-1))
+        # a NEG max ties the reference's operand and the masked entries
+        # it scatters to the row (_HaloMax)
+        send_pad = plan.send_mask[part].reshape(L, -1) <= 0
+        neg_ties = 1 + np.bincount(send_ids[send_pad], minlength=L * n_m)
         plans = plan.local_plans(a, L)
 
         def t(x, dtype=None):
@@ -278,6 +313,7 @@ class HybridParallelEngine:
             send_plan=plans["send"].to(self.device, copy=True),
             send_ids=t(send_ids.reshape(-1), torch.int32),
             send_mask=t(plan.send_mask[part].reshape(-1)),
+            neg_ties=t(neg_ties.astype(np.float32)),
             recv_take=t(recv_take.reshape(-1), torch.int32),
             recv_mask=t(recv_mask.reshape(-1)),
             mirror_take=t(mirror_take, torch.int32),

@@ -47,6 +47,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import itertools
 import math
 import os
@@ -182,12 +183,31 @@ class CapturedStep:
         return self.out
 
 
+@contextlib.contextmanager
+def _no_collection():
+    """Python's cycle collector held off for the block, after one
+    collection. A collection inside a capture may free an unreachable
+    captured graph, whose ``cudaGraphExecDestroy`` is not permitted while
+    a stream captures: it invalidates the capture (CUDA error 901 at the
+    next launch, ROADMAP C.22)."""
+    gc.collect()
+    was_enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if was_enabled:
+            gc.enable()
+
+
 def capture(fn, static, side, lock=None, load=load_block) -> CapturedStep:
     """Capture ``fn(static)`` into a CUDA graph on the stream ``side``
     (the one its warm-up ran on), holding ``lock`` so that no staging
-    thread touches the device meanwhile. A failed capture raises."""
+    thread touches the device meanwhile, and the cycle collector off
+    (:func:`_no_collection`). A failed capture raises."""
     graph = torch.cuda.CUDAGraph()
-    with (lock or contextlib.nullcontext()), ops.capture_tally() as tally:
+    with (lock or contextlib.nullcontext()), ops.capture_tally() as tally, \
+            _no_collection():
         with torch.cuda.graph(graph, stream=side,
                               capture_error_mode="thread_local"):
             out = fn(static)

@@ -5,7 +5,11 @@ Requests arrive with prompts of varying length, are left-padded into
 prefill batches, and decode proceeds in lockstep rounds over a fixed
 cache. On the card, prefill runs the ``flash_attention`` kernel
 (Qwen3) or the ``wkv6`` kernel (RWKV-6); decode is plain PyTorch, as in
-the reference.
+the reference, and its round is one CUDA graph per bucket (batch size
+and cache length): the reference compiles ``decode_step`` once
+(``repro/launch/serve.py:76-78``), the port captures it once
+(:class:`DecodeGraph`) and replays it every round. ``cuda_graphs=False``
+decodes eagerly on the card, as the CPU always does.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-4b \
         --requests 8 --new-tokens 16 --device cpu
@@ -27,6 +31,7 @@ import torch
 
 from repro_torch.arch import build_model
 from repro_torch.config import get_arch_config
+from repro_torch.core.trainer import _assert_once_per_bucket, capture, warm_up
 from repro_torch.device import resolve_device
 
 
@@ -50,6 +55,86 @@ class ServerStats:
     decode_tokens: int = 0
 
 
+def _carry(static, new) -> None:
+    """Copy the leaves of a decode step's returned cache ``new`` into the
+    fixed buffers ``static`` where they are other tensors (RWKV's
+    ``last`` and ``state``; attention writes its cache in place)."""
+    if torch.is_tensor(static):
+        if new is not static:
+            static.copy_(new)
+        return
+    items = static.items() if isinstance(static, dict) else enumerate(static)
+    for k, v in items:
+        _carry(v, new[k])
+
+
+class DecodeGraph:
+    """One bucket's decode round over fixed buffers: the round's tokens
+    (B, 1), positions (B, 1), validity mask over every cache slot (B,
+    cache_len), the cache slot as a 0-d tensor, and the caches, which the
+    round reads and writes in place. A round returns ``(logits (B, 1, V),
+    argmax tokens (B,))``.
+
+    On the card the first round runs eagerly on a side stream, then is
+    captured into a CUDA graph over the buffers (``core/trainer.py``'s
+    ``warm_up`` and ``capture``); every later round, whatever the batch,
+    loads its inputs and replays. Its outputs are the graph's and stay
+    valid until the next round. On the CPU the rounds run eagerly through
+    the same buffers."""
+
+    def __init__(self, model, batch_size: int, cache_len: int):
+        self.model = model
+        dev = model.device
+        self.graphs_on = dev.type == "cuda"
+        with torch.inference_mode():
+            self.static = {
+                "tokens": torch.zeros((batch_size, 1), dtype=torch.int64,
+                                      device=dev),
+                "positions": torch.zeros((batch_size, 1),
+                                         dtype=torch.int32, device=dev),
+                "valid": torch.ones((batch_size, cache_len),
+                                    dtype=torch.bool, device=dev),
+                "index": torch.zeros((), dtype=torch.int64, device=dev),
+                "caches": model.init_cache(batch_size, cache_len)}
+        self.captures = 0
+        self._step = None
+        self._side = None
+
+    def _round(self, s):
+        logits, new, _ = self.model.decode_step(
+            {"tokens": s["tokens"], "valid": s["valid"],
+             "positions": s["positions"]}, s["caches"], s["index"])
+        _carry(s["caches"], new)
+        return logits, torch.argmax(logits[:, -1], -1)
+
+    @torch.inference_mode()
+    def start(self, caches, valid: torch.Tensor) -> None:
+        """A new batch: its prefill's caches and its prompt's left-pad
+        mask (B, P) into the buffers (slots past the prompt valid)."""
+        _carry(self.static["caches"], caches)
+        v = self.static["valid"]
+        v.fill_(True)
+        v[:, :valid.shape[1]] = valid
+
+    @torch.inference_mode()
+    def __call__(self, tokens: torch.Tensor, positions: torch.Tensor,
+                 index: int):
+        s = self.static
+        s["tokens"].copy_(tokens)
+        s["positions"].copy_(positions)
+        s["index"].fill_(index)
+        if not self.graphs_on:
+            return self._round(s)
+        if self._step is not None:
+            return self._step.replay(None)
+        self._side = torch.cuda.Stream(s["tokens"].device)
+        out = warm_up(self._round, s, self._side)
+        self._step = capture(self._round, s, self._side,
+                             load=lambda static, _: None)
+        self.captures += 1
+        return out
+
+
 class BatchServer:
     """Fixed-batch lockstep server (padding inactive slots).
 
@@ -63,13 +148,18 @@ class BatchServer:
     The weights are random, drawn from a ``torch.Generator`` seeded with
     ``seed`` on ``device`` (the card unless ``device="cpu"``), unless a
     ``state_dict`` is given (e.g. the JAX server's params through
-    :func:`repro_torch.weights.lm_params_from_jax`).
+    :func:`repro_torch.weights.lm_params_from_jax`). On the card a decode
+    round is one CUDA graph per bucket, ``(batch_size, cache_len)``
+    (:class:`DecodeGraph`), unless ``cuda_graphs=False``;
+    :meth:`assert_compiled_per_bucket` certifies one capture per touched
+    bucket, the reference's rule.
     """
 
     def __init__(self, arch: str, batch_size: int, cache_len: int,
                  reduced: bool = True, seed: int = 0, rolling: bool = True,
                  greedy: bool = True, device=None,
-                 state_dict: Optional[Mapping] = None):
+                 state_dict: Optional[Mapping] = None,
+                 cuda_graphs: bool = True):
         cfg = get_arch_config(arch)
         if reduced:
             cfg = cfg.reduced().replace(dtype="float32")
@@ -84,6 +174,13 @@ class BatchServer:
         self.cache_len = cache_len
         self.greedy = greedy
         self.stats = ServerStats()
+        self.graphs_on = bool(cuda_graphs) and self.device.type == "cuda"
+        self.bucket = (batch_size, cache_len)   # the decode graph's shapes
+        self.batches = 0
+        # a list here keeps every decode round's logits (float32, on the
+        # CPU: a sync a round), for comparisons
+        self.round_logits: Optional[list] = None
+        self._graph: Optional[DecodeGraph] = None
 
     def _pad_prompts(self, reqs: List[Request]):
         """Left-pad to a common length plus the pad-correction tensors:
@@ -130,13 +227,26 @@ class BatchServer:
 
         for i, r in enumerate(reqs):
             r.out.append(int(first[i]))
+        self.batches += 1
         t0 = time.perf_counter()
+        if self.graphs_on:
+            if self._graph is None:
+                self._graph = DecodeGraph(self.model, *self.bucket)
+            graph = self._graph
+            graph.start(caches, valid)
+            del caches
         while not all(r.done for r in reqs):
             step_pos = (idx - pads)[:, None].to(torch.int32)
-            logits, caches, idx = self.model.decode_step(
-                {"tokens": cur[:, None], "valid": valid,
-                 "positions": step_pos}, caches, idx)
-            cur = torch.argmax(logits[:, -1], -1)
+            if self.graphs_on:
+                logits, cur = graph(cur[:, None], step_pos, idx)
+                idx += 1
+            else:
+                logits, caches, idx = self.model.decode_step(
+                    {"tokens": cur[:, None], "valid": valid,
+                     "positions": step_pos}, caches, idx)
+                cur = torch.argmax(logits[:, -1], -1)
+            if self.round_logits is not None:
+                self.round_logits.append(logits.float().cpu())
             got = cur.tolist()
             self.stats.decode_tokens += sum(not r.done for r in reqs)
             for i, r in enumerate(reqs):
@@ -144,6 +254,23 @@ class BatchServer:
                     r.out.append(int(got[i]))
         self.stats.decode_s += time.perf_counter() - t0
         return self.stats
+
+    @property
+    def captures(self) -> dict:
+        """Decode graphs captured, by bucket."""
+        return {} if self._graph is None else {
+            self.bucket: self._graph.captures}
+
+    def assert_compiled_per_bucket(self) -> None:
+        """Exactly one decode capture for the server's bucket once it has
+        decoded under CUDA graphs (``RetraceError`` otherwise); eager,
+        that decode ran."""
+        touched = int(self.batches > 0)
+        if self.graphs_on:
+            _assert_once_per_bucket(sum(self.captures.values()), touched,
+                                    "decode step")
+        elif touched == 0:
+            _assert_once_per_bucket(0, 0, "decode step")
 
 
 def main(argv=None) -> int:

@@ -26,6 +26,9 @@ from repro_torch.config import GNNConfig
 from repro_torch.graph import Graph, make_dataset
 from repro_torch.models import make_gnn
 from repro_torch.serving import GNNServer
+from repro_torch.utils import get_logger
+
+log = get_logger("serve_gnn")
 
 
 def request_trace(g, n_requests: int, seed: int = 0,
@@ -170,10 +173,14 @@ def main(argv=None):
 
     import repro_torch.api as api
     if args.steps > 0:
+        log.info("training %s/%s for %d steps ...", args.model,
+                 args.dataset, args.steps)
         result = api.train(api.TrainJob(
             dataset=args.dataset, model=args.model, num_layers=args.layers,
             hidden=args.hidden, steps=args.steps, seed=args.seed,
             eval_every=max(1, args.steps - 1), device=args.device))
+        log.info("trained: final_acc=%.4f (%.1fs)", result.final_acc,
+                 result.wall_s)
         print(f"[{result.trainer.device}] trained {args.steps} steps: "
               f"final test acc {result.final_acc:.4f}")
         g = result.graph

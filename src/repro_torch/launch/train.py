@@ -68,45 +68,21 @@ def stop_between_steps_on_signals():
         take_interrupt()   # a request that came after the last step
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser()
-    sub = ap.add_subparsers(dest="cmd", required=True)
-    g = sub.add_parser("gnn")
-    g.add_argument("--dataset", default="cora")
-    g.add_argument("--model", default="gcn",
-                   choices=["gcn", "sage", "sage_max", "gat", "gat_e"])
-    g.add_argument("--strategy", default="global",
-                   choices=["global", "mini", "cluster"])
-    g.add_argument("--steps", type=int, default=100)
-    g.add_argument("--hidden", type=int, default=64)
-    g.add_argument("--layers", type=int, default=2)
-    g.add_argument("--lr", type=float, default=1e-2)
-    g.add_argument("--compact", action="store_true",
-                   help="compact sampled-subgraph views for mini/cluster "
-                        "(default: dense mask views over the whole graph)")
-    g.add_argument("--halo-hops", type=int, default=0,
-                   help="cluster strategy: boundary halo hops")
-    g.add_argument("--device", default=None,
-                   help="cuda (the default) or cpu")
-    g.add_argument("--engine-partitions", type=int, default=0,
-                   help="train with the hybrid-parallel engine over this "
-                        "many partitions of the graph, all in this "
-                        "process on the one device (0 = the bucketed "
-                        "single-block trainer)")
-    g.add_argument("--partition-method", default="1d_src",
-                   choices=["1d_src", "1d_dst", "vertex_cut"],
-                   help="how the engine assigns edges to partitions")
-    g.add_argument("--prefetch-workers", type=int, default=None,
-                   help="view builders (default: min(4, cores-1); the "
-                        "trajectory is the same for any count)")
-    g.add_argument("--prefetch-mode", default="thread",
-                   choices=["thread", "process"],
-                   help="view construction pool: in-process threads "
-                        "(default) or supervised sampler processes over "
-                        "shared memory (the same trajectory; degrades to "
-                        "threads with a warning where shared memory is "
-                        "unavailable)")
-    ft = g.add_argument_group(
+def add_runtime_flags(ap) -> None:
+    """The view pool's and the fault-tolerant runtime's flags, read by
+    :func:`fault_policy_from` and passed to ``fit`` (this CLI's and the
+    distributed example's)."""
+    ap.add_argument("--prefetch-workers", type=int, default=None,
+                    help="view builders (default: min(4, cores-1); the "
+                         "trajectory is the same for any count)")
+    ap.add_argument("--prefetch-mode", default="thread",
+                    choices=["thread", "process"],
+                    help="view construction pool: in-process threads "
+                         "(default) or supervised sampler processes over "
+                         "shared memory (the same trajectory; degrades to "
+                         "threads with a warning where shared memory is "
+                         "unavailable)")
+    ft = ap.add_argument_group(
         "fault tolerance",
         "the supervised training runtime (repro_torch.runtime): retries "
         "with capped exponential backoff, divergence recovery, "
@@ -149,6 +125,37 @@ def main(argv=None) -> int:
                          "fresh start if there is none")
     ft.add_argument("--keep-checkpoints", type=int, default=0, metavar="K",
                     help="keep only the newest K checkpoints (0 = all)")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    sub = ap.add_subparsers(dest="cmd", required=True)
+    g = sub.add_parser("gnn")
+    g.add_argument("--dataset", default="cora")
+    g.add_argument("--model", default="gcn",
+                   choices=["gcn", "sage", "sage_max", "gat", "gat_e"])
+    g.add_argument("--strategy", default="global",
+                   choices=["global", "mini", "cluster"])
+    g.add_argument("--steps", type=int, default=100)
+    g.add_argument("--hidden", type=int, default=64)
+    g.add_argument("--layers", type=int, default=2)
+    g.add_argument("--lr", type=float, default=1e-2)
+    g.add_argument("--compact", action="store_true",
+                   help="compact sampled-subgraph views for mini/cluster "
+                        "(default: dense mask views over the whole graph)")
+    g.add_argument("--halo-hops", type=int, default=0,
+                   help="cluster strategy: boundary halo hops")
+    g.add_argument("--device", default=None,
+                   help="cuda (the default) or cpu")
+    g.add_argument("--engine-partitions", type=int, default=0,
+                   help="train with the hybrid-parallel engine over this "
+                        "many partitions of the graph, all in this "
+                        "process on the one device (0 = the bucketed "
+                        "single-block trainer)")
+    g.add_argument("--partition-method", default="1d_src",
+                   choices=["1d_src", "1d_dst", "vertex_cut"],
+                   help="how the engine assigns edges to partitions")
+    add_runtime_flags(g)
     sub.add_parser("lm", help="not ported yet (ROADMAP A.12)")
     args = ap.parse_args(argv)
 

@@ -128,14 +128,19 @@ def attention_apply(p, x: torch.Tensor, *, num_heads: int, num_kv_heads: int,
 
     - train/prefill without a cache: self attention over x (``_sdpa``).
     - with a cache {"k","v"} (B, S_max, Hkv, hd): the new kv is written at
-      ``cache_index`` (an int) and ``(out, cache)`` returned. A prefill
+      ``cache_index`` and ``(out, cache)`` returned. ``cache_index`` is an
+      int, or for decode a 0-d int64 tensor on the device: no host
+      scalar, so the step can be captured into a CUDA graph, and the same
+      bits as the int. A prefill
       (``cache_index == 0``, more than one token) attends over the prompt
       through the ``flash_attention`` kernel, with ``valid``'s left pad as
       the per-row ``kv_start``; decode attends over the whole cache with
       ``_sdpa``.
     - ``valid``: (B, P) bool, which of the first P cache slots hold real
       tokens. Prefill passes the prompt's pad mask; decode keeps passing
-      it so the pad K/Vs stay masked out of every later step.
+      it so the pad K/Vs stay masked out of every later step (or a mask
+      over all S_max slots, True past the prompt: a shape fixed by the
+      cache, which a captured decode reads).
     - ``kv_start``: (B,) int32, ``left_pad_starts(valid)``. A prefill
       through many layers computes it once and passes it to each; left
       ``None``, the prefill computes it here from ``valid``.
@@ -169,34 +174,43 @@ def attention_apply(p, x: torch.Tensor, *, num_heads: int, num_kv_heads: int,
         k = apply_rope(k, kpos, rope_theta)
 
     if cache is not None:
-        idx = int(cache_index)
-        cache["k"][:, idx:idx + Sq] = k.to(cache["k"].dtype)
-        cache["v"][:, idx:idx + Sq] = v.to(cache["v"].dtype)
-        if idx == 0 and Sq > 1:
-            # prefill: the prompt's keys are the cache's first Sq slots
-            # and every later slot is masked, so attend over k, v alone
-            if valid is not None:
-                if valid.shape[1] != Sq:
-                    raise ValueError(f"prefill valid mask covers "
-                                     f"{valid.shape[1]} slots, the prompt "
-                                     f"{Sq}")
-                if kv_start is None:
-                    kv_start = left_pad_starts(valid)
-            out = ops.flash_attention_op(
-                q.reshape(B, Sq, num_heads, head_dim).contiguous(),
-                k.contiguous(), v.contiguous(), causal=True,
-                sliding_window=sliding_window, kv_start=kv_start)
-            out = out.reshape(B, Sq, num_heads * head_dim).to(x.dtype)
-            return out @ p["wo"], cache
+        if torch.is_tensor(cache_index):
+            # decode at a device index: no host scalar, so a CUDA graph
+            # captures the step once and replays it at every index
+            start = cache_index.reshape(()).to(torch.int64)
+        else:
+            start = int(cache_index)
+            if start == 0 and Sq > 1:
+                # prefill: the prompt's keys are the cache's first Sq
+                # slots and every later slot is masked, so attend over
+                # k, v alone
+                cache["k"][:, :Sq] = k.to(cache["k"].dtype)
+                cache["v"][:, :Sq] = v.to(cache["v"].dtype)
+                if valid is not None:
+                    if valid.shape[1] != Sq:
+                        raise ValueError(f"prefill valid mask covers "
+                                         f"{valid.shape[1]} slots, the "
+                                         f"prompt {Sq}")
+                    if kv_start is None:
+                        kv_start = left_pad_starts(valid)
+                out = ops.flash_attention_op(
+                    q.reshape(B, Sq, num_heads, head_dim).contiguous(),
+                    k.contiguous(), v.contiguous(), causal=True,
+                    sliding_window=sliding_window, kv_start=kv_start)
+                out = out.reshape(B, Sq, num_heads * head_dim).to(x.dtype)
+                return out @ p["wo"], cache
+        pos = start + torch.arange(Sq, dtype=torch.int64, device=x.device)
+        cache["k"].index_copy_(1, pos, k.to(cache["k"].dtype))
+        cache["v"].index_copy_(1, pos, v.to(cache["v"].dtype))
+        q_pos = pos.to(torch.int32)[None]
         ck, cv = cache["k"], cache["v"]
         S_max = ck.shape[1]
         k_pos = torch.arange(S_max, dtype=torch.int32, device=x.device)[None]
-        q_pos = (idx + torch.arange(Sq, dtype=torch.int32,
-                                    device=x.device))[None]
-        k_valid = k_pos <= (idx + Sq - 1)
+        k_valid = k_pos <= q_pos[:, -1:]
         if valid is not None:
             # left-pad slots written at prefill stay in the cache; mask
-            # them out of this and every later step's attention
+            # them out of this and every later step's attention (a mask
+            # of all S_max slots is taken as it is)
             P = valid.shape[1]
             vfull = torch.ones((B, S_max), dtype=torch.bool,
                                device=x.device)

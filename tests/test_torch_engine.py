@@ -1,7 +1,8 @@
 """The port's hybrid-parallel engine against the JAX package's, on the CPU.
 
 - The halo exchange: float64 gradchecks of the broadcast and both
-  reduces; the halo max's tie rule (ROADMAP C.20); two runs bit for bit.
+  reduces; the halo max's tie gradients against ``jax.grad`` of the
+  reference's scatter-max (ROADMAP C.20); two runs bit for bit.
 - The engine (``LocalComm``, P=4) against JAX ``loss_block`` on one
   block, the same params through ``params_from_jax``, for every GNN
   model, strategy and Sum-stage backend: loss and gradients within 1e-4,
@@ -19,6 +20,7 @@
 import functools
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -157,51 +159,112 @@ def test_halo_exchange_gradcheck_float64(op):
     assert torch.autograd.gradcheck(fn, (x,))
 
 
-def _shared_master(plan):
-    """(owner p, master slot, [(holder q, mirror slot), ...]) of a node
-    mirrored on two partitions."""
+def _holders(plan):
+    """{(owner p, master slot): [(holder q, mirror slot), ...]} of every
+    mirrored master."""
+    out = {}
     for p in range(plan.P):
-        for slot in range(plan.n_m_pad):
-            hit = [(q, int(plan.recv_slot[q, p, i]))
-                   for q in range(plan.P)
-                   for i in np.flatnonzero((plan.send_idx[p, q] == slot)
-                                           & (plan.send_mask[p, q] > 0))]
-            if len(hit) >= 2:
-                return p, slot, hit[:2]
-    raise AssertionError("no master mirrored on two partitions")
+        for q in range(plan.P):
+            for i in np.flatnonzero(plan.send_mask[p, q] > 0):
+                out.setdefault((p, int(plan.send_idx[p, q, i])), []).append(
+                    (q, int(plan.recv_slot[q, p, i])))
+    return out
 
 
-def test_halo_max_tie_rule():
-    """ROADMAP C.20. A master whose own partial ties the halo's splits the
-    cotangent evenly between them (``torch.maximum``, as ``jnp.maximum``);
-    mirror holders whose partials tie each take the halo's full share
-    (the ``csc`` kernels' rule; the reference's scatter-max averages
-    them): here 0.5 to the owner's partial and 0.5 to each holder's."""
-    eng = _small_engine()
+def _jax_halo_max_grads(plan, local, mir, g):
+    """``jax.grad`` of the reference's own halo max, finalized as its
+    ``_finalize`` does (``jnp.maximum`` of the local partial and the
+    scatter-max ``repro/core/engine.py:_reduce_array``), one shard per
+    ``vmap`` lane over the same plan arrays: (d local, d mir) as numpy,
+    shard-major."""
+    from repro.core.aggregate import ShardContext as JaxShardContext
+    from repro.core.aggregate import _finalize as jax_finalize
+    from repro.core.engine import _reduce_array as jax_reduce
+    P, n_m, n_mir = plan.P, plan.n_m_pad, plan.n_mir_pad
+
+    def shard_out(lo, mi, send_idx, send_mask, recv_slot, recv_mask):
+        ctx = JaxShardContext(
+            n_master=n_m, bcast=None,
+            reduce=lambda a, op: jax_reduce(a, send_idx, send_mask,
+                                            recv_slot, recv_mask, n_m,
+                                            "p", op))
+        return jax_finalize(jnp.concatenate([lo, mi]), ctx, "max")
+
+    def total(lo, mi):
+        out = jax.vmap(shard_out, axis_name="p")(
+            lo, mi, plan.send_idx, plan.send_mask, plan.recv_slot,
+            plan.recv_mask)
+        return jnp.sum(out * g.reshape(out.shape))
+
+    dl, dm = jax.grad(total, argnums=(0, 1))(
+        jnp.asarray(local.reshape(P, n_m, -1)),
+        jnp.asarray(mir.reshape(P, n_mir, -1)))
+    return np.asarray(dl).reshape(local.shape), \
+        np.asarray(dm).reshape(mir.shape)
+
+
+def _tie_layout(plan, layout: str, rng):
+    """(local (P * n_m, 2), mir (P * n_mir, 2)) partials over small
+    integers, so that many rows tie, with ``layout``'s master set up on
+    top: its holders (two or three) tied at the row's max above the
+    owner's partial, or tied with it, or every partial ``NEG``."""
+    from repro_torch.core.aggregate import NEG
+    P, n_m, n_mir = plan.P, plan.n_m_pad, plan.n_mir_pad
+    local = rng.integers(0, 3, (P * n_m, 2)).astype(np.float32)
+    mir = rng.integers(0, 3, (P * n_mir, 2)).astype(np.float32)
+    if layout == "all_neg":
+        # masked entries scatter NEG onto slot 0 of each shard, so those
+        # rows count them among the ties too
+        return np.full_like(local, NEG), np.full_like(mir, NEG)
+    want = 3 if layout == "three_holders" else 2
+    (p, slot), hs = next((k, v) for k, v in _holders(plan).items()
+                         if len(v) == want)
+    local[p * n_m + slot] = 5.0 if layout == "local_tie" else 1.0
+    for q, ms in hs:
+        mir[q * n_mir + ms] = 5.0
+    return local, mir
+
+
+@pytest.mark.parametrize("layout", ["two_holders", "three_holders",
+                                    "local_tie", "all_neg"])
+def test_halo_max_tie_rule(layout):
+    """ROADMAP C.20. The halo max's gradients are ``jax.grad`` of the
+    reference's scatter-max and ``jnp.maximum`` on the same plan and
+    partials, over every row at once: k tied holders share a master's
+    cotangent (1/k each), a tie with the owner's partial halves it
+    first (two holders tied with it: 0.5 to it, 0.25 to each), and a
+    ``NEG`` row shares it with the reference's ``NEG`` operand and the
+    masked entries scattered there."""
+    eng = _small_engine(4)
     shard, comm, plan = eng._device_data, eng.comm, eng.plan
-    p, slot, holders = _shared_master(plan)
     n_m, n_mir = plan.n_m_pad, plan.n_mir_pad
-    local = torch.zeros(shard.L * n_m, 1)
-    mir = torch.zeros(shard.L * n_mir, 1)
-    local[p * n_m + slot] = 2.0
-    for q, ms in holders:
-        mir[q * n_mir + ms] = 2.0
-    local.requires_grad_()
-    mir.requires_grad_()
+    rng = np.random.default_rng(3)
+    local_np, mir_np = _tie_layout(plan, layout, rng)
+    g = rng.normal(size=local_np.shape).astype(np.float32)
+    want_local, want_mir = _jax_halo_max_grads(plan, local_np, mir_np, g)
+
+    local = torch.from_numpy(local_np).requires_grad_()
+    mir = torch.from_numpy(mir_np).requires_grad_()
     ctx = ShardContext(n_m, n_mir,
                        reduce=lambda a, op: _reduce_array(a, shard, comm,
                                                           op),
                        bcast=lambda a: _bcast_array(a, shard, comm))
     out = _finalize(ctx.join(local, mir), ctx, "max")
-    assert float(out.detach()[p * n_m + slot]) == 2.0
-    g = torch.zeros_like(out)
-    g[p * n_m + slot] = 1.0
-    out.backward(g)
-    assert float(local.grad[p * n_m + slot]) == 0.5
-    for q, ms in holders:
-        assert float(mir.grad[q * n_mir + ms]) == 0.5
-    assert float(local.grad.sum()) == 0.5
-    assert float(mir.grad.sum()) == 0.5 * len(holders)
+    out.backward(torch.from_numpy(g))
+    np.testing.assert_array_equal(local.grad.numpy(), want_local)
+    np.testing.assert_array_equal(mir.grad.numpy(), want_mir)
+
+    if layout == "all_neg":
+        return
+    want = 3 if layout == "three_holders" else 2
+    (p, slot), hs = next((k, v) for k, v in _holders(plan).items()
+                         if len(v) == want)
+    share = 0.5 / want if layout == "local_tie" else 1.0 / want
+    got = [float(mir.grad[q * n_mir + ms, 0]) for q, ms in hs]
+    gp = float(g[p * n_m + slot, 0])
+    assert got == pytest.approx([gp * share] * want, rel=1e-6)
+    assert float(local.grad[p * n_m + slot, 0]) == pytest.approx(
+        gp * 0.5 if layout == "local_tie" else 0.0, rel=1e-6)
 
 
 @pytest.mark.parametrize("model", ["gat_e", "sage_max"])

@@ -15,7 +15,8 @@ On the CPU:
   captures (none).
 
 The ``cuda`` twins check on the card that replay is bitwise equal to eager
-and that each bucket is captured once::
+and that each bucket is captured once, for the GNN steps and the LM
+decode round::
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_graphs.py
 
@@ -380,3 +381,85 @@ def test_cuda_engine_restore_and_reset_keep_the_captured_step_live(
     first, again, fresh = runs[1]
     assert again == first[3:] and fresh == first[:4]
     tr.assert_compiled_once()
+
+
+# -- LM decode: one CUDA graph per bucket ---------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen3-4b", "rwkv6-1.6b"])
+def test_cuda_lm_decode_captured_once_replays_eager(arch, cuda):
+    """The reduced model served on the card, two batches of mixed-length
+    prompts: the captured decode round gives eager decode's tokens and
+    every round's logits bit for bit, and is captured once for the
+    bucket (batch 2, cache 40) across both batches."""
+    from repro_torch.launch.serve import BatchServer, Request
+    lengths = ((9, 4), (3, 12))
+    runs = {}
+    for graphs in (False, True):
+        srv = BatchServer(arch, batch_size=2, cache_len=40, seed=0,
+                          device=cuda, cuda_graphs=graphs)
+        srv.round_logits = []
+        vocab = srv.cfg.vocab_size
+        prompts = [np.random.default_rng(n).integers(0, vocab, n)
+                   .astype(np.int32) for pair in lengths for n in pair]
+        reqs = [Request(i, p, 6) for i, p in enumerate(prompts)]
+        srv.run(reqs[:2])
+        srv.run(reqs[2:])
+        srv.assert_compiled_per_bucket()
+        runs[graphs] = ([r.out for r in reqs], srv.round_logits, srv)
+    assert runs[True][2].captures == {(2, 40): 1}
+    assert runs[False][2].captures == {}
+    assert runs[True][0] == runs[False][0]
+    assert len(runs[True][1]) == len(runs[False][1]) == 10
+    for a, b in zip(runs[True][1], runs[False][1]):
+        assert torch.equal(a, b)
+
+
+def test_capture_holds_the_collector_off():
+    """A collection inside a capture could free an unreachable captured
+    graph, whose destruction invalidates the capture (ROADMAP C.22): the
+    collector runs once before and not during it, and is restored."""
+    import gc
+    from repro_torch.core.trainer import _no_collection
+    assert gc.isenabled()
+    with _no_collection():
+        assert not gc.isenabled()
+    assert gc.isenabled()
+    gc.disable()
+    try:
+        with _no_collection():
+            pass
+        assert not gc.isenabled()
+    finally:
+        gc.enable()
+
+
+@pytest.mark.cuda
+def test_cuda_capture_survives_garbage_holding_a_graph(cuda):
+    """An unreachable cycle that holds a captured graph, made after the
+    warm-up and just before a capture whose step allocates enough Python
+    objects to set off the collector: the capture succeeds and
+    replays."""
+    from repro_torch.core.trainer import capture, warm_up
+    side = torch.cuda.Stream(cuda)
+    x = torch.ones(64, device=cuda)
+
+    def load(static, new):
+        static.copy_(new)
+
+    def garbage():
+        warm_up(lambda s: s * 2, x, side)
+        cycle = {"step": capture(lambda s: s * 2, x, side, load=load)}
+        cycle["self"] = cycle
+
+    def fn(s):
+        junk = [[i] for i in range(20_000)]   # past gen-0's threshold
+        del junk
+        return s + 1
+
+    warm_up(fn, x, side)
+    garbage()
+    step = capture(fn, x, side, load=load)
+    out = step.replay(torch.full((64,), 2.0, device=cuda))
+    assert torch.equal(out, torch.full((64,), 3.0, device=cuda))

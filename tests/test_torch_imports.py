@@ -1,5 +1,6 @@
-"""The port stands alone: ``src/repro_torch`` and ``chip_smoke.py`` import
-neither JAX nor anything of the JAX package ``repro``."""
+"""The port stands alone: ``src/repro_torch``, its examples
+(``examples/*_torch.py``) and ``chip_smoke.py`` import neither JAX nor
+anything of the JAX package ``repro``."""
 import ast
 import os
 import subprocess
@@ -12,7 +13,8 @@ import torch  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+EXAMPLES = sorted((ROOT / "examples").glob("*_torch.py"))
+FILES = sorted(PORT.rglob("*.py")) + EXAMPLES + [ROOT / "chip_smoke.py"]
 
 
 def _forbidden(name: str) -> bool:
@@ -41,7 +43,10 @@ def test_importing_every_module_pulls_in_no_jax():
         "import importlib, sys\n"
         f"for m in {modules!r}:\n"
         "    importlib.import_module(m)\n"
-        "import chip_smoke\n"
+        "import chip_smoke, importlib.util\n"
+        f"for i, path in enumerate({[str(p) for p in EXAMPLES]!r}):\n"
+        "    spec = importlib.util.spec_from_file_location(f'ex{i}', path)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "print(len(sys.modules)); assert not bad, bad\n")
@@ -50,4 +55,4 @@ def test_importing_every_module_pulls_in_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
-    assert len(modules) > 20
+    assert len(modules) > 20 and len(EXAMPLES) == 3

@@ -7,7 +7,11 @@ atol 1e-5 (prefill goes through the kernels' plain versions on the CPU,
 the reference through ``_sdpa`` and ``wkv_chunked``); prefill(S/2) plus
 decodes must equal prefill(S) inside the port; and the port's
 ``BatchServer`` must produce the JAX server's tokens on mixed-length
-prompts, batched equal to solo.
+prompts, batched equal to solo. Decode at a device-tensor index, and
+through ``DecodeGraph``'s fixed buffers (what the card captures once per
+bucket), must give eager decode's bits on the CPU; the capture itself is
+tested on the card (``tests/test_torch_graphs.py``, which the card's
+lane collects without JAX).
 """
 import numpy as np
 import pytest
@@ -220,6 +224,100 @@ def test_half_prefill_plus_decodes_equals_full_prefill(pair):
         lo, caches, idx = model.decode_step({"tokens": toks[:, t:t + 1]},
                                             caches, idx)
     _close(lo, full, f"{arch}: prefill(S/2) + decodes vs prefill(S)")
+
+
+def _left_padded(cfg, lengths, seed=2):
+    """(batch dict, pads) of seeded prompts of ``lengths``, left-padded."""
+    P = max(lengths)
+    rng = np.random.default_rng(seed)
+    toks = np.zeros((len(lengths), P), np.int64)
+    for i, n in enumerate(lengths):
+        toks[i, P - n:] = rng.integers(0, cfg.vocab_size, n)
+    pads = torch.tensor([P - n for n in lengths])
+    valid = torch.arange(P)[None, :] >= pads[:, None]
+    return ({"tokens": torch.from_numpy(toks), "valid": valid,
+             "positions": (torch.arange(P)[None, :] - pads[:, None])
+             .clamp_min(0).to(torch.int32)}, pads)
+
+
+def _leaves(tree):
+    if torch.is_tensor(tree):
+        return [tree]
+    items = tree.values() if isinstance(tree, dict) else tree
+    return [x for t in items for x in _leaves(t)]
+
+
+def test_decode_at_a_device_index_is_the_int_index(pair):
+    """A decode step at a 0-d tensor index (what a captured round reads)
+    gives the int index's logits and caches bit for bit, over left-padded
+    prompts and 6 steps."""
+    arch, _, _, model = pair
+    batch, pads = _left_padded(model.cfg, (7, 3, 5))
+    P, N = batch["tokens"].shape[1], 6
+    runs = []
+    for on_device in (False, True):
+        logits, caches, idx = model.prefill(batch, cache_len=P + N)
+        if on_device:
+            idx = torch.tensor(idx)
+        out = []
+        for _ in range(N):
+            tok = logits[:, -1].argmax(-1)[:, None]
+            pos = (idx - pads)[:, None].to(torch.int32)
+            logits, caches, idx = model.decode_step(
+                {"tokens": tok, "valid": batch["valid"], "positions": pos},
+                caches, idx)
+            out.append(logits)
+        assert int(idx) == P + N
+        runs.append(out + _leaves(caches))
+    assert all(torch.equal(a, b) for a, b in zip(*runs)), arch
+
+
+def test_decode_graph_rounds_are_eager_decode(pair):
+    """``DecodeGraph``'s rounds over its fixed buffers (a mask over every
+    cache slot, the index a tensor, RWKV's states carried into place),
+    eager on the CPU, give eager decode's logits and tokens bit for bit,
+    for two batches in turn through the same buffers."""
+    arch, _, _, model = pair
+    cache_len = 16
+    graph = serve.DecodeGraph(model, 3, cache_len)
+    for lengths in ((7, 3, 5), (2, 9, 4)):
+        batch, pads = _left_padded(model.cfg, lengths, seed=len(lengths))
+        logits, caches, idx = model.prefill(batch, cache_len=cache_len)
+        cur = logits[:, -1].argmax(-1)
+        graph.start(caches, batch["valid"])
+        logits, caches, idx = model.prefill(batch, cache_len=cache_len)
+        want, got = [], []
+        gcur, gidx = cur, idx
+        for _ in range(4):
+            pos = (idx - pads)[:, None].to(torch.int32)
+            logits, caches, idx = model.decode_step(
+                {"tokens": cur[:, None], "valid": batch["valid"],
+                 "positions": pos}, caches, idx)
+            cur = logits[:, -1].argmax(-1)
+            want.append((logits.clone(), cur))
+            glog, gcur = graph(gcur[:, None],
+                               (gidx - pads)[:, None].to(torch.int32), gidx)
+            gidx += 1
+            got.append((glog.clone(), gcur.clone()))
+        for (wl, wt), (gl, gt) in zip(want, got):
+            assert torch.equal(wl, gl) and torch.equal(wt, gt), arch
+    assert graph.captures == 0
+
+
+def test_batch_server_certifies_its_decode():
+    """Eager (the CPU) ``assert_compiled_per_bucket`` refuses a server
+    that never decoded and passes once it has; the bucket is the batch
+    size and cache length."""
+    srv = serve.BatchServer("qwen3-4b", batch_size=2, cache_len=16,
+                            device="cpu")
+    assert not srv.graphs_on
+    from repro_torch.core.trainer import RetraceError
+    with pytest.raises(RetraceError):
+        srv.assert_compiled_per_bucket()
+    srv.run([serve.Request(0, np.arange(5, dtype=np.int32), 3)])
+    srv.assert_compiled_per_bucket()
+    assert srv.batches == 1 and srv.bucket == (2, 16)
+    assert srv.captures == {}
 
 
 def _mixed_prompts(vocab):
