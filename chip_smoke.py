@@ -6,7 +6,7 @@ and check them.
     python3 chip_smoke.py --only kernels   # phases 1-3: build and check
     python3 chip_smoke.py --only gnn-times # and the GNN kernels' times
     python3 chip_smoke.py --only lm-times  # and the LM kernels' times
-    python3 chip_smoke.py --only lm        # and the LM phases 12-13
+    python3 chip_smoke.py --only lm        # and the LM phases 12-13, 17
     python3 chip_smoke.py --only runtime   # phases 1-2 and the runtime's 11
     python3 chip_smoke.py --only graphs    # phases 1-2 and the graphs' 14
     python3 chip_smoke.py --only engine    # phases 1-2 and the engine's 15
@@ -100,15 +100,38 @@ Phases (each raises on failure, so the script exits non-zero):
     batch 4) with its tokens/s, the kernel's launches per prefill batch,
     a profile of one short batch and the bf16 kernel-vs-plain
     difference. The serving run decodes through one CUDA graph per
-    bucket (batch, cache length), captured once: a server on the same
-    weights decoding eagerly (``cuda_graphs=False``) must give the
+    bucket (batch, cache length), captured once: the same server
+    decoding eagerly (the same model, graphs off) must give the
     replay's tokens and every round's logits bit for bit on the first
     batch (32 new tokens), and decode tokens/s eager and replayed on that
     batch (128 new tokens, eager / replay / replay / eager) are printed
-    with a JSON ``decode row``;
+    with a JSON ``decode row``; the serving run's peak device memory;
 13. serve RWKV-6 1.6B (24 layers, d 2048) the same way through the
     ``wkv6`` kernel (prompts of whole 128-token chunks, 512-2048; the
     parity gates also cover the prefill's final states).
+17. (run after phase 13) serve Mixtral 8x7B and Qwen3-32B at full
+    width. First ``examples/serve_lm_torch.py`` (reduced Mixtral, window
+    16, rolling) on the card from its CPU run's weights: the same greedy
+    tokens. Mixtral (d 4096, 32/8 heads of 128, d_ff 14336, 8 experts
+    top-2, dense dispatch, vocab 32,000; 16 of its 32 layers, 47 GB in
+    bf16, since 93.4 GB does not fit the card; neither model fits it in
+    float32): float32 kernel vs plain at depth 4 with the window cut to
+    64 and the rolling cache, so the parity prompts (160, 97, 40, 128)
+    wrap it; card vs CPU at depth 2 (weights drawn on the card, copied
+    to the CPU); the rolling cache vs the full cache on the card, depth
+    2, 72 decode steps past the window, within 1e-4 of max|logit|; then
+    the bf16 serving run at the published window 4,096 and rolling: 24
+    seeded requests of 3,584-4,608 tokens (the prefill keeps the last
+    4,096 keys of the longer ones; every batch's decode runs past the
+    window's last slot, checked), 128 new tokens, batch 4,
+    ``flash_attention`` in its window band once per layer per batch,
+    the decode-graph gates. Qwen3-32B (64 layers, d 5120, 64/8 heads of
+    128, d_ff 25600; 65.5 GB in bf16, each weight drawn in float32 and
+    cast one tensor at a time): float32 kernel vs plain at depth 8, card
+    vs CPU at depth 2, and the serving run of 20 requests of 512-2048
+    tokens, 128 new, batch 4, with the decode-graph gates. Both print
+    prefill and decode tokens/s and peak device memory; the eager/replay
+    rate comparison decodes 32 new tokens.
 14. CUDA graphs per bucket (run after phase 11): the GNN train step
     (forward, backward, Adam) and the served forward are one CUDA graph
     per bucket on the card, the default, so phases 4-11 already run
@@ -172,16 +195,18 @@ Phases (each raises on failure, so the script exits non-zero):
 Phase 3 also holds ``flash_attention`` (causal, non-causal, window,
 ``seq_len < T``, ``kv_start`` with fully masked rows, GQA 1 and 4, D 32,
 64 and 128, ragged T, T 129, 255 and 4,100 across the bf16 kernel's
-tiles, a ``kv_start`` and a window edge inside a tile) and ``wkv6`` (B >
-1, ragged T, T 1 and 33, B*H of 4, the final state; o in r's type and
-float32) in float32 and bfloat16 (element by element) against their
+tiles, a ``kv_start`` and a window edge inside a tile, Mixtral's served
+prefill: T 4,608 in a window of 4,096 behind a left pad) and ``wkv6``
+(B > 1, ragged T, T 1 and 33, B*H of 4, the final state; o in r's type
+and float32) in float32 and bfloat16 (element by element) against their
 plain versions; phase 6 times them at the Qwen3-4B and RWKV-6 1.6B
-prefill shapes and at the served batch's, ``flash_attention`` beside
-``scaled_dot_product_attention`` (timed only: the port never calls it)
-and that call's share of the bf16 element gate. Phases 12-13 also print
-each LM kernel's profiled device ms per batch and gate two identical
-bf16 prefills bitwise equal. The GNN cache hits of phases 4, 5 and 9
-must equal a full recompute bit for bit.
+prefill shapes and at the served batch's (``flash_attention`` also at
+Mixtral's windowed prefill, B 2, T 4,608, window 4,096), that kernel
+beside ``scaled_dot_product_attention`` (timed only: the port never
+calls it) and that call's share of the bf16 element gate. Phases 12-13
+and 17 print each LM kernel's profiled device ms per batch and gate two
+identical bf16 prefills bitwise equal. The GNN cache hits of phases 4,
+5 and 9 must equal a full recompute bit for bit.
 
 The last lines are the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
@@ -257,6 +282,18 @@ LM_PROMPTS = (512, 2048)           # prompt lengths uniform in this range,
 LM_NEW_TOKENS = 128                # new tokens each,
 LM_BATCH = 4                       # in batches of 4
 DECODE_CHECK_TOKENS = 32           # replay vs eager decode, new tokens
+# phase 17: Mixtral 8x7B at full width, 16 of its 32 layers (47 GB of
+# bf16 weights; 93.4 GB at full depth does not fit the 80 GB card), and
+# Qwen3-32B at full width and depth (65.5 GB)
+MIXTRAL_LAYERS = 16
+MIXTRAL_REQUESTS = 24              # prompts of 3,584-4,608 tokens: the
+MIXTRAL_PROMPTS = (3584, 4608)     # prefill keeps the last 4,096 keys of
+                                   # the longer ones, every decode wraps
+QWEN32_REQUESTS = 20               # prompts of LM_PROMPTS' 512-2,048
+PARITY_PROMPTS = (160, 97, 40, 128)  # phase 17's parity batch
+PARITY_WINDOW = 64                 # Mixtral's window in the parity gates,
+                                   # so that those prompts wrap the cache
+ROLL_TOL = 1e-4                    # rolling vs full cache, * max|logit|
 
 
 def card_label() -> str:
@@ -513,6 +550,9 @@ def check_lm_kernels(rng, worst: dict) -> None:
         "d32": (2, 200, 4, 2, 32, True, 0, 0, (0, 50)),
         "kv_start_mid_tile": (2, 300, 8, 2, 128, True, 0, 0, (70, 201)),
         "window_crosses_tile": (2, 400, 8, 2, 64, True, 100, 0, (0, 30)),
+        # Mixtral's served prefill (phase 17): window 4,096 inside a
+        # 4,608-token batch, GQA 4, D 128, a left pad
+        "mixtral_prefill": (2, 4608, 32, 8, 128, True, 4096, 0, (0, 517)),
     }
     for name, (B, T, Hq, Hkv, D, causal, window, seq_len, start) in \
             flash.items():
@@ -1453,13 +1493,24 @@ def _flash_inputs(gen, B, T, Hq, Hkv, D):
                         dtype=torch.bfloat16) for h in (Hq, Hkv, Hkv)]
 
 
-def _flash_bound(B, T, Hq, Hkv, D, pads=None) -> tuple:
+def _flash_pairs(T, pad, window=0) -> int:
+    """Visible (query, key) pairs of one causal head over T rows behind
+    ``pad`` left-pad rows: query i >= pad sees keys max(pad, i - window +
+    1)..i (all of pad..i without a window)."""
+    import numpy as np
+    i = np.arange(pad, T, dtype=np.int64)
+    lo = np.maximum(pad, i - window + 1) if window else pad
+    return int((i - lo + 1).sum())
+
+
+def _flash_bound(B, T, Hq, Hkv, D, pads=None, window=0) -> tuple:
     """q, k, v read and out written once, in bf16; causal attention does
     QK^T and PV, 2 * D multiply-adds each, over the visible (query, key)
     pairs of each head (T (T + 1) / 2 of a row, (T - pad) (T - pad + 1) /
-    2 of a left-padded one), at the bf16 tensor-core peak."""
+    2 of a left-padded one, fewer in a window: :func:`_flash_pairs`), at
+    the bf16 tensor-core peak."""
     nbytes = 2 * B * T * (2 * Hq * D + 2 * Hkv * D)
-    pairs = sum((T - p) * (T - p + 1) / 2 for p in (pads or (0,) * B))
+    pairs = sum(_flash_pairs(T, p, window) for p in (pads or (0,) * B))
     nops = 4 * D * Hq * pairs
     return _bound(nbytes, nops, BF16_OPS_PER_S)
 
@@ -1471,13 +1522,15 @@ def _bf16_share(got, want) -> float:
     return float(((g - w).abs() / (atol + BF16_RTOL * w.abs())).max())
 
 
-def _flash_row(gen, B, T, pads=None, plain: bool = True) -> dict:
+def _flash_row(gen, B, T, pads=None, plain: bool = True,
+               window: int = 0) -> dict:
     """``flash_attention`` at the Qwen3-4B attention shape (32 q heads, 8
-    kv heads of 128, bf16, causal), B rows of T with left ``pads``:
-    held against its plain version (when ``plain``) and SDPA, then
-    timed beside both. SDPA runs with ``is_causal`` or, with pads, a
-    boolean mask; its share of the element gate against the plain
-    version is reported over the rows that see a key."""
+    kv heads of 128, bf16, causal; Mixtral's too), B rows of T with left
+    ``pads`` and a sliding ``window`` (0: none): held against its plain
+    version (when ``plain``) and SDPA, then timed beside both. SDPA runs
+    with ``is_causal`` or, with pads or a window, a boolean mask; its
+    share of the element gate against the plain version is reported over
+    the rows that see a key."""
     import torch
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
@@ -1490,10 +1543,15 @@ def _flash_row(gen, B, T, pads=None, plain: bool = True) -> dict:
     # the library's layout, made once outside the timed call
     qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
     mask = None
-    if pads is not None:
+    if pads is not None or window:
         i = torch.arange(T, device=DEVICE)
-        mask = ((i[None, :] <= i[:, None])[None]
-                & (i[None, None, :] >= start.long()[:, None, None]))[:, None]
+        ok = i[None, :] <= i[:, None]
+        if window:
+            ok = ok & (i[None, :] > i[:, None] - window)
+        first = (start.long() if start is not None else
+                 torch.zeros(B, dtype=torch.long, device=DEVICE))
+        mask = (ok[None] & (i[None, None, :] >= first[:, None, None]))[
+            :, None]
         # a masked call takes repeated kv heads (no GQA backend with masks)
         kt, vt = (a.repeat_interleave(Hq // Hkv, dim=1) for a in (kt, vt))
 
@@ -1507,7 +1565,8 @@ def _flash_row(gen, B, T, pads=None, plain: bool = True) -> dict:
                 enable_gqa=mask is None)
 
     def kern():
-        return ops.flash_attention_op(q, k, v, kv_start=start)
+        return ops.flash_attention_op(q, k, v, kv_start=start,
+                                      sliding_window=window)
     got = kern()
     lib_out = lib_fn().transpose(1, 2)
     seen = (slice(None) if pads is None else
@@ -1518,17 +1577,19 @@ def _flash_row(gen, B, T, pads=None, plain: bool = True) -> dict:
                              f"{lib_rel:.3e} of max|out|")
     plain_ms = lib_share = kern_share = None
     if plain:
-        want = flash_attention_ref(q, k, v, kv_start=start)
+        want = flash_attention_ref(q, k, v, kv_start=start,
+                                   sliding_window=window)
         kern_share = _bf16_check(got, want, f"flash_attention at B {B} "
                                  f"T {T}")
         lib_share = _bf16_share(lib_out[seen], want[seen])
         del want
         plain_ms = _time_ms(lambda: flash_attention_ref(
-            q, k, v, kv_start=start), 100.0)
+            q, k, v, kv_start=start, sliding_window=window), 100.0)
     ms = _time_ms(kern, 100.0)
     lib = _time_ms(lib_fn, 100.0)
-    bound, by = _flash_bound(B, T, Hq, Hkv, D, pads)
+    bound, by = _flash_bound(B, T, Hq, Hkv, D, pads, window)
     shape = (f"B={B} T={T} Hq={Hq} Hkv={Hkv} D={D} bf16 causal"
+             + (f" window={window}" if window else "")
              + (f" pads={tuple(pads)}" if pads else ""))
     print(f"  flash_attention [{shape}]: kernel {ms:.4f} ms, plain "
           f"{plain_ms} ms, SDPA {lib:.4f} ms, bound {bound:.4f} ms ({by}); "
@@ -1576,9 +1637,10 @@ def lm_kernel_times() -> dict:
     """``flash_attention`` at the Qwen3-4B prefill shapes: B 1 at T 4096
     (the record's row) and 32768 (kernel and SDPA: the plain version's
     scores would not fit), and the served batch (B 4, T 2048, left pads
-    0, 37, 300, 448); ``wkv6`` at the RWKV-6 1.6B prefill, B 8 T 4096
-    (the record's row) and the served batch, B 4 T 2048. Each kernel is
-    held against its plain version there first."""
+    0, 37, 300, 448); at Mixtral's served prefill (B 2, T 4608, window
+    4096, left pads 0 and 517; phase 17); ``wkv6`` at the RWKV-6 1.6B
+    prefill, B 8 T 4096 (the record's row) and the served batch, B 4 T
+    2048. Each kernel is held against its plain version there first."""
     import torch
     rows = {}
     gen = torch.Generator(device=DEVICE).manual_seed(0)
@@ -1588,6 +1650,8 @@ def lm_kernel_times() -> dict:
         _flash_row(gen, 1, 32768, plain=False)
         torch.cuda.empty_cache()
         _flash_row(gen, 4, 2048, pads=(0, 37, 300, 448))
+        torch.cuda.empty_cache()
+        _flash_row(gen, 2, 4608, pads=(0, 517), window=4096)
         torch.cuda.empty_cache()
         rows["wkv6"] = _wkv6_row(gen, 8, 4096)
         _wkv6_row(gen, 4, 2048)
@@ -1761,18 +1825,19 @@ def _decode_graphs(arch: str, server, reqs, new_tokens: int) -> None:
     and its tokens and every round's logits must equal the replay's bit
     for bit; decode tokens/s eager and under replay, in turns, on the
     same batch (a record, not a gate)."""
+    import copy
     import gc
     import torch
-    from repro_torch.launch.serve import BatchServer, Request
+    from repro_torch.launch.serve import Request
     B, bucket = server.batch_size, server.bucket
     server.assert_compiled_per_bucket()
     if server.captures != {bucket: 1}:
         raise AssertionError(f"{arch}: decode captures {server.captures}, "
                              f"expected one for the bucket {bucket}")
-    eager = BatchServer(arch, batch_size=B, cache_len=server.cache_len,
-                        reduced=False, seed=0, device=DEVICE,
-                        cuda_graphs=False,
-                        state_dict=server.model.state_dict())
+    # the same model and weights (a second copy of a 47-65 GB model
+    # would not fit the card), decoding eagerly
+    eager = copy.copy(server)
+    eager.graphs_on = False
     first = reqs[:B]
     rates = {"eager": [], "replay": []}
     for name in ("eager", "replay", "replay", "eager"):
@@ -1813,11 +1878,59 @@ def _decode_graphs(arch: str, server, reqs, new_tokens: int) -> None:
         raise AssertionError(f"{arch}: replayed decode differs from eager")
 
 
+def _rolling_vs_full(card, toks, pads, steps: int) -> None:
+    """The rolling cache against the full cache on the card (phase 17),
+    float32, the same weights: a left-padded prefill longer than the
+    window, then ``steps`` seeded decode steps, each wrapping the slots
+    further; every step's logits within ``ROLL_TOL`` of max|logit|."""
+    import torch
+    from repro_torch.arch import build_model
+    cfg = card.cfg
+    full = build_model(cfg, torch.Generator(device=DEVICE).manual_seed(1))
+    full.load_state_dict(card.state_dict())
+    full.requires_grad_(False)
+    feed = torch.randint(0, cfg.vocab_size, (len(toks), steps),
+                         generator=torch.Generator().manual_seed(2))
+    got, _, _ = _lm_run(card, toks, pads, feed, steps=steps)
+    want, _, _ = _lm_run(full, toks, pads, feed, steps=steps)
+    err = _rel(got, want)
+    slots = min(toks.shape[1] + steps, cfg.sliding_window)
+    print(f"  f32 depth {cfg.num_layers}, rolling cache ({slots} slots) vs "
+          f"full cache ({toks.shape[1] + steps}) on the card: prefill of "
+          f"{toks.shape[1]} padded tokens + {steps} decode steps, logits "
+          f"max diff {err:.3e} of max|logit| (limit {ROLL_TOL})")
+    if not torch.isfinite(got).all() or err > ROLL_TOL:
+        raise AssertionError(f"rolling vs full cache differ by {err:.3e}")
+
+
+def _wrapping_traffic(serve_lengths, window: int, new_tokens: int) -> None:
+    """Phase 17's Mixtral traffic: every batch's decode runs past the
+    window's last slot (its padded prompt plus the decoded tokens exceed
+    the window), and some prefills keep only the window's last keys."""
+    B = LM_BATCH
+    padded = [max(serve_lengths[i:i + B])
+              for i in range(0, len(serve_lengths), B)]
+    longer = sum(n > window for n in serve_lengths)
+    print(f"  traffic: {len(serve_lengths)} prompts of "
+          f"{min(serve_lengths)}-{max(serve_lengths)} tokens, {longer} "
+          f"longer than the window {window}; padded batch lengths "
+          f"{padded}, each + {new_tokens - 1} decode rounds past {window}")
+    if any(P + new_tokens - 1 <= window for P in padded) or not longer:
+        raise AssertionError("a batch's decode does not wrap the window")
+
+
 def serve_lm(arch: str, kernel: str, lengths, serve_lengths,
-             new_tokens: int = LM_NEW_TOKENS) -> dict:
+             new_tokens: int = LM_NEW_TOKENS, parity_layers=None,
+             parity_window=None, serve_layers=None, rolling: bool = False,
+             decode_tokens=None) -> dict:
     """The parity gates and the bf16 serving run of one LM (see the
-    module docstring, phases 12-13); returns the serving run's launch
-    counts."""
+    module docstring, phases 12-13 and 17); returns the serving run's
+    launch counts. ``parity_layers`` cuts the float32 kernel-vs-plain
+    model's depth (None: full depth; a model whose float32 weights do not
+    fit the card), ``parity_window`` replaces the window in the float32
+    gates, ``serve_layers`` the bf16 server's depth; ``rolling`` serves
+    (and gates) the rolling sliding-window cache; ``decode_tokens`` is
+    the new-token count of the eager-vs-replay rate comparison."""
     import copy
     import gc
     import numpy as np
@@ -1828,15 +1941,22 @@ def serve_lm(arch: str, kernel: str, lengths, serve_lengths,
     from repro_torch.launch.serve import BatchServer, Request
     cfg = get_arch_config(arch)
     f32 = cfg.replace(dtype="float32")
+    f32 = f32.replace(num_layers=parity_layers or f32.num_layers,
+                      sliding_window=parity_window or f32.sliding_window)
+    depth = (f"depth {f32.num_layers} of {cfg.num_layers}"
+             if f32.num_layers < cfg.num_layers else "full depth")
+    window = (f", window {f32.sliding_window}, rolling"
+              if rolling and f32.sliding_window else "")
     toks, pads = _lm_batch(cfg, lengths)
     # seeded decode tokens: the same feed whatever the logits say
     seeded = torch.randint(0, cfg.vocab_size, (len(lengths), 8),
                            generator=torch.Generator().manual_seed(1))
 
-    # f32, full depth: the kernel path against the plain path on the card
+    # f32: the kernel path against the plain path on the card
     t0 = time.perf_counter()
     gen = torch.Generator(device=DEVICE).manual_seed(0)
-    model = build_model(f32, gen).requires_grad_(False)
+    model = build_model(f32, gen, rolling_window_decode=rolling
+                        ).requires_grad_(False)
     n_params = sum(p.numel() for p in model.parameters())
     torch.cuda.synchronize()
     print(f"  {arch}: {f32.num_layers} layers, d {f32.d_model}, "
@@ -1846,14 +1966,14 @@ def serve_lm(arch: str, kernel: str, lengths, serve_lengths,
     (got, got_pre, _), (want, want_pre, _) = _kernel_and_plain(
         model, kernel, toks, pads, seeded)
     err = _rel(got, want)
-    print(f"  f32 full depth, kernel vs plain on the card: prefill + 8 "
-          f"decode logits max diff {err:.3e} of max|logit| (limit "
+    print(f"  f32 {depth}{window}, kernel vs plain on the card: prefill "
+          f"+ 8 decode logits max diff {err:.3e} of max|logit| (limit "
           f"{LM_PARITY}); {f32.num_layers} {kernel} launches, 0 plain")
     if not torch.isfinite(got).all() or err > LM_PARITY:
         raise AssertionError(f"{arch}: kernel vs plain logits {err:.3e}")
     if cfg.rwkv is not None:
         s_err = _state_rel(got_pre, want_pre)
-        print(f"  f32 full depth, kernel vs plain: prefill final states max "
+        print(f"  f32 {depth}, kernel vs plain: prefill final states max "
               f"diff {s_err:.3e} of max|S| (limit {LM_PARITY})")
         if s_err > LM_PARITY:
             raise AssertionError(f"{arch}: final states differ by {s_err}")
@@ -1863,16 +1983,21 @@ def serve_lm(arch: str, kernel: str, lengths, serve_lengths,
 
     # f32, depth 2 at full width: the card against the CPU, decode fed
     # the seeded tokens, then the CPU's own argmax as the server feeds
-    # (the card is fed the CPU's picks, so a near tie cannot part them)
+    # (the card is fed the CPU's picks, so a near tie cannot part them);
+    # the weights are drawn on the card and copied to the CPU
     cfg2 = f32.replace(num_layers=2)
-    cpu = build_model(cfg2, torch.Generator().manual_seed(1))
-    card = copy.deepcopy(cpu).to(DEVICE)
+    card = build_model(cfg2, torch.Generator(device=DEVICE).manual_seed(1),
+                       rolling_window_decode=rolling).requires_grad_(False)
+    cpu = copy.deepcopy(card).cpu()
     for feed_name, feed in (("seeded", seeded), ("argmax", None)):
+        t0 = time.perf_counter()
         want, want_pre, fed = _lm_run(cpu, toks, pads, feed)
+        cpu_s = time.perf_counter() - t0
         got, got_pre, _ = _lm_run(card, toks, pads, fed)
         err = _rel(got, want)
-        msg = (f"  f32 depth 2, card vs CPU, {feed_name} feed: logits max "
-               f"diff {err:.3e} of max|logit| (limit {LM_CPU})")
+        msg = (f"  f32 depth 2{window}, card vs CPU, {feed_name} feed: "
+               f"logits max diff {err:.3e} of max|logit| (limit {LM_CPU}; "
+               f"the CPU run {cpu_s:.1f}s)")
         if feed is None:
             same = float((got[:, :-1].argmax(-1) == fed).float().mean())
             msg += (f"; the card's own argmax picks the CPU's token at "
@@ -1885,16 +2010,35 @@ def serve_lm(arch: str, kernel: str, lengths, serve_lengths,
         if err > LM_CPU:
             raise AssertionError(f"{arch}: card vs CPU, {feed_name} feed, "
                                  f"differ by {err:.3e}")
-    del cpu, card
+    del cpu
+    if rolling and f32.sliding_window:
+        _rolling_vs_full(card, toks, pads, f32.sliding_window + 8)
+    del card
     gc.collect()
     torch.cuda.empty_cache()
 
-    # bf16, full width and depth: the serving run
+    # bf16, full width: the serving run
     rng = np.random.default_rng(0)
     B = LM_BATCH
+    if rolling and cfg.sliding_window:
+        _wrapping_traffic(serve_lengths, cfg.sliding_window, new_tokens)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
     server = BatchServer(arch, batch_size=B,
                          cache_len=max(serve_lengths) + new_tokens,
-                         reduced=False, seed=0, device=DEVICE)
+                         reduced=False, seed=0, device=DEVICE,
+                         rolling=rolling, num_layers=serve_layers)
+    torch.cuda.synchronize()
+    scfg = server.cfg
+    n_params = sum(p.numel() for p in server.model.parameters())
+    slots = (min(server.cache_len, scfg.sliding_window)
+             if server.model.rolling else server.cache_len)
+    print(f"  bf16 server: {scfg.num_layers} of {cfg.num_layers} layers, "
+          f"{n_params / 1e9:.3f} B parameters "
+          f"({torch.cuda.memory_allocated() / 1e9:.1f} GB on the card), "
+          f"made in {time.perf_counter() - t0:.1f}s"
+          + ("" if scfg.rwkv is not None else
+             f"; KV cache {slots} slots a row"))
     reqs = [Request(i, rng.integers(0, cfg.vocab_size, n).astype(np.int32),
                     new_tokens) for i, n in enumerate(serve_lengths)]
     server.run(reqs[:B])                  # warm-up batch, not counted
@@ -1921,14 +2065,14 @@ def serve_lm(arch: str, kernel: str, lengths, serve_lengths,
           f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
     print(f"  launches: {kernel} {launches[kernel]} = "
           f"{launches[kernel] / n_batches:.0f} per prefill batch "
-          f"({cfg.num_layers} layers)")
+          f"({scfg.num_layers} layers)")
     if any(len(r.out) != new_tokens for r in reqs):
         raise AssertionError(f"{arch}: a request got the wrong token count")
-    if launches[kernel] != cfg.num_layers * n_batches:
+    if launches[kernel] != scfg.num_layers * n_batches:
         raise AssertionError(f"{arch}: {launches[kernel]} {kernel} "
                              f"launches, expected one per layer per batch")
 
-    _decode_graphs(arch, server, reqs, new_tokens)
+    _decode_graphs(arch, server, reqs, decode_tokens or new_tokens)
 
     # a trace of one batch short enough to profile: the first prompts,
     # 16 new tokens
@@ -1948,6 +2092,25 @@ def serve_lm(arch: str, kernel: str, lengths, serve_lengths,
     gc.collect()
     torch.cuda.empty_cache()
     return launches
+
+
+def _serve_lm_example() -> None:
+    """``examples/serve_lm_torch.py`` (reduced Mixtral, window 16,
+    rolling) on the card from its CPU run's weights: the same greedy
+    tokens, prefill logits within ``LM_CPU`` of max|logit|."""
+    import torch
+    ex = _example("serve_lm_torch")
+    want = ex.main(device="cpu")
+    got = ex.main(device=DEVICE, params=want["params"])
+    err = _rel(got["prefill_logits"], want["prefill_logits"])
+    same = bool((got["tokens"] == want["tokens"]).all())
+    print(f"  examples/serve_lm_torch.py card vs CPU: prefill logits max "
+          f"diff {err:.3e} of max|logit| (limit {LM_CPU}); "
+          f"{got['tokens'].size} greedy tokens "
+          f"{'equal' if same else 'NOT equal'}")
+    if err > LM_CPU or not same or not torch.isfinite(
+            got["prefill_logits"]).all():
+        raise AssertionError("the serving example differs on the card")
 
 
 # -- phases 7 and 8: training --------------------------------------------------
@@ -3117,7 +3280,7 @@ def examples_phase(label: str) -> dict:
 
 
 def lm_phases(phase) -> list:
-    """Phases 12 and 13; returns each serving run's launch counts."""
+    """Phases 12, 13 and 17; returns each serving run's launch counts."""
     import numpy as np
     rng = np.random.default_rng(0)
     lo, hi = LM_PROMPTS
@@ -3130,6 +3293,31 @@ def lm_phases(phase) -> list:
     got.append(serve_lm("rwkv6-1.6b", "wkv6", (512, 384, 128, 256),
                         [int(n) for n in rng.choice(
                             np.arange(lo, hi + 1, 128), LM_REQUESTS)]))
+    phase(f"17. serve Mixtral 8x7B (full width, {MIXTRAL_LAYERS} of 32 "
+          "layers) and Qwen3-32B (full width, 64 layers)")
+    return got + large_lm_phase()
+
+
+def large_lm_phase() -> list:
+    """Phase 17: the serving example, then Mixtral 8x7B (16 of 32 layers)
+    and Qwen3-32B (64 layers) at full width; returns each serving run's
+    launch counts."""
+    import numpy as np
+    _serve_lm_example()
+    mlo, mhi = MIXTRAL_PROMPTS
+    lo, hi = LM_PROMPTS
+    got = [serve_lm(
+        "mixtral-8x7b", "flash_attention", PARITY_PROMPTS,
+        [int(n) for n in np.random.default_rng(17).integers(
+            mlo, mhi + 1, MIXTRAL_REQUESTS)],
+        parity_layers=4, parity_window=PARITY_WINDOW,
+        serve_layers=MIXTRAL_LAYERS, rolling=True,
+        decode_tokens=DECODE_CHECK_TOKENS)]
+    got.append(serve_lm(
+        "qwen3-32b", "flash_attention", PARITY_PROMPTS,
+        [int(n) for n in np.random.default_rng(32).integers(
+            lo, hi + 1, QWEN32_REQUESTS)],
+        parity_layers=8, decode_tokens=DECODE_CHECK_TOKENS))
     return got
 
 
@@ -3142,7 +3330,8 @@ def main(argv=None) -> int:
                     help="kernels: stop after phase 3 (build and check the "
                     "kernels); gnn-times: phases 1-3 and the GNN kernels' "
                     "times; lm-times: phases 1-3 and the LM kernels' "
-                    "times; lm: those and phases 12-13; runtime: phases "
+                    "times; lm: those and phases 12-13 and 17; runtime: "
+                    "phases "
                     "1-2 and 11; graphs: phases 1-2 and 14; engine: "
                     "phases 1-2 and 15; examples: phases 1-2 and 16")
     args = ap.parse_args(argv)

@@ -1,8 +1,9 @@
 """Pre-norm residual blocks of the LM zoo (the counterpart of
-``repro/arch/blocks.py``), for the kinds the port serves: ``attn`` (GQA
-with a SwiGLU FFN: qwen3, phi3) and ``rwkv`` (RWKV-6). MoE, Mamba,
-MLA, LayerNorm with a GELU MLP (whisper) and cross-attention are refused
-with an error until they are ported (ROADMAP A.12).
+``repro/arch/blocks.py``), for the kinds the port serves: ``attn`` (GQA,
+optionally sliding-window, with a SwiGLU FFN: qwen3, phi3; or an MoE FFN:
+mixtral, dbrx) and ``rwkv`` (RWKV-6). Mamba, MLA, LayerNorm with a GELU
+MLP (whisper) and cross-attention are refused with an error until they
+are ported (ROADMAP A.12).
 """
 from __future__ import annotations
 
@@ -10,6 +11,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.arch.moe import moe_ffn_dense, moe_ffn_ep, moe_init
 from repro_torch.arch.rwkv6_block import (rwkv_channel_apply,
                                           rwkv_channel_init, rwkv_init_cache,
                                           rwkv_time_apply, rwkv_time_init)
@@ -26,8 +28,6 @@ def _unported(what: str):
 def _check_ported(cfg: ArchConfig, kind: str) -> None:
     if kind not in ("attn", "rwkv"):
         raise _unported(f"block kind {kind!r}")
-    if cfg.moe is not None:
-        raise _unported("the MoE FFN")
     if cfg.mla is not None:
         raise _unported("MLA")
     if getattr(cfg, "norm_type", "rmsnorm") == "layernorm":
@@ -45,9 +45,11 @@ def norm_apply(cfg: ArchConfig, p, x: torch.Tensor) -> torch.Tensor:
 
 
 def block_init(gen: torch.Generator, cfg: ArchConfig, kind: str,
-               dtype) -> dict:
+               dtype, use_moe: bool = True) -> dict:
     """The weights of one block of ``kind`` ("attn" | "rwkv"), drawn from
-    ``gen`` on its device, as a dict with the reference's names."""
+    ``gen`` on its device, as a dict with the reference's names.
+    ``use_moe``: whether THIS layer's FFN is MoE when the config has
+    one (the reference's ``moe_every`` rule picks it per layer)."""
     _check_ported(cfg, kind)
     p: dict = {"norm1": _norm_init(cfg, dtype, gen.device)}
     if kind == "attn":
@@ -55,7 +57,11 @@ def block_init(gen: torch.Generator, cfg: ArchConfig, kind: str,
             gen, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
             cfg.resolved_head_dim, dtype, qk_norm=cfg.qk_norm)
         p["norm2"] = _norm_init(cfg, dtype, gen.device)
-        p["ffn"] = swiglu_init(gen, cfg.d_model, cfg.d_ff, dtype)
+        if cfg.moe is not None and use_moe:
+            p["ffn"] = moe_init(gen, cfg.d_model, cfg.d_ff,
+                                cfg.moe.num_experts, dtype)
+        else:
+            p["ffn"] = swiglu_init(gen, cfg.d_model, cfg.d_ff, dtype)
     else:
         p["time"] = rwkv_time_init(gen, cfg.d_model, cfg.rwkv, dtype)
         p["norm2"] = _norm_init(cfg, dtype, gen.device)
@@ -65,26 +71,35 @@ def block_init(gen: torch.Generator, cfg: ArchConfig, kind: str,
 
 def block_cache_init(cfg: ArchConfig, kind: str, batch: int, cache_len: int,
                      dtype, rolling: bool = False, device=None) -> dict:
-    """Decode cache for one block of the given kind."""
+    """Decode cache for one block of the given kind. ``rolling``: the
+    sliding-window cache of ``cache_len`` slots (the window), with
+    ``pos``, each slot's position (-1: empty)."""
     _check_ported(cfg, kind)
     if kind == "attn":
-        if rolling:
-            raise _unported("the rolling sliding-window cache")
         hd = cfg.resolved_head_dim
         shape = (batch, cache_len, cfg.num_kv_heads, hd)
-        return {"k": torch.zeros(shape, dtype=dtype, device=device),
-                "v": torch.zeros(shape, dtype=dtype, device=device)}
+        c = {"k": torch.zeros(shape, dtype=dtype, device=device),
+             "v": torch.zeros(shape, dtype=dtype, device=device)}
+        if rolling:
+            c["pos"] = torch.full((cache_len,), -1, dtype=torch.int32,
+                                  device=device)
+        return c
     return rwkv_init_cache(batch, cfg.d_model, cfg.rwkv, dtype, device)
 
 
-def _ffn_apply(p_ffn, x: torch.Tensor):
-    """The block's FFN and its auxiliary loss (0: no MoE here)."""
+def _ffn_apply(p_ffn, x: torch.Tensor, cfg: ArchConfig, moe_impl: str):
+    """The block's FFN and its auxiliary loss (0 without MoE)."""
+    if cfg.moe is not None and "router" in p_ffn:
+        if moe_impl == "ep":
+            return moe_ffn_ep(p_ffn, x, cfg.moe)
+        return moe_ffn_dense(p_ffn, x, cfg.moe)
     return swiglu_apply(p_ffn, x), x.new_zeros((), dtype=torch.float32)
 
 
 def block_apply(p, x: torch.Tensor, cfg: ArchConfig, kind: str, *,
                 positions=None, mrope_positions=None, causal=True,
                 cache=None, cache_index=None, enc_memory=None,
+                moe_impl: str = "dense",
                 sliding_window: Optional[int] = None, valid=None,
                 kv_start=None):
     """Pre-norm residual block. Returns (x, new_cache, aux_loss).
@@ -109,7 +124,7 @@ def block_apply(p, x: torch.Tensor, cfg: ArchConfig, kind: str, *,
         a, new_cache = out if cache is not None else (out, None)
         x = x + a
         h2 = norm_apply(cfg, p["norm2"], x)
-        f, aux = _ffn_apply(p["ffn"], h2)
+        f, aux = _ffn_apply(p["ffn"], h2, cfg, moe_impl)
         x = x + f
     elif kind == "rwkv":
         h = norm_apply(cfg, p["norm1"], x)

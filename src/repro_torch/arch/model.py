@@ -9,7 +9,9 @@ names are the reference's pytree paths, with the stacked ``blocks``
 unrolled to one entry per layer
 (:func:`repro_torch.weights.lm_params_from_jax` maps one onto the
 other). ``arch/hints.py:shard_hint`` is a no-op on one device and is not
-ported; ``loss`` waits for LM training (ROADMAP A.12).
+ported; ``loss`` waits for LM training (ROADMAP A.12). The backbone sums
+the MoE layers' load-balance aux losses as the reference's does, ready
+for that loss.
 """
 from __future__ import annotations
 
@@ -49,9 +51,14 @@ class TransformerLM(nn.Module):
     draws from ``torch.Generator().manual_seed(0)`` on the CPU."""
 
     def __init__(self, cfg: ArchConfig, gen: Optional[torch.Generator] = None,
-                 rolling_window_decode: bool = False):
+                 rolling_window_decode: bool = False,
+                 moe_impl: str = "dense"):
         super().__init__()
+        if moe_impl not in ("dense", "ep"):
+            raise ValueError(f"moe_impl must be 'dense' or 'ep', got "
+                             f"{moe_impl!r}")
         self.cfg = cfg
+        self.moe_impl = moe_impl
         self.kinds = layer_kinds(cfg)
         self.rolling = bool(rolling_window_decode and cfg.sliding_window
                             and cfg.mamba is None)
@@ -75,6 +82,14 @@ class TransformerLM(nn.Module):
                                       "not ported yet (ROADMAP A.12)")
         params = {"embed": embedding_init(gen, cfg.vocab_size, cfg.d_model,
                                           dt)}
+        if cfg.moe is not None and cfg.moe_every > 1:
+            # the reference's rule (repro/arch/model.py:94-106): MoE on
+            # every moe_every-th layer of a scanned group, refused unless
+            # the group size divides moe_every; the port's groups are one
+            # layer until Mamba's hybrid groups land (ROADMAP A.12)
+            raise ValueError(
+                "group size must divide moe_every for uniform layer "
+                f"scan (got 1 % {cfg.moe_every})")
         params["blocks"] = [block_init(gen, cfg, kind, dt)
                             for kind in self.kinds]
         params["final_norm"] = rmsnorm_init(cfg.d_model, dt, gen.device)
@@ -91,17 +106,20 @@ class TransformerLM(nn.Module):
 
     def _backbone(self, x, *, positions, caches=None, cache_index=None,
                   valid=None, kv_start=None):
+        """All layers; returns (x, new caches, the summed aux loss)."""
         new_caches = [] if caches is not None else None
+        aux = x.new_zeros((), dtype=torch.float32)
         for i, (kind, p) in enumerate(zip(self.kinds, self.blocks)):
             c = None if caches is None else caches[i]
-            x, nc, _ = block_apply(
+            x, nc, a = block_apply(
                 p, x, self.cfg, kind, positions=positions, causal=True,
-                cache=c, cache_index=cache_index,
+                cache=c, cache_index=cache_index, moe_impl=self.moe_impl,
                 sliding_window=self.cfg.sliding_window, valid=valid,
                 kv_start=kv_start)
+            aux = aux + a
             if new_caches is not None:
                 new_caches.append(nc)
-        return x, new_caches
+        return x, new_caches, aux
 
     def _embed(self, batch) -> torch.Tensor:
         return self.embed["table"][batch["tokens"]]
@@ -114,9 +132,12 @@ class TransformerLM(nn.Module):
     # ------------------------------------------------------------- serving
 
     def init_cache(self, batch_size: int, cache_len: int) -> list:
-        """One cache dict per layer, on the model's device."""
+        """One cache dict per layer, on the model's device; a rolling
+        cache holds ``min(cache_len, sliding_window)`` slots."""
         dt = _dtype(self.cfg)
-        return [block_cache_init(self.cfg, kind, batch_size, cache_len, dt,
+        eff_len = (min(cache_len, self.cfg.sliding_window) if self.rolling
+                   else cache_len)
+        return [block_cache_init(self.cfg, kind, batch_size, eff_len, dt,
                                  rolling=self.rolling, device=self.device)
                 for kind in self.kinds]
 
@@ -138,9 +159,9 @@ class TransformerLM(nn.Module):
         # attention layer of the prefill
         kv_start = (left_pad_starts(valid)
                     if valid is not None and "attn" in self.kinds else None)
-        h, caches = self._backbone(x, positions=positions, caches=caches,
-                                   cache_index=0, valid=valid,
-                                   kv_start=kv_start)
+        h, caches, _ = self._backbone(x, positions=positions,
+                                      caches=caches, cache_index=0,
+                                      valid=valid, kv_start=kv_start)
         h = norm_apply(self.cfg, self.final_norm, h)
         return self._logits(h[:, -1:]), caches, S
 
@@ -159,7 +180,7 @@ class TransformerLM(nn.Module):
             positions = (index.reshape(1, 1).to(torch.int32) if on_device
                          else torch.full((1, 1), int(index),
                                          dtype=torch.int32, device=x.device))
-        h, caches = self._backbone(
+        h, caches, _ = self._backbone(
             x, positions=positions, caches=caches,
             cache_index=index if on_device else int(index),
             valid=batch.get("valid"))
@@ -169,5 +190,6 @@ class TransformerLM(nn.Module):
 
 
 def build_model(cfg: ArchConfig, gen: Optional[torch.Generator] = None,
+                moe_impl: str = "dense",
                 rolling_window_decode: bool = False) -> TransformerLM:
-    return TransformerLM(cfg, gen, rolling_window_decode)
+    return TransformerLM(cfg, gen, rolling_window_decode, moe_impl)

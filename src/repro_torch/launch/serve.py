@@ -3,20 +3,25 @@ counterpart of ``repro/launch/serve.py``).
 
 Requests arrive with prompts of varying length, are left-padded into
 prefill batches, and decode proceeds in lockstep rounds over a fixed
-cache. On the card, prefill runs the ``flash_attention`` kernel
-(Qwen3) or the ``wkv6`` kernel (RWKV-6); decode is plain PyTorch, as in
-the reference, and its round is one CUDA graph per bucket (batch size
-and cache length): the reference compiles ``decode_step`` once
-(``repro/launch/serve.py:76-78``), the port captures it once
-(:class:`DecodeGraph`) and replays it every round. ``cuda_graphs=False``
-decodes eagerly on the card, as the CPU always does.
+cache (rolling O(window) for the sliding-window arch, Mixtral). On the
+card, prefill runs the ``flash_attention`` kernel (the attention archs:
+Qwen3, Mixtral in its window, Phi-3, DBRX) or the ``wkv6`` kernel
+(RWKV-6); decode is plain PyTorch, as in the reference, and its round is
+one CUDA graph per bucket (batch size and cache length): the reference
+compiles ``decode_step`` once (``repro/launch/serve.py:76-78``), the
+port captures it once (:class:`DecodeGraph`) and replays it every round.
+``cuda_graphs=False`` decodes eagerly on the card, as the CPU always
+does.
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-4b \
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x7b \
         --requests 8 --new-tokens 16 --device cpu
 
-``--full-width`` serves the config as published (bf16, every layer, on
-the card it needs one H100); without it, the reference's reduced
-config in float32.
+``--full-width`` serves the config as published (bf16, every layer);
+without it, the reference's reduced config in float32. One H100 (80 GB)
+holds Qwen3-4B, RWKV-6 1.6B, Phi-3-medium (29 GB) and Qwen3-32B (65.5
+GB) at full width and depth; Mixtral 8x7B (93.4 GB) and DBRX (263 GB)
+do not, and ``chip_smoke.py`` serves Mixtral at 16 of its 32 layers
+(``BatchServer(num_layers=16)``).
 """
 from __future__ import annotations
 
@@ -58,7 +63,8 @@ class ServerStats:
 def _carry(static, new) -> None:
     """Copy the leaves of a decode step's returned cache ``new`` into the
     fixed buffers ``static`` where they are other tensors (RWKV's
-    ``last`` and ``state``; attention writes its cache in place)."""
+    ``last`` and ``state``; attention writes its cache in place, a
+    rolling cache's ``pos`` included)."""
     if torch.is_tensor(static):
         if new is not static:
             static.copy_(new)
@@ -71,9 +77,9 @@ def _carry(static, new) -> None:
 class DecodeGraph:
     """One bucket's decode round over fixed buffers: the round's tokens
     (B, 1), positions (B, 1), validity mask over every cache slot (B,
-    cache_len), the cache slot as a 0-d tensor, and the caches, which the
-    round reads and writes in place. A round returns ``(logits (B, 1, V),
-    argmax tokens (B,))``.
+    cache_len), the cache slot as a 0-d tensor, and the caches (a rolling
+    cache's ``pos`` among them), which the round reads and writes in
+    place. A round returns ``(logits (B, 1, V), argmax tokens (B,))``.
 
     On the card the first round runs eagerly on a side stream, then is
     captured into a CUDA graph over the buffers (``core/trainer.py``'s
@@ -152,17 +158,23 @@ class BatchServer:
     round is one CUDA graph per bucket, ``(batch_size, cache_len)``
     (:class:`DecodeGraph`), unless ``cuda_graphs=False``;
     :meth:`assert_compiled_per_bucket` certifies one capture per touched
-    bucket, the reference's rule.
+    bucket, the reference's rule. ``rolling`` keeps a sliding-window
+    arch's cache at O(window) slots, as the reference's server does;
+    ``num_layers`` cuts the config's depth (a model too large for the
+    card at full depth; the widths stay).
     """
 
     def __init__(self, arch: str, batch_size: int, cache_len: int,
                  reduced: bool = True, seed: int = 0, rolling: bool = True,
                  greedy: bool = True, device=None,
                  state_dict: Optional[Mapping] = None,
-                 cuda_graphs: bool = True):
+                 cuda_graphs: bool = True,
+                 num_layers: Optional[int] = None):
         cfg = get_arch_config(arch)
         if reduced:
             cfg = cfg.reduced().replace(dtype="float32")
+        if num_layers is not None:
+            cfg = cfg.replace(num_layers=int(num_layers))
         self.cfg = cfg
         self.device = resolve_device(device)
         gen = torch.Generator(device=self.device).manual_seed(seed)
@@ -275,9 +287,10 @@ class BatchServer:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--arch", default="qwen3-4b",
-                    help="qwen3-4b or rwkv6-1.6b (the rest of the zoo "
-                    "waits for ROADMAP A.12)")
+    ap.add_argument("--arch", default="mixtral-8x7b",
+                    help="mixtral-8x7b, qwen3-4b, qwen3-32b, "
+                    "phi3-medium-14b, dbrx-132b or rwkv6-1.6b (the rest of "
+                    "the zoo waits for ROADMAP A.12)")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=24)

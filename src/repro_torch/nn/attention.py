@@ -7,10 +7,13 @@ float32 whatever the activations' type. Prefill into a full cache runs
 the ``flash_attention`` kernel (:mod:`repro_torch.kernels.ops`); decode
 and the no-cache path compute ``_sdpa`` over an additive bias, as the
 reference does. The caches are updated in place (the reference returns
-new ones), which keeps one copy of each on the card.
+new ones), which keeps one copy of each on the card. The rolling
+sliding-window cache keeps W slots (slot = position mod W): its prefill
+runs the kernel within the prompt and its decode ``_sdpa`` over the W
+slots.
 
-Not ported yet, and refused with an error: the rolling sliding-window
-cache, cross-attention, M-RoPE and MLA (ROADMAP A.12).
+Not ported yet, and refused with an error: cross-attention, M-RoPE and
+MLA (ROADMAP A.12).
 """
 from __future__ import annotations
 
@@ -118,6 +121,76 @@ def left_pad_starts(valid: torch.Tensor) -> torch.Tensor:
     return start.contiguous()
 
 
+def _prompt_attention(q, k, v, sliding_window, valid, kv_start):
+    """Causal (and windowed) attention within a prompt of Sq tokens
+    through the ``flash_attention`` kernel: q (B, Sq, Hq, hd), k and v
+    (B, Sq, Hkv, hd) -> (B, Sq, Hq, hd). ``valid`` (B, Sq), a left-pad
+    mask, masks each row's pad keys through ``kv_start``, its first real
+    key (computed here when None)."""
+    Sq = k.shape[1]
+    if valid is not None:
+        if valid.shape[1] != Sq:
+            raise ValueError(f"prefill valid mask covers {valid.shape[1]} "
+                             f"slots, the prompt {Sq}")
+        if kv_start is None:
+            kv_start = left_pad_starts(valid)
+    return ops.flash_attention_op(q.contiguous(), k.contiguous(),
+                                  v.contiguous(), causal=True,
+                                  sliding_window=sliding_window,
+                                  kv_start=kv_start)
+
+
+def _rolling_store(k, v, cache, cache_index) -> None:
+    """A prefill's keys and values into the rolling cache (reference
+    ``repro/nn/attention.py:175-183``): the last ``min(W, Sq)`` of them,
+    at positions ``cache_index + Sq - last ...``, go to slots ``pos %
+    W``, and ``pos`` records their positions."""
+    Sq = k.shape[1]
+    W = cache["k"].shape[1]
+    last = min(W, Sq)
+    tail = (torch.arange(last, dtype=torch.int64, device=k.device)
+            + (cache_index + Sq - last))
+    slots = torch.remainder(tail, W)
+    cache["k"].index_copy_(1, slots, k[:, Sq - last:].to(cache["k"].dtype))
+    cache["v"].index_copy_(1, slots, v[:, Sq - last:].to(cache["v"].dtype))
+    cache["pos"].index_copy_(0, slots, tail.to(torch.int32))
+
+
+def _rolling_decode_bias(k, v, cache, cache_index, sliding_window, valid):
+    """One decode token into the rolling cache (reference
+    ``repro/nn/attention.py:184-211``): k and v (B, 1, Hkv, hd) and the
+    position go to slot ``index % W``, computed on the device (under a
+    CUDA graph the index is a 0-d tensor), and the bias (B, 1, 1, W) over
+    the W slots is built from their positions ``pos``: empty slots
+    (``pos < 0``) masked, and ``valid`` (B, P) mapped through ``pos``
+    (slots holding a prompt position take its pad mask, later positions
+    are real). A mask over all ``cache_len`` slots, True past the prompt
+    (``DecodeGraph``'s), gives the same bias."""
+    W = cache["k"].shape[1]
+    dev = k.device
+    idx = (cache_index.reshape(()).to(torch.int64)
+           if torch.is_tensor(cache_index)
+           else torch.tensor(int(cache_index), dtype=torch.int64,
+                             device=dev))
+    slot = torch.remainder(idx, W).reshape(1)
+    cache["k"].index_copy_(1, slot, k.to(cache["k"].dtype))
+    cache["v"].index_copy_(1, slot, v.to(cache["v"].dtype))
+    cpos = cache["pos"]
+    cpos.index_copy_(0, slot, idx.reshape(1).to(torch.int32))
+    q_pos = idx.reshape(1, 1).to(torch.int32)
+    k_valid = (cpos >= 0)[None]
+    if valid is not None:
+        P = valid.shape[1]
+        in_prompt = (cpos >= 0) & (cpos < P)
+        mapped = torch.index_select(valid.bool(), 1,
+                                    cpos.clamp(0, P - 1).to(torch.int64))
+        k_valid = k_valid & torch.where(in_prompt[None], mapped, True)
+    bias = make_attention_bias(q_pos, cpos[None], causal=True,
+                               sliding_window=sliding_window,
+                               k_valid=k_valid)
+    return bias[:, None] if bias.dim() == 3 else bias
+
+
 def attention_apply(p, x: torch.Tensor, *, num_heads: int, num_kv_heads: int,
                     head_dim: int, positions=None, rope_theta=10000.0,
                     qk_norm=False, norm_eps=1e-5, causal=True,
@@ -144,6 +217,11 @@ def attention_apply(p, x: torch.Tensor, *, num_heads: int, num_kv_heads: int,
     - ``kv_start``: (B,) int32, ``left_pad_starts(valid)``. A prefill
       through many layers computes it once and passes it to each; left
       ``None``, the prefill computes it here from ``valid``.
+    - a rolling cache (``"pos"`` in it, W slots): a prefill (more than one
+      token, any ``cache_index``) attends within its tokens through the
+      kernel and keeps the last W; decode writes slot ``index % W`` and
+      attends over the W slots (:func:`_rolling_store`,
+      :func:`_rolling_decode_bias`).
 
     Query rows that are left pad see no key at all: the kernel gives them
     0 where the reference's ``_sdpa`` gives the uniform average of the
@@ -156,9 +234,6 @@ def attention_apply(p, x: torch.Tensor, *, num_heads: int, num_kv_heads: int,
     if mrope_positions is not None:
         raise NotImplementedError("M-RoPE is not ported yet (ROADMAP "
                                   "A.12: qwen2-vl)")
-    if cache is not None and "pos" in cache:
-        raise NotImplementedError("the rolling sliding-window cache is "
-                                  "not ported yet (ROADMAP A.12)")
     B, Sq, _ = x.shape
     G = num_heads // num_kv_heads
     q = (x @ p["wq"]).reshape(B, Sq, num_kv_heads, G, head_dim)
@@ -173,32 +248,31 @@ def attention_apply(p, x: torch.Tensor, *, num_heads: int, num_kv_heads: int,
         kpos = kv_positions if kv_positions is not None else positions
         k = apply_rope(k, kpos, rope_theta)
 
-    if cache is not None:
-        if torch.is_tensor(cache_index):
-            # decode at a device index: no host scalar, so a CUDA graph
-            # captures the step once and replays it at every index
-            start = cache_index.reshape(()).to(torch.int64)
+    rolling = cache is not None and "pos" in cache
+    if cache is not None and Sq > 1 and (rolling or (
+            not torch.is_tensor(cache_index) and int(cache_index) == 0)):
+        # prefill: attend within the prompt (the reference's rolling
+        # prefill attends within the new tokens at any cache_index; into
+        # a full cache at index 0 every later slot is masked), then keep
+        # its keys: a full cache at slots 0..Sq-1, a rolling one the last W
+        if rolling:
+            _rolling_store(k, v, cache, cache_index)
         else:
-            start = int(cache_index)
-            if start == 0 and Sq > 1:
-                # prefill: the prompt's keys are the cache's first Sq
-                # slots and every later slot is masked, so attend over
-                # k, v alone
-                cache["k"][:, :Sq] = k.to(cache["k"].dtype)
-                cache["v"][:, :Sq] = v.to(cache["v"].dtype)
-                if valid is not None:
-                    if valid.shape[1] != Sq:
-                        raise ValueError(f"prefill valid mask covers "
-                                         f"{valid.shape[1]} slots, the "
-                                         f"prompt {Sq}")
-                    if kv_start is None:
-                        kv_start = left_pad_starts(valid)
-                out = ops.flash_attention_op(
-                    q.reshape(B, Sq, num_heads, head_dim).contiguous(),
-                    k.contiguous(), v.contiguous(), causal=True,
-                    sliding_window=sliding_window, kv_start=kv_start)
-                out = out.reshape(B, Sq, num_heads * head_dim).to(x.dtype)
-                return out @ p["wo"], cache
+            cache["k"][:, :Sq] = k.to(cache["k"].dtype)
+            cache["v"][:, :Sq] = v.to(cache["v"].dtype)
+        out = _prompt_attention(q.reshape(B, Sq, num_heads, head_dim), k, v,
+                                sliding_window, valid, kv_start)
+        out = out.reshape(B, Sq, num_heads * head_dim).to(x.dtype)
+        return out @ p["wo"], cache
+    if rolling:
+        bias = _rolling_decode_bias(k, v, cache, cache_index,
+                                    sliding_window, valid)
+        k, v = cache["k"], cache["v"]
+    elif cache is not None:
+        # decode at a device index takes no host scalar, so a CUDA graph
+        # captures the step once and replays it at every index
+        start = (cache_index.reshape(()).to(torch.int64)
+                 if torch.is_tensor(cache_index) else int(cache_index))
         pos = start + torch.arange(Sq, dtype=torch.int64, device=x.device)
         cache["k"].index_copy_(1, pos, k.to(cache["k"].dtype))
         cache["v"].index_copy_(1, pos, v.to(cache["v"].dtype))

@@ -113,8 +113,11 @@ def lm_params_from_jax(cfg, tree) -> "OrderedDict[str, torch.Tensor]":
     len(blocks) + s`` is entry ``s`` at index ``g``. The port keeps one
     block per layer: leaf ``a[g]`` of entry ``s`` becomes
     ``blocks.<g * len(blocks) + s>.<path>``. Weights keep their
-    ``(d_in, d_out)`` layout; every array arrives as float32 and
-    ``load_state_dict`` casts it to the parameter's dtype."""
+    ``(d_in, d_out)`` layout, an MoE FFN's expert stacks their ``(E,
+    d_in, d_out)`` (``ffn.router``, ``ffn.wi_gate``, ...); every array
+    arrives as float32 and ``load_state_dict`` casts it to the
+    parameter's dtype. The port builds a bf16 model's MoE router as a
+    float32 parameter, as the reference keeps it, so it stays float32."""
     out: "OrderedDict[str, torch.Tensor]" = OrderedDict()
     groups = tree["blocks"]
     per_group = len(groups)

@@ -10,6 +10,9 @@ the CPU at small sizes.
   ``Trainer`` (the reference's engine ``Trainer`` is no oracle, ROADMAP
   C.2): a row run again, or the whole run again with another prefetch
   pool, is bitwise the first.
+- ``examples/serve_lm_torch.py`` on the JAX serving example's weights
+  (``examples/serve_lm.py``: reduced Mixtral, window 16, rolling):
+  the same greedy continuation and the same printed sample.
 - ``graph_feature_batch``, ``Timer``/``timed`` and ``get_logger`` against
   the reference's on the same inputs; the citation config field by field.
 """
@@ -134,6 +137,55 @@ def test_distributed_training_repeats_across_prefetch_pools(capsys):
     assert a["trainer"].step_num == 6
     printed = capsys.readouterr().out
     assert "[cluster ] 2 steps" in printed and "done: one engine" in printed
+
+
+def _jax_serve_lm(batch=4, P=32, N=32):
+    """The JAX serving example's model, params and loop
+    (``examples/serve_lm.py``): (params, every sequence's N tokens)."""
+    from repro.arch import build_model as jax_build_model
+    from repro.config import get_arch_config as jax_arch_config
+    cfg = jax_arch_config("mixtral-8x7b").reduced().replace(
+        dtype="float32", sliding_window=16)
+    model = jax_build_model(cfg, remat=False, rolling_window_decode=True)
+    params = model.init(jax.random.PRNGKey(0))
+    prompts = jax.numpy.asarray(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (batch, P)), jax.numpy.int32)
+    logits, caches, idx = jax.jit(lambda p, b: model.prefill(
+        p, b, cache_len=P + N))(params, {"tokens": prompts})
+    decode = jax.jit(model.decode_step)
+    generated = [jax.numpy.argmax(logits[:, -1], -1)]
+    for _ in range(N):
+        logits, caches, idx = decode(
+            params, {"tokens": generated[-1][:, None]}, caches, idx)
+        generated.append(jax.numpy.argmax(logits[:, -1], -1))
+    return params, np.stack([np.asarray(t) for t in generated[1:]], 1)
+
+
+def test_serve_lm_matches_the_jax_serving_example(capsys, monkeypatch):
+    """The port's serving example on the JAX example's weights (through
+    ``lm_params_from_jax``): its 4 x 32 greedy tokens are the JAX loop's,
+    and its printed sample continuation is the one the JAX example
+    itself prints."""
+    from repro_torch.config import get_arch_config
+    from repro_torch.weights import lm_params_from_jax
+    monkeypatch.setattr(sys, "argv", ["serve_lm.py"])
+    _example("serve_lm").main()
+    jax_out = capsys.readouterr().out
+    params, want = _jax_serve_lm()
+    cfg = get_arch_config("mixtral-8x7b").reduced().replace(
+        dtype="float32", sliding_window=16)
+    got = _example("serve_lm_torch").main(
+        device="cpu", params=lm_params_from_jax(
+            cfg, jax.tree_util.tree_map(np.asarray, params)))
+    out = capsys.readouterr().out
+    assert got["tokens"].shape == (4, 32)
+    np.testing.assert_array_equal(got["tokens"], want)
+
+    def sample(text):
+        return [ln for ln in text.splitlines()
+                if ln.startswith("sample continuation")]
+    assert sample(out) == sample(jax_out) and len(sample(out)) == 1
+    assert "window=16 slots" in out and "16 held" in out
 
 
 def test_distributed_training_takes_the_runtime_flags(tmp_path):

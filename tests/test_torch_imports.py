@@ -55,4 +55,4 @@ def test_importing_every_module_pulls_in_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
-    assert len(modules) > 20 and len(EXAMPLES) == 3
+    assert len(modules) > 20 and len(EXAMPLES) == 4

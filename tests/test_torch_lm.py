@@ -33,6 +33,11 @@ from repro_torch.weights import lm_params_from_jax  # noqa: E402
 
 RTOL, ATOL = 1e-4, 1e-5
 ARCHS = ["qwen3-4b", "rwkv6-1.6b"]
+# and the attention archs that came with the MoE FFN and the rolling
+# cache: MoE with a sliding window (mixtral), fine-grained MoE (dbrx),
+# dense GQA (phi3, qwen3-32b)
+SERVED = ARCHS + ["mixtral-8x7b", "dbrx-132b", "phi3-medium-14b",
+                  "qwen3-32b"]
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -68,14 +73,23 @@ def _tokens(cfg, B, S, seed=0):
 
 
 def test_configs_are_the_references():
-    for arch in ARCHS:
+    for arch in SERVED:
         jcfg = jax_arch_config(arch)
         cfg = get_arch_config(arch)
+        for field in ("name", "family", "num_layers", "d_model", "num_heads",
+                      "num_kv_heads", "d_ff", "vocab_size", "head_dim",
+                      "resolved_head_dim", "qk_norm", "sliding_window",
+                      "rope_theta", "moe_every", "dtype", "norm_eps",
+                      "tie_embeddings", "source"):
+            assert getattr(cfg, field) == getattr(jcfg, field), (arch, field)
+        red, jred = cfg.reduced(), jcfg.reduced()
         for field in ("num_layers", "d_model", "num_heads", "num_kv_heads",
-                      "d_ff", "vocab_size", "head_dim", "qk_norm",
-                      "rope_theta", "dtype", "norm_eps", "source"):
-            assert getattr(cfg, field) == getattr(jcfg, field), field
-        assert cfg.reduced().d_model == jcfg.reduced().d_model
+                      "head_dim", "d_ff", "vocab_size", "sliding_window"):
+            assert getattr(red, field) == getattr(jred, field), (arch, field)
+        assert (cfg.moe is None) == (jcfg.moe is None), arch
+        if cfg.moe is not None:
+            assert vars(cfg.moe) == vars(jcfg.moe), arch
+            assert vars(red.moe) == vars(jred.moe), arch
         assert (cfg.rwkv is None) == (jcfg.rwkv is None)
         if cfg.rwkv is not None:
             assert vars(cfg.rwkv) == vars(jcfg.rwkv)
@@ -326,10 +340,22 @@ def _mixed_prompts(vocab):
     return [rng.integers(0, vocab, n).astype(np.int32) for n in (4, 9, 6)]
 
 
-@pytest.mark.parametrize("arch", ARCHS)
-def test_batch_server_tokens_match_jax(arch):
+@pytest.mark.parametrize("arch", SERVED)
+def test_batch_server_tokens_match_jax(arch, monkeypatch):
+    """The port's server and the JAX server on the same weights give the
+    same greedy tokens for mixed-length prompts. Mixtral is served as the
+    reference serves it, rolling, with its window cut to 6 in both
+    packages so that the 9-token batch's prefill and its decode wrap the
+    cache's 6 slots."""
+    rolling = arch == "mixtral-8x7b"
+    if rolling:
+        import repro.launch.serve as jax_serve
+        for mod, get in ((jax_serve, jax_arch_config),
+                         (serve, get_arch_config)):
+            monkeypatch.setattr(mod, "get_arch_config", lambda a, g=get: (
+                g(a).replace(sliding_window=6)))
     jsrv = JaxBatchServer(arch, batch_size=3, cache_len=24, reduced=True,
-                          rolling=False)
+                          rolling=rolling)
     prompts = _mixed_prompts(jsrv.cfg.vocab_size)
     jreqs = [JaxRequest(i, p, 4) for i, p in enumerate(prompts)]
     jsrv.run(jreqs)
@@ -337,7 +363,10 @@ def test_batch_server_tokens_match_jax(arch):
     sd = lm_params_from_jax(cfg, jax.tree_util.tree_map(np.asarray,
                                                         jsrv.params))
     srv = serve.BatchServer(arch, batch_size=3, cache_len=24, reduced=True,
-                            rolling=False, device="cpu", state_dict=sd)
+                            rolling=rolling, device="cpu", state_dict=sd)
+    if rolling:
+        assert srv.cfg.sliding_window == jsrv.cfg.sliding_window == 6
+        assert srv.model.init_cache(3, 24)[0]["pos"].shape == (6,)
     reqs = [serve.Request(i, p, 4) for i, p in enumerate(prompts)]
     srv.run(reqs)
     assert [r.out for r in reqs] == [r.out for r in jreqs]
@@ -391,12 +420,19 @@ def test_prefill_checks_the_left_pad_once(monkeypatch):
 
 
 def test_unported_paths_raise():
-    with pytest.raises(NotImplementedError, match="A.12"):
-        get_arch_config("mixtral-8x7b")
-    cfg = get_arch_config("qwen3-4b").reduced().replace(
-        dtype="float32", sliding_window=4)
-    with pytest.raises(NotImplementedError, match="rolling"):
-        build_model(cfg, rolling_window_decode=True).init_cache(1, 8)
+    """What stays unported is refused by name: MLA (minicpm3), Mamba
+    (jamba), Whisper (``get_arch_config`` has no config for them,
+    ROADMAP A.12), expert parallelism (A.13), cross-attention and
+    M-RoPE."""
+    for arch in ("minicpm3-4b", "jamba-1.5-large-398b", "whisper-base"):
+        with pytest.raises(NotImplementedError, match="A.12"):
+            get_arch_config(arch)
+    moe_cfg = get_arch_config("mixtral-8x7b").reduced().replace(
+        dtype="float32")
+    with pytest.raises(NotImplementedError, match="A.13"):
+        build_model(moe_cfg, moe_impl="ep").prefill(
+            {"tokens": torch.zeros((1, 3), dtype=torch.long)}, cache_len=4)
+    cfg = get_arch_config("qwen3-4b").reduced().replace(dtype="float32")
     p = build_model(cfg).blocks[0]["attn"]
     x = torch.zeros((1, 2, cfg.d_model))
     kw = dict(num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
@@ -405,6 +441,14 @@ def test_unported_paths_raise():
         attention_apply(p, x, kv_x=x, **kw)
     with pytest.raises(NotImplementedError, match="M-RoPE"):
         attention_apply(p, x, mrope_positions=torch.zeros((3, 1, 2)), **kw)
+
+
+def test_serve_cli_defaults_to_mixtral_as_the_reference(capsys):
+    """``--arch`` defaults to mixtral-8x7b, as ``repro/launch/serve.py``'s
+    does: the reduced model, rolling, on the CPU."""
+    assert serve.main(["--device", "cpu", "--requests", "2", "--batch",
+                       "2", "--new-tokens", "2", "--prompt-len", "8"]) == 0
+    assert "[cpu] mixtral-8x7b (2 layers" in capsys.readouterr().out
 
 
 def test_serve_cli_runs_on_the_cpu(capsys):
