@@ -6,7 +6,7 @@ and check them.
     python3 chip_smoke.py --only kernels   # phases 1-3: build and check
     python3 chip_smoke.py --only gnn-times # and the GNN kernels' times
     python3 chip_smoke.py --only lm-times  # and the LM kernels' times
-    python3 chip_smoke.py --only lm        # and the LM phases 12-13, 17
+    python3 chip_smoke.py --only lm        # and the LM phases 12-13, 17-18
     python3 chip_smoke.py --only runtime   # phases 1-2 and the runtime's 11
     python3 chip_smoke.py --only graphs    # phases 1-2 and the graphs' 14
     python3 chip_smoke.py --only engine    # phases 1-2 and the engine's 15
@@ -95,11 +95,14 @@ Phases (each raises on failure, so the script exits non-zero):
     ``flash_attention`` kernel against its plain version at full depth
     on the card, one launch per layer on the kernel path and none on
     the plain one; then card against CPU at depth 2, decode fed seeded
-    tokens and then the CPU's own argmax), then a bf16 serving run of 40
+    tokens and then the CPU's own argmax, the card's prefill launching
+    the kernel once a layer), then a bf16 serving run of 40
     requests (prompts uniform in 512-2048 tokens, 128 new tokens each,
     batch 4) with its tokens/s, the kernel's launches per prefill batch,
     a profile of one short batch and the bf16 kernel-vs-plain
-    difference. The serving run decodes through one CUDA graph per
+    difference (logits reported; every kernel call of one prefill held
+    element by element to its plain version on the same inputs, and the
+    gap split by layer). The serving run decodes through one CUDA graph per
     bucket (batch, cache length), captured once: the same server
     decoding eagerly (the same model, graphs off) must give the
     replay's tokens and every round's logits bit for bit on the first
@@ -132,6 +135,31 @@ Phases (each raises on failure, so the script exits non-zero):
     tokens, 128 new, batch 4, with the decode-graph gates. Both print
     prefill and decode tokens/s and peak device memory; the eager/replay
     rate comparison decodes 32 new tokens.
+18. (run after phase 17) serve Jamba-1.5-Large and MiniCPM3-4B at full
+    width. Jamba (d 8192, 64/8 heads of 128, d_ff 24576, Mamba d_in
+    16384 in 256 heads of 64, d_state 16, conv 4, chunk 128, vocab
+    65,536) as one hybrid group of 8 layers (attention at layer 0, Mamba
+    at 1-7, MoE on 1, 3, 5, 7): the group with all 16 experts is 90.4 GB
+    in bf16, so the served group keeps 8 of them, top-2 (25.85 B
+    parameters, 51.7 GB). Float32 gates on the group with 2 experts
+    (45.4 GB): ``flash_attention`` against its plain version on prompts
+    of (256, 200, 128, 97) tokens (two chunks) plus 8 seeded decode
+    steps, one launch; the reference's cache contract, prefill(256)
+    against prefill(128) plus 128 decode steps, within 1e-3 of
+    max|logit|; the Mamba mixer alone at full width, B 2, T 256, card
+    against CPU (output, final state, conv tail, then 8 decode steps);
+    the reduced model card against CPU. Then the bf16 serving run: 20
+    seeded requests of 512-2048 tokens in whole 128-token chunks, 128 new
+    tokens, batch 4, one ``flash_attention`` launch a batch, the
+    decode-graph gates, two bf16 prefills bitwise equal. MiniCPM3-4B (62
+    layers, d 2560, 40 heads, q/kv latent ranks 768/256, vocab 73,448,
+    tied embeddings; 8.15 GB in bf16), whose path runs no kernel (MLA is
+    products): float32 card against CPU at depth 2, the cache contract
+    at full depth (prefill(128) against prefill(64) plus 64 decode
+    steps), then the serving run of 40 requests of 512-2048 tokens with
+    the same gates and no kernel launched. Both print prefill and decode
+    tokens/s, a decode round's ms against its weight-read bound and
+    peak device memory.
 14. CUDA graphs per bucket (run after phase 11): the GNN train step
     (forward, backward, Adam) and the served forward are one CUDA graph
     per bucket on the card, the default, so phases 4-11 already run
@@ -196,7 +224,8 @@ Phase 3 also holds ``flash_attention`` (causal, non-causal, window,
 ``seq_len < T``, ``kv_start`` with fully masked rows, GQA 1 and 4, D 32,
 64 and 128, ragged T, T 129, 255 and 4,100 across the bf16 kernel's
 tiles, a ``kv_start`` and a window edge inside a tile, Mixtral's served
-prefill: T 4,608 in a window of 4,096 behind a left pad) and ``wkv6``
+prefill: T 4,608 in a window of 4,096 behind a left pad, Jamba's: B 4,
+T 2,048, 64/8 heads, left pads) and ``wkv6``
 (B > 1, ragged T, T 1 and 33, B*H of 4, the final state; o in r's type
 and float32) in float32 and bfloat16 (element by element) against their
 plain versions; phase 6 times them at the Qwen3-4B and RWKV-6 1.6B
@@ -204,8 +233,8 @@ prefill shapes and at the served batch's (``flash_attention`` also at
 Mixtral's windowed prefill, B 2, T 4,608, window 4,096), that kernel
 beside ``scaled_dot_product_attention`` (timed only: the port never
 calls it) and that call's share of the bf16 element gate. Phases 12-13
-and 17 print each LM kernel's profiled device ms per batch and gate two
-identical bf16 prefills bitwise equal. The GNN cache hits of phases 4,
+and 17-18 print each LM kernel's profiled device ms per batch and gate
+two identical bf16 prefills bitwise equal. The GNN cache hits of phases 4,
 5 and 9 must equal a full recompute bit for bit.
 
 The last lines are the kernels' JSON record, the card's name and power
@@ -294,6 +323,17 @@ PARITY_PROMPTS = (160, 97, 40, 128)  # phase 17's parity batch
 PARITY_WINDOW = 64                 # Mixtral's window in the parity gates,
                                    # so that those prompts wrap the cache
 ROLL_TOL = 1e-4                    # rolling vs full cache, * max|logit|
+# phase 18: Jamba-1.5-Large as one hybrid group (attention at layer 0,
+# Mamba at 1-7, MoE on 1, 3, 5, 7) at full width with 8 of its 16
+# experts, top-2 (25.85 B parameters, 51.7 GB in bf16; the group with all
+# 16 is 90.4 GB), and MiniCPM3-4B at full width and depth (8.15 GB)
+JAMBA_LAYERS = 8
+JAMBA_EXPERTS = 8
+JAMBA_PARITY_EXPERTS = 2           # the float32 gates' group: 45.4 GB
+JAMBA_REQUESTS = 20                # prompts of whole 128-token chunks
+JAMBA_PARITY_PROMPTS = (256, 200, 128, 97)   # padded to two chunks
+CONTRACT_TOL = 1e-3                # prefill(S) vs prefill(S/2) + decodes,
+                                   # * max|logit|
 
 
 def card_label() -> str:
@@ -553,6 +593,9 @@ def check_lm_kernels(rng, worst: dict) -> None:
         # Mixtral's served prefill (phase 17): window 4,096 inside a
         # 4,608-token batch, GQA 4, D 128, a left pad
         "mixtral_prefill": (2, 4608, 32, 8, 128, True, 4096, 0, (0, 517)),
+        # Jamba's served prefill (phase 18): GQA 8, D 128, the longest
+        # batch of whole 128-token chunks, left pads
+        "jamba_prefill": (4, 2048, 64, 8, 128, True, 0, 0, (0, 37, 300, 448)),
     }
     for name, (B, T, Hq, Hkv, D, causal, window, seq_len, start) in \
             flash.items():
@@ -578,14 +621,15 @@ def check_lm_kernels(rng, worst: dict) -> None:
                     worst["flash_attention"],
                     float((got - want).abs().max()))
             else:
+                share = _bf16_check(got, want, f"flash_attention on {name}")
                 worst["flash_attention_bf16"] = max(
-                    worst.get("flash_attention_bf16", 0.0),
-                    _bf16_check(got, want, f"flash_attention on {name}"))
+                    worst.get("flash_attention_bf16", 0.0), share)
             if start is not None and start[0] >= T:
                 if got[0].any():
                     raise AssertionError(f"flash_attention on {name}: a "
                                          "row with no visible key is not 0")
-        print(f"  flash {name}: ok", flush=True)
+        print(f"  flash {name}: ok (bf16: the worst element at "
+              f"{share:.3f} of its limit)", flush=True)
     # name -> (B, T, H, K): the RWKV-6 1.6B prefill of a served batch,
     # then ragged T, the reduced head width, one step, two tiles and one,
     # B*H of 4, and more (b, h) blocks than an H100 has SMs
@@ -1677,6 +1721,17 @@ def plain_lm_kernels():
         ops.flash_attention_op, ops.wkv6_op = saved
 
 
+def _padded_batch(toks, pads, dev) -> dict:
+    """The prefill batch of left-padded ``toks`` (B, P) with ``pads``
+    pads a row: tokens, the validity mask and pad-shifted positions."""
+    import torch
+    P = toks.shape[1]
+    valid = torch.arange(P)[None, :] >= pads[:, None]
+    return {"tokens": toks.to(dev), "valid": valid.to(dev),
+            "positions": (torch.arange(P)[None, :] - pads[:, None])
+            .clamp_min(0).to(dev, torch.int32)}
+
+
 def _lm_run(model, toks, pads, feed=None, steps: int = 8):
     """Prefill a left-padded batch, then ``steps`` decode steps fed the
     tokens ``feed`` (B, steps), or, when it is None, each step's own
@@ -1685,12 +1740,9 @@ def _lm_run(model, toks, pads, feed=None, steps: int = 8):
     tokens)."""
     import torch
     dev = model.device
-    B, P = toks.shape
-    valid = torch.arange(P)[None, :] >= pads[:, None]
-    positions = (torch.arange(P)[None, :] - pads[:, None]).clamp_min(0)
-    batch = {"tokens": toks.to(dev), "valid": valid.to(dev),
-             "positions": positions.to(dev, torch.int32)}
-    logits, caches, idx = model.prefill(batch, cache_len=P + steps)
+    batch = _padded_batch(toks, pads, dev)
+    logits, caches, idx = model.prefill(batch,
+                                        cache_len=toks.shape[1] + steps)
     out = [logits.float().cpu()]
     pre = [{k: (v.float().cpu() if torch.is_tensor(v) else None)
             for k, v in (c.get("time", {}) or {}).items()}
@@ -1710,8 +1762,8 @@ def _lm_run(model, toks, pads, feed=None, steps: int = 8):
 def _kernel_and_plain(model, kernel: str, toks, pads, feed):
     """``_lm_run`` through the kernels, then through their plain
     versions, on the same model; the counts show the two took different
-    paths: one ``kernel`` launch per layer in the first, none in the
-    second."""
+    paths: one ``kernel`` launch per kernel layer (``_kernel_layers``) in
+    the first, none in the second."""
     from repro_torch.kernels import ops
     ops.reset_launches()
     got = _lm_run(model, toks, pads, feed)
@@ -1719,9 +1771,10 @@ def _kernel_and_plain(model, kernel: str, toks, pads, feed):
     ops.reset_launches()
     with plain_lm_kernels():
         want = _lm_run(model, toks, pads, feed)
-    if n != model.cfg.num_layers or any(ops.launches.values()):
+    expected = _kernel_layers(model.cfg, kernel)
+    if n != expected or any(ops.launches.values()):
         raise AssertionError(f"{kernel}: {n} launches on the kernel path "
-                             f"(expected {model.cfg.num_layers}), "
+                             f"(expected {expected}), "
                              f"{dict(ops.launches)} on the plain path")
     return got, want
 
@@ -1732,12 +1785,8 @@ def _prefill_repeat(model, toks, pads) -> None:
     must be bitwise equal, since no kernel of the path sums in an order
     that changes from run to run."""
     import torch
-    dev = model.device
     P = toks.shape[1]
-    valid = torch.arange(P)[None, :] >= pads[:, None]
-    batch = {"tokens": toks.to(dev), "valid": valid.to(dev),
-             "positions": (torch.arange(P)[None, :] - pads[:, None])
-             .clamp_min(0).to(dev, torch.int32)}
+    batch = _padded_batch(toks, pads, model.device)
 
     def leaves(tree):
         if torch.is_tensor(tree):
@@ -1757,11 +1806,12 @@ def _prefill_repeat(model, toks, pads) -> None:
         raise AssertionError("two identical prefills on the card differ")
 
 
-def _profile_lm(server, reqs, kernel_key: str) -> None:
+def _profile_lm(server, reqs, kernel_key) -> None:
     """Device time by kernel over one short served batch (prefill and its
     decode rounds), from a ``torch.profiler`` trace, and the device's
     busy share against the same batch's unprofiled time; the port's LM
-    kernel (names holding ``kernel_key``) on a line of its own."""
+    kernel (names holding ``kernel_key``; None: a path with no kernel)
+    on a line of its own."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1789,6 +1839,8 @@ def _profile_lm(server, reqs, kernel_key: str) -> None:
           f"{batch_ms:.3f} ms batch; largest:")
     for ms, n, key in kernels[:6]:
         print(f"      {ms:.4f} ms over {n:.0f} calls  {key[:90]}")
+    if kernel_key is None:
+        return
     mine = [k for k in kernels if kernel_key in k[2]]
     print(f"    {kernel_key}: {sum(k[0] for k in mine):.4f} ms over "
           f"{sum(k[1] for k in mine):.0f} calls in the batch")
@@ -1919,6 +1971,111 @@ def _wrapping_traffic(serve_lengths, window: int, new_tokens: int) -> None:
         raise AssertionError("a batch's decode does not wrap the window")
 
 
+def _kernel_layers(cfg, kernel) -> int:
+    """The layers of ``cfg`` whose prefill launches ``kernel``: the GQA
+    layers for ``flash_attention`` (MLA attends through products), the
+    RWKV layers for ``wkv6``; 0 for no kernel."""
+    from repro_torch.arch import layer_kinds
+    kinds = layer_kinds(cfg)
+    if kernel == "wkv6":
+        return kinds.count("rwkv")
+    if kernel == "flash_attention" and cfg.mla is None:
+        return kinds.count("attn")
+    return 0
+
+
+def _free() -> None:
+    """Return the card's memory freed by the models just dropped."""
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _f32_model(f32, seed: int, rolling: bool = False):
+    """The float32 model of config ``f32``, its weights drawn on the card
+    from ``seed``; prints its size and build time."""
+    import torch
+    from repro_torch.arch import build_model
+    t0 = time.perf_counter()
+    model = build_model(f32, torch.Generator(device=DEVICE).manual_seed(seed),
+                        rolling_window_decode=rolling).requires_grad_(False)
+    n_params = sum(p.numel() for p in model.parameters())
+    torch.cuda.synchronize()
+    print(f"  {f32.name}: {f32.num_layers} layers, d {f32.d_model}, "
+          f"{n_params / 1e9:.3f} B parameters, float32 "
+          f"({4 * n_params / 1e9:.1f} GB), made on the card in "
+          f"{time.perf_counter() - t0:.1f}s")
+    return model
+
+
+def _f32_kernel_vs_plain(model, kernel: str, toks, pads, seeded,
+                         label: str) -> None:
+    """A float32 model's prefill plus 8 seeded decode steps through
+    ``kernel`` against its plain version, within ``LM_PARITY`` of
+    max|logit| (and RWKV's final states)."""
+    import torch
+    f32 = model.cfg
+    (got, got_pre, _), (want, want_pre, _) = _kernel_and_plain(
+        model, kernel, toks, pads, seeded)
+    err = _rel(got, want)
+    print(f"  f32 {label}, kernel vs plain on the card: prefill + 8 "
+          f"decode logits max diff {err:.3e} of max|logit| (limit "
+          f"{LM_PARITY}); {_kernel_layers(f32, kernel)} {kernel} "
+          f"launches, 0 plain")
+    if not torch.isfinite(got).all() or err > LM_PARITY:
+        raise AssertionError(f"{f32.name}: kernel vs plain logits {err:.3e}")
+    if f32.rwkv is not None:
+        s_err = _state_rel(got_pre, want_pre)
+        print(f"  f32 {label}, kernel vs plain: prefill final states max "
+              f"diff {s_err:.3e} of max|S| (limit {LM_PARITY})")
+        if s_err > LM_PARITY:
+            raise AssertionError(f"{f32.name}: final states differ by "
+                                 f"{s_err}")
+
+
+def _card_vs_cpu(card, toks, pads, seeded, label: str,
+                 kernel=None) -> None:
+    """``card`` (a float32 model on the card) against its copy on the
+    CPU: decode fed the seeded tokens, then the CPU's own argmax as the
+    server feeds (the card is fed the CPU's picks, so a near tie cannot
+    part them); logits (and RWKV's final states) within ``LM_CPU``; each
+    card run launches ``kernel`` once per kernel layer."""
+    import copy
+    import torch
+    from repro_torch.kernels import ops
+    cfg = card.cfg
+    cpu = copy.deepcopy(card).cpu()
+    for feed_name, feed in (("seeded", seeded), ("argmax", None)):
+        t0 = time.perf_counter()
+        want, want_pre, fed = _lm_run(cpu, toks, pads, feed)
+        cpu_s = time.perf_counter() - t0
+        ops.reset_launches()
+        got, got_pre, _ = _lm_run(card, toks, pads, fed)
+        n = ops.launches[kernel] if kernel else 0
+        err = _rel(got, want)
+        msg = (f"  f32 {label}, card vs CPU, {feed_name} feed: "
+               f"logits max diff {err:.3e} of max|logit| (limit {LM_CPU}; "
+               f"the CPU run {cpu_s:.1f}s)")
+        if feed is None:
+            same = float((got[:, :-1].argmax(-1) == fed).float().mean())
+            msg += (f"; the card's own argmax picks the CPU's token at "
+                    f"{100 * same:.1f}% of {fed.numel()} steps")
+        if cfg.rwkv is not None:
+            s_err = _state_rel(got_pre, want_pre)
+            msg += f"; final states {s_err:.3e} of max|S|"
+            err = max(err, s_err)
+        if kernel:
+            msg += f"; {n} {kernel} launches"
+        print(msg)
+        if not torch.isfinite(got).all() or err > LM_CPU:
+            raise AssertionError(f"{cfg.name}: card vs CPU, {feed_name} "
+                                 f"feed, differ by {err:.3e}")
+        if n != _kernel_layers(cfg, kernel):
+            raise AssertionError(f"{cfg.name}: card vs CPU, {n} {kernel} "
+                                 f"launches, expected one per kernel layer")
+
+
 def serve_lm(arch: str, kernel: str, lengths, serve_lengths,
              new_tokens: int = LM_NEW_TOKENS, parity_layers=None,
              parity_window=None, serve_layers=None, rolling: bool = False,
@@ -1931,14 +2088,9 @@ def serve_lm(arch: str, kernel: str, lengths, serve_lengths,
     gates, ``serve_layers`` the bf16 server's depth; ``rolling`` serves
     (and gates) the rolling sliding-window cache; ``decode_tokens`` is
     the new-token count of the eager-vs-replay rate comparison."""
-    import copy
-    import gc
-    import numpy as np
     import torch
     from repro_torch.arch import build_model
     from repro_torch.config import get_arch_config
-    from repro_torch.kernels import ops
-    from repro_torch.launch.serve import BatchServer, Request
     cfg = get_arch_config(arch)
     f32 = cfg.replace(dtype="float32")
     f32 = f32.replace(num_layers=parity_layers or f32.num_layers,
@@ -1953,92 +2105,75 @@ def serve_lm(arch: str, kernel: str, lengths, serve_lengths,
                            generator=torch.Generator().manual_seed(1))
 
     # f32: the kernel path against the plain path on the card
-    t0 = time.perf_counter()
-    gen = torch.Generator(device=DEVICE).manual_seed(0)
-    model = build_model(f32, gen, rolling_window_decode=rolling
-                        ).requires_grad_(False)
-    n_params = sum(p.numel() for p in model.parameters())
-    torch.cuda.synchronize()
-    print(f"  {arch}: {f32.num_layers} layers, d {f32.d_model}, "
-          f"{n_params / 1e9:.3f} B parameters, float32 "
-          f"({4 * n_params / 1e9:.1f} GB), made on the card in "
-          f"{time.perf_counter() - t0:.1f}s")
-    (got, got_pre, _), (want, want_pre, _) = _kernel_and_plain(
-        model, kernel, toks, pads, seeded)
-    err = _rel(got, want)
-    print(f"  f32 {depth}{window}, kernel vs plain on the card: prefill "
-          f"+ 8 decode logits max diff {err:.3e} of max|logit| (limit "
-          f"{LM_PARITY}); {f32.num_layers} {kernel} launches, 0 plain")
-    if not torch.isfinite(got).all() or err > LM_PARITY:
-        raise AssertionError(f"{arch}: kernel vs plain logits {err:.3e}")
-    if cfg.rwkv is not None:
-        s_err = _state_rel(got_pre, want_pre)
-        print(f"  f32 {depth}, kernel vs plain: prefill final states max "
-              f"diff {s_err:.3e} of max|S| (limit {LM_PARITY})")
-        if s_err > LM_PARITY:
-            raise AssertionError(f"{arch}: final states differ by {s_err}")
+    model = _f32_model(f32, 0, rolling)
+    _f32_kernel_vs_plain(model, kernel, toks, pads, seeded, depth + window)
     del model
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free()
 
-    # f32, depth 2 at full width: the card against the CPU, decode fed
-    # the seeded tokens, then the CPU's own argmax as the server feeds
-    # (the card is fed the CPU's picks, so a near tie cannot part them);
-    # the weights are drawn on the card and copied to the CPU
-    cfg2 = f32.replace(num_layers=2)
-    card = build_model(cfg2, torch.Generator(device=DEVICE).manual_seed(1),
+    # f32, depth 2 at full width: the card against the CPU, the weights
+    # drawn on the card and copied to the CPU
+    card = build_model(f32.replace(num_layers=2),
+                       torch.Generator(device=DEVICE).manual_seed(1),
                        rolling_window_decode=rolling).requires_grad_(False)
-    cpu = copy.deepcopy(card).cpu()
-    for feed_name, feed in (("seeded", seeded), ("argmax", None)):
-        t0 = time.perf_counter()
-        want, want_pre, fed = _lm_run(cpu, toks, pads, feed)
-        cpu_s = time.perf_counter() - t0
-        got, got_pre, _ = _lm_run(card, toks, pads, fed)
-        err = _rel(got, want)
-        msg = (f"  f32 depth 2{window}, card vs CPU, {feed_name} feed: "
-               f"logits max diff {err:.3e} of max|logit| (limit {LM_CPU}; "
-               f"the CPU run {cpu_s:.1f}s)")
-        if feed is None:
-            same = float((got[:, :-1].argmax(-1) == fed).float().mean())
-            msg += (f"; the card's own argmax picks the CPU's token at "
-                    f"{100 * same:.1f}% of {fed.numel()} steps")
-        if cfg.rwkv is not None:
-            s_err = _state_rel(got_pre, want_pre)
-            msg += f"; final states {s_err:.3e} of max|S|"
-            err = max(err, s_err)
-        print(msg)
-        if err > LM_CPU:
-            raise AssertionError(f"{arch}: card vs CPU, {feed_name} feed, "
-                                 f"differ by {err:.3e}")
-    del cpu
+    _card_vs_cpu(card, toks, pads, seeded, f"depth 2{window}", kernel)
     if rolling and f32.sliding_window:
         _rolling_vs_full(card, toks, pads, f32.sliding_window + 8)
     del card
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free()
+    served = cfg if serve_layers is None else cfg.replace(
+        num_layers=serve_layers)
+    return _bf16_serving(served, kernel, toks, pads, seeded, serve_lengths,
+                         new_tokens, rolling=rolling,
+                         decode_tokens=decode_tokens)
 
-    # bf16, full width: the serving run
+
+def _bf16_serving(scfg, kernel, toks, pads, seeded, serve_lengths,
+                  new_tokens: int, rolling: bool = False,
+                  decode_tokens=None) -> dict:
+    """The bf16 serving run at full width through ``BatchServer`` of the
+    config ``scfg`` (the published one, or one whose depth or expert
+    count is cut): a warm-up batch, then ``serve_lengths`` in batches of
+    ``LM_BATCH``; tokens/s, a decode round's ms against the weight-read
+    bound, peak memory, ``kernel`` launched once per kernel layer per
+    batch (no kernel at all when it is None), the decode-graph gates, a
+    profile of one short batch, two bf16 prefills of the parity batch
+    ``toks`` bitwise equal, the bf16 kernel against plain (logits
+    reported; every kernel call gated by :func:`_bf16_layers`); returns
+    the serving run's launch counts."""
+    import numpy as np
+    import torch
+    from repro_torch.config import get_arch_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import BatchServer, Request
+    arch = scfg.name
+    cfg = get_arch_config(arch)
     rng = np.random.default_rng(0)
     B = LM_BATCH
     if rolling and cfg.sliding_window:
         _wrapping_traffic(serve_lengths, cfg.sliding_window, new_tokens)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    server = BatchServer(arch, batch_size=B,
+    server = BatchServer(scfg, batch_size=B,
                          cache_len=max(serve_lengths) + new_tokens,
-                         reduced=False, seed=0, device=DEVICE,
-                         rolling=rolling, num_layers=serve_layers)
+                         seed=0, device=DEVICE, rolling=rolling)
     torch.cuda.synchronize()
-    scfg = server.cfg
     n_params = sum(p.numel() for p in server.model.parameters())
+    # a decode round reads every weight once, but of an untied input
+    # embedding only the batch's rows
+    w_bytes = sum(p.numel() * p.element_size()
+                  for n, p in server.model.named_parameters()
+                  if scfg.tie_embeddings or n != "embed.table")
     slots = (min(server.cache_len, scfg.sliding_window)
              if server.model.rolling else server.cache_len)
-    print(f"  bf16 server: {scfg.num_layers} of {cfg.num_layers} layers, "
-          f"{n_params / 1e9:.3f} B parameters "
+    experts = ("" if scfg.moe is None or scfg.moe == cfg.moe else
+               f", {scfg.moe.num_experts} of {cfg.moe.num_experts} experts "
+               f"(top {scfg.moe.top_k})")
+    print(f"  bf16 server: {scfg.num_layers} of {cfg.num_layers} layers"
+          f"{experts}, {n_params / 1e9:.3f} B parameters "
           f"({torch.cuda.memory_allocated() / 1e9:.1f} GB on the card), "
           f"made in {time.perf_counter() - t0:.1f}s"
           + ("" if scfg.rwkv is not None else
-             f"; KV cache {slots} slots a row"))
+             f"; cache {slots} slots a row"))
     reqs = [Request(i, rng.integers(0, cfg.vocab_size, n).astype(np.int32),
                     new_tokens) for i, n in enumerate(serve_lengths)]
     server.run(reqs[:B])                  # warm-up batch, not counted
@@ -2053,6 +2188,8 @@ def serve_lm(arch: str, kernel: str, lengths, serve_lengths,
     launches = dict(ops.launches)
     st = server.stats
     n_batches = (len(reqs) + B - 1) // B
+    round_ms = 1e3 * st.decode_s / (n_batches * (new_tokens - 1))
+    bound_ms = 1e3 * w_bytes / HBM_BYTES_PER_S
     print(f"  bf16 serving, {len(reqs)} requests (prompts "
           f"{min(serve_lengths)}-{max(serve_lengths)}, mean "
           f"{np.mean(serve_lengths):.0f}), batch {B}, {new_tokens} new "
@@ -2060,38 +2197,124 @@ def serve_lm(arch: str, kernel: str, lengths, serve_lengths,
           f"= {st.prefill_tokens / st.prefill_s:.1f} tok/s; decode "
           f"{st.decode_tokens} tok in {st.decode_s:.4f}s = "
           f"{st.decode_tokens / st.decode_s:.1f} tok/s "
-          f"({1e3 * st.decode_s / (n_batches * (new_tokens - 1)):.2f} ms "
-          f"per decode round); wall {wall:.3f}s; peak memory "
-          f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
-    print(f"  launches: {kernel} {launches[kernel]} = "
-          f"{launches[kernel] / n_batches:.0f} per prefill batch "
-          f"({scfg.num_layers} layers)")
+          f"({round_ms:.2f} ms per decode round against a weight-read "
+          f"bound of {bound_ms:.2f} ms: {w_bytes / 1e9:.2f} GB"
+          + ("" if scfg.tie_embeddings else ", the input embedding left "
+             "out,") + f" over "
+          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s); wall {wall:.3f}s; peak "
+          f"memory {torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
     if any(len(r.out) != new_tokens for r in reqs):
         raise AssertionError(f"{arch}: a request got the wrong token count")
-    if launches[kernel] != scfg.num_layers * n_batches:
-        raise AssertionError(f"{arch}: {launches[kernel]} {kernel} "
-                             f"launches, expected one per layer per batch")
+    if kernel is None:
+        print("  launches: none (its path runs no kernel)")
+        if any(launches.values()):
+            raise AssertionError(f"{arch}: kernels launched {launches}")
+    else:
+        per = _kernel_layers(scfg, kernel)
+        print(f"  launches: {kernel} {launches[kernel]} = "
+              f"{launches[kernel] / n_batches:.0f} per prefill batch "
+              f"({per} of {scfg.num_layers} layers)")
+        if launches[kernel] != per * n_batches:
+            raise AssertionError(f"{arch}: {launches[kernel]} {kernel} "
+                                 f"launches, expected one per kernel "
+                                 f"layer per batch")
 
     _decode_graphs(arch, server, reqs, decode_tokens or new_tokens)
 
     # a trace of one batch short enough to profile: the first prompts,
     # 16 new tokens
     _profile_lm(server, [Request(r.rid, r.prompt, 16) for r in reqs[:B]],
-                "flash_tc_kernel" if kernel == "flash_attention"
-                else "wkv6_kernel")
+                {"flash_attention": "flash_tc_kernel",
+                 "wkv6": "wkv6_kernel"}.get(kernel))
     _prefill_repeat(server.model, toks, pads)
 
-    # bf16: kernel against plain on one batch, reported only
-    (got, _, _), (want, _, _) = _kernel_and_plain(server.model, kernel,
-                                                  toks, pads, seeded)
-    agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
-    print(f"  bf16 kernel vs plain (reported, not gated): logits max diff "
-          f"{_rel(got, want):.3e} of max|logit|; greedy tokens agree on "
-          f"{100 * agree:.1f}% of {got.shape[0] * got.shape[1]} positions")
+    if kernel is not None:
+        # bf16: kernel against plain on one batch, reported only
+        (got, _, _), (want, _, _) = _kernel_and_plain(server.model, kernel,
+                                                      toks, pads, seeded)
+        agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+        print(f"  bf16 kernel vs plain (reported, not gated): logits max "
+              f"diff {_rel(got, want):.3e} of max|logit|; greedy tokens "
+              f"agree on {100 * agree:.1f}% of "
+              f"{got.shape[0] * got.shape[1]} positions")
+        _bf16_layers(server.model, kernel, toks, pads)
     del server
-    gc.collect()
-    torch.cuda.empty_cache()
+    _free()
     return launches
+
+
+@contextlib.contextmanager
+def _wrapped(module, name: str, after):
+    """Inside the block ``module.<name>`` runs as before, then hands its
+    arguments and result to ``after(args, kwargs, result)``."""
+    fn = getattr(module, name)
+
+    def call(*args, **kw):
+        out = fn(*args, **kw)
+        after(args, kw, out)
+        return out
+    setattr(module, name, call)
+    try:
+        yield
+    finally:
+        setattr(module, name, fn)
+
+
+def _bf16_layers(model, kernel: str, toks, pads) -> None:
+    """The bf16 kernel-vs-plain gap of one prefill of ``toks``, split by
+    layer. Gated: every ``kernel`` call of the kernel run, held element
+    by element (:func:`_bf16_check`) against its plain version on the
+    same inputs, at the shapes and on the data of the served model.
+    Reported: each layer's output in the kernel run against the plain
+    run (max diff over max|h|) and, for an MoE layer, the share of real
+    tokens whose top-k experts differ between the two runs."""
+    import torch
+    from repro_torch.arch import model as model_mod
+    from repro_torch.arch import moe as moe_mod
+    from repro_torch.kernels import ops, ref
+    op = f"{kernel}_op"
+    plain = getattr(ref, f"{kernel}_ref")
+    shares, runs = [], []
+
+    def check(args, kw, out):
+        want = plain(*args, **kw)
+        for g, w in zip(*((out, want) if isinstance(out, tuple)
+                          else ((out,), (want,)))):
+            shares.append(_bf16_check(g, w, f"{kernel} call {len(shares)} "
+                                      f"in the served {model.cfg.name}"))
+
+    def keep_h(args, kw, out):
+        runs[-1]["h"].append(out[0].float().cpu())
+
+    def keep_picks(args, kw, out):          # called inside layer len(h)
+        runs[-1]["picks"][len(runs[-1]["h"])] = (out[0] > 0).cpu()
+    for use_kernel in (True, False):
+        runs.append({"h": [], "picks": {}})
+        with _wrapped(model_mod, "block_apply", keep_h), \
+                _wrapped(moe_mod, "router_gates", keep_picks), \
+                (_wrapped(ops, op, check) if use_kernel
+                 else plain_lm_kernels()):
+            runs[-1]["logits"] = model.prefill(
+                _padded_batch(toks, pads, model.device),
+                cache_len=toks.shape[1])[0].float().cpu()
+    (got, want) = runs
+    real = (torch.arange(toks.shape[1])[None, :] >= pads[:, None])
+    parts = []
+    for i, (kind, a, b) in enumerate(zip(model.kinds, got["h"],
+                                         want["h"])):
+        part = f"{i} {kind} {_rel(a, b):.2e}"
+        if i in got["picks"]:
+            moved = (got["picks"][i] != want["picks"][i]).any(-1)[real]
+            part += f" (moe, {100 * float(moved.float().mean()):.1f}% " \
+                    f"rerouted)"
+        parts.append(part)
+    print(f"  bf16 kernel vs plain, one prefill ({len(toks)} prompts of "
+          f"{toks.shape[1]} padded tokens) split by layer: {len(shares)} "
+          f"{kernel} outputs held element by element to their plain "
+          f"versions on the same inputs, the worst element at "
+          f"{max(shares):.3f} of its limit; each layer's output, max diff "
+          f"of max|h|: " + "; ".join(parts) + f"; prefill logits "
+          f"{_rel(got['logits'], want['logits']):.3e} of max|logit|")
 
 
 def _serve_lm_example() -> None:
@@ -3280,7 +3503,8 @@ def examples_phase(label: str) -> dict:
 
 
 def lm_phases(phase) -> list:
-    """Phases 12, 13 and 17; returns each serving run's launch counts."""
+    """Phases 12, 13, 17 and 18; returns each serving run's launch
+    counts."""
     import numpy as np
     rng = np.random.default_rng(0)
     lo, hi = LM_PROMPTS
@@ -3295,7 +3519,11 @@ def lm_phases(phase) -> list:
                             np.arange(lo, hi + 1, 128), LM_REQUESTS)]))
     phase(f"17. serve Mixtral 8x7B (full width, {MIXTRAL_LAYERS} of 32 "
           "layers) and Qwen3-32B (full width, 64 layers)")
-    return got + large_lm_phase()
+    got += large_lm_phase()
+    phase(f"18. serve Jamba-1.5-Large (full width, one group of "
+          f"{JAMBA_LAYERS} layers, {JAMBA_EXPERTS} of 16 experts) and "
+          "MiniCPM3-4B (full width, 62 layers)")
+    return got + hybrid_lm_phase()
 
 
 def large_lm_phase() -> list:
@@ -3321,6 +3549,148 @@ def large_lm_phase() -> list:
     return got
 
 
+def _check_contract(model, S: int, label: str, B: int = 2) -> None:
+    """The reference's cache contract (``tests/test_arch_consistency.py:36``)
+    on the card: prefill(S) against prefill(S/2) plus S/2 decode steps of
+    the same seeded tokens, no pad; the last logits within
+    ``CONTRACT_TOL`` of max|logit|."""
+    import torch
+    t0 = time.perf_counter()
+    toks = torch.randint(0, model.cfg.vocab_size, (B, S),
+                         generator=torch.Generator().manual_seed(5)
+                         ).to(model.device)
+    full, _, _ = model.prefill({"tokens": toks}, cache_len=S)
+    lo, caches, idx = model.prefill({"tokens": toks[:, :S // 2]},
+                                    cache_len=S)
+    for t in range(S // 2, S):
+        lo, caches, idx = model.decode_step({"tokens": toks[:, t:t + 1]},
+                                            caches, idx)
+    err = _rel(lo.float().cpu(), full.float().cpu())
+    print(f"  f32 {label}, the reference's contract on the card: "
+          f"prefill({S}) vs prefill({S // 2}) + {S // 2} decode steps, "
+          f"last logits max diff {err:.3e} of max|logit| (limit "
+          f"{CONTRACT_TOL}; {time.perf_counter() - t0:.1f}s)")
+    if not err <= CONTRACT_TOL:
+        raise AssertionError(f"{model.cfg.name}: the cache contract "
+                             f"parts by {err:.3e}")
+
+
+def _mamba_mixer_card_vs_cpu(cfg, B: int = 2, T: int = 256,
+                             steps: int = 8) -> None:
+    """The Mamba mixer alone at ``cfg``'s full width, float32, weights
+    drawn on the card and copied to the CPU: a prefill of T seeded tokens
+    into a zero cache (output, final state, conv tail), then ``steps``
+    decode steps (outputs and states), card against CPU within
+    ``LM_CPU`` of each tensor's max."""
+    import torch
+    from repro_torch.arch.mamba import (mamba_apply, mamba_init,
+                                        mamba_init_cache)
+    mc, D = cfg.mamba, cfg.d_model
+    p = mamba_init(torch.Generator(device=DEVICE).manual_seed(3), D, mc,
+                   torch.float32)
+    x = torch.randn((B, T + steps, D),
+                    generator=torch.Generator().manual_seed(4))
+    runs, secs = {}, {}
+    for dev in ("cpu", DEVICE):
+        t0 = time.perf_counter()
+        pd = {k: v.to(dev) for k, v in p.items()}
+        cache = mamba_init_cache(B, mc, D, torch.float32, dev)
+        out, cache = mamba_apply(pd, x[:, :T].to(dev), mc, cache=cache)
+        got = [out, cache["state"], cache["conv"]]
+        for t in range(T, T + steps):
+            out, cache = mamba_apply(pd, x[:, t:t + 1].to(dev), mc,
+                                     cache=cache)
+            got += [out, cache["state"]]
+        runs[dev] = [g.float().cpu() for g in got]
+        secs[dev] = time.perf_counter() - t0
+    errs = [_rel(a, b) for a, b in zip(runs[DEVICE], runs["cpu"])]
+    d_in = mc.expand * D
+    print(f"  f32 Mamba mixer at full width (d {D}, d_in {d_in}, "
+          f"{d_in // mc.head_dim} heads of {mc.head_dim}, d_state "
+          f"{mc.d_state}, chunk {mc.chunk}), B {B}, T {T} + {steps} "
+          f"decode steps, card vs CPU: output {errs[0]:.3e}, final state "
+          f"{errs[1]:.3e}, conv tail {errs[2]:.3e}, decode max "
+          f"{max(errs[3:]):.3e} of each max (limit {LM_CPU}; the CPU "
+          f"{secs['cpu']:.1f}s)")
+    if not all(torch.isfinite(g).all() for g in runs[DEVICE]) or \
+            max(errs) > LM_CPU:
+        raise AssertionError(f"the Mamba mixer: card vs CPU {max(errs)}")
+
+
+def hybrid_lm_phase() -> list:
+    """Phase 18: Jamba-1.5-Large (one hybrid group, 8 experts) and
+    MiniCPM3-4B (full depth) at full width; returns each serving run's
+    launch counts."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.arch import build_model
+    from repro_torch.config import get_arch_config
+    got = []
+
+    # -- Jamba: float32 gates on one group with 2 experts
+    arch = "jamba-1.5-large-398b"
+    cfg = get_arch_config(arch)
+    toks, pads = _lm_batch(cfg, JAMBA_PARITY_PROMPTS)
+    seeded = torch.randint(0, cfg.vocab_size, (len(toks), 8),
+                           generator=torch.Generator().manual_seed(1))
+    f32 = cfg.replace(dtype="float32", num_layers=JAMBA_LAYERS,
+                      moe=dataclasses.replace(
+                          cfg.moe, num_experts=JAMBA_PARITY_EXPERTS))
+    label = (f"one group of {JAMBA_LAYERS} layers, "
+             f"{JAMBA_PARITY_EXPERTS} experts")
+    model = _f32_model(f32, 0)
+    _f32_kernel_vs_plain(model, "flash_attention", toks, pads, seeded,
+                         label)
+    _check_contract(model, 2 * cfg.mamba.chunk, label)
+    del model
+    _free()
+    _mamba_mixer_card_vs_cpu(cfg)
+    # the reduced model (2 layers: attention, then Mamba with MoE)
+    red = cfg.reduced().replace(dtype="float32")
+    r_toks, r_pads = _lm_batch(red, (32, 19, 5), seed=3)
+    r_seeded = torch.randint(0, red.vocab_size, (len(r_toks), 8),
+                             generator=torch.Generator().manual_seed(1))
+    card = build_model(red, torch.Generator(device=DEVICE).manual_seed(2)
+                       ).requires_grad_(False)
+    _card_vs_cpu(card, r_toks, r_pads, r_seeded,
+                 f"reduced ({red.num_layers} layers, d {red.d_model})",
+                 "flash_attention")
+    del card
+    lengths = [int(n) for n in np.random.default_rng(18).choice(
+        np.arange(LM_PROMPTS[0], LM_PROMPTS[1] + 1, cfg.mamba.chunk),
+        JAMBA_REQUESTS)]
+    served = cfg.replace(num_layers=JAMBA_LAYERS, moe=dataclasses.replace(
+        cfg.moe, num_experts=JAMBA_EXPERTS))
+    got.append(_bf16_serving(served, "flash_attention", toks, pads, seeded,
+                             lengths, LM_NEW_TOKENS,
+                             decode_tokens=DECODE_CHECK_TOKENS))
+
+    # -- MiniCPM3-4B: no kernel on its path
+    arch = "minicpm3-4b"
+    cfg = get_arch_config(arch)
+    toks, pads = _lm_batch(cfg, PARITY_PROMPTS)
+    seeded = torch.randint(0, cfg.vocab_size, (len(toks), 8),
+                           generator=torch.Generator().manual_seed(1))
+    f32 = cfg.replace(dtype="float32")
+    card = build_model(f32.replace(num_layers=2),
+                       torch.Generator(device=DEVICE).manual_seed(1)
+                       ).requires_grad_(False)
+    _card_vs_cpu(card, toks, pads, seeded, "depth 2")
+    del card
+    model = _f32_model(f32, 0)
+    _check_contract(model, 128, "full depth")
+    del model
+    _free()
+    lo, hi = LM_PROMPTS
+    lengths = [int(n) for n in np.random.default_rng(3).integers(
+        lo, hi + 1, LM_REQUESTS)]
+    got.append(_bf16_serving(cfg, None, toks, pads, seeded, lengths,
+                             LM_NEW_TOKENS,
+                             decode_tokens=DECODE_CHECK_TOKENS))
+    return got
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only",
@@ -3330,7 +3700,7 @@ def main(argv=None) -> int:
                     help="kernels: stop after phase 3 (build and check the "
                     "kernels); gnn-times: phases 1-3 and the GNN kernels' "
                     "times; lm-times: phases 1-3 and the LM kernels' "
-                    "times; lm: those and phases 12-13 and 17; runtime: "
+                    "times; lm: those and phases 12-13 and 17-18; runtime: "
                     "phases "
                     "1-2 and 11; graphs: phases 1-2 and 14; engine: "
                     "phases 1-2 and 15; examples: phases 1-2 and 16")

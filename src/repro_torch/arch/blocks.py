@@ -1,9 +1,10 @@
 """Pre-norm residual blocks of the LM zoo (the counterpart of
 ``repro/arch/blocks.py``), for the kinds the port serves: ``attn`` (GQA,
 optionally sliding-window, with a SwiGLU FFN: qwen3, phi3; or an MoE FFN:
-mixtral, dbrx) and ``rwkv`` (RWKV-6). Mamba, MLA, LayerNorm with a GELU
-MLP (whisper) and cross-attention are refused with an error until they
-are ported (ROADMAP A.12).
+mixtral, dbrx; or MLA: minicpm3), ``mamba`` (the Mamba mixer, with a
+SwiGLU or MoE FFN: jamba) and ``rwkv`` (RWKV-6). LayerNorm with a GELU
+MLP (whisper), cross-attention and encoders are refused with an error
+until they are ported (ROADMAP A.12).
 """
 from __future__ import annotations
 
@@ -11,12 +12,15 @@ from typing import Optional
 
 import torch
 
+from repro_torch.arch.mamba import (mamba_apply, mamba_init,
+                                    mamba_init_cache)
 from repro_torch.arch.moe import moe_ffn_dense, moe_ffn_ep, moe_init
 from repro_torch.arch.rwkv6_block import (rwkv_channel_apply,
                                           rwkv_channel_init, rwkv_init_cache,
                                           rwkv_time_apply, rwkv_time_init)
 from repro_torch.config import ArchConfig
-from repro_torch.nn.attention import attention_apply, attention_init
+from repro_torch.nn.attention import (attention_apply, attention_init,
+                                     mla_apply, mla_init)
 from repro_torch.nn.layers import (rmsnorm_apply, rmsnorm_init, swiglu_apply,
                                    swiglu_init)
 
@@ -26,14 +30,14 @@ def _unported(what: str):
 
 
 def _check_ported(cfg: ArchConfig, kind: str) -> None:
-    if kind not in ("attn", "rwkv"):
-        raise _unported(f"block kind {kind!r}")
-    if cfg.mla is not None:
-        raise _unported("MLA")
+    if kind not in ("attn", "mamba", "rwkv"):
+        raise ValueError(kind)
     if getattr(cfg, "norm_type", "rmsnorm") == "layernorm":
         raise _unported("LayerNorm with a GELU MLP")
-    if cfg.cross_attention or cfg.encoder_layers:
+    if cfg.cross_attention:
         raise _unported("cross-attention")
+    if cfg.encoder_layers:
+        raise _unported("the encoder")
 
 
 def _norm_init(cfg: ArchConfig, dtype, device=None) -> dict:
@@ -46,16 +50,22 @@ def norm_apply(cfg: ArchConfig, p, x: torch.Tensor) -> torch.Tensor:
 
 def block_init(gen: torch.Generator, cfg: ArchConfig, kind: str,
                dtype, use_moe: bool = True) -> dict:
-    """The weights of one block of ``kind`` ("attn" | "rwkv"), drawn from
-    ``gen`` on its device, as a dict with the reference's names.
-    ``use_moe``: whether THIS layer's FFN is MoE when the config has
-    one (the reference's ``moe_every`` rule picks it per layer)."""
+    """The weights of one block of ``kind`` ("attn" | "mamba" | "rwkv"),
+    drawn from ``gen`` on its device, as a dict with the reference's
+    names. ``use_moe``: whether THIS layer's FFN is MoE when the config
+    has one (the reference's ``moe_every`` rule picks it per layer)."""
     _check_ported(cfg, kind)
     p: dict = {"norm1": _norm_init(cfg, dtype, gen.device)}
-    if kind == "attn":
-        p["attn"] = attention_init(
-            gen, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
-            cfg.resolved_head_dim, dtype, qk_norm=cfg.qk_norm)
+    if kind in ("attn", "mamba"):
+        if kind == "mamba":
+            p["mixer"] = mamba_init(gen, cfg.d_model, cfg.mamba, dtype)
+        elif cfg.mla is not None:
+            p["attn"] = mla_init(gen, cfg.d_model, cfg.num_heads, cfg.mla,
+                                 dtype)
+        else:
+            p["attn"] = attention_init(
+                gen, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+                cfg.resolved_head_dim, dtype, qk_norm=cfg.qk_norm)
         p["norm2"] = _norm_init(cfg, dtype, gen.device)
         if cfg.moe is not None and use_moe:
             p["ffn"] = moe_init(gen, cfg.d_model, cfg.d_ff,
@@ -73,8 +83,16 @@ def block_cache_init(cfg: ArchConfig, kind: str, batch: int, cache_len: int,
                      dtype, rolling: bool = False, device=None) -> dict:
     """Decode cache for one block of the given kind. ``rolling``: the
     sliding-window cache of ``cache_len`` slots (the window), with
-    ``pos``, each slot's position (-1: empty)."""
+    ``pos``, each slot's position (-1: empty). MLA keeps the compressed
+    ``c_kv`` and ``k_rope``, Mamba its conv window and state."""
     _check_ported(cfg, kind)
+    if kind == "attn" and cfg.mla is not None:
+        m = cfg.mla
+        return {"c_kv": torch.zeros((batch, cache_len, m.kv_lora_rank),
+                                    dtype=dtype, device=device),
+                "k_rope": torch.zeros((batch, cache_len,
+                                       m.qk_rope_head_dim), dtype=dtype,
+                                      device=device)}
     if kind == "attn":
         hd = cfg.resolved_head_dim
         shape = (batch, cache_len, cfg.num_kv_heads, hd)
@@ -84,6 +102,9 @@ def block_cache_init(cfg: ArchConfig, kind: str, batch: int, cache_len: int,
             c["pos"] = torch.full((cache_len,), -1, dtype=torch.int32,
                                   device=device)
         return c
+    if kind == "mamba":
+        return mamba_init_cache(batch, cfg.mamba, cfg.d_model, dtype,
+                                device)
     return rwkv_init_cache(batch, cfg.d_model, cfg.rwkv, dtype, device)
 
 
@@ -105,23 +126,34 @@ def block_apply(p, x: torch.Tensor, cfg: ArchConfig, kind: str, *,
     """Pre-norm residual block. Returns (x, new_cache, aux_loss).
     ``valid``: (B, P) pad mask over the first P cache slots (serving
     with left-padded prompts) and ``kv_start`` its first real slot per
-    row (prefill); only the attention path reads them."""
+    row (prefill, GQA); only the attention path reads them, so a Mamba
+    or RWKV row's pads enter its state (ROADMAP C.11)."""
     if enc_memory is not None:
         raise _unported("cross-attention")
     sw = cfg.sliding_window if sliding_window is None else sliding_window
     new_cache = None
-    if kind == "attn":
+    if kind in ("attn", "mamba"):
         h = norm_apply(cfg, p["norm1"], x)
-        out = attention_apply(
-            p["attn"], h, num_heads=cfg.num_heads,
-            num_kv_heads=cfg.num_kv_heads,
-            head_dim=cfg.resolved_head_dim, positions=positions,
-            rope_theta=cfg.rope_theta, qk_norm=cfg.qk_norm,
-            norm_eps=cfg.norm_eps, causal=causal, sliding_window=sw,
-            cache=cache, cache_index=cache_index,
-            mrope_positions=mrope_positions, valid=valid,
-            kv_start=kv_start)
-        a, new_cache = out if cache is not None else (out, None)
+        if kind == "mamba":
+            out = mamba_apply(p["mixer"], h, cfg.mamba, cache=cache)
+        elif cfg.mla is not None:
+            out = mla_apply(
+                p["attn"], h, num_heads=cfg.num_heads, mla=cfg.mla,
+                positions=positions, rope_theta=cfg.rope_theta,
+                norm_eps=cfg.norm_eps, cache=cache,
+                cache_index=cache_index, valid=valid)
+        else:
+            out = attention_apply(
+                p["attn"], h, num_heads=cfg.num_heads,
+                num_kv_heads=cfg.num_kv_heads,
+                head_dim=cfg.resolved_head_dim, positions=positions,
+                rope_theta=cfg.rope_theta, qk_norm=cfg.qk_norm,
+                norm_eps=cfg.norm_eps, causal=causal, sliding_window=sw,
+                cache=cache, cache_index=cache_index,
+                mrope_positions=mrope_positions, valid=valid,
+                kv_start=kv_start)
+        a, new_cache = (out if cache is not None or kind == "mamba"
+                        else (out, None))
         x = x + a
         h2 = norm_apply(cfg, p["norm2"], x)
         f, aux = _ffn_apply(p["ffn"], h2, cfg, moe_impl)
@@ -139,5 +171,5 @@ def block_apply(p, x: torch.Tensor, cfg: ArchConfig, kind: str, *,
             new_cache = {"time": c_t, "channel": c_c}
         aux = x.new_zeros((), dtype=torch.float32)
     else:
-        raise _unported(f"block kind {kind!r}")
+        raise ValueError(kind)
     return x, new_cache, aux

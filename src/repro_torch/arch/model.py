@@ -4,9 +4,11 @@
 :class:`TransformerLM` is an ``nn.Module`` whose blocks sit in an
 ``nn.ModuleList``, one :class:`~repro_torch.nn.layers.ParamTree` per
 layer, and run as a Python loop (the reference scans over stacked
-parameters; eager PyTorch needs neither the scan nor remat). Parameter
-names are the reference's pytree paths, with the stacked ``blocks``
-unrolled to one entry per layer
+parameters, a hybrid model (jamba) over groups of one attention layer
+and ``attn_every - 1`` Mamba layers; eager PyTorch needs neither the
+scan nor remat, and layer ``i`` is slot ``i % len(group)`` of its
+group). Parameter names are the reference's pytree paths, with the
+stacked ``blocks`` unrolled to one entry per layer
 (:func:`repro_torch.weights.lm_params_from_jax` maps one onto the
 other). ``arch/hints.py:shard_hint`` is a no-op on one device and is not
 ported; ``loss`` waits for LM training (ROADMAP A.12). The backbone sums
@@ -82,21 +84,37 @@ class TransformerLM(nn.Module):
                                       "not ported yet (ROADMAP A.12)")
         params = {"embed": embedding_init(gen, cfg.vocab_size, cfg.d_model,
                                           dt)}
-        if cfg.moe is not None and cfg.moe_every > 1:
-            # the reference's rule (repro/arch/model.py:94-106): MoE on
-            # every moe_every-th layer of a scanned group, refused unless
-            # the group size divides moe_every; the port's groups are one
-            # layer until Mamba's hybrid groups land (ROADMAP A.12)
+        group_kinds, _ = self._group_structure()
+        g = len(group_kinds)
+        if cfg.moe is not None and cfg.moe_every > 1 and g % cfg.moe_every:
+            # the reference's rule (repro/arch/model.py:94-106): the
+            # group's slots share the MoE pattern, so its size is a
+            # multiple of moe_every
             raise ValueError(
                 "group size must divide moe_every for uniform layer "
-                f"scan (got 1 % {cfg.moe_every})")
-        params["blocks"] = [block_init(gen, cfg, kind, dt)
-                            for kind in self.kinds]
+                f"scan (got {g} % {cfg.moe_every})")
+        params["blocks"] = [
+            block_init(gen, cfg, kind, dt,
+                       use_moe=(cfg.moe_every <= 1 or (i % g) % cfg.moe_every
+                                == cfg.moe_every - 1))
+            for i, kind in enumerate(self.kinds)]
         params["final_norm"] = rmsnorm_init(cfg.d_model, dt, gen.device)
         if not cfg.tie_embeddings:
             params["lm_head"] = _fan_in_init(
                 gen, (cfg.d_model, cfg.vocab_size), dtype=dt)
         return params
+
+    def _group_structure(self):
+        """(group_kinds, n_groups): the layers are ``group_kinds *
+        n_groups``, as the reference's ``_group_structure``."""
+        cfg = self.cfg
+        if cfg.attn_every and cfg.mamba is not None:
+            g = cfg.attn_every
+            if cfg.num_layers % g != 0:
+                raise ValueError(f"num_layers {cfg.num_layers} must be a "
+                                 f"multiple of attn_every {g}")
+            return self.kinds[:g], cfg.num_layers // g
+        return self.kinds[:1], cfg.num_layers
 
     @property
     def device(self) -> torch.device:
@@ -156,9 +174,10 @@ class TransformerLM(nn.Module):
                                      device=x.device)[None]
         valid = batch.get("valid")
         # the left pad's first real key per row, checked once for every
-        # attention layer of the prefill
+        # GQA layer of the prefill (MLA masks the pads by ``valid``)
+        gqa = "attn" in self.kinds and self.cfg.mla is None
         kv_start = (left_pad_starts(valid)
-                    if valid is not None and "attn" in self.kinds else None)
+                    if valid is not None and gqa else None)
         h, caches, _ = self._backbone(x, positions=positions,
                                       caches=caches, cache_index=0,
                                       valid=valid, kv_start=kv_start)

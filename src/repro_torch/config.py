@@ -71,7 +71,8 @@ class MambaConfig:
     expand: int = 2
     head_dim: int = 64
     chunk: int = 128
-    dt_rank: int = 0            # 0 => ceil(d_model/16)
+    dt_rank: int = 0            # 0 => max(1, d_model // 16), as the
+    #                             reference's code floors it
 
 
 @dataclass(frozen=True)

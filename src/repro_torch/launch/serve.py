@@ -4,9 +4,11 @@ counterpart of ``repro/launch/serve.py``).
 Requests arrive with prompts of varying length, are left-padded into
 prefill batches, and decode proceeds in lockstep rounds over a fixed
 cache (rolling O(window) for the sliding-window arch, Mixtral). On the
-card, prefill runs the ``flash_attention`` kernel (the attention archs:
-Qwen3, Mixtral in its window, Phi-3, DBRX) or the ``wkv6`` kernel
-(RWKV-6); decode is plain PyTorch, as in the reference, and its round is
+card, prefill runs the ``flash_attention`` kernel (the GQA archs: Qwen3,
+Mixtral in its window, Phi-3, DBRX, and Jamba's attention layers) or the
+``wkv6`` kernel (RWKV-6); Jamba's Mamba layers and MiniCPM3's latent
+attention are plain PyTorch products, as the reference's are einsums.
+Decode is plain PyTorch, as in the reference, and its round is
 one CUDA graph per bucket (batch size and cache length): the reference
 compiles ``decode_step`` once (``repro/launch/serve.py:76-78``), the
 port captures it once (:class:`DecodeGraph`) and replays it every round.
@@ -18,10 +20,12 @@ does.
 
 ``--full-width`` serves the config as published (bf16, every layer);
 without it, the reference's reduced config in float32. One H100 (80 GB)
-holds Qwen3-4B, RWKV-6 1.6B, Phi-3-medium (29 GB) and Qwen3-32B (65.5
-GB) at full width and depth; Mixtral 8x7B (93.4 GB) and DBRX (263 GB)
-do not, and ``chip_smoke.py`` serves Mixtral at 16 of its 32 layers
-(``BatchServer(num_layers=16)``).
+holds Qwen3-4B, RWKV-6 1.6B, MiniCPM3-4B (8.2 GB), Phi-3-medium (29 GB)
+and Qwen3-32B (65.5 GB) at full width and depth; Mixtral 8x7B (93.4 GB),
+DBRX (263 GB) and Jamba-1.5-Large (796 GB) do not, and ``chip_smoke.py``
+serves Mixtral at 16 of its 32 layers and Jamba as one group of 8 layers
+with 8 of its 16 experts, each by handing ``BatchServer`` the config cut
+with ``ArchConfig.replace``.
 """
 from __future__ import annotations
 
@@ -29,13 +33,13 @@ import argparse
 import sys
 import time
 from dataclasses import dataclass, field
-from typing import List, Mapping, Optional
+from typing import List, Mapping, Optional, Union
 
 import numpy as np
 import torch
 
 from repro_torch.arch import build_model
-from repro_torch.config import get_arch_config
+from repro_torch.config import ArchConfig, get_arch_config
 from repro_torch.core.trainer import _assert_once_per_bucket, capture, warm_up
 from repro_torch.device import resolve_device
 
@@ -159,22 +163,24 @@ class BatchServer:
     (:class:`DecodeGraph`), unless ``cuda_graphs=False``;
     :meth:`assert_compiled_per_bucket` certifies one capture per touched
     bucket, the reference's rule. ``rolling`` keeps a sliding-window
-    arch's cache at O(window) slots, as the reference's server does;
-    ``num_layers`` cuts the config's depth (a model too large for the
-    card at full depth; the widths stay).
+    arch's cache at O(window) slots, as the reference's server does.
+    ``arch`` is a name (``reduced`` then picks the reference's reduced
+    config in float32) or an ``ArchConfig``, served as it is: a model too
+    large for the card is served cut with ``cfg.replace(...)``.
     """
 
-    def __init__(self, arch: str, batch_size: int, cache_len: int,
+    def __init__(self, arch: Union[str, ArchConfig], batch_size: int,
+                 cache_len: int,
                  reduced: bool = True, seed: int = 0, rolling: bool = True,
                  greedy: bool = True, device=None,
                  state_dict: Optional[Mapping] = None,
-                 cuda_graphs: bool = True,
-                 num_layers: Optional[int] = None):
-        cfg = get_arch_config(arch)
-        if reduced:
-            cfg = cfg.reduced().replace(dtype="float32")
-        if num_layers is not None:
-            cfg = cfg.replace(num_layers=int(num_layers))
+                 cuda_graphs: bool = True):
+        if isinstance(arch, ArchConfig):
+            cfg = arch
+        else:
+            cfg = get_arch_config(arch)
+            if reduced:
+                cfg = cfg.reduced().replace(dtype="float32")
         self.cfg = cfg
         self.device = resolve_device(device)
         gen = torch.Generator(device=self.device).manual_seed(seed)
@@ -289,8 +295,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="mixtral-8x7b",
                     help="mixtral-8x7b, qwen3-4b, qwen3-32b, "
-                    "phi3-medium-14b, dbrx-132b or rwkv6-1.6b (the rest of "
-                    "the zoo waits for ROADMAP A.12)")
+                    "phi3-medium-14b, dbrx-132b, rwkv6-1.6b, "
+                    "jamba-1.5-large-398b or minicpm3-4b (whisper-base and "
+                    "qwen2-vl-2b wait for ROADMAP A.12)")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=24)
@@ -310,10 +317,12 @@ def main(argv=None) -> int:
                          reduced=not args.full_width, seed=args.seed,
                          device=args.device)
     cfg = server.cfg
-    # RWKV's prefill takes a padded length that its chunk divides (as
-    # the reference's): prompts at or past one chunk are cut to a
-    # multiple of it, so every batch's longest prompt fits
-    chunk = cfg.rwkv.chunk if cfg.rwkv is not None else 0
+    # RWKV's and Mamba's prefill take a padded length of at most one
+    # chunk or a multiple of it (as the reference's): prompts at or past
+    # one chunk are cut to a multiple of it, so every batch's longest
+    # prompt fits
+    chunk = next((c.chunk for c in (cfg.rwkv, cfg.mamba) if c is not None),
+                 0)
     reqs = []
     for i in range(args.requests):
         n = int(rng.integers(4, args.prompt_len + 1))

@@ -10,10 +10,11 @@ reference does. The caches are updated in place (the reference returns
 new ones), which keeps one copy of each on the card. The rolling
 sliding-window cache keeps W slots (slot = position mod W): its prefill
 runs the kernel within the prompt and its decode ``_sdpa`` over the W
-slots.
+slots. MLA (``mla_apply``, MiniCPM3) attends through float32 products,
+as the reference's does: no kernel.
 
-Not ported yet, and refused with an error: cross-attention, M-RoPE and
-MLA (ROADMAP A.12).
+Not ported yet, and refused with an error: cross-attention and M-RoPE
+(ROADMAP A.12).
 """
 from __future__ import annotations
 
@@ -312,3 +313,139 @@ def attention_apply(p, x: torch.Tensor, *, num_heads: int, num_kv_heads: int,
     if cache is not None:
         return out, cache
     return out
+
+
+# ---------------------------------------------------------------------------
+# MLA (multi-head latent attention, MiniCPM3 / DeepSeek-V2 style)
+# ---------------------------------------------------------------------------
+
+
+def mla_init(gen: torch.Generator, d_model: int, num_heads: int, mla,
+             dtype=torch.float32) -> dict:
+    """The latent attention's weights, named as the reference's."""
+    qh = mla.qk_nope_head_dim + mla.qk_rope_head_dim
+    return {
+        "wq_a": _fan_in_init(gen, (d_model, mla.q_lora_rank), dtype=dtype),
+        "q_a_norm": rmsnorm_init(mla.q_lora_rank, dtype, gen.device),
+        "wq_b": _fan_in_init(gen, (mla.q_lora_rank, num_heads * qh),
+                             dtype=dtype),
+        "wkv_a": _fan_in_init(
+            gen, (d_model, mla.kv_lora_rank + mla.qk_rope_head_dim),
+            dtype=dtype),
+        "kv_a_norm": rmsnorm_init(mla.kv_lora_rank, dtype, gen.device),
+        "wk_b": _fan_in_init(
+            gen, (mla.kv_lora_rank, num_heads * mla.qk_nope_head_dim),
+            dtype=dtype),
+        "wv_b": _fan_in_init(
+            gen, (mla.kv_lora_rank, num_heads * mla.v_head_dim),
+            dtype=dtype),
+        "wo": _fan_in_init(gen, (num_heads * mla.v_head_dim, d_model),
+                           dtype=dtype),
+    }
+
+
+def _mla_qkv(p, x, num_heads: int, mla, positions, rope_theta, norm_eps):
+    """The shared projections: q_nope (B, S, H, nope), q_rope (B, S, H,
+    rope), c_kv (B, S, kv_rank) and k_rope (B, S, rope), the one key head
+    that every query head shares, with RoPE on q_rope and k_rope."""
+    B, S, _ = x.shape
+    qh = mla.qk_nope_head_dim + mla.qk_rope_head_dim
+    q = rmsnorm_apply(p["q_a_norm"], x @ p["wq_a"], norm_eps) @ p["wq_b"]
+    q = q.reshape(B, S, num_heads, qh)
+    q_nope = q[..., :mla.qk_nope_head_dim]
+    q_rope = q[..., mla.qk_nope_head_dim:]
+    kv = x @ p["wkv_a"]
+    c_kv = rmsnorm_apply(p["kv_a_norm"], kv[..., :mla.kv_lora_rank],
+                         norm_eps)
+    k_rope = kv[..., mla.kv_lora_rank:][:, :, None, :]
+    if positions is not None:
+        q_rope = apply_rope(q_rope, positions, rope_theta)
+        k_rope = apply_rope(k_rope, positions, rope_theta)
+    return q_nope, q_rope, c_kv, k_rope[:, :, 0, :]
+
+
+def mla_apply(p, x: torch.Tensor, *, num_heads: int, mla, positions=None,
+              rope_theta=10000.0, norm_eps=1e-5, cache=None,
+              cache_index=None, valid=None):
+    """MLA attention, as ``repro/nn/attention.py:mla_apply``.
+
+    - Without a cache: K and V decompressed per head (``c_kv @ wk_b``,
+      ``c_kv @ wv_b``), causal attention over the tokens; returns out.
+    - With a cache {"c_kv" (B, S_max, kv_rank), "k_rope" (B, S_max,
+      rope)}: the *absorbed* form. ``c_kv`` and ``k_rope`` are written at
+      ``cache_index`` in place (an int, or a 0-d int64 tensor on the
+      device: a CUDA graph captures the step), ``q_nope`` is projected
+      into the latent space through ``wk_b``, attention runs over all
+      S_max slots of the compressed cache (slots past ``cache_index + Sq
+      - 1`` and ``valid``'s pads masked) and ``wv_b`` applies after the
+      weighting; returns (out, cache). The model's prefill passes a
+      cache, so a served prefill takes this path too, as the
+      reference's. ``valid`` is (B, P) over the first P slots, or all
+      S_max of them.
+
+    Scores and the weighting are float32 products, as the reference's;
+    no kernel runs here (the reference's MLA is einsums)."""
+    B, Sq, _ = x.shape
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv(
+        p, x, num_heads, mla, positions, rope_theta, norm_eps)
+    scale = 1.0 / np.sqrt(mla.qk_nope_head_dim + mla.qk_rope_head_dim)
+
+    if cache is None:
+        k_nope = (c_kv @ p["wk_b"]).reshape(B, Sq, num_heads,
+                                            mla.qk_nope_head_dim)
+        v = (c_kv @ p["wv_b"]).reshape(B, Sq, num_heads, mla.v_head_dim)
+        pos = positions if positions is not None else (
+            torch.arange(Sq, dtype=torch.int32, device=x.device)[None])
+        if pos.dim() == 1:
+            pos = pos[None]
+        bias = make_attention_bias(pos, pos, causal=True)
+        if bias.dim() == 3:
+            bias = bias[:, None]
+        scores = torch.einsum("bqhd,bkhd->bhqk", q_nope.float(),
+                              k_nope.float())
+        scores += torch.einsum("bqhd,bkd->bhqk", q_rope.float(),
+                               k_rope.float())
+        scores *= scale
+        probs = torch.softmax(scores + bias, dim=-1)
+        del scores
+        out = torch.einsum("bhqk,bkhd->bqhd", probs, v.float())
+        out = out.reshape(B, Sq, num_heads * mla.v_head_dim).to(x.dtype)
+        return out @ p["wo"]
+
+    # ---- absorbed attention over the compressed cache
+    cc, cr = cache["c_kv"], cache["k_rope"]
+    start = (cache_index.reshape(()).to(torch.int64)
+             if torch.is_tensor(cache_index) else int(cache_index))
+    slots = start + torch.arange(Sq, dtype=torch.int64, device=x.device)
+    cc.index_copy_(1, slots, c_kv.to(cc.dtype))
+    cr.index_copy_(1, slots, k_rope.to(cr.dtype))
+    S_max = cc.shape[1]
+    wk_b = p["wk_b"].reshape(mla.kv_lora_rank, num_heads,
+                             mla.qk_nope_head_dim)
+    q_lat = torch.einsum("bqhd,rhd->bqhr", q_nope.float(), wk_b.float())
+    ccf = cc.float()
+    scores = torch.einsum("bqhr,bkr->bhqk", q_lat, ccf)
+    del q_lat
+    scores += torch.einsum("bqhd,bkd->bhqk", q_rope.float(), cr.float())
+    scores *= scale
+    k_pos = torch.arange(S_max, dtype=torch.int32, device=x.device)[None]
+    q_pos = slots.to(torch.int32)[None]
+    k_valid = k_pos <= q_pos[:, -1:]
+    if valid is not None:
+        # the pad slots stay masked, as in the GQA cache path
+        P = valid.shape[1]
+        vfull = torch.ones((B, S_max), dtype=torch.bool, device=x.device)
+        vfull[:, :P] = valid.bool()
+        k_valid = k_valid & vfull
+    bias = make_attention_bias(q_pos, k_pos, causal=True, k_valid=k_valid)
+    if bias.dim() == 3:
+        bias = bias[:, None]
+    scores += bias
+    probs = torch.softmax(scores, dim=-1)
+    del scores
+    o_lat = torch.einsum("bhqk,bkr->bqhr", probs, ccf)
+    del probs
+    wv_b = p["wv_b"].reshape(mla.kv_lora_rank, num_heads, mla.v_head_dim)
+    out = torch.einsum("bqhr,rhd->bqhd", o_lat, wv_b.float())
+    out = out.reshape(B, Sq, num_heads * mla.v_head_dim).to(x.dtype)
+    return out @ p["wo"], cache

@@ -108,7 +108,8 @@ def lm_params_from_jax(cfg, tree) -> "OrderedDict[str, torch.Tensor]":
     Layout mapping: every path but ``blocks`` keeps its name
     (``embed.table``, ``final_norm.scale``, ``lm_head``). The reference
     stacks the blocks: ``params["blocks"]`` is a list with one entry per
-    layer kind of a group (one entry for a dense or RWKV model), each a
+    slot of a group (one entry for a dense or RWKV model; jamba's are an
+    attention slot and ``attn_every - 1`` Mamba slots), each a
     dict whose leaves carry a leading ``n_groups`` axis, and layer ``g *
     len(blocks) + s`` is entry ``s`` at index ``g``. The port keeps one
     block per layer: leaf ``a[g]`` of entry ``s`` becomes
@@ -116,8 +117,9 @@ def lm_params_from_jax(cfg, tree) -> "OrderedDict[str, torch.Tensor]":
     ``(d_in, d_out)`` layout, an MoE FFN's expert stacks their ``(E,
     d_in, d_out)`` (``ffn.router``, ``ffn.wi_gate``, ...); every array
     arrives as float32 and ``load_state_dict`` casts it to the
-    parameter's dtype. The port builds a bf16 model's MoE router as a
-    float32 parameter, as the reference keeps it, so it stays float32."""
+    parameter's dtype. The port builds a bf16 model's MoE router and
+    Mamba's ``dt_proj``, ``dt_bias``, ``A_log`` and ``D`` as float32
+    parameters, as the reference keeps them, so they stay float32."""
     out: "OrderedDict[str, torch.Tensor]" = OrderedDict()
     groups = tree["blocks"]
     per_group = len(groups)

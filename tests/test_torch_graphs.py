@@ -16,7 +16,8 @@ On the CPU:
 
 The ``cuda`` twins check on the card that replay is bitwise equal to eager
 and that each bucket is captured once, for the GNN steps and the LM
-decode round::
+decode round, and hold the reduced Jamba's and MiniCPM3's served logits
+to the CPU's::
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_graphs.py
 
@@ -387,7 +388,8 @@ def test_cuda_engine_restore_and_reset_keep_the_captured_step_live(
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("arch", ["qwen3-4b", "rwkv6-1.6b"])
+@pytest.mark.parametrize("arch", ["qwen3-4b", "rwkv6-1.6b",
+                                  "jamba-1.5-large-398b", "minicpm3-4b"])
 def test_cuda_lm_decode_captured_once_replays_eager(arch, cuda):
     """The reduced model served on the card, two batches of mixed-length
     prompts: the captured decode round gives eager decode's tokens and
@@ -414,6 +416,59 @@ def test_cuda_lm_decode_captured_once_replays_eager(arch, cuda):
     assert len(runs[True][1]) == len(runs[False][1]) == 10
     for a, b in zip(runs[True][1], runs[False][1]):
         assert torch.equal(a, b)
+
+
+def _served_logits(model, lengths, new, cache_len, seed=3):
+    """A left-padded prefill of seeded prompts of ``lengths``, then
+    ``new`` greedy decode steps at a device index: every step's logits,
+    float32 on the CPU."""
+    P = max(lengths)
+    rng = np.random.default_rng(seed)
+    toks = np.zeros((len(lengths), P), np.int64)
+    for i, n in enumerate(lengths):
+        toks[i, P - n:] = rng.integers(0, model.cfg.vocab_size, n)
+    dev = model.device
+    pads = torch.tensor([P - n for n in lengths], device=dev)
+    ar = torch.arange(P, device=dev)[None]
+    valid = ar >= pads[:, None]
+    logits, caches, idx = model.prefill(
+        {"tokens": torch.from_numpy(toks).to(dev), "valid": valid,
+         "positions": (ar - pads[:, None]).clamp_min(0).int()},
+        cache_len=cache_len)
+    out = [logits.float().cpu()]
+    idx = torch.tensor(idx, device=dev)
+    for _ in range(new):
+        logits, caches, idx = model.decode_step(
+            {"tokens": logits[:, -1].argmax(-1)[:, None], "valid": valid,
+             "positions": (idx - pads)[:, None].int()}, caches, idx)
+        out.append(logits.float().cpu())
+    return torch.cat(out, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch, launches", [("jamba-1.5-large-398b", 1),
+                                            ("minicpm3-4b", 0)])
+def test_cuda_hybrid_lm_matches_the_cpu(arch, launches, cuda):
+    """Reduced Jamba (attention then Mamba, MoE on the Mamba slot) and
+    MiniCPM3 (MLA), float32, on the card against the CPU on the same
+    weights: a left-padded prefill two chunks long (Jamba's attention
+    layer through the ``flash_attention`` kernel, one launch; MLA's
+    absorbed path over all cache slots, no kernel) and 6 greedy decode
+    steps at a device index, within 1e-4 of max|logit|."""
+    from repro_torch.arch import build_model
+    from repro_torch.config import get_arch_config
+    from repro_torch.kernels import ops
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_arch_config(arch).reduced().replace(dtype="float32")
+    cpu = build_model(cfg, torch.Generator().manual_seed(2)
+                      ).requires_grad_(False)
+    lengths = (32, 19, 5)
+    want = _served_logits(cpu, lengths, 6, 40)
+    before = ops.launches["flash_attention"]
+    got = _served_logits(cpu.to(cuda), lengths, 6, 40)
+    assert ops.launches["flash_attention"] == before + launches
+    assert float((got - want).abs().max()) <= 1e-4 * float(
+        want.abs().max())
 
 
 def test_capture_holds_the_collector_off():

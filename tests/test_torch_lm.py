@@ -1,10 +1,12 @@
 """The port's LM serving path against the JAX package's.
 
-Reduced Qwen3-4B and RWKV-6 in float32, with the JAX model's params
-loaded into the port through ``lm_params_from_jax``: prefill logits and
-caches and 8 decode steps must match the JAX model within rtol 1e-4 /
-atol 1e-5 (prefill goes through the kernels' plain versions on the CPU,
-the reference through ``_sdpa`` and ``wkv_chunked``); prefill(S/2) plus
+Reduced Qwen3-4B, RWKV-6, Jamba (a group of one GQA layer and one Mamba
+layer, MoE on the second) and MiniCPM3 (MLA) in float32, with the JAX
+model's params loaded into the port through ``lm_params_from_jax``:
+prefill logits and caches and 8 decode steps must match the JAX model
+within rtol 1e-4 / atol 1e-5 (prefill goes through the kernels' plain
+versions on the CPU, the reference through ``_sdpa`` and
+``wkv_chunked``; Mamba and MLA are plain products in both); prefill(S/2) plus
 decodes must equal prefill(S) inside the port; and the port's
 ``BatchServer`` must produce the JAX server's tokens on mixed-length
 prompts, batched equal to solo. Decode at a device-tensor index, and
@@ -33,11 +35,14 @@ from repro_torch.weights import lm_params_from_jax  # noqa: E402
 
 RTOL, ATOL = 1e-4, 1e-5
 ARCHS = ["qwen3-4b", "rwkv6-1.6b"]
+# the hybrid Mamba/attention/MoE groups (jamba) and latent attention
+# (minicpm3)
+HYBRID = ["jamba-1.5-large-398b", "minicpm3-4b"]
 # and the attention archs that came with the MoE FFN and the rolling
 # cache: MoE with a sliding window (mixtral), fine-grained MoE (dbrx),
 # dense GQA (phi3, qwen3-32b)
-SERVED = ARCHS + ["mixtral-8x7b", "dbrx-132b", "phi3-medium-14b",
-                  "qwen3-32b"]
+SERVED = ARCHS + HYBRID + ["mixtral-8x7b", "dbrx-132b", "phi3-medium-14b",
+                           "qwen3-32b"]
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -50,7 +55,7 @@ def _cfgs(arch):
             get_arch_config(arch).reduced().replace(dtype="float32"))
 
 
-@pytest.fixture(scope="module", params=ARCHS)
+@pytest.fixture(scope="module", params=ARCHS + HYBRID)
 def pair(request):
     """(arch, JAX model, JAX params, port model with those params)."""
     jcfg, cfg = _cfgs(request.param)
@@ -90,12 +95,17 @@ def test_configs_are_the_references():
         if cfg.moe is not None:
             assert vars(cfg.moe) == vars(jcfg.moe), arch
             assert vars(red.moe) == vars(jred.moe), arch
-        assert (cfg.rwkv is None) == (jcfg.rwkv is None)
-        if cfg.rwkv is not None:
-            assert vars(cfg.rwkv) == vars(jcfg.rwkv)
-            assert vars(cfg.reduced().rwkv) == vars(jcfg.reduced().rwkv)
-        assert layer_kinds(cfg) == [
-            "rwkv" if cfg.rwkv is not None else "attn"] * cfg.num_layers
+        assert red.attn_every == jred.attn_every, arch
+        assert cfg.attn_every == jcfg.attn_every, arch
+        for sub in ("rwkv", "mamba", "mla"):
+            mine, ref = getattr(cfg, sub), getattr(jcfg, sub)
+            assert (mine is None) == (ref is None), (arch, sub)
+            if mine is not None:
+                assert vars(mine) == vars(ref), (arch, sub)
+                assert vars(getattr(red, sub)) == vars(getattr(jred, sub))
+        from repro.arch.model import layer_kinds as jax_layer_kinds
+        assert layer_kinds(cfg) == jax_layer_kinds(jcfg), arch
+        assert layer_kinds(red) == jax_layer_kinds(jred), arch
 
 
 def test_prefill_and_decode_match_jax(pair):
@@ -109,23 +119,31 @@ def test_prefill_and_decode_match_jax(pair):
                                  .long()}, cache_len=P + N)
     _close(pl, jl, f"{arch}: prefill logits")
     assert idx == int(jidx) == P
-    for layer, c in enumerate(pc):
-        if arch == "qwen3-4b":
-            for key in ("k", "v"):
-                _close(c[key], jc[0][key][layer], f"layer {layer} {key}")
-        else:
-            _close(c["time"]["state"], jc[0]["time"]["state"][layer],
-                   f"layer {layer} state")
-            _close(c["time"]["last"], jc[0]["time"]["last"][layer],
-                   f"layer {layer} time shift")
-            _close(c["channel"]["last"], jc[0]["channel"]["last"][layer],
-                   f"layer {layer} channel shift")
+    _close_caches(pc, jc, f"{arch} prefill")
     for t in range(P, P + N):
         jl, jc, jidx = jm.decode_step(
             params, {"tokens": jnp.asarray(toks[:, t:t + 1])}, jc, jidx)
         pl, pc, idx = model.decode_step(
             {"tokens": torch.from_numpy(toks[:, t:t + 1]).long()}, pc, idx)
         _close(pl, jl, f"{arch}: decode step {t - P}")
+    _close_caches(pc, jc, f"{arch} decode")
+
+
+def _close_caches(pc, jc, what):
+    """Every cache tensor of the port's layer ``g * len(jc) + s`` against
+    index ``g`` of the reference's group slot ``s``: K and V (GQA),
+    ``c_kv`` and ``k_rope`` (MLA), ``conv`` and ``state`` (Mamba), RWKV's
+    shifts and states."""
+    def walk(c, j, g, at):
+        for key, v in c.items():
+            if isinstance(v, dict):
+                walk(v, j[key], g, f"{at} {key}")
+            else:
+                _close(v, j[key][g], f"{at} {key}")
+    for layer, c in enumerate(pc):
+        g, s = divmod(layer, len(jc))
+        assert set(c) == set(jc[s]), (layer, set(c), set(jc[s]))
+        walk(c, jc[s], g, f"{what}: layer {layer}")
 
 
 # bf16 logits, port vs reference (ROADMAP C.13). bf16 keeps 8 significant
@@ -334,6 +352,30 @@ def test_batch_server_certifies_its_decode():
     assert srv.captures == {}
 
 
+def test_batch_server_serves_a_config_as_given():
+    """A name goes through ``reduced``; an ``ArchConfig`` is served as it
+    is, so a cut (here reduced Jamba's experts cut to 2) is the caller's
+    ``cfg.replace``. The same config by name or by value serves the same
+    tokens."""
+    import dataclasses
+    _, red = _cfgs("jamba-1.5-large-398b")
+    cut = red.replace(moe=dataclasses.replace(red.moe, num_experts=2))
+    assert red.moe.num_experts > 2
+    srv = serve.BatchServer(cut, batch_size=1, cache_len=40, device="cpu")
+    assert srv.cfg is cut and len(srv.model.blocks) == 2
+    assert srv.model.blocks[1]["ffn"]["router"].shape[-1] == 2
+    prompt = np.arange(16, dtype=np.int32)
+    outs = []
+    for arch in ("jamba-1.5-large-398b", red):
+        s = serve.BatchServer(arch, batch_size=1, cache_len=40,
+                              device="cpu", seed=4)
+        assert s.cfg == red
+        r = serve.Request(0, prompt, 3)
+        s.run([r])
+        outs.append(r.out)
+    assert outs[0] == outs[1] and len(outs[0]) == 3
+
+
 def _mixed_prompts(vocab):
     # the prompts of tests/test_serving_extensions.py's batched-vs-solo
     rng = np.random.default_rng(0)
@@ -420,11 +462,11 @@ def test_prefill_checks_the_left_pad_once(monkeypatch):
 
 
 def test_unported_paths_raise():
-    """What stays unported is refused by name: MLA (minicpm3), Mamba
-    (jamba), Whisper (``get_arch_config`` has no config for them,
-    ROADMAP A.12), expert parallelism (A.13), cross-attention and
-    M-RoPE."""
-    for arch in ("minicpm3-4b", "jamba-1.5-large-398b", "whisper-base"):
+    """What stays unported is refused by name: Whisper and Qwen2-VL
+    (``get_arch_config`` has no config for them, ROADMAP A.12), the
+    blocks' LayerNorm/GELU, cross-attention and encoders (A.12), expert
+    parallelism (A.13), and attention's cross-attention and M-RoPE."""
+    for arch in ("whisper-base", "qwen2-vl-2b"):
         with pytest.raises(NotImplementedError, match="A.12"):
             get_arch_config(arch)
     moe_cfg = get_arch_config("mixtral-8x7b").reduced().replace(
@@ -433,6 +475,11 @@ def test_unported_paths_raise():
         build_model(moe_cfg, moe_impl="ep").prefill(
             {"tokens": torch.zeros((1, 3), dtype=torch.long)}, cache_len=4)
     cfg = get_arch_config("qwen3-4b").reduced().replace(dtype="float32")
+    for cut, what in (({"norm_type": "layernorm"}, "LayerNorm"),
+                      ({"cross_attention": True}, "cross-attention"),
+                      ({"encoder_layers": 2}, "encoder")):
+        with pytest.raises(NotImplementedError, match=f"{what}.*A.12"):
+            build_model(cfg.replace(**cut))
     p = build_model(cfg).blocks[0]["attn"]
     x = torch.zeros((1, 2, cfg.d_model))
     kw = dict(num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
@@ -456,3 +503,106 @@ def test_serve_cli_runs_on_the_cpu(capsys):
                        "--requests", "2", "--batch", "2", "--new-tokens",
                        "2", "--prompt-len", "8"]) == 0
     assert "[cpu] qwen3-4b (2 layers" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("arch", HYBRID)
+def test_serve_cli_runs_the_hybrid_archs_on_the_cpu(arch, capsys):
+    """Jamba and MiniCPM3 through the CLI, reduced: Jamba's prompts at or
+    past its chunk (16) are cut to whole chunks, so every batch's padded
+    length is at most one chunk or a multiple of it."""
+    assert serve.main(["--arch", arch, "--device", "cpu", "--requests",
+                       "4", "--batch", "2", "--new-tokens", "2",
+                       "--prompt-len", "40", "--seed", "3"]) == 0
+    out = capsys.readouterr().out
+    assert f"[cpu] {arch} (2 layers" in out
+    if arch.startswith("jamba"):
+        lens = [int(line.split("prompt[")[1].split("]")[0])
+                for line in out.splitlines() if "prompt[" in line]
+        assert lens and all(n < 16 or n % 16 == 0 for n in lens), lens
+
+
+def test_jamba_moe_interleave():
+    """Twin of the reference's ``test_jamba_moe_interleave`` for the
+    published layout, without building the 398B model: 9 attention and
+    63 Mamba layers in groups of 8, MoE on every second layer (slot 1 of
+    a group, not slot 0). The layout is built in the port at toy widths
+    (72 layers, d 32); the reference's params of two such groups load
+    into the port by name and shape; the reduced model's group is [attn,
+    mamba] with MoE on the Mamba slot only."""
+    cfg = get_arch_config("jamba-1.5-large-398b")
+    assert cfg.moe_every == 2 and cfg.attn_every == 8
+    kinds = layer_kinds(cfg)
+    assert kinds.count("attn") == 9 and kinds.count("mamba") == 63
+    toy = dict(d_model=32, num_heads=2, num_kv_heads=1, head_dim=16,
+               d_ff=16, vocab_size=32, dtype="float32")
+    import dataclasses
+    tcfg = cfg.replace(mamba=dataclasses.replace(cfg.mamba, head_dim=16,
+                                                 d_state=4, chunk=8),
+                       moe=dataclasses.replace(cfg.moe, num_experts=2),
+                       **toy)
+    model = build_model(tcfg)
+    assert model._group_structure() == (["attn"] + ["mamba"] * 7, 9)
+    assert len(model.blocks) == 72
+    for i, b in enumerate(model.blocks):
+        assert ("attn" in b) == (i % 8 == 0) and ("mixer" in b) == (
+            i % 8 != 0), i
+        assert ("router" in b["ffn"]) == (i % 2 == 1), i
+    jcfg = jax_arch_config("jamba-1.5-large-398b")
+    jtoy = jcfg.replace(mamba=dataclasses.replace(jcfg.mamba, head_dim=16,
+                                                  d_state=4, chunk=8),
+                        moe=dataclasses.replace(jcfg.moe, num_experts=2),
+                        num_layers=16, **toy)
+    jparams = jax_build_model(jtoy, remat=False).init(jax.random.PRNGKey(0))
+    assert ["router" in b["ffn"] for b in jparams["blocks"]] == [
+        s % 2 == 1 for s in range(8)]
+    two = tcfg.replace(num_layers=16)
+    build_model(two).load_state_dict(lm_params_from_jax(
+        two, jax.tree_util.tree_map(np.asarray, jparams)), strict=True)
+    red = build_model(cfg.reduced().replace(dtype="float32"))
+    assert "router" not in red.blocks[0]["ffn"]
+    assert "router" in red.blocks[1]["ffn"]
+    # the reference's refusals: layers not a whole number of groups, and
+    # a group size that moe_every does not divide
+    with pytest.raises(ValueError, match="attn_every"):
+        build_model(tcfg.replace(num_layers=12))
+    with pytest.raises(ValueError, match="moe_every"):
+        build_model(cfg.reduced().replace(dtype="float32", moe_every=3))
+
+
+def test_jamba_server_over_two_chunks_matches_jax():
+    """Reduced Jamba (chunk 16) served by both servers on one left-padded
+    batch two chunks long (prompts of 32, 19 and 5 tokens): the same
+    greedy tokens for every request. ``valid`` never reaches the Mamba
+    mixer in either package, so a short prompt's left pads enter its
+    state (ROADMAP C.11): batched behind 27 pads, its Mamba state parts
+    from its solo prefill's by more than a tenth of max|S|, and its
+    logits by more than 1e-5 of max|logit| (a GQA model's batched and
+    solo logits part by under 1e-6 here)."""
+    arch = "jamba-1.5-large-398b"
+    jsrv = JaxBatchServer(arch, batch_size=3, cache_len=40, reduced=True,
+                          rolling=False)
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, jsrv.cfg.vocab_size, n).astype(np.int32)
+               for n in (32, 19, 5)]
+    jreqs = [JaxRequest(i, p, 5) for i, p in enumerate(prompts)]
+    jsrv.run(jreqs)
+    cfg = get_arch_config(arch).reduced().replace(dtype="float32")
+    sd = lm_params_from_jax(cfg, jax.tree_util.tree_map(np.asarray,
+                                                        jsrv.params))
+    srv = serve.BatchServer(arch, batch_size=3, cache_len=40,
+                            device="cpu", state_dict=sd)
+    reqs = [serve.Request(i, p, 5) for i, p in enumerate(prompts)]
+    srv.run(reqs)
+    assert [r.out for r in reqs] == [r.out for r in jreqs]
+    # C.11: the 5-token prompt, batched behind 27 pads, against solo
+    batch, _ = _left_padded(cfg, (32, 19, 5), seed=9)
+    batched, bc, _ = srv.model.prefill(batch, cache_len=40)
+    solo, sc, _ = srv.model.prefill(
+        {"tokens": batch["tokens"][2:, -5:]}, cache_len=40)
+    state_gap = _rel(bc[1]["state"][2], sc[1]["state"][0])
+    logit_gap = _rel(batched[2], solo[0])
+    assert state_gap > 0.1 and logit_gap > 1e-5, (state_gap, logit_gap)
+
+
+def _rel(a, b):
+    return float((a - b).abs().max() / b.abs().max())

@@ -208,8 +208,9 @@ def test_moe_impl_ep_is_refused_naming_a13():
 
 def test_moe_every_follows_the_reference(oracle):
     """moe_every 1: every layer MoE. moe_every 2 on a dense model (groups
-    of one layer) is refused, as the reference's ``init`` refuses it
-    (hybrid groups, jamba, wait for Mamba)."""
+    of one layer) is refused, as the reference's ``init`` refuses it;
+    jamba's hybrid groups of 2 and 8 layers take it
+    (``tests/test_torch_lm.py::test_jamba_moe_interleave``)."""
     cfg = get_arch_config("dbrx-132b").reduced().replace(dtype="float32")
     model = build_model(cfg)
     assert all("router" in b["ffn"] for b in model.blocks)
