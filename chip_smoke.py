@@ -6,7 +6,7 @@ and check them.
     python3 chip_smoke.py --only kernels   # phases 1-3: build and check
     python3 chip_smoke.py --only gnn-times # and the GNN kernels' times
     python3 chip_smoke.py --only lm-times  # and the LM kernels' times
-    python3 chip_smoke.py --only lm        # and the LM phases 12-13, 17-18
+    python3 chip_smoke.py --only lm        # and the LM phases 12-13, 17-19
     python3 chip_smoke.py --only runtime   # phases 1-2 and the runtime's 11
     python3 chip_smoke.py --only graphs    # phases 1-2 and the graphs' 14
     python3 chip_smoke.py --only engine    # phases 1-2 and the engine's 15
@@ -96,7 +96,7 @@ Phases (each raises on failure, so the script exits non-zero):
     on the card, one launch per layer on the kernel path and none on
     the plain one; then card against CPU at depth 2, decode fed seeded
     tokens and then the CPU's own argmax, the card's prefill launching
-    the kernel once a layer), then a bf16 serving run of 40
+    the kernel once a layer), then a bf16 serving run of 24
     requests (prompts uniform in 512-2048 tokens, 128 new tokens each,
     batch 4) with its tokens/s, the kernel's launches per prefill batch,
     a profile of one short batch and the bf16 kernel-vs-plain
@@ -107,7 +107,7 @@ Phases (each raises on failure, so the script exits non-zero):
     decoding eagerly (the same model, graphs off) must give the
     replay's tokens and every round's logits bit for bit on the first
     batch (32 new tokens), and decode tokens/s eager and replayed on that
-    batch (128 new tokens, eager / replay / replay / eager) are printed
+    batch (32 new tokens, eager / replay / replay / eager) are printed
     with a JSON ``decode row``; the serving run's peak device memory;
 13. serve RWKV-6 1.6B (24 layers, d 2048) the same way through the
     ``wkv6`` kernel (prompts of whole 128-token chunks, 512-2048; the
@@ -123,7 +123,7 @@ Phases (each raises on failure, so the script exits non-zero):
     wrap it; card vs CPU at depth 2 (weights drawn on the card, copied
     to the CPU); the rolling cache vs the full cache on the card, depth
     2, 72 decode steps past the window, within 1e-4 of max|logit|; then
-    the bf16 serving run at the published window 4,096 and rolling: 24
+    the bf16 serving run at the published window 4,096 and rolling: 12
     seeded requests of 3,584-4,608 tokens (the prefill keeps the last
     4,096 keys of the longer ones; every batch's decode runs past the
     window's last slot, checked), 128 new tokens, batch 4,
@@ -131,7 +131,7 @@ Phases (each raises on failure, so the script exits non-zero):
     the decode-graph gates. Qwen3-32B (64 layers, d 5120, 64/8 heads of
     128, d_ff 25600; 65.5 GB in bf16, each weight drawn in float32 and
     cast one tensor at a time): float32 kernel vs plain at depth 8, card
-    vs CPU at depth 2, and the serving run of 20 requests of 512-2048
+    vs CPU at depth 2, and the serving run of 8 requests of 512-2048
     tokens, 128 new, batch 4, with the decode-graph gates. Both print
     prefill and decode tokens/s and peak device memory; the eager/replay
     rate comparison decodes 32 new tokens.
@@ -148,7 +148,7 @@ Phases (each raises on failure, so the script exits non-zero):
     against prefill(128) plus 128 decode steps, within 1e-3 of
     max|logit|; the Mamba mixer alone at full width, B 2, T 256, card
     against CPU (output, final state, conv tail, then 8 decode steps);
-    the reduced model card against CPU. Then the bf16 serving run: 20
+    the reduced model card against CPU. Then the bf16 serving run: 12
     seeded requests of 512-2048 tokens in whole 128-token chunks, 128 new
     tokens, batch 4, one ``flash_attention`` launch a batch, the
     decode-graph gates, two bf16 prefills bitwise equal. MiniCPM3-4B (62
@@ -156,10 +156,39 @@ Phases (each raises on failure, so the script exits non-zero):
     tied embeddings; 8.15 GB in bf16), whose path runs no kernel (MLA is
     products): float32 card against CPU at depth 2, the cache contract
     at full depth (prefill(128) against prefill(64) plus 64 decode
-    steps), then the serving run of 40 requests of 512-2048 tokens with
+    steps), then the serving run of 20 requests of 512-2048 tokens with
     the same gates and no kernel launched. Both print prefill and decode
     tokens/s, a decode round's ms against its weight-read bound and
     peak device memory.
+19. (run after phase 18) serve Whisper-base and Qwen2-VL-2B at full
+    width and depth, and train the LM zoo on the card. Whisper-base (6
+    encoder layers over 1,500 frames, 6 decoder layers with
+    cross-attention, d 512, 8 heads of 64, LayerNorm and GELU, vocab
+    51,865): float32 ``flash_attention`` against its plain version at
+    full depth on prompts of (64, 40, 17, 5) tokens plus 8 seeded decode
+    steps (12 launches: the encoder's 6 bidirectional, the decoder's 6
+    causal), the cache contract (prefill(128) against prefill(64) plus 64
+    decode steps, each reading the encoder memory made once), card
+    against CPU at 2 + 2 layers; then 40 seeded requests of 4-64 tokens,
+    each with its own seeded (1,500, 512) frames, 128 new tokens, batch
+    4: the encoder runs once a batch and its memory is carried to every
+    decode round. Qwen2-VL-2B (28 layers, d 1536, 12/2 heads of 128,
+    tied, vocab 151,936; 3.09 GB in bf16): the same float32 gates on
+    prompts of (320, 290, 266, 384) tokens (the contract at 640), then 20
+    seeded requests of 512-2048 positions, each holding one seeded image
+    block of 16 x 16 patches (seeded embeddings) among its text (the
+    table's), the three M-RoPE streams by the published rule, 128 new
+    tokens. Both serve through ``prefill``, ``TransformerLM.encode`` and
+    one captured ``DecodeGraph`` per bucket (``BatchServer`` takes token
+    prompts only, as the reference's): tokens/s, a round's ms against the
+    weight-read bound, the encoder's share of a prefill batch, peak
+    memory, ``flash_attention`` once per attention layer per batch, the
+    first batch replayed bitwise equal to eager and one capture, two
+    bf16 prefills bitwise equal, every kernel call of a served prefill
+    held element by element. Then ``train_lm`` (batch 8, seq 128, 30
+    steps) on the card for reduced Whisper-base, Qwen2-VL-2B and RWKV-6,
+    every step's loss within 1e-3 * max(1, |loss|) of the same run on
+    the CPU from the same weights, and no kernel launched.
 14. CUDA graphs per bucket (run after phase 11): the GNN train step
     (forward, backward, Adam) and the served forward are one CUDA graph
     per bucket on the card, the default, so phases 4-11 already run
@@ -225,7 +254,10 @@ Phase 3 also holds ``flash_attention`` (causal, non-causal, window,
 64 and 128, ragged T, T 129, 255 and 4,100 across the bf16 kernel's
 tiles, a ``kv_start`` and a window edge inside a tile, Mixtral's served
 prefill: T 4,608 in a window of 4,096 behind a left pad, Jamba's: B 4,
-T 2,048, 64/8 heads, left pads) and ``wkv6``
+T 2,048, 64/8 heads, left pads; Whisper's encoder: B 4, T 1,500,
+bidirectional, 8/8 heads of 64, and its decoder's prefill; Qwen2-VL's
+served prefill: B 4, T 2,048, 12/2 heads of 128, a group of 6, left
+pads) and ``wkv6``
 (B > 1, ragged T, T 1 and 33, B*H of 4, the final state; o in r's type
 and float32) in float32 and bfloat16 (element by element) against their
 plain versions; phase 6 times them at the Qwen3-4B and RWKV-6 1.6B
@@ -306,7 +338,9 @@ KERNELS = {
         "replaces": "src/repro/kernels/wkv6.py:78"},
 }
 MAX_WIDTH = 64                     # the Reddit config's feature width
-LM_REQUESTS = 40                   # LM serving run: seeded requests,
+LM_REQUESTS = 24                   # LM serving run: seeded requests (40
+                                   # to PR 25; cut to keep the full run
+                                   # inside its time with phase 19),
 LM_PROMPTS = (512, 2048)           # prompt lengths uniform in this range,
 LM_NEW_TOKENS = 128                # new tokens each,
 LM_BATCH = 4                       # in batches of 4
@@ -315,10 +349,10 @@ DECODE_CHECK_TOKENS = 32           # replay vs eager decode, new tokens
 # bf16 weights; 93.4 GB at full depth does not fit the 80 GB card), and
 # Qwen3-32B at full width and depth (65.5 GB)
 MIXTRAL_LAYERS = 16
-MIXTRAL_REQUESTS = 24              # prompts of 3,584-4,608 tokens: the
+MIXTRAL_REQUESTS = 12              # prompts of 3,584-4,608 tokens: the
 MIXTRAL_PROMPTS = (3584, 4608)     # prefill keeps the last 4,096 keys of
                                    # the longer ones, every decode wraps
-QWEN32_REQUESTS = 20               # prompts of LM_PROMPTS' 512-2,048
+QWEN32_REQUESTS = 8                # prompts of LM_PROMPTS' 512-2,048
 PARITY_PROMPTS = (160, 97, 40, 128)  # phase 17's parity batch
 PARITY_WINDOW = 64                 # Mixtral's window in the parity gates,
                                    # so that those prompts wrap the cache
@@ -330,10 +364,23 @@ ROLL_TOL = 1e-4                    # rolling vs full cache, * max|logit|
 JAMBA_LAYERS = 8
 JAMBA_EXPERTS = 8
 JAMBA_PARITY_EXPERTS = 2           # the float32 gates' group: 45.4 GB
-JAMBA_REQUESTS = 20                # prompts of whole 128-token chunks
+JAMBA_REQUESTS = 12                # prompts of whole 128-token chunks
+MINICPM_REQUESTS = 20              # prompts of LM_PROMPTS' 512-2,048
 JAMBA_PARITY_PROMPTS = (256, 200, 128, 97)   # padded to two chunks
 CONTRACT_TOL = 1e-3                # prefill(S) vs prefill(S/2) + decodes,
                                    # * max|logit|
+# phase 19: Whisper-base (6 + 6 layers, d 512) and Qwen2-VL-2B (28 layers,
+# d 1536, 12/2 heads of 128) at full width and depth, and LM training
+WHISPER_REQUESTS = 40              # decoder prompts of 4-64 tokens, each
+WHISPER_PROMPTS = (4, 64)          # with its own 1,500 seeded frames:
+                                   # inside the 448-token text context
+WHISPER_PARITY_PROMPTS = (64, 40, 17, 5)
+VL_REQUESTS = 20                   # prompts of LM_PROMPTS' 512-2,048
+VL_GRID = 16                       # one image block a prompt, grid (1, 16,
+                                   # 16): 256 patches
+VL_PARITY_PROMPTS = (320, 290, 266, 384)
+TRAIN_ARCHS = ("whisper-base", "qwen2-vl-2b", "rwkv6-1.6b")
+LM_TRAIN = dict(steps=30, batch=8, seq=128)   # the CLI's batch and seq
 
 
 def card_label() -> str:
@@ -596,6 +643,16 @@ def check_lm_kernels(rng, worst: dict) -> None:
         # Jamba's served prefill (phase 18): GQA 8, D 128, the longest
         # batch of whole 128-token chunks, left pads
         "jamba_prefill": (4, 2048, 64, 8, 128, True, 0, 0, (0, 37, 300, 448)),
+        # Whisper's encoder (phase 19): bidirectional over 1,500 frames,
+        # no multiple of a tile, 8/8 heads of 64; its decoder's prefill,
+        # causal behind left pads
+        "whisper_encoder": (4, 1500, 8, 8, 64, False, 0, 0, None),
+        "whisper_decoder_prefill": (4, 64, 8, 8, 64, True, 0, 0,
+                                    (0, 24, 47, 59)),
+        # Qwen2-VL's served prefill: 12 query heads over 2 KV heads, a
+        # group of 6 (not a power of two), D 128, left pads
+        "qwen2vl_prefill_g6": (4, 2048, 12, 2, 128, True, 0, 0,
+                               (0, 37, 300, 448)),
     }
     for name, (B, T, Hq, Hkv, D, causal, window, seq_len, start) in \
             flash.items():
@@ -1537,24 +1594,29 @@ def _flash_inputs(gen, B, T, Hq, Hkv, D):
                         dtype=torch.bfloat16) for h in (Hq, Hkv, Hkv)]
 
 
-def _flash_pairs(T, pad, window=0) -> int:
+def _flash_pairs(T, pad, window=0, causal: bool = True) -> int:
     """Visible (query, key) pairs of one causal head over T rows behind
     ``pad`` left-pad rows: query i >= pad sees keys max(pad, i - window +
-    1)..i (all of pad..i without a window)."""
+    1)..i (all of pad..i without a window); without ``causal`` every one
+    of the T queries sees keys pad..T-1."""
     import numpy as np
+    if not causal:
+        return T * (T - pad)
     i = np.arange(pad, T, dtype=np.int64)
     lo = np.maximum(pad, i - window + 1) if window else pad
     return int((i - lo + 1).sum())
 
 
-def _flash_bound(B, T, Hq, Hkv, D, pads=None, window=0) -> tuple:
+def _flash_bound(B, T, Hq, Hkv, D, pads=None, window=0,
+                 causal: bool = True) -> tuple:
     """q, k, v read and out written once, in bf16; causal attention does
     QK^T and PV, 2 * D multiply-adds each, over the visible (query, key)
     pairs of each head (T (T + 1) / 2 of a row, (T - pad) (T - pad + 1) /
     2 of a left-padded one, fewer in a window: :func:`_flash_pairs`), at
     the bf16 tensor-core peak."""
     nbytes = 2 * B * T * (2 * Hq * D + 2 * Hkv * D)
-    pairs = sum(_flash_pairs(T, p, window) for p in (pads or (0,) * B))
+    pairs = sum(_flash_pairs(T, p, window, causal)
+                for p in (pads or (0,) * B))
     nops = 4 * D * Hq * pairs
     return _bound(nbytes, nops, BF16_OPS_PER_S)
 
@@ -1567,20 +1629,22 @@ def _bf16_share(got, want) -> float:
 
 
 def _flash_row(gen, B, T, pads=None, plain: bool = True,
-               window: int = 0) -> dict:
-    """``flash_attention`` at the Qwen3-4B attention shape (32 q heads, 8
-    kv heads of 128, bf16, causal; Mixtral's too), B rows of T with left
-    ``pads`` and a sliding ``window`` (0: none): held against its plain
-    version (when ``plain``) and SDPA, then timed beside both. SDPA runs
-    with ``is_causal`` or, with pads or a window, a boolean mask; its
-    share of the element gate against the plain version is reported over
-    the rows that see a key."""
+               window: int = 0, heads=(32, 8, 128),
+               causal: bool = True) -> dict:
+    """``flash_attention`` at an attention shape ``heads`` (q heads, kv
+    heads, head dim; the default Qwen3-4B's and Mixtral's 32/8 of 128),
+    bf16, causal (or not), B rows of T with left ``pads`` and a sliding
+    ``window`` (0: none): held against its plain version (when
+    ``plain``) and SDPA, then timed beside both. SDPA runs with
+    ``is_causal`` (or neither it nor a mask, bidirectional) or, with pads
+    or a window, a boolean mask; its share of the element gate against
+    the plain version is reported over the rows that see a key."""
     import torch
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
     from repro_torch.kernels import ops
     from repro_torch.kernels.ref import flash_attention_ref
-    Hq, Hkv, D = 32, 8, 128
+    Hq, Hkv, D = heads
     q, k, v = _flash_inputs(gen, B, T, Hq, Hkv, D)
     start = (None if pads is None else
              torch.tensor(pads, dtype=torch.int32, device=DEVICE))
@@ -1589,7 +1653,8 @@ def _flash_row(gen, B, T, pads=None, plain: bool = True,
     mask = None
     if pads is not None or window:
         i = torch.arange(T, device=DEVICE)
-        ok = i[None, :] <= i[:, None]
+        ok = (i[None, :] <= i[:, None] if causal else
+              torch.ones((T, T), dtype=torch.bool, device=DEVICE))
         if window:
             ok = ok & (i[None, :] > i[:, None] - window)
         first = (start.long() if start is not None else
@@ -1605,12 +1670,12 @@ def _flash_row(gen, B, T, pads=None, plain: bool = True,
                           SDPBackend.EFFICIENT_ATTENTION,
                           SDPBackend.CUDNN_ATTENTION]):
             return F.scaled_dot_product_attention(
-                qt, kt, vt, attn_mask=mask, is_causal=mask is None,
-                enable_gqa=mask is None)
+                qt, kt, vt, attn_mask=mask,
+                is_causal=mask is None and causal, enable_gqa=mask is None)
 
     def kern():
         return ops.flash_attention_op(q, k, v, kv_start=start,
-                                      sliding_window=window)
+                                      sliding_window=window, causal=causal)
     got = kern()
     lib_out = lib_fn().transpose(1, 2)
     seen = (slice(None) if pads is None else
@@ -1622,17 +1687,19 @@ def _flash_row(gen, B, T, pads=None, plain: bool = True,
     plain_ms = lib_share = kern_share = None
     if plain:
         want = flash_attention_ref(q, k, v, kv_start=start,
-                                   sliding_window=window)
+                                   sliding_window=window, causal=causal)
         kern_share = _bf16_check(got, want, f"flash_attention at B {B} "
                                  f"T {T}")
         lib_share = _bf16_share(lib_out[seen], want[seen])
         del want
         plain_ms = _time_ms(lambda: flash_attention_ref(
-            q, k, v, kv_start=start, sliding_window=window), 100.0)
+            q, k, v, kv_start=start, sliding_window=window, causal=causal),
+            100.0)
     ms = _time_ms(kern, 100.0)
     lib = _time_ms(lib_fn, 100.0)
-    bound, by = _flash_bound(B, T, Hq, Hkv, D, pads, window)
-    shape = (f"B={B} T={T} Hq={Hq} Hkv={Hkv} D={D} bf16 causal"
+    bound, by = _flash_bound(B, T, Hq, Hkv, D, pads, window, causal)
+    shape = (f"B={B} T={T} Hq={Hq} Hkv={Hkv} D={D} bf16 "
+             f"{'causal' if causal else 'bidirectional'}"
              + (f" window={window}" if window else "")
              + (f" pads={tuple(pads)}" if pads else ""))
     print(f"  flash_attention [{shape}]: kernel {ms:.4f} ms, plain "
@@ -1682,9 +1749,12 @@ def lm_kernel_times() -> dict:
     (the record's row) and 32768 (kernel and SDPA: the plain version's
     scores would not fit), and the served batch (B 4, T 2048, left pads
     0, 37, 300, 448); at Mixtral's served prefill (B 2, T 4608, window
-    4096, left pads 0 and 517; phase 17); ``wkv6`` at the RWKV-6 1.6B
-    prefill, B 8 T 4096 (the record's row) and the served batch, B 4 T
-    2048. Each kernel is held against its plain version there first."""
+    4096, left pads 0 and 517; phase 17); at Whisper's encoder (B 4, T
+    1500, bidirectional, 8/8 heads of 64) and Qwen2-VL's served prefill
+    (B 4, T 2048, 12/2 heads of 128, left pads; phase 19); ``wkv6`` at
+    the RWKV-6 1.6B prefill, B 8 T 4096 (the record's row) and the served
+    batch, B 4 T 2048. Each kernel is held against its plain version
+    there first."""
     import torch
     rows = {}
     gen = torch.Generator(device=DEVICE).manual_seed(0)
@@ -1696,6 +1766,12 @@ def lm_kernel_times() -> dict:
         _flash_row(gen, 4, 2048, pads=(0, 37, 300, 448))
         torch.cuda.empty_cache()
         _flash_row(gen, 2, 4608, pads=(0, 517), window=4096)
+        torch.cuda.empty_cache()
+        # phase 19's shapes: Whisper's encoder (bidirectional, 1,500
+        # frames, 8/8 heads of 64) and Qwen2-VL's served prefill (12/2
+        # heads of 128, left pads)
+        _flash_row(gen, 4, 1500, heads=(8, 8, 64), causal=False)
+        _flash_row(gen, 4, 2048, pads=(0, 37, 300, 448), heads=(12, 2, 128))
         torch.cuda.empty_cache()
         rows["wkv6"] = _wkv6_row(gen, 8, 4096)
         _wkv6_row(gen, 4, 2048)
@@ -1732,15 +1808,18 @@ def _padded_batch(toks, pads, dev) -> dict:
             .clamp_min(0).to(dev, torch.int32)}
 
 
-def _lm_run(model, toks, pads, feed=None, steps: int = 8):
+def _lm_run(model, toks, pads, feed=None, steps: int = 8, extra=None):
     """Prefill a left-padded batch, then ``steps`` decode steps fed the
     tokens ``feed`` (B, steps), or, when it is None, each step's own
     argmax as the server feeds them; returns (logits of every step,
     float32 on the CPU; the prefill's final states for RWKV; the fed
-    tokens)."""
+    tokens). ``extra`` (phase 19's :class:`EncDecInputs`) adds Whisper's
+    encoder memory or Qwen2-VL's embeddings and position streams."""
     import torch
     dev = model.device
     batch = _padded_batch(toks, pads, dev)
+    if extra is not None:
+        batch = extra.prefill_batch(model, batch)
     logits, caches, idx = model.prefill(batch,
                                         cache_len=toks.shape[1] + steps)
     out = [logits.float().cpu()]
@@ -1754,23 +1833,25 @@ def _lm_run(model, toks, pads, feed=None, steps: int = 8):
         fed.append(tok)
         step = {"tokens": tok.to(dev), "valid": batch["valid"],
                 "positions": (idx - pads.to(dev))[:, None].to(torch.int32)}
+        if extra is not None:
+            step.update(extra.step_inputs(model, batch, step["tokens"], i))
         logits, caches, idx = model.decode_step(step, caches, idx)
         out.append(logits.float().cpu())
     return torch.cat(out, 1), pre, torch.cat(fed, 1)
 
 
-def _kernel_and_plain(model, kernel: str, toks, pads, feed):
+def _kernel_and_plain(model, kernel: str, toks, pads, feed, extra=None):
     """``_lm_run`` through the kernels, then through their plain
     versions, on the same model; the counts show the two took different
     paths: one ``kernel`` launch per kernel layer (``_kernel_layers``) in
     the first, none in the second."""
     from repro_torch.kernels import ops
     ops.reset_launches()
-    got = _lm_run(model, toks, pads, feed)
+    got = _lm_run(model, toks, pads, feed, extra=extra)
     n = ops.launches[kernel]
     ops.reset_launches()
     with plain_lm_kernels():
-        want = _lm_run(model, toks, pads, feed)
+        want = _lm_run(model, toks, pads, feed, extra=extra)
     expected = _kernel_layers(model.cfg, kernel)
     if n != expected or any(ops.launches.values()):
         raise AssertionError(f"{kernel}: {n} launches on the kernel path "
@@ -1779,7 +1860,7 @@ def _kernel_and_plain(model, kernel: str, toks, pads, feed):
     return got, want
 
 
-def _prefill_repeat(model, toks, pads) -> None:
+def _prefill_repeat(model, toks, pads, extra=None) -> None:
     """The same left-padded prefill twice on the card: logits and every
     cache tensor (the final WKV states of RWKV-6, K and V of attention)
     must be bitwise equal, since no kernel of the path sums in an order
@@ -1787,6 +1868,8 @@ def _prefill_repeat(model, toks, pads) -> None:
     import torch
     P = toks.shape[1]
     batch = _padded_batch(toks, pads, model.device)
+    if extra is not None:
+        batch = extra.prefill_batch(model, batch)
 
     def leaves(tree):
         if torch.is_tensor(tree):
@@ -1973,14 +2056,15 @@ def _wrapping_traffic(serve_lengths, window: int, new_tokens: int) -> None:
 
 def _kernel_layers(cfg, kernel) -> int:
     """The layers of ``cfg`` whose prefill launches ``kernel``: the GQA
-    layers for ``flash_attention`` (MLA attends through products), the
-    RWKV layers for ``wkv6``; 0 for no kernel."""
+    layers for ``flash_attention`` (MLA attends through products), with
+    Whisper's encoder layers (bidirectional), the RWKV layers for
+    ``wkv6``; 0 for no kernel."""
     from repro_torch.arch import layer_kinds
     kinds = layer_kinds(cfg)
     if kernel == "wkv6":
         return kinds.count("rwkv")
     if kernel == "flash_attention" and cfg.mla is None:
-        return kinds.count("attn")
+        return kinds.count("attn") + cfg.encoder_layers
     return 0
 
 
@@ -2010,14 +2094,14 @@ def _f32_model(f32, seed: int, rolling: bool = False):
 
 
 def _f32_kernel_vs_plain(model, kernel: str, toks, pads, seeded,
-                         label: str) -> None:
+                         label: str, extra=None) -> None:
     """A float32 model's prefill plus 8 seeded decode steps through
     ``kernel`` against its plain version, within ``LM_PARITY`` of
     max|logit| (and RWKV's final states)."""
     import torch
     f32 = model.cfg
     (got, got_pre, _), (want, want_pre, _) = _kernel_and_plain(
-        model, kernel, toks, pads, seeded)
+        model, kernel, toks, pads, seeded, extra)
     err = _rel(got, want)
     print(f"  f32 {label}, kernel vs plain on the card: prefill + 8 "
           f"decode logits max diff {err:.3e} of max|logit| (limit "
@@ -2035,7 +2119,7 @@ def _f32_kernel_vs_plain(model, kernel: str, toks, pads, seeded,
 
 
 def _card_vs_cpu(card, toks, pads, seeded, label: str,
-                 kernel=None) -> None:
+                 kernel=None, extra=None) -> None:
     """``card`` (a float32 model on the card) against its copy on the
     CPU: decode fed the seeded tokens, then the CPU's own argmax as the
     server feeds (the card is fed the CPU's picks, so a near tie cannot
@@ -2048,10 +2132,10 @@ def _card_vs_cpu(card, toks, pads, seeded, label: str,
     cpu = copy.deepcopy(card).cpu()
     for feed_name, feed in (("seeded", seeded), ("argmax", None)):
         t0 = time.perf_counter()
-        want, want_pre, fed = _lm_run(cpu, toks, pads, feed)
+        want, want_pre, fed = _lm_run(cpu, toks, pads, feed, extra=extra)
         cpu_s = time.perf_counter() - t0
         ops.reset_launches()
-        got, got_pre, _ = _lm_run(card, toks, pads, fed)
+        got, got_pre, _ = _lm_run(card, toks, pads, fed, extra=extra)
         n = ops.launches[kernel] if kernel else 0
         err = _rel(got, want)
         msg = (f"  f32 {label}, card vs CPU, {feed_name} feed: "
@@ -2260,7 +2344,7 @@ def _wrapped(module, name: str, after):
         setattr(module, name, fn)
 
 
-def _bf16_layers(model, kernel: str, toks, pads) -> None:
+def _bf16_layers(model, kernel: str, toks, pads, extra=None) -> None:
     """The bf16 kernel-vs-plain gap of one prefill of ``toks``, split by
     layer. Gated: every ``kernel`` call of the kernel run, held element
     by element (:func:`_bf16_check`) against its plain version on the
@@ -2294,15 +2378,18 @@ def _bf16_layers(model, kernel: str, toks, pads) -> None:
                 _wrapped(moe_mod, "router_gates", keep_picks), \
                 (_wrapped(ops, op, check) if use_kernel
                  else plain_lm_kernels()):
+            batch = _padded_batch(toks, pads, model.device)
+            if extra is not None:      # Whisper's encoder runs here
+                batch = extra.prefill_batch(model, batch)
             runs[-1]["logits"] = model.prefill(
-                _padded_batch(toks, pads, model.device),
-                cache_len=toks.shape[1])[0].float().cpu()
+                batch, cache_len=toks.shape[1])[0].float().cpu()
     (got, want) = runs
     real = (torch.arange(toks.shape[1])[None, :] >= pads[:, None])
     parts = []
-    for i, (kind, a, b) in enumerate(zip(model.kinds, got["h"],
-                                         want["h"])):
-        part = f"{i} {kind} {_rel(a, b):.2e}"
+    names = ([f"enc {i}" for i in range(model.cfg.encoder_layers)]
+             + [f"{i} {kind}" for i, kind in enumerate(model.kinds)])
+    for i, (name, a, b) in enumerate(zip(names, got["h"], want["h"])):
+        part = f"{name} {_rel(a, b):.2e}"
         if i in got["picks"]:
             moved = (got["picks"][i] != want["picks"][i]).any(-1)[real]
             part += f" (moe, {100 * float(moved.float().mean()):.1f}% " \
@@ -3503,27 +3590,32 @@ def examples_phase(label: str) -> dict:
 
 
 def lm_phases(phase) -> list:
-    """Phases 12, 13, 17 and 18; returns each serving run's launch
-    counts."""
+    """Phases 12, 13, 17, 18 and 19; returns each serving (and training)
+    run's launch counts."""
     import numpy as np
     rng = np.random.default_rng(0)
     lo, hi = LM_PROMPTS
     phase("12. serve Qwen3-4B (full width, 36 layers)")
     got = [serve_lm("qwen3-4b", "flash_attention", (512, 301, 77, 160),
                     [int(n) for n in rng.integers(lo, hi + 1,
-                                                  LM_REQUESTS)])]
+                                                  LM_REQUESTS)],
+                    decode_tokens=DECODE_CHECK_TOKENS)]
     phase("13. serve RWKV-6 1.6B (full width, 24 layers)")
     # whole chunks of 128, so every padded batch length is one too
     got.append(serve_lm("rwkv6-1.6b", "wkv6", (512, 384, 128, 256),
                         [int(n) for n in rng.choice(
-                            np.arange(lo, hi + 1, 128), LM_REQUESTS)]))
+                            np.arange(lo, hi + 1, 128), LM_REQUESTS)],
+                        decode_tokens=DECODE_CHECK_TOKENS))
     phase(f"17. serve Mixtral 8x7B (full width, {MIXTRAL_LAYERS} of 32 "
           "layers) and Qwen3-32B (full width, 64 layers)")
     got += large_lm_phase()
     phase(f"18. serve Jamba-1.5-Large (full width, one group of "
           f"{JAMBA_LAYERS} layers, {JAMBA_EXPERTS} of 16 experts) and "
           "MiniCPM3-4B (full width, 62 layers)")
-    return got + hybrid_lm_phase()
+    got += hybrid_lm_phase()
+    phase("19. serve Whisper-base (6 + 6 layers) and Qwen2-VL-2B (28 "
+          "layers) at full width; train the LM zoo on the card")
+    return got + encdec_lm_phase()
 
 
 def large_lm_phase() -> list:
@@ -3549,22 +3641,37 @@ def large_lm_phase() -> list:
     return got
 
 
-def _check_contract(model, S: int, label: str, B: int = 2) -> None:
+def _span(batch: dict, lo: int, hi: int) -> dict:
+    """Positions lo..hi-1 of a batch's sequence inputs (tokens, embeds,
+    the M-RoPE streams); the encoder memory whole."""
+    out = dict(batch)
+    for k in ("tokens", "embeds"):
+        if k in batch:
+            out[k] = batch[k][:, lo:hi]
+    if "mrope_positions" in batch:
+        out["mrope_positions"] = batch["mrope_positions"][:, :, lo:hi]
+    return out
+
+
+def _check_contract(model, S: int, label: str, B: int = 2,
+                    extra=None) -> None:
     """The reference's cache contract (``tests/test_arch_consistency.py:36``)
     on the card: prefill(S) against prefill(S/2) plus S/2 decode steps of
     the same seeded tokens, no pad; the last logits within
-    ``CONTRACT_TOL`` of max|logit|."""
+    ``CONTRACT_TOL`` of max|logit|. ``extra(model, toks)`` makes the full
+    batch of an encoder or VLM model: every decode step then reads the
+    encoder memory made once, or its own embeddings and streams."""
     import torch
     t0 = time.perf_counter()
     toks = torch.randint(0, model.cfg.vocab_size, (B, S),
                          generator=torch.Generator().manual_seed(5)
                          ).to(model.device)
-    full, _, _ = model.prefill({"tokens": toks}, cache_len=S)
-    lo, caches, idx = model.prefill({"tokens": toks[:, :S // 2]},
-                                    cache_len=S)
+    batch = {"tokens": toks} if extra is None else extra(model, toks)
+    full, _, _ = model.prefill(batch, cache_len=S)
+    lo, caches, idx = model.prefill(_span(batch, 0, S // 2), cache_len=S)
     for t in range(S // 2, S):
-        lo, caches, idx = model.decode_step({"tokens": toks[:, t:t + 1]},
-                                            caches, idx)
+        lo, caches, idx = model.decode_step(_span(batch, t, t + 1), caches,
+                                            idx)
     err = _rel(lo.float().cpu(), full.float().cpu())
     print(f"  f32 {label}, the reference's contract on the card: "
           f"prefill({S}) vs prefill({S // 2}) + {S // 2} decode steps, "
@@ -3684,10 +3791,393 @@ def hybrid_lm_phase() -> list:
     _free()
     lo, hi = LM_PROMPTS
     lengths = [int(n) for n in np.random.default_rng(3).integers(
-        lo, hi + 1, LM_REQUESTS)]
+        lo, hi + 1, MINICPM_REQUESTS)]
     got.append(_bf16_serving(cfg, None, toks, pads, seeded, lengths,
                              LM_NEW_TOKENS,
                              decode_tokens=DECODE_CHECK_TOKENS))
+    return got
+
+
+# -- phase 19: Whisper-base, Qwen2-VL-2B, LM training ----------------------------
+
+
+class EncDecInputs:
+    """Phase 19's inputs beyond tokens, for one left-padded batch of B
+    rows, kept on the CPU in float32: Whisper's frames (B, 1,500, D), one
+    set a row; Qwen2-VL's image block a row (``VL_GRID`` x ``VL_GRID``
+    patches of seeded normal embeddings, scaled as the embedding table,
+    at ``offsets[b]`` among the row's real tokens). Qwen2-VL's three
+    M-RoPE streams follow the published rule: text at t = h = w; a patch
+    at t = s, h = s + row, w = s + col; the text after the image resumes
+    at s + ``VL_GRID``; a row's left pads shift all three, and a decode
+    step's token takes the last position + 1 on all three."""
+
+    def __init__(self, cfg, frames=None, patches=None, offsets=None):
+        self.cfg = cfg
+        self.frames, self.patches, self.offsets = frames, patches, offsets
+
+    @classmethod
+    def seeded(cls, cfg, lengths, seed):
+        """Rows for prompts of ``lengths`` from ``seed``; an image leaves
+        at least one text token after it."""
+        import numpy as np
+        import torch
+        rng = np.random.default_rng(seed)
+        B, D = len(lengths), cfg.d_model
+        if cfg.encoder_layers:
+            return cls(cfg, frames=torch.from_numpy(rng.standard_normal(
+                (B, cfg.encoder_seq, D), dtype=np.float32)))
+        n_img = VL_GRID * VL_GRID
+        offsets = [int(rng.integers(0, n - n_img)) for n in lengths]
+        patches = torch.from_numpy(rng.standard_normal(
+            (B, n_img, D), dtype=np.float32) * np.float32(0.02))
+        return cls(cfg, patches=patches, offsets=offsets)
+
+    @classmethod
+    def stack(cls, rows: list):
+        """One batch's inputs from single-row ones."""
+        import torch
+        first = rows[0]
+        if first.frames is not None:
+            return cls(first.cfg, frames=torch.cat([r.frames for r in rows]))
+        return cls(first.cfg, patches=torch.cat([r.patches for r in rows]),
+                   offsets=[o for r in rows for o in r.offsets])
+
+    def streams(self, pads, P: int):
+        """(3, B, P) int32 positions, the (B, P) patch mask and each row's
+        next position (the last + 1)."""
+        import numpy as np
+        g, B = VL_GRID, len(self.offsets)
+        pos = np.zeros((3, B, P), np.int64)
+        patch = np.zeros((B, P), bool)
+        nxt = np.zeros(B, np.int64)
+        j = np.arange(g * g)
+        for b in range(B):
+            pad, s = int(pads[b]), self.offsets[b]
+            row = np.empty((3, P - pad), np.int64)
+            row[:, :s] = np.arange(s)
+            row[:, s:s + g * g] = np.stack([s + 0 * j, s + j // g,
+                                            s + j % g])
+            row[:, s + g * g:] = s + g + np.arange(P - pad - s - g * g)
+            pos[:, b, pad:] = row
+            patch[b, pad + s:pad + s + g * g] = True
+            nxt[b] = row[0, -1] + 1
+        return pos.astype(np.int32), patch, nxt
+
+    def prefill_batch(self, model, batch: dict) -> dict:
+        """``batch`` (tokens, and for a left-padded one valid and
+        positions, on the model's device) with Whisper's ``enc_memory``
+        (the encoder run once, through the kernel) or Qwen2-VL's
+        ``embeds`` (the table's rows, the image's patches in place) and
+        ``mrope_positions``."""
+        import torch
+        dev = model.device
+        out = dict(batch)
+        if self.frames is not None:
+            out["enc_memory"] = model.encode(self.frames.to(dev))
+            return out
+        toks = batch["tokens"]
+        B, P = toks.shape
+        pads = ((~batch["valid"]).sum(1).cpu() if "valid" in batch
+                else torch.zeros(B, dtype=torch.long))
+        pos, patch, nxt = self.streams(pads.tolist(), P)
+        with torch.no_grad():
+            emb = model.embed["table"][toks].clone()
+            emb[torch.from_numpy(patch).to(dev)] = self.patches.reshape(
+                -1, self.cfg.d_model).to(dev, emb.dtype)
+        out["embeds"] = emb
+        out["mrope_positions"] = torch.from_numpy(pos).to(dev)
+        out["vl_next"] = torch.from_numpy(nxt).to(dev)
+        return out
+
+    def step_inputs(self, model, pbatch: dict, tok, i: int) -> dict:
+        """Decode step ``i``'s inputs for tokens ``tok`` (B, 1) on the
+        device: the carried encoder memory, or the token's row of the
+        table and its position on all three streams."""
+        import torch
+        if self.frames is not None:
+            return {"enc_memory": pbatch["enc_memory"]}
+        with torch.no_grad():
+            emb = model.embed["table"][tok]
+        pos = (pbatch["vl_next"] + i).to(torch.int32)
+        return {"embeds": emb,
+                "mrope_positions": pos.reshape(1, -1, 1).expand(3, -1, 1)}
+
+
+def _contract_inputs(cfg, seed: int):
+    """``_check_contract``'s ``extra``: the full batch of unpadded prompts
+    with their frames or their image."""
+    def make(model, toks):
+        rows = EncDecInputs.seeded(cfg, [toks.shape[1]] * toks.shape[0],
+                                   seed)
+        return rows.prefill_batch(model, {"tokens": toks})
+    return make
+
+
+def _left_pad(prompts):
+    import numpy as np
+    import torch
+    P = max(len(p) for p in prompts)
+    toks = np.zeros((len(prompts), P), np.int64)
+    for i, p in enumerate(prompts):
+        toks[i, P - len(p):] = p
+    return (torch.from_numpy(toks),
+            torch.tensor([P - len(p) for p in prompts]))
+
+
+def _encdec_batch(model, graph, toks, pads, inp, cache_len: int,
+                  new_tokens: int, times: dict, logits_out=None) -> list:
+    """Serve one left-padded batch: the encoder (Whisper) and the prefill,
+    then ``new_tokens - 1`` decode rounds through ``graph`` (a
+    :class:`~repro_torch.launch.serve.DecodeGraph`: captured once, then
+    replayed) or, when it is None, eager ``decode_step``; each round's
+    tokens read on the host, as ``BatchServer`` reads them. Adds the
+    encoder's, the prefill's (the encoder in it) and the decode's seconds
+    to ``times``; returns the tokens of every round."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    batch = inp.prefill_batch(model, _padded_batch(toks, pads, DEVICE))
+    if "enc_memory" in batch:
+        torch.cuda.synchronize()
+        times["encoder_s"] += time.perf_counter() - t0
+    logits, caches, idx = model.prefill(batch, cache_len=cache_len)
+    cur = torch.argmax(logits[:, -1], -1)
+    outs = [cur.tolist()]
+    times["prefill_s"] += time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pads_dev = pads.to(DEVICE)
+    if graph is not None:
+        graph.start(caches, batch["valid"], batch.get("enc_memory"))
+        del caches
+    for r in range(new_tokens - 1):
+        pos = (idx - pads_dev)[:, None].to(torch.int32)
+        ex = inp.step_inputs(model, batch, cur[:, None], r)
+        if graph is not None:
+            logits, cur = graph(cur[:, None], pos, idx,
+                                embeds=ex.get("embeds"),
+                                mrope_positions=ex.get("mrope_positions"))
+            idx += 1
+        else:
+            logits, caches, idx = model.decode_step(
+                {"tokens": cur[:, None], "valid": batch["valid"],
+                 "positions": pos, **ex}, caches, idx)
+            cur = torch.argmax(logits[:, -1], -1)
+        if logits_out is not None:
+            logits_out.append(logits.float().cpu())
+        outs.append(cur.tolist())
+    times["decode_s"] += time.perf_counter() - t0
+    return outs
+
+
+def _encdec_serving(scfg, toks, pads, extra, serve_lengths,
+                    new_tokens: int) -> dict:
+    """Phase 19's bf16 serving run of Whisper-base or Qwen2-VL-2B at full
+    width and depth: seeded requests (token prompts of ``serve_lengths``
+    with their own frames or image) in batches of ``LM_BATCH``, the
+    decode rounds replayed from one capture; a warm-up batch, then the
+    timed run; tokens/s, a round's ms against the weight-read bound, the
+    encoder's share of a prefill batch, peak memory, ``flash_attention``
+    launched once per attention layer (and encoder layer) per batch; the
+    first batch decoded eagerly bitwise equal to the replay, one
+    capture; two bf16 prefills of the parity batch bitwise equal and its
+    every kernel call held element by element (:func:`_bf16_layers`).
+    Returns the timed run's launch counts."""
+    import numpy as np
+    import torch
+    from repro_torch.arch import build_model
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import DecodeGraph
+    B, arch = LM_BATCH, scfg.name
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(scfg, torch.Generator(device=DEVICE).manual_seed(0)
+                        ).requires_grad_(False)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    # a decode round reads the decoder's weights once (not the encoder's;
+    # of an untied input embedding only the batch's rows; a tied table
+    # once, as the head)
+    w_bytes = sum(p.numel() * p.element_size()
+                  for n, p in model.named_parameters()
+                  if not n.startswith(("encoder.", "enc_norm."))
+                  and (scfg.tie_embeddings or n != "embed.table"))
+    cache_len = max(serve_lengths) + new_tokens
+    print(f"  bf16 {arch}: {scfg.num_layers} layers"
+          + (f" + {scfg.encoder_layers} encoder layers over "
+             f"{scfg.encoder_seq} frames" if scfg.encoder_layers else "")
+          + f", d {scfg.d_model}, {n_params / 1e9:.3f} B parameters "
+          f"({torch.cuda.memory_allocated() / 1e9:.2f} GB on the card), made "
+          f"in {time.perf_counter() - t0:.1f}s; cache {cache_len} slots a row")
+    rng = np.random.default_rng(19)
+    reqs = [(rng.integers(0, scfg.vocab_size, n).astype(np.int64),
+             EncDecInputs.seeded(scfg, [n], seed=1000 + i))
+            for i, n in enumerate(serve_lengths)]
+    batches = [reqs[i:i + B] for i in range(0, len(reqs), B)]
+
+    def inputs(batch):
+        toks_b, pads_b = _left_pad([p for p, _ in batch])
+        return toks_b, pads_b, EncDecInputs.stack([x for _, x in batch])
+
+    graph = DecodeGraph(model, B, cache_len)
+    zero = lambda: {"encoder_s": 0.0, "prefill_s": 0.0,  # noqa: E731
+                    "decode_s": 0.0}
+    _encdec_batch(model, graph, *inputs(batches[0]), cache_len, new_tokens,
+                  zero())                          # warm-up: the capture
+    times = zero()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    n_prefill = 0
+    for batch in batches:
+        tb, pb, ib = inputs(batch)
+        _encdec_batch(model, graph, tb, pb, ib, cache_len, new_tokens, times)
+        n_prefill += tb.numel()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.launches)
+    n_decode = len(reqs) * (new_tokens - 1)
+    round_ms = 1e3 * times["decode_s"] / (len(batches) * (new_tokens - 1))
+    bound_ms = 1e3 * w_bytes / HBM_BYTES_PER_S
+    enc = (f"; the encoder {times['encoder_s']:.4f}s of it, "
+           f"{100 * times['encoder_s'] / times['prefill_s']:.1f}% of a "
+           f"prefill batch" if scfg.encoder_layers else "")
+    print(f"  bf16 serving, {len(reqs)} requests (prompts "
+          f"{min(serve_lengths)}-{max(serve_lengths)}, mean "
+          f"{np.mean(serve_lengths):.0f}), batch {B}, {new_tokens} new "
+          f"tokens: prefill {n_prefill} tok in {times['prefill_s']:.4f}s = "
+          f"{n_prefill / times['prefill_s']:.1f} tok/s{enc}; decode "
+          f"{n_decode} tok in {times['decode_s']:.4f}s = "
+          f"{n_decode / times['decode_s']:.1f} tok/s ({round_ms:.3f} ms per "
+          f"decode round against a weight-read bound of {bound_ms:.3f} ms: "
+          f"{w_bytes / 1e9:.3f} GB over {HBM_BYTES_PER_S / 1e12:.2f} TB/s); "
+          f"wall {wall:.3f}s; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
+    per = _kernel_layers(scfg, "flash_attention")
+    print(f"  launches: flash_attention {launches['flash_attention']} = "
+          f"{launches['flash_attention'] / len(batches):.0f} per prefill "
+          f"batch ({per}: {scfg.encoder_layers} encoder and "
+          f"{scfg.num_layers} decoder layers)")
+    if launches["flash_attention"] != per * len(batches) or any(
+            n for k, n in launches.items() if k != "flash_attention"):
+        raise AssertionError(f"{arch}: launches {launches}, expected "
+                             f"{per} flash_attention per batch")
+    # replay against eager on the first batch, bit for bit
+    outs = {}
+    for name, g in (("replay", graph), ("eager", None)):
+        kept = []
+        tokens = _encdec_batch(model, g, *inputs(batches[0]), cache_len,
+                               DECODE_CHECK_TOKENS, zero(), kept)
+        outs[name] = (tokens, kept)
+    (rt, rl), (et, el) = outs["replay"], outs["eager"]
+    same = rt == et and len(rl) == len(el) and all(
+        bool(torch.equal(a, b)) for a, b in zip(rl, el))
+    print(f"  decode rounds as CUDA graphs, bucket (batch, cache) "
+          f"({B}, {cache_len}): captures {graph.captures}; replay vs eager "
+          f"over {len(rl)} rounds of the first batch: tokens and logits "
+          f"{'bitwise equal' if same else 'NOT bitwise equal'}")
+    if not same or graph.captures != 1:
+        raise AssertionError(f"{arch}: replay vs eager {same}, captures "
+                             f"{graph.captures}")
+    _prefill_repeat(model, toks, pads, extra)
+    _bf16_layers(model, "flash_attention", toks, pads, extra)
+    del graph, model
+    _free()
+    return launches
+
+
+def _train_on_card() -> list:
+    """``train_lm`` at the CLI's batch and sequence (30 steps) on the card
+    for reduced Whisper-base, Qwen2-VL-2B and RWKV-6 1.6B, each against
+    the same run on the CPU from the same weights: every step's loss
+    finite and within ``LOSS_TOL`` * max(1, |loss|), and no kernel
+    launched (training takes the plain paths; the forward-only kernels
+    refuse autograd). Returns the card runs' launch counts."""
+    import numpy as np
+    import torch
+    from repro_torch.arch import build_model
+    from repro_torch.config import get_arch_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import train_lm
+    got = []
+    for arch in TRAIN_ARCHS:
+        red = get_arch_config(arch).reduced()
+        red = red.replace(dtype="float32",
+                          vocab_size=min(red.vocab_size, 1024))
+        sd = build_model(red, torch.Generator().manual_seed(0),
+                         remat=False).state_dict()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        card = train_lm(arch, device=DEVICE, state_dict=sd, **LM_TRAIN)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        got.append(dict(ops.launches))
+        t0 = time.perf_counter()
+        cpu = train_lm(arch, device="cpu", state_dict=sd, **LM_TRAIN)
+        cpu_s = time.perf_counter() - t0
+        a, b = np.array(card["losses"]), np.array(cpu["losses"])
+        err = float((np.abs(a - b) / np.maximum(1.0, np.abs(b))).max())
+        print(f"  train_lm {arch} (reduced: {red.num_layers} layers, d "
+              f"{red.d_model}, float32), {LM_TRAIN['steps']} steps at "
+              f"batch {LM_TRAIN['batch']}, seq {LM_TRAIN['seq']}: card "
+              f"loss {a[0]:.4f} -> {a[-1]:.4f} in {card_s:.1f}s "
+              f"({LM_TRAIN['steps'] / card_s:.2f} steps/s), CPU "
+              f"{b[0]:.4f} -> {b[-1]:.4f} in {cpu_s:.1f}s; card vs CPU "
+              f"max {err:.3e} of max(1, |loss|) over every step (limit "
+              f"{LOSS_TOL}); kernels launched {sum(got[-1].values())}",
+              flush=True)
+        if not np.isfinite(a).all() or err > LOSS_TOL or any(
+                got[-1].values()):
+            raise AssertionError(f"{arch}: card training {err:.3e}, "
+                                 f"launches {got[-1]}")
+    return got
+
+
+def encdec_lm_phase() -> list:
+    """Phase 19: Whisper-base and Qwen2-VL-2B served at full width and
+    depth, and LM training on the card; returns the serving runs' and the
+    training runs' launch counts."""
+    import numpy as np
+    import torch
+    from repro_torch.arch import build_model
+    from repro_torch.config import get_arch_config
+    t_phase = time.perf_counter()
+    got = []
+    for arch, parity, n_req, (lo, hi), contract_S in (
+            ("whisper-base", WHISPER_PARITY_PROMPTS, WHISPER_REQUESTS,
+             WHISPER_PROMPTS, 128),
+            ("qwen2-vl-2b", VL_PARITY_PROMPTS, VL_REQUESTS, LM_PROMPTS, 640)):
+        t_arch = time.perf_counter()
+        cfg = get_arch_config(arch)
+        toks, pads = _lm_batch(cfg, parity)
+        extra = EncDecInputs.seeded(cfg, parity, seed=1)
+        seeded = torch.randint(0, cfg.vocab_size, (len(toks), 8),
+                               generator=torch.Generator().manual_seed(1))
+        f32 = cfg.replace(dtype="float32")
+        model = _f32_model(f32, 0)
+        _f32_kernel_vs_plain(model, "flash_attention", toks, pads, seeded,
+                             "full depth", extra)
+        _check_contract(model, contract_S, "full depth",
+                        extra=_contract_inputs(cfg, 2))
+        del model
+        _free()
+        cut = f32.replace(num_layers=2, encoder_layers=min(
+            2, f32.encoder_layers))
+        card = build_model(cut, torch.Generator(device=DEVICE).manual_seed(1)
+                           ).requires_grad_(False)
+        _card_vs_cpu(card, toks, pads, seeded,
+                     "depth 2" + (" + 2 encoder layers"
+                                  if cut.encoder_layers else ""),
+                     "flash_attention", extra)
+        del card
+        _free()
+        lengths = [int(n) for n in np.random.default_rng(19).integers(
+            lo, hi + 1, n_req)]
+        got.append(_encdec_serving(cfg, toks, pads, extra, lengths,
+                                   LM_NEW_TOKENS))
+        print(f"  {arch}: {time.perf_counter() - t_arch:.1f}s", flush=True)
+    t0 = time.perf_counter()
+    got += _train_on_card()
+    print(f"  LM training on the card: {time.perf_counter() - t0:.1f}s; "
+          f"phase 19: {time.perf_counter() - t_phase:.1f}s", flush=True)
     return got
 
 
@@ -3700,7 +4190,7 @@ def main(argv=None) -> int:
                     help="kernels: stop after phase 3 (build and check the "
                     "kernels); gnn-times: phases 1-3 and the GNN kernels' "
                     "times; lm-times: phases 1-3 and the LM kernels' "
-                    "times; lm: those and phases 12-13 and 17-18; runtime: "
+                    "times; lm: those and phases 12-13 and 17-19; runtime: "
                     "phases "
                     "1-2 and 11; graphs: phases 1-2 and 14; engine: "
                     "phases 1-2 and 15; examples: phases 1-2 and 16")

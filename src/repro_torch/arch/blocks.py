@@ -1,10 +1,15 @@
 """Pre-norm residual blocks of the LM zoo (the counterpart of
-``repro/arch/blocks.py``), for the kinds the port serves: ``attn`` (GQA,
-optionally sliding-window, with a SwiGLU FFN: qwen3, phi3; or an MoE FFN:
-mixtral, dbrx; or MLA: minicpm3), ``mamba`` (the Mamba mixer, with a
-SwiGLU or MoE FFN: jamba) and ``rwkv`` (RWKV-6). LayerNorm with a GELU
-MLP (whisper), cross-attention and encoders are refused with an error
-until they are ported (ROADMAP A.12).
+``repro/arch/blocks.py``), for every kind the reference has: ``attn``
+(GQA, optionally sliding-window, with a SwiGLU FFN: qwen3, phi3; or an
+MoE FFN: mixtral, dbrx; or MLA: minicpm3; or LayerNorm, cross-attention
+and a GELU MLP: whisper; or M-RoPE: qwen2-vl), ``mamba`` (the Mamba
+mixer, with a SwiGLU or MoE FFN: jamba) and ``rwkv`` (RWKV-6).
+
+``train=True`` takes the reference's training path, under autograd:
+attention without a cache through ``_sdpa``, RWKV-6 through the plain
+``wkv_chunked``. Without it a block with no cache (the served encoder)
+attends through the ``flash_attention`` kernel, and RWKV-6 runs the
+forward-only ``wkv6`` kernel.
 """
 from __future__ import annotations
 
@@ -21,40 +26,37 @@ from repro_torch.arch.rwkv6_block import (rwkv_channel_apply,
 from repro_torch.config import ArchConfig
 from repro_torch.nn.attention import (attention_apply, attention_init,
                                      mla_apply, mla_init)
-from repro_torch.nn.layers import (rmsnorm_apply, rmsnorm_init, swiglu_apply,
+from repro_torch.nn.layers import (gelu_mlp_apply, gelu_mlp_init,
+                                   layernorm_apply, layernorm_init,
+                                   rmsnorm_apply, rmsnorm_init, swiglu_apply,
                                    swiglu_init)
 
-
-def _unported(what: str):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP A.12)")
-
-
-def _check_ported(cfg: ArchConfig, kind: str) -> None:
-    if kind not in ("attn", "mamba", "rwkv"):
-        raise ValueError(kind)
-    if getattr(cfg, "norm_type", "rmsnorm") == "layernorm":
-        raise _unported("LayerNorm with a GELU MLP")
-    if cfg.cross_attention:
-        raise _unported("cross-attention")
-    if cfg.encoder_layers:
-        raise _unported("the encoder")
+KINDS = ("attn", "mamba", "rwkv")
 
 
 def _norm_init(cfg: ArchConfig, dtype, device=None) -> dict:
+    if cfg.norm_type == "layernorm":
+        return layernorm_init(cfg.d_model, dtype, device)
     return rmsnorm_init(cfg.d_model, dtype, device)
 
 
 def norm_apply(cfg: ArchConfig, p, x: torch.Tensor) -> torch.Tensor:
+    if "bias" in p:
+        return layernorm_apply(p, x, cfg.norm_eps)
     return rmsnorm_apply(p, x, cfg.norm_eps)
 
 
 def block_init(gen: torch.Generator, cfg: ArchConfig, kind: str,
-               dtype, use_moe: bool = True) -> dict:
+               dtype, cross_attention: bool = False,
+               use_moe: bool = True) -> dict:
     """The weights of one block of ``kind`` ("attn" | "mamba" | "rwkv"),
     drawn from ``gen`` on its device, as a dict with the reference's
-    names. ``use_moe``: whether THIS layer's FFN is MoE when the config
-    has one (the reference's ``moe_every`` rule picks it per layer)."""
-    _check_ported(cfg, kind)
+    names. ``cross_attention`` adds ``norm_x`` and ``xattn`` to an
+    attention block (Whisper's decoder). ``use_moe``: whether THIS
+    layer's FFN is MoE when the config has one (the reference's
+    ``moe_every`` rule picks it per layer)."""
+    if kind not in KINDS:
+        raise ValueError(kind)
     p: dict = {"norm1": _norm_init(cfg, dtype, gen.device)}
     if kind in ("attn", "mamba"):
         if kind == "mamba":
@@ -66,10 +68,17 @@ def block_init(gen: torch.Generator, cfg: ArchConfig, kind: str,
             p["attn"] = attention_init(
                 gen, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
                 cfg.resolved_head_dim, dtype, qk_norm=cfg.qk_norm)
+        if kind == "attn" and cross_attention:
+            p["norm_x"] = _norm_init(cfg, dtype, gen.device)
+            p["xattn"] = attention_init(
+                gen, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+                cfg.resolved_head_dim, dtype)
         p["norm2"] = _norm_init(cfg, dtype, gen.device)
         if cfg.moe is not None and use_moe:
             p["ffn"] = moe_init(gen, cfg.d_model, cfg.d_ff,
                                 cfg.moe.num_experts, dtype)
+        elif kind == "attn" and cfg.norm_type == "layernorm":
+            p["ffn"] = gelu_mlp_init(gen, cfg.d_model, cfg.d_ff, dtype)
         else:
             p["ffn"] = swiglu_init(gen, cfg.d_model, cfg.d_ff, dtype)
     else:
@@ -85,7 +94,8 @@ def block_cache_init(cfg: ArchConfig, kind: str, batch: int, cache_len: int,
     sliding-window cache of ``cache_len`` slots (the window), with
     ``pos``, each slot's position (-1: empty). MLA keeps the compressed
     ``c_kv`` and ``k_rope``, Mamba its conv window and state."""
-    _check_ported(cfg, kind)
+    if kind not in KINDS:
+        raise ValueError(kind)
     if kind == "attn" and cfg.mla is not None:
         m = cfg.mla
         return {"c_kv": torch.zeros((batch, cache_len, m.kv_lora_rank),
@@ -114,7 +124,10 @@ def _ffn_apply(p_ffn, x: torch.Tensor, cfg: ArchConfig, moe_impl: str):
         if moe_impl == "ep":
             return moe_ffn_ep(p_ffn, x, cfg.moe)
         return moe_ffn_dense(p_ffn, x, cfg.moe)
-    return swiglu_apply(p_ffn, x), x.new_zeros((), dtype=torch.float32)
+    zero = x.new_zeros((), dtype=torch.float32)
+    if "wi" in p_ffn:                       # gelu mlp (whisper)
+        return gelu_mlp_apply(p_ffn, x), zero
+    return swiglu_apply(p_ffn, x), zero
 
 
 def block_apply(p, x: torch.Tensor, cfg: ArchConfig, kind: str, *,
@@ -122,14 +135,15 @@ def block_apply(p, x: torch.Tensor, cfg: ArchConfig, kind: str, *,
                 cache=None, cache_index=None, enc_memory=None,
                 moe_impl: str = "dense",
                 sliding_window: Optional[int] = None, valid=None,
-                kv_start=None):
+                kv_start=None, train: bool = False):
     """Pre-norm residual block. Returns (x, new_cache, aux_loss).
     ``valid``: (B, P) pad mask over the first P cache slots (serving
     with left-padded prompts) and ``kv_start`` its first real slot per
     row (prefill, GQA); only the attention path reads them, so a Mamba
-    or RWKV row's pads enter its state (ROADMAP C.11)."""
-    if enc_memory is not None:
-        raise _unported("cross-attention")
+    or RWKV row's pads enter its state (ROADMAP C.11). ``enc_memory``
+    (B, T_enc, D): the encoder's output, which the decoder's
+    cross-attention reads after its self-attention. ``train``: the
+    reference's training path (see the module's docstring)."""
     sw = cfg.sliding_window if sliding_window is None else sliding_window
     new_cache = None
     if kind in ("attn", "mamba"):
@@ -151,17 +165,25 @@ def block_apply(p, x: torch.Tensor, cfg: ArchConfig, kind: str, *,
                 norm_eps=cfg.norm_eps, causal=causal, sliding_window=sw,
                 cache=cache, cache_index=cache_index,
                 mrope_positions=mrope_positions, valid=valid,
-                kv_start=kv_start)
+                kv_start=kv_start, kernel=not train)
         a, new_cache = (out if cache is not None or kind == "mamba"
                         else (out, None))
         x = x + a
+        if enc_memory is not None:
+            hx = norm_apply(cfg, p["norm_x"], x)
+            x = x + attention_apply(
+                p["xattn"], hx, num_heads=cfg.num_heads,
+                num_kv_heads=cfg.num_kv_heads,
+                head_dim=cfg.resolved_head_dim, kv_x=enc_memory,
+                causal=False)
         h2 = norm_apply(cfg, p["norm2"], x)
         f, aux = _ffn_apply(p["ffn"], h2, cfg, moe_impl)
         x = x + f
     elif kind == "rwkv":
         h = norm_apply(cfg, p["norm1"], x)
         t, c_t = rwkv_time_apply(p["time"], h, cfg.rwkv, cfg.norm_eps,
-                                 cache=cache["time"] if cache else None)
+                                 cache=cache["time"] if cache else None,
+                                 train=train)
         x = x + t
         h2 = norm_apply(cfg, p["norm2"], x)
         c, c_c = rwkv_channel_apply(p["channel"], h2,

@@ -94,12 +94,20 @@ def _ssd_chunked(xh, dt, a_log_cum, Bm, Cm, chunk: int):
     G = Cc @ Bc.transpose(-1, -2)                           # (B,nc,L,L)
     lat = lac.permute(0, 1, 3, 2)                           # (B,nc,H,L)
     M = lat[..., :, None] - lat[..., None, :]               # (B,nc,H,L,L)
-    M.exp_()
     causal = torch.ones((chunk, chunk), dtype=torch.bool,
                         device=xh.device).tril()
-    M.masked_fill_(~causal, 0.0)
-    M.mul_(G[:, :, None])
-    M.mul_(dtc.permute(0, 1, 3, 2)[..., None, :])
+    dtm = dtc.permute(0, 1, 3, 2)[..., None, :]
+    if torch.is_grad_enabled():
+        # under autograd (training), out of place: exp keeps its output
+        # and each product its operands for the backward
+        M = torch.exp(M).masked_fill(~causal, 0.0) * G[:, :, None] * dtm
+    else:
+        # serving: in place, since M is a full-width prefill's largest
+        # temporary
+        M.exp_()
+        M.masked_fill_(~causal, 0.0)
+        M.mul_(G[:, :, None])
+        M.mul_(dtm)
     y = M @ xc.permute(0, 1, 3, 2, 4)                       # (B,nc,H,L,P)
     del M, G
     y = y.permute(0, 1, 3, 2, 4)                            # (B,nc,L,H,P)

@@ -9,7 +9,9 @@ unchanged. Prefill runs the recurrence through the ``wkv6`` kernel
 state for the decode cache and writes o in float32, so ``ln_x`` reads
 the same float32 o as the reference's; decode is the one-step
 recurrence in plain PyTorch, as the reference computes it outside any
-kernel.
+kernel. Training (``train=True``) takes the reference's train path,
+:func:`wkv_chunked`, plain PyTorch under autograd: the kernel has no
+backward, in either package.
 """
 from __future__ import annotations
 
@@ -63,10 +65,63 @@ def _mix(x: torch.Tensor, xs: torch.Tensor, mu: torch.Tensor):
     return x + (xs - x) * mu.to(x.dtype)
 
 
-def rwkv_time_apply(p, x: torch.Tensor, rc, norm_eps: float, cache=None):
+def wkv_chunked(r, k, v, w, u, chunk: int):
+    """The chunked log-domain WKV of ``repro/arch/rwkv6_block.py:69``, in
+    plain PyTorch (differentiable): within a chunk, pairwise-decay
+    attention batched over the chunks; across chunks, the state
+    recurrence ``S_j = A_j * S_{j-1} + B_j``, a loop over the chunks (the
+    reference's log-depth ``associative_scan`` sums the same terms in
+    another order). r, k, w (B, T, H, K), v (B, T, H, V), u (H, K), T a
+    multiple of ``chunk`` -> (o (B, T, H, V), S_final (B, H, K, V)),
+    float32."""
+    B, T, H, K = r.shape
+    V = v.shape[-1]
+    nc = T // chunk
+    rc_ = r.float().reshape(B, nc, chunk, H, K)
+    kc = k.float().reshape(B, nc, chunk, H, K)
+    vc = v.float().reshape(B, nc, chunk, H, V)
+    lw = torch.log(torch.clamp_min(w.float(), 1e-12)).reshape(
+        B, nc, chunk, H, K)
+    la = torch.cumsum(lw, dim=2)
+    la_ex = la - lw
+    t_i = torch.arange(chunk, device=r.device)[:, None]
+    u_i = torch.arange(chunk, device=r.device)[None, :]
+    strict = (u_i < t_i)[None, None, :, :, None]
+    diag = (t_i == u_i)[None, None, :, :, None]
+
+    # within a chunk, all chunks at once
+    ldiff = la_ex[:, :, :, None] - la[:, :, None]        # (B,nc,L,L,H,K)
+    decay = torch.where(strict[..., None], torch.exp(ldiff),
+                        torch.zeros((), device=r.device))
+    scores = torch.einsum("bclhk,bcmhk,bclmhk->bclmh", rc_, kc, decay)
+    db = torch.einsum("bclhk,bclhk,hk->bclh", rc_, kc, u.float())
+    scores = scores + torch.where(diag, db[:, :, :, None],
+                                  torch.zeros((), device=r.device))
+    o = torch.einsum("bclmh,bcmhv->bclhv", scores, vc)
+
+    # each chunk's state summary, then the recurrence over the chunks
+    la_last = la[:, :, -1]                               # (B,nc,H,K)
+    k_dec = kc * torch.exp(la_last[:, :, None] - la)
+    b_hat = torch.einsum("bclhk,bclhv->bchkv", k_dec, vc)
+    a = torch.exp(la_last)
+    S = r.new_zeros((B, H, K, V), dtype=torch.float32)
+    prev = []
+    for j in range(nc):
+        prev.append(S)
+        S = a[:, j, :, :, None] * S + b_hat[:, j]
+    s_prev = torch.stack(prev, dim=1)                    # (B,nc,H,K,V)
+    o = o + torch.einsum("bclhk,bchkv->bclhv", rc_ * torch.exp(la_ex),
+                         s_prev)
+    return o.reshape(B, T, H, V), S
+
+
+def rwkv_time_apply(p, x: torch.Tensor, rc, norm_eps: float, cache=None,
+                    train: bool = False):
     """Time mixing. cache (decode): {"last": (B,1,D), "state": (B,H,K,V)}.
     Returns ``(out, new_cache)``; ``new_cache`` is None without a cache.
-    A prefill (T > 1) starts from a zero state, as the reference's."""
+    A prefill (T > 1) starts from a zero state, as the reference's.
+    ``train``: the recurrence through :func:`wkv_chunked` under autograd
+    instead of the forward-only kernel."""
     B, T, D = x.shape
     H = D // rc.head_dim
     K = rc.head_dim
@@ -94,11 +149,15 @@ def rwkv_time_apply(p, x: torch.Tensor, rc, norm_eps: float, cache=None):
         if T % chunk != 0:
             raise ValueError(f"sequence length {T} must be a multiple of "
                              f"chunk {chunk}")
-        # o in float32, as the reference's wkv_chunked returns it: ln_x
-        # normalises it and the result rounds to x's dtype once
-        o, S = ops.wkv6_op(r.contiguous(), k.contiguous(), v.contiguous(),
-                           w.contiguous(), p["bonus_u"].contiguous(),
-                           out_dtype=torch.float32)
+        if train:
+            o, S = wkv_chunked(r, k, v, w, p["bonus_u"], chunk)
+        else:
+            # o in float32, as the reference's wkv_chunked returns it:
+            # ln_x normalises it and the result rounds to x's dtype once
+            o, S = ops.wkv6_op(r.contiguous(), k.contiguous(),
+                               v.contiguous(), w.contiguous(),
+                               p["bonus_u"].contiguous(),
+                               out_dtype=torch.float32)
         if cache is not None:
             new_cache = {"last": x[:, -1:], "state": S}
     else:

@@ -185,13 +185,11 @@ def _module_name(arch: str) -> str:
 
 def get_arch_config(name: str) -> ArchConfig:
     """The ``CONFIG`` of ``repro_torch/configs/<name>.py`` (dashes and
-    dots become underscores). Only the ported architectures have one;
-    the rest of the zoo waits for ROADMAP A.12."""
+    dots become underscores); ``ValueError`` for a name the zoo does not
+    have."""
     try:
         mod = importlib.import_module(
             f"repro_torch.configs.{_module_name(name)}")
     except ModuleNotFoundError as e:
-        raise NotImplementedError(
-            f"architecture {name!r} is not ported yet (ROADMAP A.12)"
-        ) from e
+        raise ValueError(f"unknown architecture {name!r}") from e
     return mod.CONFIG

@@ -478,6 +478,17 @@ def _check_aligned(name: str, tensors: tuple) -> None:
                              "boundary")
 
 
+def _forward_only(name: str, *tensors: torch.Tensor) -> None:
+    """The LM kernels have no backward (nor do the TPU kernels): a call
+    that autograd would record raises rather than give a zero gradient.
+    The model's training path takes the plain functions instead."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name}: the kernel is forward-only and an "
+                           "input requires grad; train through the "
+                           "model's loss (train=True), or call it under "
+                           "torch.no_grad()")
+
+
 def _flash_attention_cuda(q, k, v, kv_start, causal, sliding_window,
                           seq_len):
     suffix = _check_lm_cuda("flash_attention", (q, k, v))
@@ -524,7 +535,9 @@ def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     masks the keys before ``kv_start[b]`` of row ``b`` (the left pad of a
     served batch; None = 0, the TPU kernel). A query row with no visible
     key gives 0. See :func:`repro_torch.kernels.ref.flash_attention_ref`
-    for the exact function."""
+    for the exact function. Forward-only: raises ``RuntimeError`` when
+    autograd would record the call."""
+    _forward_only("flash_attention", q, k, v)
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("flash_attention expects (B, T, H, D) q, k, v")
     B, T, Hq, D = q.shape
@@ -581,7 +594,9 @@ def wkv6_op(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     and float32 when it is ``torch.float32`` (what the model's
     ``wkv_chunked`` returns, so ``ln_x`` rounds once). Any T: the kernel
     runs the steps in order, so nothing is padded to a chunk. See
-    :func:`repro_torch.kernels.ref.wkv6_ref`."""
+    :func:`repro_torch.kernels.ref.wkv6_ref`. Forward-only: raises
+    ``RuntimeError`` when autograd would record the call."""
+    _forward_only("wkv6", r, k, v, w, u)
     if r.dim() != 4 or k.shape != r.shape or w.shape != r.shape \
             or v.dim() != 4 or v.shape[:3] != r.shape[:3] \
             or u.shape != r.shape[2:]:

@@ -25,7 +25,11 @@ and Qwen3-32B (65.5 GB) at full width and depth; Mixtral 8x7B (93.4 GB),
 DBRX (263 GB) and Jamba-1.5-Large (796 GB) do not, and ``chip_smoke.py``
 serves Mixtral at 16 of its 32 layers and Jamba as one group of 8 layers
 with 8 of its 16 experts, each by handing ``BatchServer`` the config cut
-with ``ArchConfig.replace``.
+with ``ArchConfig.replace``. Whisper-base and Qwen2-VL-2B take frames
+and embeddings, which the server's token requests do not carry (nor do
+the reference's): they serve through the model's ``prefill``,
+``encode`` and :class:`DecodeGraph`, whose round takes their extra
+inputs (``chip_smoke.py`` phase 19).
 """
 from __future__ import annotations
 
@@ -83,7 +87,11 @@ class DecodeGraph:
     (B, 1), positions (B, 1), validity mask over every cache slot (B,
     cache_len), the cache slot as a 0-d tensor, and the caches (a rolling
     cache's ``pos`` among them), which the round reads and writes in
-    place. A round returns ``(logits (B, 1, V), argmax tokens (B,))``.
+    place. A Whisper round also reads the batch's encoder memory ``enc_memory``
+    (B, encoder_seq, D), set once per batch by :meth:`start`; a Qwen2-VL
+    round its token's ``embeds`` (B, 1, D) and ``mrope_positions`` (3,
+    B, 1), given each round. A round returns ``(logits (B, 1, V), argmax
+    tokens (B,))``.
 
     On the card the first round runs eagerly on a side stream, then is
     captured into a CUDA graph over the buffers (``core/trainer.py``'s
@@ -106,33 +114,55 @@ class DecodeGraph:
                                     dtype=torch.bool, device=dev),
                 "index": torch.zeros((), dtype=torch.int64, device=dev),
                 "caches": model.init_cache(batch_size, cache_len)}
+            cfg, dt = model.cfg, model.embed["table"].dtype
+            if cfg.encoder_layers:
+                self.static["enc_memory"] = torch.zeros(
+                    (batch_size, cfg.encoder_seq, cfg.d_model), dtype=dt,
+                    device=dev)
+            if cfg.embed_inputs:
+                self.static["embeds"] = torch.zeros(
+                    (batch_size, 1, cfg.d_model), dtype=dt, device=dev)
+            if cfg.mrope:
+                self.static["mrope_positions"] = torch.zeros(
+                    (3, batch_size, 1), dtype=torch.int32, device=dev)
         self.captures = 0
         self._step = None
         self._side = None
 
     def _round(self, s):
-        logits, new, _ = self.model.decode_step(
-            {"tokens": s["tokens"], "valid": s["valid"],
-             "positions": s["positions"]}, s["caches"], s["index"])
+        batch = {k: s[k] for k in ("tokens", "valid", "positions",
+                                   "enc_memory", "embeds",
+                                   "mrope_positions") if k in s}
+        logits, new, _ = self.model.decode_step(batch, s["caches"],
+                                                s["index"])
         _carry(s["caches"], new)
         return logits, torch.argmax(logits[:, -1], -1)
 
     @torch.inference_mode()
-    def start(self, caches, valid: torch.Tensor) -> None:
-        """A new batch: its prefill's caches and its prompt's left-pad
-        mask (B, P) into the buffers (slots past the prompt valid)."""
+    def start(self, caches, valid: torch.Tensor,
+              enc_memory: Optional[torch.Tensor] = None) -> None:
+        """A new batch: its prefill's caches, its prompt's left-pad mask
+        (B, P) into the buffers (slots past the prompt valid), and a
+        Whisper batch's encoder memory."""
         _carry(self.static["caches"], caches)
         v = self.static["valid"]
         v.fill_(True)
         v[:, :valid.shape[1]] = valid
+        if "enc_memory" in self.static:
+            self.static["enc_memory"].copy_(enc_memory)
 
     @torch.inference_mode()
     def __call__(self, tokens: torch.Tensor, positions: torch.Tensor,
-                 index: int):
+                 index: int, embeds: Optional[torch.Tensor] = None,
+                 mrope_positions: Optional[torch.Tensor] = None):
         s = self.static
         s["tokens"].copy_(tokens)
         s["positions"].copy_(positions)
         s["index"].fill_(index)
+        if "embeds" in s:
+            s["embeds"].copy_(embeds)
+        if "mrope_positions" in s:
+            s["mrope_positions"].copy_(mrope_positions)
         if not self.graphs_on:
             return self._round(s)
         if self._step is not None:
@@ -167,6 +197,11 @@ class BatchServer:
     ``arch`` is a name (``reduced`` then picks the reference's reduced
     config in float32) or an ``ArchConfig``, served as it is: a model too
     large for the card is served cut with ``cfg.replace(...)``.
+
+    Requests carry token prompts only, as the reference's: a config that
+    takes embeddings (Qwen2-VL) or encoder frames (Whisper) is refused.
+    Those models serve through ``prefill``, :meth:`TransformerLM.encode`
+    and :class:`DecodeGraph` directly.
     """
 
     def __init__(self, arch: Union[str, ArchConfig], batch_size: int,
@@ -181,6 +216,11 @@ class BatchServer:
             cfg = get_arch_config(arch)
             if reduced:
                 cfg = cfg.reduced().replace(dtype="float32")
+        if cfg.embed_inputs or cfg.encoder_layers:
+            raise ValueError(
+                f"{cfg.name}: BatchServer serves token prompts, as the "
+                "reference's; a config with embedding inputs or an "
+                "encoder takes them through prefill and DecodeGraph")
         self.cfg = cfg
         self.device = resolve_device(device)
         gen = torch.Generator(device=self.device).manual_seed(seed)
@@ -297,7 +337,9 @@ def main(argv=None) -> int:
                     help="mixtral-8x7b, qwen3-4b, qwen3-32b, "
                     "phi3-medium-14b, dbrx-132b, rwkv6-1.6b, "
                     "jamba-1.5-large-398b or minicpm3-4b (whisper-base and "
-                    "qwen2-vl-2b wait for ROADMAP A.12)")
+                    "qwen2-vl-2b take frames and embeddings, which the "
+                    "server's token requests do not carry, as the "
+                    "reference's)")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=24)

@@ -1,5 +1,6 @@
-"""The GNN training entry point (the counterpart of the ``gnn`` subcommand
-of ``repro/launch/train.py``), on the card unless ``--device cpu``::
+"""The training entry points (the counterpart of
+``repro/launch/train.py``): GNNs, and the LM zoo's reduced models, on
+the card unless ``--device cpu``::
 
     PYTHONPATH=src python -m repro_torch.launch.train gnn \\
         --dataset alipay_like --model gat_e --hidden 32 --lr 5e-3 \\
@@ -11,7 +12,16 @@ save a checkpoint (with ``--checkpoint-dir``), retire the prefetch pool
 and exit with 128 + the signal's number; ``--resume`` picks the run back
 up. ``--engine-partitions P`` trains with the distributed engine over P
 partitions of the graph (``--partition-method``), all on the one device.
-The ``lm`` subcommand waits for the LM zoo (ROADMAP A.12).
+
+    PYTHONPATH=src python -m repro_torch.launch.train lm --arch qwen2-vl-2b \
+        --steps 50 --batch 8 --seq 128
+
+``lm`` trains the reference's reduced config of ``--arch`` (float32, the
+vocabulary capped at 1,024) on its synthetic token stream with AdamW
+under a warmup-cosine schedule, as the reference's ``train_lm``, and
+prints ``final loss: ...``. The model's loss is the plain PyTorch path
+under autograd; the forward-only kernels serve, and refuse to be
+trained through.
 """
 from __future__ import annotations
 
@@ -19,6 +29,8 @@ import argparse
 import contextlib
 import signal
 import sys
+import time
+from typing import Mapping, Optional
 
 
 def fault_policy_from(args):
@@ -127,6 +139,93 @@ def add_runtime_flags(ap) -> None:
                     help="keep only the newest K checkpoints (0 = all)")
 
 
+def train_lm(arch: str, steps: int, batch: int, seq: int,
+             reduced: bool = True, lr: float = 3e-4, seed: int = 0,
+             log_every: int = 10, checkpoint_dir: Optional[str] = None,
+             vocab_cap: int = 1024, device=None,
+             state_dict: Optional[Mapping] = None) -> dict:
+    """The reference's ``train_lm`` (``repro/launch/train.py:63``) on
+    ``device`` (the card unless ``"cpu"``): the reduced config in float32
+    with the vocabulary capped at ``vocab_cap``, ``remat`` off when
+    reduced, AdamW under ``warmup_cosine_schedule(lr, max(10, steps //
+    20), steps)``, the loss in chunks of ``min(LOSS_CHUNK, seq)``. The
+    stub inputs are the reference's: ``embeds`` the current table looked
+    up at the tokens (a constant input: no gradient flows through it),
+    three equal ``mrope_positions`` streams, and ``enc_frames`` drawn
+    from one ``default_rng(seed)`` step after step. The weights are
+    drawn from ``seed`` on the device, or loaded from ``state_dict``
+    (the JAX package's through ``lm_params_from_jax``). Returns the
+    logged ``history``, every step's loss (``losses``), ``final_loss``,
+    ``wall_s``, ``model`` and ``cfg``."""
+    import numpy as np
+    import torch
+    from repro_torch.arch import build_model
+    from repro_torch.arch.model import LOSS_CHUNK
+    from repro_torch.config import get_arch_config
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.device import resolve_device
+    from repro_torch.launch.microbatch import microbatched_value_and_grad
+    from repro_torch.optim import adamw, warmup_cosine_schedule
+    from repro_torch.utils.logging import get_logger
+
+    log = get_logger("train")
+    dev = resolve_device(device)
+    cfg = get_arch_config(arch)
+    if reduced:
+        cfg = cfg.reduced().replace(dtype="float32",
+                                    vocab_size=min(cfg.reduced().vocab_size,
+                                                   vocab_cap))
+    model = build_model(cfg, torch.Generator(device=dev).manual_seed(seed),
+                        remat=not reduced)
+    if state_dict is not None:
+        model.load_state_dict(state_dict, strict=True)
+    params = dict(model.named_parameters())
+    opt = adamw(warmup_cosine_schedule(lr, max(10, steps // 20), steps))
+    opt_state = opt.init(params)
+    ds = SyntheticLMDataset(cfg.vocab_size, seq, batch, seed=seed)
+    rng = np.random.default_rng(seed)
+    chunk = min(LOSS_CHUNK, seq)
+    value_and_grad = microbatched_value_and_grad(
+        lambda b: model.loss(b, chunk=chunk), 1)
+
+    def make_batch(i):
+        b = ds.batch(i)
+        out = {k: torch.from_numpy(b[k]).long().to(dev)
+               for k in ("tokens", "labels")}
+        if cfg.embed_inputs:
+            # the stub frontend embeds through the current table
+            with torch.no_grad():
+                out["embeds"] = model.embed["table"][out["tokens"]]
+        if cfg.mrope:
+            out["mrope_positions"] = torch.arange(
+                seq, dtype=torch.int32, device=dev).expand(3, batch, seq)
+        if cfg.encoder_layers:
+            out["enc_frames"] = torch.from_numpy(rng.normal(
+                size=(batch, cfg.encoder_seq, cfg.d_model)).astype(
+                    np.float32)).to(dev)
+        return out
+
+    history, losses = [], []
+    t0 = time.perf_counter()
+    for i in range(steps):
+        loss, grads = value_and_grad(params, make_batch(i))
+        opt.update(grads, opt_state, params)
+        losses.append(loss)
+        if i % log_every == 0 or i == steps - 1:
+            lv = float(loss)
+            history.append({"step": i, "loss": lv})
+            log.info("arch=%s step=%d loss=%.4f", arch, i, lv)
+    losses = [float(x) for x in torch.stack(losses).cpu()]
+    wall = time.perf_counter() - t0
+    if checkpoint_dir:
+        from repro_torch.checkpoint import save_checkpoint
+        from repro_torch.weights import params_to_jax
+        save_checkpoint(checkpoint_dir, steps,
+                        {"params": params_to_jax(model.state_dict())})
+    return {"history": history, "losses": losses, "wall_s": wall,
+            "final_loss": history[-1]["loss"], "model": model, "cfg": cfg}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -156,11 +255,27 @@ def main(argv=None) -> int:
                    choices=["1d_src", "1d_dst", "vertex_cut"],
                    help="how the engine assigns edges to partitions")
     add_runtime_flags(g)
-    sub.add_parser("lm", help="not ported yet (ROADMAP A.12)")
+    lm = sub.add_parser("lm", help="train a reduced LM of the zoo")
+    lm.add_argument("--arch", required=True)
+    lm.add_argument("--steps", type=int, default=50)
+    lm.add_argument("--batch", type=int, default=8)
+    lm.add_argument("--seq", type=int, default=128)
+    lm.add_argument("--reduced", action="store_true", default=True,
+                    help="the reference's reduced config (always on, as "
+                    "the reference's flag)")
+    lm.add_argument("--checkpoint-dir", default=None)
+    lm.add_argument("--device", default=None,
+                    help="cuda (the default) or cpu")
     args = ap.parse_args(argv)
 
     if args.cmd == "lm":
-        ap.exit(2, "lm: the LM zoo is not ported yet (ROADMAP A.12)\n")
+        out = train_lm(args.arch, args.steps, args.batch, args.seq,
+                       reduced=args.reduced,
+                       checkpoint_dir=args.checkpoint_dir,
+                       device=args.device)
+        print(f"[{out['model'].device}] final loss: "
+              f"{out['final_loss']:.4f} ({out['wall_s']:.1f}s)")
+        return 0
 
     import repro_torch.api as api
     from repro_torch.runtime.faults import TrainingInterrupted

@@ -11,10 +11,12 @@ new ones), which keeps one copy of each on the card. The rolling
 sliding-window cache keeps W slots (slot = position mod W): its prefill
 runs the kernel within the prompt and its decode ``_sdpa`` over the W
 slots. MLA (``mla_apply``, MiniCPM3) attends through float32 products,
-as the reference's does: no kernel.
-
-Not ported yet, and refused with an error: cross-attention and M-RoPE
-(ROADMAP A.12).
+as the reference's does: no kernel. Cross-attention (Whisper's decoder
+over the encoder memory) takes ``_sdpa`` with no mask, no RoPE and no
+cache, as the reference's; M-RoPE (Qwen2-VL) rotates three sections of
+the rotary half-dim by three position streams. The bidirectional
+encoder's self-attention has no cache either: served, it runs the kernel
+with ``causal=False`` (``kernel=True``); trained, it takes ``_sdpa``.
 """
 from __future__ import annotations
 
@@ -53,6 +55,32 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     inv = rope_frequencies(hd, theta, x.device)
     ang = positions[..., None].float() * inv            # (..., S, hd/2)
     ang = ang[..., None, :]                             # (..., S, 1, hd/2)
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def apply_mrope(x: torch.Tensor, positions3: torch.Tensor,
+                theta: float = 10000.0,
+                sections=(0.25, 0.375, 0.375)) -> torch.Tensor:
+    """Multimodal RoPE (Qwen2-VL). positions3: (3, ..., S), the (t, h, w)
+    streams. The rotary half-dim is cut into three contiguous sections of
+    ``int(round(f * hd // 2))`` for the first two fractions (Python's
+    ``round``, as the reference's) and the rest, each rotated by its own
+    stream: 16/24/24 at head dim 128, 4/6/6 at 32."""
+    hd = x.shape[-1]
+    half = hd // 2
+    s0 = int(round(sections[0] * half))
+    s1 = int(round(sections[1] * half))
+    sizes = [s0, s1, half - s0 - s1]
+    inv = rope_frequencies(hd, theta, x.device)
+    parts, off = [], 0
+    for i, sz in enumerate(sizes):
+        pos = positions3[i][..., None].float()             # (..., S, 1)
+        parts.append(pos * inv[off:off + sz])
+        off += sz
+    ang = torch.cat(parts, dim=-1)[..., None, :]         # (..., S, 1, half)
     cos, sin = torch.cos(ang), torch.sin(ang)
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
@@ -122,12 +150,14 @@ def left_pad_starts(valid: torch.Tensor) -> torch.Tensor:
     return start.contiguous()
 
 
-def _prompt_attention(q, k, v, sliding_window, valid, kv_start):
+def _prompt_attention(q, k, v, sliding_window, valid, kv_start,
+                      causal: bool = True):
     """Causal (and windowed) attention within a prompt of Sq tokens
-    through the ``flash_attention`` kernel: q (B, Sq, Hq, hd), k and v
-    (B, Sq, Hkv, hd) -> (B, Sq, Hq, hd). ``valid`` (B, Sq), a left-pad
-    mask, masks each row's pad keys through ``kv_start``, its first real
-    key (computed here when None)."""
+    through the ``flash_attention`` kernel, or bidirectional attention
+    over an encoder's frames with ``causal=False``: q (B, Sq, Hq, hd), k
+    and v (B, Sq, Hkv, hd) -> (B, Sq, Hq, hd). ``valid`` (B, Sq), a
+    left-pad mask, masks each row's pad keys through ``kv_start``, its
+    first real key (computed here when None)."""
     Sq = k.shape[1]
     if valid is not None:
         if valid.shape[1] != Sq:
@@ -136,7 +166,7 @@ def _prompt_attention(q, k, v, sliding_window, valid, kv_start):
         if kv_start is None:
             kv_start = left_pad_starts(valid)
     return ops.flash_attention_op(q.contiguous(), k.contiguous(),
-                                  v.contiguous(), causal=True,
+                                  v.contiguous(), causal=causal,
                                   sliding_window=sliding_window,
                                   kv_start=kv_start)
 
@@ -197,10 +227,19 @@ def attention_apply(p, x: torch.Tensor, *, num_heads: int, num_kv_heads: int,
                     qk_norm=False, norm_eps=1e-5, causal=True,
                     sliding_window=0, cache=None, cache_index=None,
                     kv_x=None, kv_positions=None, mrope_positions=None,
-                    valid=None, kv_start=None):
+                    valid=None, kv_start=None, kernel: bool = False):
     """Unified GQA attention, as ``repro/nn/attention.py:attention_apply``.
 
-    - train/prefill without a cache: self attention over x (``_sdpa``).
+    - train/prefill without a cache: self attention over x (``_sdpa``),
+      or, with ``kernel=True``, through the ``flash_attention`` kernel
+      (``causal`` as given): the served encoder's path.
+    - cross attention: ``kv_x`` (B, Sk, D) given, the encoder memory: K
+      and V projected from it, no RoPE on q or k, no mask and no cache,
+      through ``_sdpa`` (Sq differs from Sk, which the kernel does not
+      take). Decode recomputes the cross K/V every step, as the
+      reference's does.
+    - ``mrope_positions`` (3, B, S): M-RoPE on q and k in place of RoPE
+      (:func:`apply_mrope`).
     - with a cache {"k","v"} (B, S_max, Hkv, hd): the new kv is written at
       ``cache_index`` and ``(out, cache)`` returned. ``cache_index`` is an
       int, or for decode a 0-d int64 tensor on the device: no host
@@ -229,25 +268,39 @@ def attention_apply(p, x: torch.Tensor, *, num_heads: int, num_kv_heads: int,
     values (ROADMAP C.8). Those rows feed only pad positions, which every
     later layer masks as keys and no logit reads.
     """
-    if kv_x is not None:
-        raise NotImplementedError("cross-attention is not ported yet "
-                                  "(ROADMAP A.12: whisper)")
-    if mrope_positions is not None:
-        raise NotImplementedError("M-RoPE is not ported yet (ROADMAP "
-                                  "A.12: qwen2-vl)")
     B, Sq, _ = x.shape
     G = num_heads // num_kv_heads
     q = (x @ p["wq"]).reshape(B, Sq, num_kv_heads, G, head_dim)
-    k = (x @ p["wk"]).reshape(B, Sq, num_kv_heads, head_dim)
-    v = (x @ p["wv"]).reshape(B, Sq, num_kv_heads, head_dim)
+    src = kv_x if kv_x is not None else x
+    Sk = src.shape[1]
+    k = (src @ p["wk"]).reshape(B, Sk, num_kv_heads, head_dim)
+    v = (src @ p["wv"]).reshape(B, Sk, num_kv_heads, head_dim)
     if qk_norm:
         q = rmsnorm_apply(p["q_norm"], q, norm_eps)
         k = rmsnorm_apply(p["k_norm"], k, norm_eps)
-    if positions is not None:
+    if kv_x is not None:
+        # cross attention: every query sees every encoder frame
+        if cache is not None:
+            raise ValueError("cross-attention takes no cache")
+        bias = torch.zeros((B, 1, Sq, Sk), dtype=torch.float32,
+                           device=x.device)
+        out = _sdpa(q, k, v, bias)
+        return out.reshape(B, Sq, num_heads * head_dim).to(x.dtype) @ p["wo"]
+    if mrope_positions is not None:
+        q = apply_mrope(q.reshape(B, Sq, num_heads, head_dim),
+                        mrope_positions, rope_theta
+                        ).reshape(B, Sq, num_kv_heads, G, head_dim)
+        k = apply_mrope(k, mrope_positions, rope_theta)
+    elif positions is not None:
         q = apply_rope(q.reshape(B, Sq, num_heads, head_dim), positions,
                        rope_theta).reshape(B, Sq, num_kv_heads, G, head_dim)
         kpos = kv_positions if kv_positions is not None else positions
         k = apply_rope(k, kpos, rope_theta)
+    if cache is None and kernel:
+        out = _prompt_attention(q.reshape(B, Sq, num_heads, head_dim), k, v,
+                                sliding_window, valid, kv_start,
+                                causal=causal)
+        return out.reshape(B, Sq, num_heads * head_dim).to(x.dtype) @ p["wo"]
 
     rolling = cache is not None and "pos" in cache
     if cache is not None and Sq > 1 and (rolling or (

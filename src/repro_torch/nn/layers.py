@@ -1,6 +1,6 @@
 """Dense building blocks, initialised from an explicit ``torch.Generator``
 (on the generator's device), the LM zoo's norms, embedding and SwiGLU,
-and the classification loss.
+the classification loss, and Whisper's LayerNorm and GELU MLP.
 
 Weights keep the reference's ``(in, out)`` layout (``y = x @ w + b``), so
 parameters carried over from the JAX package load as they are. The LM
@@ -67,11 +67,12 @@ def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def dense_init(gen: torch.Generator, in_dim: int, out_dim: int,
-               use_bias: bool = True, scale: float = 1.0
+               use_bias: bool = True, scale: float = 1.0,
+               dtype: torch.dtype = torch.float32
                ) -> Dict[str, torch.Tensor]:
-    p = {"w": _fan_in_init(gen, (in_dim, out_dim), scale)}
+    p = {"w": _fan_in_init(gen, (in_dim, out_dim), scale, dtype)}
     if use_bias:
-        p["b"] = torch.zeros(out_dim, dtype=torch.float32)
+        p["b"] = torch.zeros(out_dim, dtype=dtype, device=gen.device)
     return p
 
 
@@ -146,6 +147,20 @@ def rmsnorm_apply(p, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     return (y * p["scale"].float()).to(x.dtype)
 
 
+def layernorm_init(dim: int, dtype=torch.float32, device=None):
+    return {"scale": torch.ones(dim, dtype=dtype, device=device),
+            "bias": torch.zeros(dim, dtype=dtype, device=device)}
+
+
+def layernorm_apply(p, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm with float32 statistics, rounded to x's dtype once."""
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * p["scale"].float() + p["bias"].float()).to(x.dtype)
+
+
 def embedding_init(gen: torch.Generator, vocab: int, dim: int,
                    dtype=torch.float32):
     return {"table": (torch.randn((vocab, dim), generator=gen,
@@ -166,3 +181,17 @@ def swiglu_apply(p, x: torch.Tensor) -> torch.Tensor:
     g = F.silu(x @ p["wi_gate"])
     u = x @ p["wi_up"]
     return (g * u) @ p["wo"]
+
+
+def gelu_mlp_init(gen: torch.Generator, d_model: int, d_ff: int,
+                  dtype=torch.float32):
+    return {"wi": dense_init(gen, d_model, d_ff, dtype=dtype),
+            "wo": dense_init(gen, d_ff, d_model, dtype=dtype)}
+
+
+def gelu_mlp_apply(p, x: torch.Tensor) -> torch.Tensor:
+    """Whisper's MLP. ``jax.nn.gelu`` defaults to the tanh approximation,
+    which the reference calls; the exact erf form parts from it by up to
+    4.7e-4 an element."""
+    return dense_apply(p["wo"], F.gelu(dense_apply(p["wi"], x),
+                                       approximate="tanh"))

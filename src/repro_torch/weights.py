@@ -119,13 +119,28 @@ def lm_params_from_jax(cfg, tree) -> "OrderedDict[str, torch.Tensor]":
     arrives as float32 and ``load_state_dict`` casts it to the
     parameter's dtype. The port builds a bf16 model's MoE router and
     Mamba's ``dt_proj``, ``dt_bias``, ``A_log`` and ``D`` as float32
-    parameters, as the reference keeps them, so they stay float32."""
+    parameters, as the reference keeps them, so they stay float32.
+
+    Whisper's ``encoder`` is one block dict whose leaves carry a leading
+    ``encoder_layers`` axis: leaf ``a[i]`` becomes ``encoder.<i>.<path>``;
+    ``enc_norm``, the decoder blocks' ``norm_x`` and ``xattn``, the
+    LayerNorms' ``bias`` and the GELU MLP's ``wi``/``wo`` (``w``, ``b``)
+    keep their names."""
     out: "OrderedDict[str, torch.Tensor]" = OrderedDict()
     groups = tree["blocks"]
     per_group = len(groups)
     for key, value in params_from_jax(
-            {k: v for k, v in tree.items() if k != "blocks"}).items():
+            {k: v for k, v in tree.items()
+             if k not in ("blocks", "encoder")}).items():
         out[key] = value
+    if "encoder" in tree:
+        for path, stacked in params_from_jax(tree["encoder"]).items():
+            if stacked.shape[0] != cfg.encoder_layers:
+                raise ValueError(f"encoder.{path}: {stacked.shape[0]} "
+                                 f"layers, the config has "
+                                 f"{cfg.encoder_layers}")
+            for i in range(stacked.shape[0]):
+                out[f"encoder.{i}.{path}"] = stacked[i].clone()
     n_groups = None
     for s, entry in enumerate(groups):
         for path, stacked in params_from_jax(entry).items():

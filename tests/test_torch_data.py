@@ -1,5 +1,6 @@
 """The port's host data path against the JAX package's, bit for bit:
-datasets, compact K-hop views, staged bucket blocks, and the plan."""
+datasets, compact K-hop views, staged bucket blocks, the plan, and the
+LM zoo's synthetic token stream."""
 import jax  # noqa: F401 — imported first so JAX stays on the CPU
 import numpy as np
 import pytest
@@ -135,3 +136,25 @@ def test_bucket_overflow_escalates_with_one_warning():
     assert big.num_nodes_padded >= 64 and big.num_edges_padded > 256
     with pytest.raises(ValueError, match="overflows every bucket"):
         BucketSpec(((64, 256),)).pick(65, 1)
+
+
+@pytest.mark.parametrize("vocab,seq,batch,seed", [(1024, 32, 2, 0),
+                                                  (256, 17, 3, 5)])
+def test_token_batches_bit_identical(vocab, seq, batch, seed):
+    """``SyntheticLMDataset`` and ``token_batches`` (the port's copy of
+    ``repro/data/tokens.py``): the same int32 tokens and labels for every
+    batch index, from any start."""
+    from repro.data import SyntheticLMDataset as JaxDataset
+    from repro.data import token_batches as jax_batches
+    from repro_torch.data import SyntheticLMDataset, token_batches
+    want, got = JaxDataset(vocab, seq, batch, seed), SyntheticLMDataset(
+        vocab, seq, batch, seed)
+    for i in (0, 1, 7):
+        for k in ("tokens", "labels"):
+            _assert_same(got.batch(i)[k], want.batch(i)[k], f"{k} {i}")
+    gi, wi = token_batches(vocab, seq, batch, seed, start=3), jax_batches(
+        vocab, seq, batch, seed, start=3)
+    for _ in range(2):
+        g, w = next(gi), next(wi)
+        for k in ("tokens", "labels"):
+            _assert_same(g[k], w[k], k)

@@ -283,6 +283,11 @@ TILE_CASES = {
     "kv_start_mid_tile": (2, 300, 4, 2, 128, True, 0, (70, 201)),
     "window_crosses_tile": (2, 400, 4, 2, 64, True, 100, (0, 30)),
     "all_masked_row": (2, 150, 4, 1, 64, True, 0, (150, 5)),
+    # Whisper's encoder: bidirectional over 1,500 frames (no multiple of
+    # a tile), 8/8 heads of 64
+    "whisper_encoder": (4, 1500, 8, 8, 64, False, 0, (0, 0, 0, 0)),
+    # Qwen2-VL's served prefill: a GQA group of 6, D 128, left pads
+    "qwen2vl_prefill_g6": (4, 2048, 12, 2, 128, True, 0, (0, 37, 300, 448)),
 }
 
 
@@ -304,6 +309,28 @@ def test_cuda_kernel_at_tile_edges(name, dtype, cuda):
         assert _bf16_share(got, want) <= 1.0
     for b in range(B):        # the rows before kv_start see no key
         assert not got[b, :int(start[b])].any()
+
+
+@pytest.mark.cuda
+def test_cuda_kernels_refuse_inputs_that_require_grad(cuda):
+    """The forward-only kernels raise, naming themselves, when autograd
+    would record the call, and launch nothing."""
+    q, k, v = (torch.from_numpy(a).to(cuda) for a in _qkv(1, 8, 2, 2, 32))
+    before = dict(ops.launches)
+    with pytest.raises(RuntimeError, match="flash_attention.*forward-only"):
+        ops.flash_attention_op(q, k.requires_grad_(), v)
+    r = torch.randn((1, 4, 2, 32), device=cuda)
+    w = torch.full((1, 4, 2, 32), 0.9, device=cuda)
+    u = torch.zeros((2, 32), device=cuda, requires_grad=True)
+    with pytest.raises(RuntimeError, match="wkv6.*forward-only"):
+        ops.wkv6_op(r, r, r, w, u)
+    assert ops.launches == before
+    with torch.no_grad():
+        ops.flash_attention_op(q, k, v)
+        ops.wkv6_op(r, r, r, w, u)
+    torch.cuda.synchronize()
+    assert ops.launches["flash_attention"] == before["flash_attention"] + 1
+    assert ops.launches["wkv6"] == before["wkv6"] + 1
 
 
 @pytest.mark.cuda

@@ -1,7 +1,10 @@
 """The port's LM serving path against the JAX package's.
 
 Reduced Qwen3-4B, RWKV-6, Jamba (a group of one GQA layer and one Mamba
-layer, MoE on the second) and MiniCPM3 (MLA) in float32, with the JAX
+layer, MoE on the second), MiniCPM3 (MLA), Whisper (encoder, cross-
+attention, LayerNorm/GELU; the encoder runs the kernel's plain version
+with ``causal=False``) and Qwen2-VL (embedding inputs, M-RoPE over three
+distinct position streams) in float32, with the JAX
 model's params loaded into the port through ``lm_params_from_jax``:
 prefill logits and caches and 8 decode steps must match the JAX model
 within rtol 1e-4 / atol 1e-5 (prefill goes through the kernels' plain
@@ -43,6 +46,9 @@ HYBRID = ["jamba-1.5-large-398b", "minicpm3-4b"]
 # dense GQA (phi3, qwen3-32b)
 SERVED = ARCHS + HYBRID + ["mixtral-8x7b", "dbrx-132b", "phi3-medium-14b",
                            "qwen3-32b"]
+# the encoder-decoder (whisper) and the VLM (qwen2-vl): frames and
+# embeddings in, which BatchServer's token requests do not carry
+ENCDEC = ["whisper-base", "qwen2-vl-2b"]
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -55,7 +61,7 @@ def _cfgs(arch):
             get_arch_config(arch).reduced().replace(dtype="float32"))
 
 
-@pytest.fixture(scope="module", params=ARCHS + HYBRID)
+@pytest.fixture(scope="module", params=ARCHS + HYBRID + ENCDEC)
 def pair(request):
     """(arch, JAX model, JAX params, port model with those params)."""
     jcfg, cfg = _cfgs(request.param)
@@ -77,19 +83,71 @@ def _tokens(cfg, B, S, seed=0):
         0, cfg.vocab_size, (B, S)).astype(np.int32)
 
 
+def _mrope_of(pos):
+    """Three distinct M-RoPE streams (t, h, w) from positions (B, S): with
+    equal streams M-RoPE is plain RoPE and a section would not show."""
+    return np.stack([pos, pos + pos % 3, pos + 2 * (pos % 5)]).astype(
+        np.int32)
+
+
+def _inputs(cfg, B, S, seed=0):
+    """A sequence's inputs as numpy: ``tokens`` (B, S), and what the
+    config also takes: ``embeds`` (B, S, D), ``mrope_positions`` (3, B,
+    S), ``enc_frames`` (B, encoder_seq, D)."""
+    out = {"tokens": _tokens(cfg, B, S, seed)}
+    rng = np.random.default_rng(seed + 100)
+    if cfg.embed_inputs:
+        out["embeds"] = rng.normal(size=(B, S, cfg.d_model)).astype(
+            np.float32)
+    if cfg.mrope:
+        out["mrope_positions"] = _mrope_of(
+            np.broadcast_to(np.arange(S)[None], (B, S)))
+    if cfg.encoder_layers:
+        out["enc_frames"] = rng.normal(
+            size=(B, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+    return out
+
+
+def _span(inp, lo, hi):
+    """Positions lo..hi-1 of the inputs (the frames whole)."""
+    out = dict(inp)
+    for k in ("tokens", "embeds"):
+        if k in inp:
+            out[k] = inp[k][:, lo:hi]
+    if "mrope_positions" in inp:
+        out["mrope_positions"] = inp["mrope_positions"][:, :, lo:hi]
+    return out
+
+
+def _jax(inp):
+    return {k: jnp.asarray(v) for k, v in inp.items()}
+
+
+def _torch(inp):
+    return {k: (torch.from_numpy(np.ascontiguousarray(v)).long()
+                if k == "tokens" else torch.from_numpy(
+                    np.ascontiguousarray(v)))
+            for k, v in inp.items()}
+
+
+ENCDEC_FIELDS = ("norm_type", "cross_attention", "encoder_layers",
+                 "encoder_seq", "mrope", "embed_inputs")
+
+
 def test_configs_are_the_references():
-    for arch in SERVED:
+    for arch in SERVED + ENCDEC:
         jcfg = jax_arch_config(arch)
         cfg = get_arch_config(arch)
         for field in ("name", "family", "num_layers", "d_model", "num_heads",
                       "num_kv_heads", "d_ff", "vocab_size", "head_dim",
                       "resolved_head_dim", "qk_norm", "sliding_window",
                       "rope_theta", "moe_every", "dtype", "norm_eps",
-                      "tie_embeddings", "source"):
+                      "tie_embeddings", "source") + ENCDEC_FIELDS:
             assert getattr(cfg, field) == getattr(jcfg, field), (arch, field)
         red, jred = cfg.reduced(), jcfg.reduced()
         for field in ("num_layers", "d_model", "num_heads", "num_kv_heads",
-                      "head_dim", "d_ff", "vocab_size", "sliding_window"):
+                      "head_dim", "d_ff", "vocab_size",
+                      "sliding_window") + ENCDEC_FIELDS:
             assert getattr(red, field) == getattr(jred, field), (arch, field)
         assert (cfg.moe is None) == (jcfg.moe is None), arch
         if cfg.moe is not None:
@@ -112,19 +170,20 @@ def test_prefill_and_decode_match_jax(pair):
     arch, jm, params, model = pair
     cfg = model.cfg
     B, P, N = 2, 16, 8
-    toks = _tokens(cfg, B, P + N)
-    jl, jc, jidx = jm.prefill(params, {"tokens": jnp.asarray(toks[:, :P])},
+    inp = _inputs(cfg, B, P + N)
+    jl, jc, jidx = jm.prefill(params, _jax(_span(inp, 0, P)),
                               cache_len=P + N)
-    pl, pc, idx = model.prefill({"tokens": torch.from_numpy(toks[:, :P])
-                                 .long()}, cache_len=P + N)
+    pl, pc, idx = model.prefill(_torch(_span(inp, 0, P)), cache_len=P + N)
     _close(pl, jl, f"{arch}: prefill logits")
     assert idx == int(jidx) == P
     _close_caches(pc, jc, f"{arch} prefill")
     for t in range(P, P + N):
-        jl, jc, jidx = jm.decode_step(
-            params, {"tokens": jnp.asarray(toks[:, t:t + 1])}, jc, jidx)
-        pl, pc, idx = model.decode_step(
-            {"tokens": torch.from_numpy(toks[:, t:t + 1]).long()}, pc, idx)
+        # whisper's decode runs the encoder over the frames again, in
+        # both packages
+        jl, jc, jidx = jm.decode_step(params, _jax(_span(inp, t, t + 1)),
+                                      jc, jidx)
+        pl, pc, idx = model.decode_step(_torch(_span(inp, t, t + 1)), pc,
+                                        idx)
         _close(pl, jl, f"{arch}: decode step {t - P}")
     _close_caches(pc, jc, f"{arch} decode")
 
@@ -246,20 +305,26 @@ def test_bf16_rwkv_time_mixing_nearer_jax_with_float32_o(monkeypatch):
 
 
 def test_half_prefill_plus_decodes_equals_full_prefill(pair):
+    """The reference's ``test_decode_matches_prefill`` contract inside the
+    port; Whisper's decode steps read the encoder memory that
+    ``encode`` made once, Qwen2-VL's their own embeddings and streams."""
     arch, _, _, model = pair
     B, S = 2, 16
-    toks = torch.from_numpy(_tokens(model.cfg, B, S, seed=1)).long()
-    full, _, _ = model.prefill({"tokens": toks}, cache_len=S)
-    lo, caches, idx = model.prefill({"tokens": toks[:, :S // 2]},
-                                    cache_len=S)
+    inp = _torch(_inputs(model.cfg, B, S, seed=1))
+    full, _, _ = model.prefill(inp, cache_len=S)
+    lo, caches, idx = model.prefill(_span(inp, 0, S // 2), cache_len=S)
+    if model.cfg.encoder_layers:
+        inp = dict(inp, enc_memory=model.encode(inp.pop("enc_frames")))
     for t in range(S // 2, S):
-        lo, caches, idx = model.decode_step({"tokens": toks[:, t:t + 1]},
-                                            caches, idx)
+        lo, caches, idx = model.decode_step(_span(inp, t, t + 1), caches,
+                                            idx)
     _close(lo, full, f"{arch}: prefill(S/2) + decodes vs prefill(S)")
 
 
 def _left_padded(cfg, lengths, seed=2):
-    """(batch dict, pads) of seeded prompts of ``lengths``, left-padded."""
+    """(batch dict, pads) of seeded prompts of ``lengths``, left-padded;
+    for Qwen2-VL with embeddings and pad-shifted M-RoPE streams, for
+    Whisper with frames."""
     P = max(lengths)
     rng = np.random.default_rng(seed)
     toks = np.zeros((len(lengths), P), np.int64)
@@ -267,9 +332,41 @@ def _left_padded(cfg, lengths, seed=2):
         toks[i, P - n:] = rng.integers(0, cfg.vocab_size, n)
     pads = torch.tensor([P - n for n in lengths])
     valid = torch.arange(P)[None, :] >= pads[:, None]
-    return ({"tokens": torch.from_numpy(toks), "valid": valid,
-             "positions": (torch.arange(P)[None, :] - pads[:, None])
-             .clamp_min(0).to(torch.int32)}, pads)
+    positions = (torch.arange(P)[None, :] - pads[:, None]).clamp_min(0).to(
+        torch.int32)
+    batch = {"tokens": torch.from_numpy(toks), "valid": valid,
+             "positions": positions}
+    if cfg.embed_inputs:
+        batch["embeds"] = torch.from_numpy(rng.normal(
+            size=(len(lengths), P, cfg.d_model)).astype(np.float32))
+    if cfg.mrope:
+        batch["mrope_positions"] = torch.from_numpy(
+            _mrope_of(positions.numpy()))
+    if cfg.encoder_layers:
+        batch["enc_frames"] = torch.from_numpy(rng.normal(
+            size=(len(lengths), cfg.encoder_seq, cfg.d_model)).astype(
+                np.float32))
+    return batch, pads
+
+
+def _step(model, tok, pos, valid, enc=None):
+    """A decode step's batch: the token (B, 1) at per-row positions (B,
+    1), its embedding through the table and its three streams for
+    Qwen2-VL, the carried encoder memory for Whisper."""
+    b = {"tokens": tok, "valid": valid, "positions": pos}
+    if model.cfg.embed_inputs:
+        with torch.no_grad():
+            b["embeds"] = model.embed["table"][tok]
+    if model.cfg.mrope:
+        b["mrope_positions"] = torch.from_numpy(_mrope_of(pos.numpy()))
+    if enc is not None:
+        b["enc_memory"] = enc
+    return b
+
+
+def _enc(model, batch):
+    return (model.encode(batch["enc_frames"]) if model.cfg.encoder_layers
+            else None)
 
 
 def _leaves(tree):
@@ -286,6 +383,7 @@ def test_decode_at_a_device_index_is_the_int_index(pair):
     arch, _, _, model = pair
     batch, pads = _left_padded(model.cfg, (7, 3, 5))
     P, N = batch["tokens"].shape[1], 6
+    enc = _enc(model, batch)
     runs = []
     for on_device in (False, True):
         logits, caches, idx = model.prefill(batch, cache_len=P + N)
@@ -296,8 +394,7 @@ def test_decode_at_a_device_index_is_the_int_index(pair):
             tok = logits[:, -1].argmax(-1)[:, None]
             pos = (idx - pads)[:, None].to(torch.int32)
             logits, caches, idx = model.decode_step(
-                {"tokens": tok, "valid": batch["valid"], "positions": pos},
-                caches, idx)
+                _step(model, tok, pos, batch["valid"], enc), caches, idx)
             out.append(logits)
         assert int(idx) == P + N
         runs.append(out + _leaves(caches))
@@ -314,21 +411,25 @@ def test_decode_graph_rounds_are_eager_decode(pair):
     graph = serve.DecodeGraph(model, 3, cache_len)
     for lengths in ((7, 3, 5), (2, 9, 4)):
         batch, pads = _left_padded(model.cfg, lengths, seed=len(lengths))
+        enc = _enc(model, batch)
         logits, caches, idx = model.prefill(batch, cache_len=cache_len)
         cur = logits[:, -1].argmax(-1)
-        graph.start(caches, batch["valid"])
+        graph.start(caches, batch["valid"], enc_memory=enc)
         logits, caches, idx = model.prefill(batch, cache_len=cache_len)
         want, got = [], []
         gcur, gidx = cur, idx
         for _ in range(4):
             pos = (idx - pads)[:, None].to(torch.int32)
             logits, caches, idx = model.decode_step(
-                {"tokens": cur[:, None], "valid": batch["valid"],
-                 "positions": pos}, caches, idx)
+                _step(model, cur[:, None], pos, batch["valid"], enc),
+                caches, idx)
             cur = logits[:, -1].argmax(-1)
             want.append((logits.clone(), cur))
-            glog, gcur = graph(gcur[:, None],
-                               (gidx - pads)[:, None].to(torch.int32), gidx)
+            gpos = (gidx - pads)[:, None].to(torch.int32)
+            extra = _step(model, gcur[:, None], gpos, None)
+            glog, gcur = graph(gcur[:, None], gpos, gidx,
+                               embeds=extra.get("embeds"),
+                               mrope_positions=extra.get("mrope_positions"))
             gidx += 1
             got.append((glog.clone(), gcur.clone()))
         for (wl, wt), (gl, gt) in zip(want, got):
@@ -462,32 +563,35 @@ def test_prefill_checks_the_left_pad_once(monkeypatch):
 
 
 def test_unported_paths_raise():
-    """What stays unported is refused by name: Whisper and Qwen2-VL
-    (``get_arch_config`` has no config for them, ROADMAP A.12), the
-    blocks' LayerNorm/GELU, cross-attention and encoders (A.12), expert
-    parallelism (A.13), and attention's cross-attention and M-RoPE."""
-    for arch in ("whisper-base", "qwen2-vl-2b"):
-        with pytest.raises(NotImplementedError, match="A.12"):
-            get_arch_config(arch)
+    """Expert parallelism (ROADMAP A.13) stays refused by name. Whisper
+    and Qwen2-VL, and a LayerNorm config, build (A.12a lifted their
+    refusals); ``BatchServer`` refuses configs with embedding inputs or
+    an encoder by name, since its requests carry tokens only, as the
+    reference's do."""
+    for arch in ENCDEC:
+        cfg = get_arch_config(arch).reduced().replace(dtype="float32")
+        model = build_model(cfg)
+        assert ("encoder" in dict(model.named_children())) == (
+            arch == "whisper-base")
+        with pytest.raises(ValueError, match=f"{arch}.*embedding inputs "
+                           "or an encoder"):
+            serve.BatchServer(arch, batch_size=1, cache_len=8, device="cpu")
     moe_cfg = get_arch_config("mixtral-8x7b").reduced().replace(
         dtype="float32")
     with pytest.raises(NotImplementedError, match="A.13"):
         build_model(moe_cfg, moe_impl="ep").prefill(
             {"tokens": torch.zeros((1, 3), dtype=torch.long)}, cache_len=4)
     cfg = get_arch_config("qwen3-4b").reduced().replace(dtype="float32")
-    for cut, what in (({"norm_type": "layernorm"}, "LayerNorm"),
-                      ({"cross_attention": True}, "cross-attention"),
-                      ({"encoder_layers": 2}, "encoder")):
-        with pytest.raises(NotImplementedError, match=f"{what}.*A.12"):
-            build_model(cfg.replace(**cut))
+    ln = build_model(cfg.replace(norm_type="layernorm"))
+    assert "bias" in ln.blocks[0]["norm1"] and "wi" in ln.blocks[0]["ffn"]
+    with pytest.raises(ValueError, match="unknown architecture"):
+        get_arch_config("no-such-arch")
     p = build_model(cfg).blocks[0]["attn"]
     x = torch.zeros((1, 2, cfg.d_model))
     kw = dict(num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
               head_dim=cfg.resolved_head_dim)
-    with pytest.raises(NotImplementedError, match="cross-attention"):
-        attention_apply(p, x, kv_x=x, **kw)
-    with pytest.raises(NotImplementedError, match="M-RoPE"):
-        attention_apply(p, x, mrope_positions=torch.zeros((3, 1, 2)), **kw)
+    with pytest.raises(ValueError, match="cross-attention takes no cache"):
+        attention_apply(p, x, kv_x=x, cache={}, **kw)
 
 
 def test_serve_cli_defaults_to_mixtral_as_the_reference(capsys):
