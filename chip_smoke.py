@@ -11,6 +11,7 @@ and check them.
     python3 chip_smoke.py --only graphs    # phases 1-2 and the graphs' 14
     python3 chip_smoke.py --only engine    # phases 1-2 and the engine's 15
     python3 chip_smoke.py --only examples  # phases 1-2 and the examples' 16
+    python3 chip_smoke.py --only analysis  # phases 1-2 and the analysis' 20
 
 Phases (each raises on failure, so the script exits non-zero):
 
@@ -189,6 +190,19 @@ Phases (each raises on failure, so the script exits non-zero):
     steps) on the card for reduced Whisper-base, Qwen2-VL-2B and RWKV-6,
     every step's loss within 1e-3 * max(1, |loss|) of the same run on
     the CPU from the same weights, and no kernel launched.
+20. (run last) analysis on the card: ``repro_torch.analysis``'s full
+    matrix with ``device="cuda"`` (combine-level forward and backward in
+    the four modes, the engine ``Trainer``'s step and infer for the four
+    models on every strategy's view, ``CompactTrainer``'s mini and
+    cluster buckets, the two served steps, flash attention and wkv6 at
+    the LM zoo's head dims), each step recorded through the CUDA kernels,
+    the contract rules over every op log and ``cuda.resources`` over
+    every compiled kernel of every source: any error finding fails the
+    run, and so does a ``__global__`` function of the sources that the
+    check did not read, or one of the eight kernels that no recorded
+    step launched through CUDA. A JSON ``analysis row`` holds the contexts, the findings
+    and each kernel's registers, static and dynamic shared memory and
+    spilled bytes.
 14. CUDA graphs per bucket (run after phase 11): the GNN train step
     (forward, backward, Adam) and the served forward are one CUDA graph
     per bucket on the card, the default, so phases 4-11 already run
@@ -3589,6 +3603,56 @@ def examples_phase(label: str) -> dict:
     return counts
 
 
+# -- phase 20: analysis on the card -------------------------------------------
+
+
+def analysis_phase(label: str) -> None:
+    """Phase 20: ``repro_torch.analysis`` over the full matrix on the
+    card; raises on any error finding, on a ``__global__`` function of the
+    sources whose resources it did not read, and on one of the eight
+    kernels that no recorded step launched through CUDA. The kernel calls the
+    analysis makes are not counted in the kernels' record."""
+    import re
+    from repro_torch.analysis.cli import analyze
+    from repro_torch.kernels import build, ops
+    t0 = time.perf_counter()
+    ops.reset_launches()
+    report = analyze(full=True, device="cuda",
+                     out=lambda line: print(line, flush=True))
+    ops.reset_launches()
+    seconds = time.perf_counter() - t0
+    for f in report.findings:
+        print(f"  {f.render()}")
+    names = {m for src in build.CSRC.glob("*.cu") for m in re.findall(
+        r"__global__\s+void\s+(?:__launch_bounds__\([^()]*\)\s*)?(\w+)",
+        src.read_text())}
+    read = {k["kernel"] for k in report.kernels}
+    routed = {c["kernel"] for c in report.launches if c["route"] == "cuda"}
+    row = {"card": label, "seconds": round(seconds, 1),
+           "contexts": report.contexts,
+           "errors": len(report.errors),
+           "warnings": len(report.findings) - len(report.errors),
+           "findings": [f.to_json() for f in report.findings],
+           "kernels_launched": sorted(routed),
+           "kernels": [{k: v for k, v in s.items() if k != "function"}
+                       for s in report.kernels]}
+    print("analysis row " + json.dumps(row), flush=True)
+    print(f"  analysis: {report.contexts} contexts, {len(report.kernels)} "
+          f"compiled kernels of {len(names)} __global__ functions, "
+          f"{len(report.errors)} errors, {row['warnings']} warnings in "
+          f"{seconds:.1f}s")
+    if report.errors:
+        raise AssertionError(f"analysis: {len(report.errors)} error "
+                             "findings on the card")
+    if names - read:
+        raise AssertionError(f"analysis: no resources read for "
+                             f"{sorted(names - read)}")
+    missing = set(KERNELS) - routed
+    if missing:
+        raise AssertionError(f"analysis: no recorded step launched "
+                             f"{sorted(missing)} through CUDA")
+
+
 def lm_phases(phase) -> list:
     """Phases 12, 13, 17, 18 and 19; returns each serving (and training)
     run's launch counts."""
@@ -4185,7 +4249,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only",
                     choices=["kernels", "gnn-times", "lm-times", "lm",
-                             "runtime", "graphs", "engine", "examples"],
+                             "runtime", "graphs", "engine", "examples",
+                             "analysis"],
                     default=None,
                     help="kernels: stop after phase 3 (build and check the "
                     "kernels); gnn-times: phases 1-3 and the GNN kernels' "
@@ -4193,7 +4258,8 @@ def main(argv=None) -> int:
                     "times; lm: those and phases 12-13 and 17-19; runtime: "
                     "phases "
                     "1-2 and 11; graphs: phases 1-2 and 14; engine: "
-                    "phases 1-2 and 15; examples: phases 1-2 and 16")
+                    "phases 1-2 and 15; examples: phases 1-2 and 16; "
+                    "analysis: phases 1-2 and 20")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -4235,6 +4301,10 @@ def main(argv=None) -> int:
     if args.only == "examples":
         phase("16. the examples")
         examples_phase(label)
+        return 0
+    if args.only == "analysis":
+        phase("20. analysis on the card")
+        analysis_phase(label)
         return 0
 
     phase("3. kernels vs plain, on the card")
@@ -4321,6 +4391,8 @@ def main(argv=None) -> int:
 
     for got in lm_phases(phase):
         count(got)
+    phase("20. analysis on the card")
+    analysis_phase(label)
     phase("done")
 
     record = {"kernels": [

@@ -419,16 +419,21 @@ class HybridParallelEngine:
 
         return run
 
+    def infer_staged(self, view: dict) -> torch.Tensor:
+        """(P, n_m_pad, C) logits over a staged view (:meth:`stage_view`),
+        aligned with ``plan.masters`` (every partition's, gathered from
+        the group)."""
+        shard = self._local_shard(self._device_data, view)
+        with torch.no_grad():
+            logits = self._forward_local(shard)
+        return self.comm.all_gather(
+            logits.reshape(shard.L, shard.n_m_pad, -1))
+
     def make_infer(self) -> Callable:
-        """``fn(view_arrays) -> (P, n_m_pad, C)`` logits aligned with
-        ``plan.masters`` (every partition's, gathered from the group)."""
+        """``fn(view_arrays) -> (P, n_m_pad, C)``: :meth:`infer_staged`
+        over the view, staged."""
         def fn(view_arrays):
-            shard = self._local_shard(self._device_data,
-                                      self.stage_view(view_arrays))
-            with torch.no_grad():
-                logits = self._forward_local(shard)
-            return self.comm.all_gather(
-                logits.reshape(shard.L, shard.n_m_pad, -1))
+            return self.infer_staged(self.stage_view(view_arrays))
 
         return fn
 

@@ -45,7 +45,9 @@ def bfs_layers(g: Graph, targets: np.ndarray, depth: int,
         visited = _visited_out
         visited.fill(False)
     else:
-        visited = np.zeros(g.num_nodes, bool)
+        # documented caller-owned-scratch fallback: one O(N) allocation
+        # per call when no scratch is supplied
+        visited = np.zeros(g.num_nodes, bool)  # lint: waive=src.hot-full-graph-alloc
     visited[frontier] = True
     hops = [frontier]
     reached = frontier
@@ -81,7 +83,8 @@ def bfs_layers_fresh(g: Graph, targets: np.ndarray, depth: int,
     indptr, order = g.csc()
     src = g.src
     if stamp is None:
-        stamp = np.full(g.num_nodes, -1, np.int64)
+        # documented caller-owned-scratch fallback (see docstring)
+        stamp = np.full(g.num_nodes, -1, np.int64)  # lint: waive=src.hot-full-graph-alloc
         stamp_val = 0
     frontier = np.unique(targets).astype(np.int64)
     stamp[frontier] = stamp_val
@@ -185,7 +188,9 @@ def fill_khop_masks(g: Graph, hops, K: int, node_active: np.ndarray,
     within one more hop. ``in_hop`` is a reusable (K+1, N) bool scratch."""
     N = g.num_nodes
     if in_hop is None:
-        in_hop = np.zeros((K + 1, N), bool)
+        # documented caller-owned-scratch fallback (the ViewBuilder
+        # passes its reusable (K+1, N) buffer)
+        in_hop = np.zeros((K + 1, N), bool)  # lint: waive=src.hot-full-graph-alloc
     else:
         in_hop.fill(False)
     for d in range(K + 1):

@@ -60,6 +60,7 @@ import torch
 
 from repro_torch.checkpoint import (latest_step, load_checkpoint,
                                     save_checkpoint)
+from repro_torch.core.engine import VIEW_KEYS
 from repro_torch.core.mpgnn import accuracy_block, loss_block
 from repro_torch.core.strategies import shard_view
 from repro_torch.core.views import (CompactBlockBuilder, CompactView,
@@ -507,7 +508,7 @@ class BaseTrainer:
                     self.restore(checkpoint_dir)
                 except FileNotFoundError:
                     # no checkpoint yet: the raise below says so
-                    pass
+                    pass  # lint: waive=src.silent-except
                 else:
                     # the stream already stands past the poison view; the
                     # restored cursor must not rewind a later fit
@@ -563,6 +564,40 @@ class BaseTrainer:
             self.view_cursor = int(ck["view_cursor"])
             self._resume_cursor = self.view_cursor
         return self.step_num
+
+    def _record_step(self, staged, static=None, load=None):
+        """The OpLog (:mod:`repro_torch.analysis.oplog`) of ``_step`` over
+        ``staged`` as a captured step runs it: its update reads the
+        optimizer's scalars from the tensor written before (as before
+        each replay), and with ``static`` (a capture's inputs) the step
+        first loads ``staged`` into them with ``load``. The step runs
+        eagerly and is undone: parameters, gradients and optimizer state
+        are put back; no counter is touched."""
+        from repro_torch.analysis.oplog import record_ops
+        if self._scal is None:
+            self._scal = torch.zeros(len(self.opt.scalars(self.opt_state)),
+                                     dtype=torch.float32, device=self.device)
+        write_scalars(self._scal, self.opt.scalars(self.opt_state))
+
+        def update(grads):
+            self.opt.apply(grads, self.opt_state, self.params, self._scal)
+
+        def loaded():
+            load(static, staged)
+            return self._step(static, update)
+
+        state = self._snapshot()
+        grads = {k: p.grad for k, p in self.params.items()}
+        try:
+            if static is None:
+                return record_ops(self._step, staged, update)[1]
+            inputs = (block_tensors(static) if isinstance(static, GraphBlock)
+                      else tuple(static.values()))
+            return record_ops(loaded, static=inputs)[1]
+        finally:
+            self._load_state(*state)
+            for k, p in self.params.items():
+                p.grad = grads[k]
 
     def reset(self, params: Optional[Mapping] = None) -> None:
         """Fresh optimizer state and counters, with ``params`` (a
@@ -712,16 +747,19 @@ class CompactTrainer(BaseTrainer):
         self.opt_state["step"] += 1
         return loss
 
+    def _kept(self) -> frozenset:
+        """The storages a captured step shares instead of copying per
+        step, since they never change: the graph's base block on the
+        device, and the global view's block."""
+        fixed = [b for b in (self._base and self._base[1],
+                             self._static and self._static[1]) if b]
+        return frozenset(t.data_ptr() for b in fixed
+                         for t in block_tensors(b) if t.data_ptr())
+
     def _first_step(self, key, gkey, block) -> torch.Tensor:
         """A bucket's first step: eager on the side stream, through the
         bucket's own input buffers; then the capture over them."""
-        # tensors that never change are shared, not copied per step: the
-        # graph's base block on the device, and the global view's block
-        fixed = [b for b in (self._base and self._base[1],
-                             self._static and self._static[1]) if b]
-        keep = frozenset(t.data_ptr() for b in fixed
-                         for t in block_tensors(b) if t.data_ptr())
-        static = static_block(block, keep)
+        static = static_block(block, self._kept())
 
         def body(b):
             # the update reads the optimizer's scalars from the tensor
@@ -777,6 +815,38 @@ class CompactTrainer(BaseTrainer):
 
     def assert_trace_contract(self) -> None:
         self.assert_compiled_per_bucket()
+
+    # -- static analysis hooks ------------------------------------------------
+
+    def expected_static(self, view) -> int:
+        """How many tensors of ``view``'s staged block a captured step
+        loads into its static inputs per step (the ``ops.static-inputs``
+        contract, the counterpart of the reference's
+        ``expected_donated``): under CUDA graphs every tensor the capture
+        does not share (the base block and the global view's block never
+        change); eagerly, as on the CPU, none."""
+        if not self.graphs_on:
+            return 0
+        keep = self._kept()
+        return sum(1 for t in block_tensors(self._prepare(view))
+                   if t.data_ptr() and t.data_ptr() not in keep)
+
+    def traced_step_ops(self, view):
+        """The OpLog of one step over ``view``'s staged block, as the
+        captured step runs it: forward, backward and the optimizer's
+        update, and under CUDA graphs first the load of the block into
+        the capture's static inputs (:meth:`BaseTrainer._record_step`).
+        Parameters, gradients, optimizer state, ``step_calls`` and the
+        capture counters are left as they were, so analysis cannot change
+        the once-per-bucket certificate."""
+        block = self._prepare(view)
+        if not self.graphs_on:
+            return self._record_step(block)
+        key = (block.num_nodes_padded, block.num_edges_padded)
+        step = self._graphs.get((key, block_layout(block)))
+        static = (step.static if step is not None
+                  else static_block(block, self._kept()))
+        return self._record_step(block, static, load_block)
 
 
 class Trainer(BaseTrainer):
@@ -956,3 +1026,36 @@ class Trainer(BaseTrainer):
             raise RetraceError(
                 f"eval infer was captured {self.trace_counts['infer']} "
                 "times (expected at most 1)")
+
+    # -- static analysis hooks ------------------------------------------------
+
+    def expected_static(self, view=None) -> int:
+        """How many staged view tensors a captured step loads into its
+        static inputs per step (the ``ops.static-inputs`` contract, the
+        counterpart of the reference's ``expected_donated``): the view's
+        masks under CUDA graphs, none eagerly (as on the CPU). The same
+        for every view."""
+        return len(VIEW_KEYS) if self.graphs_on else 0
+
+    def traced_step_ops(self, view):
+        """The OpLog of one step over ``view``, staged as ``fit`` stages
+        it, run as the captured step runs it: forward over every shard,
+        halo exchanges, backward, NN-Reduce and the optimizer's update,
+        and under CUDA graphs first the load of the view into the
+        capture's static inputs (:meth:`BaseTrainer._record_step`).
+        Parameters, gradients, optimizer state, ``trace_counts`` and
+        ``steps_run`` are left as they were (the compiled-once
+        certificate must survive analysis)."""
+        staged = self.engine.stage_view(shard_view(self.plan, view))
+        if not self.graphs_on:
+            return self._record_step(staged)
+        static = (self._graph.static if self._graph is not None
+                  else {k: v.clone() for k, v in staged.items()})
+        return self._record_step(staged, static, load_view)
+
+    def traced_infer_ops(self, view):
+        """The OpLog of the eval/infer computation over ``view``'s staged
+        arrays (the staging itself is not part of it)."""
+        from repro_torch.analysis.oplog import record_ops
+        staged = self.engine.stage_view(shard_view(self.plan, view))
+        return record_ops(self.engine.infer_staged, staged)[1]

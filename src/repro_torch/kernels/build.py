@@ -34,7 +34,9 @@ _WKV6 = [_P] * 7 + [_I] * 4 + [_P]
 # kernels have one entry point per input type (``wkv6`` per input and
 # output type); bf16 attention has a source of its own; segment_sum,
 # segment_max and edge_softmax also say how many bytes of scratch a plan
-# needs, and segment_sum_bwd which of its two schedules its rule takes
+# needs, segment_sum_bwd which of its two schedules its rule takes, and
+# the LM kernels how many bytes of dynamic shared memory a launch asks
+# for (read by repro_torch.analysis.resources)
 SIGNATURES = {
     "segment_sum": {"segment_sum_f32": [_P] * 6 + [_I] * 3 + [_P],
                     "segment_sum_scratch_bytes": ([_I] * 2, _I)},
@@ -48,10 +50,12 @@ SIGNATURES = {
                     "segment_max_scratch_bytes": ([_I] * 3, _I)},
     "segment_max_bwd": {"segment_max_bwd_f32":
                         [_P] * 5 + [_I, _I, _I, _P]},
-    "flash_attention": {"flash_attention_f32": _FLASH},
-    "flash_attention_tc": {"flash_attention_bf16": _FLASH},
+    "flash_attention": {"flash_attention_f32": _FLASH,
+                        "flash_attention_f32_smem_bytes": ([_I], _I)},
+    "flash_attention_tc": {"flash_attention_bf16": _FLASH,
+                           "flash_attention_bf16_smem_bytes": ([_I], _I)},
     "wkv6": {"wkv6_f32_f32": _WKV6, "wkv6_bf16_bf16": _WKV6,
-             "wkv6_bf16_f32": _WKV6},
+             "wkv6_bf16_f32": _WKV6, "wkv6_smem_bytes": ([_I] * 2, _I)},
 }
 
 _lock = threading.Lock()

@@ -259,3 +259,15 @@ extern "C" int flash_attention_f32(const void* q, const void* k,
   return dispatch(q, k, v, kv_start, out, B, T_len, Hq, Hkv, D, causal,
                   window, seq_len, stream);
 }
+
+// The dynamic shared memory that flash_kernel<D> asks for at launch
+// (run<D>'s cudaFuncSetAttribute), in bytes; -1 for a head dim the
+// kernel does not take.
+extern "C" int64_t flash_attention_f32_smem_bytes(int64_t D) {
+  switch (D) {
+    case 32: return smem_floats<32>() * (int64_t)sizeof(float);
+    case 64: return smem_floats<64>() * (int64_t)sizeof(float);
+    case 128: return smem_floats<128>() * (int64_t)sizeof(float);
+    default: return -1;
+  }
+}

@@ -521,3 +521,15 @@ extern "C" int flash_attention_bf16(const void* q, const void* k,
       return (int)cudaErrorInvalidValue;
   }
 }
+
+// The dynamic shared memory that flash_tc_kernel<D> asks for at launch
+// (run<D>'s cudaFuncSetAttribute), in bytes; -1 for a head dim the
+// kernel does not take.
+extern "C" int64_t flash_attention_bf16_smem_bytes(int64_t D) {
+  switch (D) {
+    case 32: return smem_bytes<32>();
+    case 64: return smem_bytes<64>();
+    case 128: return smem_bytes<128>();
+    default: return -1;
+  }
+}

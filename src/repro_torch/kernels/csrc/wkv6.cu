@@ -380,3 +380,20 @@ int dispatch(const void* r, const void* k, const void* v, const void* w,
 WKV6_ENTRY(wkv6_f32_f32, float, float)
 WKV6_ENTRY(wkv6_bf16_bf16, __nv_bfloat16, __nv_bfloat16)
 WKV6_ENTRY(wkv6_bf16_f32, __nv_bfloat16, float)
+
+// The dynamic shared memory that wkv6_kernel asks for at launch
+// (launch's cudaFuncSetAttribute), in bytes, for bf16 inputs when
+// bf16_in is 1 and float32 when it is 0; -1 for a K the kernel does not
+// take. The output type does not change it.
+extern "C" int64_t wkv6_smem_bytes(int64_t bf16_in, int64_t K) {
+  switch (K) {
+    case 32:
+      return bf16_in ? Layout<__nv_bfloat16, 32>::kBytes
+                     : Layout<float, 32>::kBytes;
+    case 64:
+      return bf16_in ? Layout<__nv_bfloat16, 64>::kBytes
+                     : Layout<float, 64>::kBytes;
+    default:
+      return -1;
+  }
+}

@@ -18,11 +18,19 @@ replays for every other. A call made while a graph is being captured
 launches nothing yet: it counts into the capture's tally
 (:func:`capture_tally`), which each replay adds to ``launches``
 (:func:`add_launches`).
+
+Every wrapper runs its route, plain or CUDA, inside a kernel scope
+(:func:`kernel_scope`): an op recorder of :mod:`repro_torch.analysis`
+logs one entry per call with the kernel's name and operands, and tags
+the aten ops dispatched inside it with the kernel. The shims at the end
+(``assert_pregather_free``, ``assert_sum_stage_fused``,
+``count_segment_scatters``) run the analysis rules over such a log.
 """
 from __future__ import annotations
 
 import contextlib
 import math
+import threading
 from typing import Optional
 
 import torch
@@ -65,6 +73,46 @@ def capture_tally():
         yield _tally
     finally:
         _tally = prev
+
+
+_sinks: list = []                 # the op recorders running (analysis)
+_scope = threading.local()        # each thread's stack of kernel scopes
+
+
+def add_sink(sink) -> None:
+    """Start sending kernel scopes to ``sink.enter_kernel(name, route,
+    operands)`` (an op recorder of :mod:`repro_torch.analysis.oplog`)."""
+    _sinks.append(sink)
+
+
+def remove_sink(sink) -> None:
+    _sinks.remove(sink)
+
+
+def current_kernel() -> str:
+    """The kernel scope this thread is inside ("" outside every one)."""
+    stack = getattr(_scope, "stack", None)
+    return stack[-1] if stack else ""
+
+
+@contextlib.contextmanager
+def kernel_scope(name: str, route: str, *operands: torch.Tensor):
+    """One kernel wrapper's call on ``route`` ("cpu": the plain version,
+    "cuda": the kernel): each op recorder logs it with its operands, and
+    the aten ops dispatched inside are tagged with ``name``. Free when no
+    recorder runs."""
+    if not _sinks:
+        yield
+        return
+    for sink in tuple(_sinks):
+        sink.enter_kernel(name, route, operands)
+    if not hasattr(_scope, "stack"):
+        _scope.stack = []
+    _scope.stack.append(name)
+    try:
+        yield
+    finally:
+        _scope.stack.pop()
 
 
 def _count(name: str) -> None:
@@ -295,11 +343,13 @@ def segment_sum_op(data: torch.Tensor, plan: CSCPlan) -> torch.Tensor:
                          f"num_edges {plan.num_edges}")
     trailing = tuple(data.shape[1:])
     flat = data.reshape(data.shape[0], math.prod(trailing))
-    if _route(data) == "cpu":
-        out = segment_sum_ref(flat, plan.perm, plan.indptr,
-                              plan.num_segments)
-    else:
-        out = _segment_sum_cuda(flat, plan)
+    route = _route(data)
+    with kernel_scope("segment_sum", route, flat):
+        if route == "cpu":
+            out = segment_sum_ref(flat, plan.perm, plan.indptr,
+                                  plan.num_segments)
+        else:
+            out = _segment_sum_cuda(flat, plan)
     return out.reshape((plan.num_segments,) + trailing)
 
 
@@ -312,11 +362,13 @@ def segment_max_op(data: torch.Tensor, plan: CSCPlan) -> torch.Tensor:
                          f"num_edges {plan.num_edges}")
     trailing = tuple(data.shape[1:])
     flat = data.reshape(data.shape[0], math.prod(trailing))
-    if _route(data) == "cpu":
-        out = segment_max_ref(flat, plan.perm, plan.indptr,
-                              plan.num_segments)
-    else:
-        out = _segment_max_cuda(flat, plan)
+    route = _route(data)
+    with kernel_scope("segment_max", route, flat):
+        if route == "cpu":
+            out = segment_max_ref(flat, plan.perm, plan.indptr,
+                                  plan.num_segments)
+        else:
+            out = _segment_max_cuda(flat, plan)
     return out.reshape((plan.num_segments,) + trailing)
 
 
@@ -337,11 +389,13 @@ def edge_softmax_fwd_op(logits: torch.Tensor, values: torch.Tensor,
             or values.dim() != 3:
         raise ValueError(f"expected (E, H) logits with (E, H, D) values, "
                          f"got {tuple(logits.shape)} / {tuple(values.shape)}")
-    if _route(logits) == "cpu":
-        out, m, den = edge_softmax_ref(logits, values, plan.perm,
-                                       plan.indptr, plan.num_segments)
-    else:
-        out, m, den = _edge_softmax_cuda(logits, values, plan)
+    route = _route(logits)
+    with kernel_scope("edge_softmax", route, logits, values):
+        if route == "cpu":
+            out, m, den = edge_softmax_ref(logits, values, plan.perm,
+                                           plan.indptr, plan.num_segments)
+        else:
+            out, m, den = _edge_softmax_cuda(logits, values, plan)
     return (out[:, 0, :] if single else out), m, den
 
 
@@ -361,10 +415,12 @@ def segment_sum_bwd_op(g: torch.Tensor, plan: CSCPlan) -> torch.Tensor:
     trailing = tuple(g.shape[1:])
     # autograd may hand the cotangent over expanded (stride 0)
     flat = g.contiguous().reshape(g.shape[0], math.prod(trailing))
-    if _route(g) == "cpu":
-        out = segment_sum_bwd_ref(flat, plan.edge_dst)
-    else:
-        out = _segment_sum_bwd_cuda(flat, plan)
+    route = _route(g)
+    with kernel_scope("segment_sum_bwd", route, flat):
+        if route == "cpu":
+            out = segment_sum_bwd_ref(flat, plan.edge_dst)
+        else:
+            out = _segment_sum_bwd_cuda(flat, plan)
     return out.reshape((plan.num_edges,) + trailing)
 
 
@@ -393,10 +449,12 @@ def segment_max_bwd_op(g: torch.Tensor, fwd_out: torch.Tensor,
     gf = g.contiguous().reshape(g.shape[0], d)
     ff = fwd_out.contiguous().reshape(g.shape[0], d)
     df = data.contiguous().reshape(data.shape[0], d)
-    if _route(g) == "cpu":
-        out = segment_max_bwd_ref(gf, ff, df, plan.edge_dst)
-    else:
-        out = _segment_max_bwd_cuda(gf, ff, df, plan)
+    route = _route(g)
+    with kernel_scope("segment_max_bwd", route, gf, ff, df):
+        if route == "cpu":
+            out = segment_max_bwd_ref(gf, ff, df, plan.edge_dst)
+        else:
+            out = _segment_max_bwd_cuda(gf, ff, df, plan)
     return out.reshape((plan.num_edges,) + trailing)
 
 
@@ -430,12 +488,15 @@ def edge_softmax_bwd_op(g: torch.Tensor, logits: torch.Tensor,
                          f"{tuple(values.shape[1:])}")
     # autograd may hand the cotangent over expanded (stride 0)
     g, out = g.contiguous(), out.contiguous()
-    if _route(g) == "cpu":
-        d_logits, d_values = edge_softmax_bwd_ref(
-            g, logits, values, m, den, (out * g).sum(-1), plan.edge_dst)
-    else:
-        d_logits, d_values = _edge_softmax_bwd_cuda(g, logits, values, out,
-                                                    m, den, plan)
+    route = _route(g)
+    with kernel_scope("edge_softmax_bwd", route, g, logits, values, out, m,
+                      den):
+        if route == "cpu":
+            d_logits, d_values = edge_softmax_bwd_ref(
+                g, logits, values, m, den, (out * g).sum(-1), plan.edge_dst)
+        else:
+            d_logits, d_values = _edge_softmax_bwd_cuda(
+                g, logits, values, out, m, den, plan)
     if single:
         return d_logits[:, 0], d_values[:, 0, :]
     return d_logits, d_values
@@ -555,12 +616,14 @@ def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     elif kv_start.shape != (B,):
         raise ValueError(f"kv_start must be ({B},), got "
                          f"{tuple(kv_start.shape)}")
-    if _route(q) == "cpu":
-        return flash_attention_ref(q, k, v, causal=causal,
-                                   sliding_window=sliding_window,
-                                   seq_len=seq_len, kv_start=kv_start)
-    return _flash_attention_cuda(q, k, v, kv_start, causal, sliding_window,
-                                 seq_len)
+    route = _route(q)
+    with kernel_scope("flash_attention", route, q, k, v, kv_start):
+        if route == "cpu":
+            return flash_attention_ref(q, k, v, causal=causal,
+                                       sliding_window=sliding_window,
+                                       seq_len=seq_len, kv_start=kv_start)
+        return _flash_attention_cuda(q, k, v, kv_start, causal,
+                                     sliding_window, seq_len)
 
 
 def _wkv6_cuda(r, k, v, w, u, out_dtype):
@@ -606,6 +669,50 @@ def wkv6_op(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if out_dtype not in (None, torch.float32):
         raise ValueError(f"wkv6: out_dtype is None (r's dtype) or "
                          f"torch.float32, got {out_dtype}")
-    if _route(r) == "cpu":
-        return wkv6_ref(r, k, v, w, u, out_dtype)
-    return _wkv6_cuda(r, k, v, w, u, out_dtype or r.dtype)
+    route = _route(r)
+    with kernel_scope("wkv6", route, r, k, v, w, u):
+        if route == "cpu":
+            return wkv6_ref(r, k, v, w, u, out_dtype)
+        return _wkv6_cuda(r, k, v, w, u, out_dtype or r.dtype)
+
+
+# -- the contract shims ------------------------------------------------------
+# The memory and fusion contracts live as rules in
+# :mod:`repro_torch.analysis.oplog`; these keep the reference's ops-level
+# API (``repro/kernels/ops.py:272-300``) over a recorded OpLog and raise
+# its ContractError, an AssertionError.
+
+
+def assert_pregather_free(log, plan: CSCPlan) -> None:
+    """Shim over ``ops.pregather``: outside the kernels, the recorded
+    step never gathers a float tensor through the plan's ``perm`` (the
+    message tensor in plan order that the fused kernels eliminated).
+    Integer gathers through the plan are allowed."""
+    from repro_torch.analysis.oplog import (OpContext, check_or_raise,
+                                            run_rules)
+    check_or_raise(run_rules(OpContext(log, plan=plan),
+                             ids=["ops.pregather"]))
+
+
+def assert_sum_stage_fused(log, plan: CSCPlan) -> None:
+    """Shim over the Sum-stage ruleset on the csc path, forward and
+    backward: ``ops.pregather``, ``ops.segment-scatter`` (no
+    accumulating scatter with edge-axis updates outside the kernels: the
+    atomic fallback) and ``ops.backward-gather`` (no ``(N, ...) -> (E,
+    ...)`` gather outside the kernels). Exact on the log of a
+    combine-level loss and its backward, where the only segment-shaped
+    traffic is the Sum stage; on model-level steps compare
+    :func:`count_segment_scatters` across backends instead."""
+    from repro_torch.analysis.oplog import (OpContext, check_or_raise,
+                                            run_rules)
+    check_or_raise(run_rules(
+        OpContext(log, plan=plan),
+        ids=["ops.pregather", "ops.segment-scatter",
+             "ops.backward-gather"]))
+
+
+def count_segment_scatters(log, plan: CSCPlan) -> int:
+    """Accumulating scatters with edge-axis updates outside the kernels
+    (see :func:`repro_torch.analysis.oplog.count_segment_scatters`)."""
+    from repro_torch.analysis.oplog import count_segment_scatters as count
+    return count(log, plan)

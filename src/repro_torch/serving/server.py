@@ -171,6 +171,14 @@ class BucketedFn:
         elif touched == 0:
             _assert_once_per_bucket(0, 0, f"{self.name} step")
 
+    def ops(self, block):
+        """The OpLog (:mod:`repro_torch.analysis.oplog`) of ``fn`` over
+        ``block`` (staged on the host), run eagerly on a device copy of
+        it: what the analysis rules walk. Neither calls nor captures are
+        counted, so the once-per-bucket certificate survives analysis."""
+        from repro_torch.analysis.oplog import record_ops
+        return record_ops(self.fn, block.to(self.device, copy=True))[1]
+
     def trace(self) -> dict:
         """Captures and calls per bucket, for ``server_stats()``."""
         return {"captures": {k: self.captures.get(k, 0)
