@@ -12,6 +12,7 @@ and check them.
     python3 chip_smoke.py --only engine    # phases 1-2 and the engine's 15
     python3 chip_smoke.py --only examples  # phases 1-2 and the examples' 16
     python3 chip_smoke.py --only analysis  # phases 1-2 and the analysis' 20
+    python3 chip_smoke.py --only ep        # phases 1-2 and the MoE EP's 21
 
 Phases (each raises on failure, so the script exits non-zero):
 
@@ -97,7 +98,7 @@ Phases (each raises on failure, so the script exits non-zero):
     on the card, one launch per layer on the kernel path and none on
     the plain one; then card against CPU at depth 2, decode fed seeded
     tokens and then the CPU's own argmax, the card's prefill launching
-    the kernel once a layer), then a bf16 serving run of 24
+    the kernel once a layer), then a bf16 serving run of 12
     requests (prompts uniform in 512-2048 tokens, 128 new tokens each,
     batch 4) with its tokens/s, the kernel's launches per prefill batch,
     a profile of one short batch and the bf16 kernel-vs-plain
@@ -124,7 +125,7 @@ Phases (each raises on failure, so the script exits non-zero):
     wrap it; card vs CPU at depth 2 (weights drawn on the card, copied
     to the CPU); the rolling cache vs the full cache on the card, depth
     2, 72 decode steps past the window, within 1e-4 of max|logit|; then
-    the bf16 serving run at the published window 4,096 and rolling: 12
+    the bf16 serving run at the published window 4,096 and rolling: 8
     seeded requests of 3,584-4,608 tokens (the prefill keeps the last
     4,096 keys of the longer ones; every batch's decode runs past the
     window's last slot, checked), 128 new tokens, batch 4,
@@ -157,7 +158,7 @@ Phases (each raises on failure, so the script exits non-zero):
     tied embeddings; 8.15 GB in bf16), whose path runs no kernel (MLA is
     products): float32 card against CPU at depth 2, the cache contract
     at full depth (prefill(128) against prefill(64) plus 64 decode
-    steps), then the serving run of 20 requests of 512-2048 tokens with
+    steps), then the serving run of 8 requests of 512-2048 tokens with
     the same gates and no kernel launched. Both print prefill and decode
     tokens/s, a decode round's ms against its weight-read bound and
     peak device memory.
@@ -203,6 +204,22 @@ Phases (each raises on failure, so the script exits non-zero):
     step launched through CUDA. A JSON ``analysis row`` holds the contexts, the findings
     and each kernel's registers, static and dynamic shared memory and
     spilled bytes.
+21. (run after phase 19) Mixtral 8x7B's MoE layers under expert
+    parallelism (``build_model(cfg, moe_impl="ep", mesh=ExpertMesh(data,
+    model))``, every rank on the one card through ``LocalComm``) at full
+    width. Float32 at depth 2 with the window cut to 64, prefill at B 2,
+    T 512: EP over (1, 8) at capacity factor 8.0 (nothing drops) against
+    dense dispatch on the card within 1e-4 of max|logit|; EP over (1, 8)
+    and (1, 1) at the config's 1.25 card against CPU within ``LM_CPU``,
+    the dropped (token, expert) pairs counted and equal; two EP prefills
+    bitwise equal; 8 seeded decode steps at (1, 1) card against CPU. The
+    reduced config's loss and gradients with EP over (1, 4) at 8.0
+    against dense and against the CPU. Then bf16 at depth 4 of 32: the
+    prefill at B 2, T 4,096 under dense, EP (1, 1) and EP (1, 8), and 16
+    eager decode steps at B 4 after a 1,024-token prompt under dense and
+    EP (1, 1), one JSON ``ep row`` each (tokens/s, ms a step, the dropped
+    share, peak memory, ``flash_attention`` launches; for a prefill the
+    profiled device ms and its matrix products' share).
 14. CUDA graphs per bucket (run after phase 11): the GNN train step
     (forward, backward, Adam) and the served forward are one CUDA graph
     per bucket on the card, the default, so phases 4-11 already run
@@ -352,9 +369,10 @@ KERNELS = {
         "replaces": "src/repro/kernels/wkv6.py:78"},
 }
 MAX_WIDTH = 64                     # the Reddit config's feature width
-LM_REQUESTS = 24                   # LM serving run: seeded requests (40
-                                   # to PR 25; cut to keep the full run
-                                   # inside its time with phase 19),
+LM_REQUESTS = 12                   # LM serving run: seeded requests
+                                   # (cut from 40 and then 24, with
+                                   # Mixtral's and MiniCPM3's, to keep
+                                   # the full run inside its time),
 LM_PROMPTS = (512, 2048)           # prompt lengths uniform in this range,
 LM_NEW_TOKENS = 128                # new tokens each,
 LM_BATCH = 4                       # in batches of 4
@@ -363,7 +381,7 @@ DECODE_CHECK_TOKENS = 32           # replay vs eager decode, new tokens
 # bf16 weights; 93.4 GB at full depth does not fit the 80 GB card), and
 # Qwen3-32B at full width and depth (65.5 GB)
 MIXTRAL_LAYERS = 16
-MIXTRAL_REQUESTS = 12              # prompts of 3,584-4,608 tokens: the
+MIXTRAL_REQUESTS = 8               # prompts of 3,584-4,608 tokens: the
 MIXTRAL_PROMPTS = (3584, 4608)     # prefill keeps the last 4,096 keys of
                                    # the longer ones, every decode wraps
 QWEN32_REQUESTS = 8                # prompts of LM_PROMPTS' 512-2,048
@@ -379,7 +397,7 @@ JAMBA_LAYERS = 8
 JAMBA_EXPERTS = 8
 JAMBA_PARITY_EXPERTS = 2           # the float32 gates' group: 45.4 GB
 JAMBA_REQUESTS = 12                # prompts of whole 128-token chunks
-MINICPM_REQUESTS = 20              # prompts of LM_PROMPTS' 512-2,048
+MINICPM_REQUESTS = 8               # prompts of LM_PROMPTS' 512-2,048
 JAMBA_PARITY_PROMPTS = (256, 200, 128, 97)   # padded to two chunks
 CONTRACT_TOL = 1e-3                # prefill(S) vs prefill(S/2) + decodes,
                                    # * max|logit|
@@ -395,6 +413,15 @@ VL_GRID = 16                       # one image block a prompt, grid (1, 16,
 VL_PARITY_PROMPTS = (320, 290, 266, 384)
 TRAIN_ARCHS = ("whisper-base", "qwen2-vl-2b", "rwkv6-1.6b")
 LM_TRAIN = dict(steps=30, batch=8, seq=128)   # the CLI's batch and seq
+# phase 21: Mixtral 8x7B's MoE layers under expert parallelism (one card,
+# every rank in one process through LocalComm)
+EP_PARITY = (2, 2, 512)            # float32 gates: depth, B, T
+EP_LAYERS = 4                      # the bf16 runs' depth: about 12 GB
+EP_PREFILL = (2, 4096)             # B, T of the timed bf16 prefill
+EP_DECODE = (4, 1024, 16)          # B, prompt T, timed eager decode steps
+EP_MESHES = ((1, 1), (1, 8))       # (data, model)
+EP_TOL = 1e-4                      # EP without drops vs dense, * max|logit|
+EP_REPS = 3                        # timed prefills per run
 
 
 def card_label() -> str:
@@ -3603,6 +3630,288 @@ def examples_phase(label: str) -> dict:
     return counts
 
 
+# -- phase 21: expert parallelism ------------------------------------------
+
+
+def _moe_as(model, moe_impl: str, mesh=None, capacity=None):
+    """``model`` switched to ``moe_impl`` over ``mesh``, at capacity
+    factor ``capacity`` when given: the same weights under another
+    dispatch."""
+    import dataclasses
+    model.moe_impl, model.mesh = moe_impl, mesh
+    if capacity is not None:
+        model.cfg = model.cfg.replace(moe=dataclasses.replace(
+            model.cfg.moe, capacity_factor=capacity))
+    return model
+
+
+def _ep_prefill(model, toks):
+    """A prefill of ``toks`` (B, T): its last logits, float32 on the CPU,
+    and the (token, expert) pairs (dropped, routed) over its MoE layers
+    (EP only; (0, 0) under dense dispatch)."""
+    from repro_torch.arch.moe import count_drops
+    with count_drops() as log:
+        logits, _, _ = model.prefill({"tokens": toks.to(model.device)},
+                                     cache_len=toks.shape[1])
+    return logits.float().cpu(), (sum(int(d) for d, _ in log),
+                                  sum(int(r) for _, r in log))
+
+
+def _mesh_name(shape) -> str:
+    return "dense" if shape is None else f"EP {tuple(shape)}"
+
+
+def _ep_parity() -> None:
+    """Phase 21 (a): float32 at full width, depth 2, window cut to
+    ``PARITY_WINDOW``."""
+    import copy
+    import torch
+    from repro_torch.config import get_arch_config
+    from repro_torch.launch.mesh import ExpertMesh
+    cfg = get_arch_config("mixtral-8x7b")
+    depth, B, T = EP_PARITY
+    card = _f32_model(cfg.replace(dtype="float32", num_layers=depth,
+                                  sliding_window=PARITY_WINDOW), 21,
+                      rolling=True)
+    toks = torch.randint(0, cfg.vocab_size, (B, T),
+                         generator=torch.Generator().manual_seed(21))
+    dense, _ = _ep_prefill(_moe_as(card, "dense"), toks)
+    got, (dropped, routed) = _ep_prefill(
+        _moe_as(card, "ep", ExpertMesh(1, 8), 8.0), toks)
+    err = _rel(got, dense)
+    print(f"  f32 depth {depth}, B {B}, T {T}: EP (1, 8) at capacity 8.0 "
+          f"vs dense on the card, last logits max diff {err:.3e} of "
+          f"max|logit| (limit {EP_TOL}); {dropped} of {routed} pairs "
+          f"dropped")
+    if dropped or not torch.isfinite(got).all() or err > EP_TOL:
+        raise AssertionError(f"EP without drops vs dense: {err:.3e}, "
+                             f"{dropped} dropped")
+    t0 = time.perf_counter()
+    cpu = copy.deepcopy(card).cpu()
+    print(f"  copied to the CPU in {time.perf_counter() - t0:.1f}s")
+    for shape in EP_MESHES:
+        _moe_as(card, "ep", ExpertMesh(*shape), 1.25)
+        _moe_as(cpu, "ep", ExpertMesh(*shape), 1.25)
+        t0 = time.perf_counter()
+        want, want_d = _ep_prefill(cpu, toks)
+        cpu_s = time.perf_counter() - t0
+        got, got_d = _ep_prefill(card, toks)
+        again, _ = _ep_prefill(card, toks)
+        err, gap = _rel(got, want), _rel(got, dense)
+        same = torch.equal(got, again)
+        print(f"  f32 EP {shape} at capacity 1.25, card vs CPU: last "
+              f"logits max diff {err:.3e} of max|logit| (limit {LM_CPU}; "
+              f"the CPU {cpu_s:.1f}s); pairs dropped {got_d[0]} of "
+              f"{got_d[1]} on the card, {want_d[0]} of {want_d[1]} on the "
+              f"CPU; {gap:.3e} of max|logit| from dense; two card "
+              f"prefills {'bitwise equal' if same else 'DIFFER'}")
+        if (err > LM_CPU or got_d != want_d
+                or not torch.isfinite(got).all() or not same):
+            raise AssertionError(f"EP {shape}: card vs CPU {err:.3e}, "
+                                 f"drops {got_d} vs {want_d}, bitwise "
+                                 f"{same}")
+    # decode at (1, 1): 8 seeded steps after the prefill, card vs CPU
+    seeded = torch.randint(0, cfg.vocab_size, (B, 8),
+                           generator=torch.Generator().manual_seed(22))
+    pads = torch.zeros(B, dtype=torch.long)
+    for m in (card, cpu):
+        _moe_as(m, "ep", ExpertMesh(1, 1), 1.25)
+    want, _, _ = _lm_run(cpu, toks, pads, seeded)
+    got, _, _ = _lm_run(card, toks, pads, seeded)
+    err = _rel(got, want)
+    print(f"  f32 EP (1, 1): prefill + 8 seeded decode steps, card vs "
+          f"CPU: logits max diff {err:.3e} of max|logit| (limit {LM_CPU})")
+    if not torch.isfinite(got).all() or err > LM_CPU:
+        raise AssertionError(f"EP decode: card vs CPU {err:.3e}")
+    del card, cpu
+    _free()
+
+
+def _ep_gradients() -> None:
+    """Phase 21 (b): the reduced config's loss and gradients with EP over
+    (1, 4) at capacity 8.0, against dense on the card and against the
+    CPU."""
+    import copy
+    import dataclasses
+    import torch
+    from repro_torch.arch import build_model
+    from repro_torch.config import get_arch_config
+    from repro_torch.launch.mesh import ExpertMesh
+    red = get_arch_config("mixtral-8x7b").reduced()
+    red = red.replace(dtype="float32", moe=dataclasses.replace(
+        red.moe, capacity_factor=8.0))
+    model = build_model(red, torch.Generator(device=DEVICE).manual_seed(5),
+                        moe_impl="ep", mesh=ExpertMesh(1, 4))
+    gen = torch.Generator().manual_seed(6)
+    batch = {k: torch.randint(0, red.vocab_size, (2, 64), generator=gen)
+             for k in ("tokens", "labels")}
+
+    def run(m):
+        m.zero_grad()
+        loss = m.loss({k: v.to(m.device) for k, v in batch.items()},
+                      chunk=64)
+        loss.backward()
+        return float(loss.detach()), {n: p.grad.float().cpu()
+                                      for n, p in m.named_parameters()}
+
+    loss, grads = run(model)
+    cpu_loss, cpu_grads = run(_moe_as(copy.deepcopy(model).cpu(), "ep",
+                                      ExpertMesh(1, 4)))
+    dense_loss, dense_grads = run(_moe_as(model, "dense"))
+    e_cpu, e_dense = _rel_grads(grads, cpu_grads), _rel_grads(grads,
+                                                             dense_grads)
+    print(f"  f32 reduced {red.name} ({red.num_layers} layers, d "
+          f"{red.d_model}, {red.moe.num_experts} experts), loss with EP "
+          f"(1, 4) at capacity 8.0: {loss:.6f}; dense {dense_loss:.6f}, "
+          f"the CPU's EP {cpu_loss:.6f}; gradients max diff {e_dense:.3e} "
+          f"(vs dense) and {e_cpu:.3e} (vs the CPU) of each max (limit "
+          f"{GRAD_TOL})")
+    lim = LOSS_TOL * max(1.0, abs(loss))
+    if (abs(loss - dense_loss) > lim or abs(loss - cpu_loss) > lim
+            or max(e_cpu, e_dense) > GRAD_TOL):
+        raise AssertionError("EP gradients differ")
+    del model
+    _free()
+
+
+def _profile_prefill(model, toks) -> dict:
+    """Device ms by op over one prefill of ``toks`` (a ``torch.profiler``
+    trace): the busy total, the matrix products' (kernel names holding
+    ``gemm`` or cuBLAS's ``nvjet``) and the six largest ops, printed."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        model.prefill({"tokens": toks}, cache_len=toks.shape[1])
+        torch.cuda.synchronize()
+    ops = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
+                  for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA
+                  and e.self_device_time_total > 0), reverse=True)
+    busy = sum(k[0] for k in ops)
+    gemm = sum(k[0] for k in ops
+               if "gemm" in k[2].lower() or "nvjet" in k[2])
+    print(f"    profile, one prefill: device busy {busy:.3f} ms in "
+          f"{sum(k[1] for k in ops):.0f} device ops, matrix products "
+          f"{gemm:.3f} ms; largest:")
+    for ms, n, key in ops[:6]:
+        print(f"      {ms:.4f} ms over {n:.0f} calls  {key[:90]}")
+    return {"device_busy_ms": busy, "gemm_ms": gemm}
+
+
+def _ep_row(label: str, run: str, shape, ms: float, tokens: int,
+            dropped, flash: float, **extra) -> dict:
+    import torch
+    row = {"phase": 21, "run": run, "mesh": shape and list(shape),
+           "ms": ms, "tokens_per_s": 1e3 * tokens / ms,
+           "dropped_share": (dropped[0] / dropped[1] if dropped[1]
+                             else 0.0),
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "flash_attention_launches": flash, "card": label, **extra}
+    print("  ep row " + json.dumps(row), flush=True)
+    return row
+
+
+def _ep_speed(label: str) -> dict:
+    """Phase 21 (c): bf16 at full width, depth ``EP_LAYERS``: the timed
+    prefill under dense and EP, and eager decode under dense and EP (1,
+    1); returns the EP prefills' launch counts."""
+    import torch
+    from repro_torch.arch import build_model
+    from repro_torch.arch.moe import count_drops
+    from repro_torch.config import get_arch_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import ExpertMesh
+    cfg = get_arch_config("mixtral-8x7b").replace(num_layers=EP_LAYERS)
+    t0 = time.perf_counter()
+    model = build_model(cfg, torch.Generator(device=DEVICE).manual_seed(0),
+                        rolling_window_decode=True).requires_grad_(False)
+    torch.cuda.synchronize()
+    w_bytes = sum(p.numel() * p.element_size()
+                  for n, p in model.named_parameters() if n != "embed.table")
+    print(f"  bf16 {cfg.name}: {EP_LAYERS} of 32 layers, "
+          f"{torch.cuda.memory_allocated() / 1e9:.1f} GB on the card, made "
+          f"in {time.perf_counter() - t0:.1f}s")
+    B, T = EP_PREFILL
+    toks = torch.randint(0, cfg.vocab_size, (B, T),
+                         generator=torch.Generator().manual_seed(23)
+                         ).to(DEVICE)
+    got = {k: 0 for k in ops.launches}
+    for shape in (None,) + EP_MESHES:
+        _moe_as(model, "dense" if shape is None else "ep",
+                shape and ExpertMesh(*shape))
+        logits, dropped = _ep_prefill(model, toks)      # warm-up
+        if not torch.isfinite(logits).all():
+            raise AssertionError(f"bf16 {_mesh_name(shape)}: logits not "
+                                 "finite")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        for _ in range(EP_REPS):
+            model.prefill({"tokens": toks}, cache_len=T)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0) / EP_REPS
+        if shape is not None:
+            for k, v in ops.launches.items():
+                got[k] += v
+        flash = ops.launches["flash_attention"] / EP_REPS
+        prof = _profile_prefill(model, toks)
+        _ep_row(label, f"prefill {_mesh_name(shape)}", shape, ms, B * T,
+                dropped, flash, B=B, T=T, **prof)
+        if flash != EP_LAYERS:
+            raise AssertionError(f"{flash} flash_attention launches a "
+                                 f"prefill, expected {EP_LAYERS}")
+    B, T, steps = EP_DECODE
+    dt = torch.randint(0, cfg.vocab_size, (B, T + steps),
+                       generator=torch.Generator().manual_seed(24)
+                       ).to(DEVICE)
+    for shape in (None, (1, 1)):
+        _moe_as(model, "dense" if shape is None else "ep",
+                shape and ExpertMesh(*shape))
+        for timed in (False, True):
+            _, caches, idx = model.prefill({"tokens": dt[:, :T]},
+                                           cache_len=T + steps)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            with (contextlib.nullcontext([]) if timed
+                  else count_drops()) as log:
+                for t in range(T, T + steps):
+                    lo, caches, idx = model.decode_step(
+                        {"tokens": dt[:, t:t + 1]}, caches, idx)
+                torch.cuda.synchronize()
+            if not timed:
+                dropped = (sum(int(d) for d, _ in log),
+                           sum(int(r) for _, r in log))
+        ms = 1e3 * (time.perf_counter() - t0) / steps
+        if not torch.isfinite(lo).all():
+            raise AssertionError(f"bf16 decode {_mesh_name(shape)}: logits "
+                                 "not finite")
+        _ep_row(label, f"decode {_mesh_name(shape)}", shape, ms, B,
+                dropped, 0, B=B, prompt=T, steps=steps,
+                weight_read_bound_ms=1e3 * w_bytes / HBM_BYTES_PER_S)
+    del model
+    _free()
+    return got
+
+
+def ep_phase(label: str) -> dict:
+    """Phase 21: Mixtral 8x7B's MoE layers under expert parallelism;
+    returns the bf16 EP prefills' launch counts."""
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    _ep_parity()
+    print(f"  float32 parity: {time.perf_counter() - t0:.1f}s", flush=True)
+    t0 = time.perf_counter()
+    _ep_gradients()
+    print(f"  gradients: {time.perf_counter() - t0:.1f}s", flush=True)
+    got = _ep_speed(label)
+    print(f"  phase 21: {time.perf_counter() - t_phase:.1f}s", flush=True)
+    return got
+
+
 # -- phase 20: analysis on the card -------------------------------------------
 
 
@@ -4250,7 +4559,7 @@ def main(argv=None) -> int:
     ap.add_argument("--only",
                     choices=["kernels", "gnn-times", "lm-times", "lm",
                              "runtime", "graphs", "engine", "examples",
-                             "analysis"],
+                             "analysis", "ep"],
                     default=None,
                     help="kernels: stop after phase 3 (build and check the "
                     "kernels); gnn-times: phases 1-3 and the GNN kernels' "
@@ -4259,7 +4568,7 @@ def main(argv=None) -> int:
                     "phases "
                     "1-2 and 11; graphs: phases 1-2 and 14; engine: "
                     "phases 1-2 and 15; examples: phases 1-2 and 16; "
-                    "analysis: phases 1-2 and 20")
+                    "analysis: phases 1-2 and 20; ep: phases 1-2 and 21")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -4305,6 +4614,10 @@ def main(argv=None) -> int:
     if args.only == "analysis":
         phase("20. analysis on the card")
         analysis_phase(label)
+        return 0
+    if args.only == "ep":
+        phase("21. Mixtral 8x7B's MoE under expert parallelism")
+        ep_phase(label)
         return 0
 
     phase("3. kernels vs plain, on the card")
@@ -4391,6 +4704,8 @@ def main(argv=None) -> int:
 
     for got in lm_phases(phase):
         count(got)
+    phase("21. Mixtral 8x7B's MoE under expert parallelism")
+    count(ep_phase(label))
     phase("20. analysis on the card")
     analysis_phase(label)
     phase("done")

@@ -118,11 +118,17 @@ def block_cache_init(cfg: ArchConfig, kind: str, batch: int, cache_len: int,
     return rwkv_init_cache(batch, cfg.d_model, cfg.rwkv, dtype, device)
 
 
-def _ffn_apply(p_ffn, x: torch.Tensor, cfg: ArchConfig, moe_impl: str):
-    """The block's FFN and its auxiliary loss (0 without MoE)."""
+def _ffn_apply(p_ffn, x: torch.Tensor, cfg: ArchConfig, moe_impl: str,
+               mesh=None):
+    """The block's FFN and its auxiliary loss (0 without MoE). The
+    reference's rule (``repro/arch/blocks.py:_ffn_apply``): expert
+    parallelism only when ``moe_impl == "ep"`` and a mesh is given,
+    with the batch split over its ``data`` axis; dense dispatch
+    otherwise."""
     if cfg.moe is not None and "router" in p_ffn:
-        if moe_impl == "ep":
-            return moe_ffn_ep(p_ffn, x, cfg.moe)
+        if moe_impl == "ep" and mesh is not None:
+            return moe_ffn_ep(p_ffn, x, cfg.moe, mesh,
+                              dp_axis="data")
         return moe_ffn_dense(p_ffn, x, cfg.moe)
     zero = x.new_zeros((), dtype=torch.float32)
     if "wi" in p_ffn:                       # gelu mlp (whisper)
@@ -133,7 +139,7 @@ def _ffn_apply(p_ffn, x: torch.Tensor, cfg: ArchConfig, moe_impl: str):
 def block_apply(p, x: torch.Tensor, cfg: ArchConfig, kind: str, *,
                 positions=None, mrope_positions=None, causal=True,
                 cache=None, cache_index=None, enc_memory=None,
-                moe_impl: str = "dense",
+                moe_impl: str = "dense", mesh=None,
                 sliding_window: Optional[int] = None, valid=None,
                 kv_start=None, train: bool = False):
     """Pre-norm residual block. Returns (x, new_cache, aux_loss).
@@ -143,7 +149,9 @@ def block_apply(p, x: torch.Tensor, cfg: ArchConfig, kind: str, *,
     or RWKV row's pads enter its state (ROADMAP C.11). ``enc_memory``
     (B, T_enc, D): the encoder's output, which the decoder's
     cross-attention reads after its self-attention. ``train``: the
-    reference's training path (see the module's docstring)."""
+    reference's training path (see the module's docstring). ``mesh``:
+    the :class:`~repro_torch.launch.mesh.ExpertMesh` that
+    ``moe_impl="ep"`` runs over (``_ffn_apply``)."""
     sw = cfg.sliding_window if sliding_window is None else sliding_window
     new_cache = None
     if kind in ("attn", "mamba"):
@@ -177,7 +185,7 @@ def block_apply(p, x: torch.Tensor, cfg: ArchConfig, kind: str, *,
                 head_dim=cfg.resolved_head_dim, kv_x=enc_memory,
                 causal=False)
         h2 = norm_apply(cfg, p["norm2"], x)
-        f, aux = _ffn_apply(p["ffn"], h2, cfg, moe_impl)
+        f, aux = _ffn_apply(p["ffn"], h2, cfg, moe_impl, mesh)
         x = x + f
     elif kind == "rwkv":
         h = norm_apply(cfg, p["norm1"], x)

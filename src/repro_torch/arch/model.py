@@ -61,17 +61,30 @@ class TransformerLM(nn.Module):
     ``torch.Generator``; its device is where the weights are made) in the
     config's dtype. ``gen=None`` draws from
     ``torch.Generator().manual_seed(0)`` on the CPU. ``remat``: the
-    loss's backward recomputes each layer group."""
+    loss's backward recomputes each layer group. ``moe_impl="ep"`` with
+    a ``mesh`` (:class:`~repro_torch.launch.mesh.ExpertMesh`) runs the
+    MoE layers' expert-parallel dispatch over it in ``loss``,
+    ``prefill`` and ``decode_step``, as the reference's
+    ``build_model(cfg, moe_impl, mesh)``; without a mesh they run dense
+    dispatch. The mesh's communicator must hold every model rank in
+    this process (``LocalComm``): the model hands each MoE layer the
+    whole batch."""
 
     def __init__(self, cfg: ArchConfig, gen: Optional[torch.Generator] = None,
                  rolling_window_decode: bool = False,
-                 moe_impl: str = "dense", remat: bool = True):
+                 moe_impl: str = "dense", remat: bool = True, mesh=None):
         super().__init__()
         if moe_impl not in ("dense", "ep"):
             raise ValueError(f"moe_impl must be 'dense' or 'ep', got "
                              f"{moe_impl!r}")
+        if mesh is not None and mesh.comm.count != mesh.model:
+            raise ValueError(
+                f"the model's mesh must hold its {mesh.model} model ranks "
+                f"in this process, its communicator holds "
+                f"{mesh.comm.count}")
         self.cfg = cfg
         self.moe_impl = moe_impl
+        self.mesh = mesh
         self.remat = remat
         self.kinds = layer_kinds(cfg)
         self.rolling = bool(rolling_window_decode and cfg.sliding_window
@@ -154,7 +167,7 @@ class TransformerLM(nn.Module):
         for p in self.encoder:
             x, _, _ = block_apply(p, x, cfg, "attn", positions=pos,
                                   causal=False, moe_impl=self.moe_impl,
-                                  train=train)
+                                  mesh=self.mesh, train=train)
         return norm_apply(cfg, self.enc_norm, x)
 
     @torch.inference_mode()
@@ -192,8 +205,8 @@ class TransformerLM(nn.Module):
                     positions=positions, mrope_positions=mrope_positions,
                     causal=True, cache=c, cache_index=cache_index,
                     enc_memory=enc_memory, moe_impl=self.moe_impl,
-                    sliding_window=cfg.sliding_window, valid=valid,
-                    kv_start=kv_start, train=train)
+                    mesh=self.mesh, sliding_window=cfg.sliding_window,
+                    valid=valid, kv_start=kv_start, train=train)
                 aux = aux + a
                 if new_caches is not None:
                     new_caches.append(nc)
@@ -333,5 +346,6 @@ class TransformerLM(nn.Module):
 def build_model(cfg: ArchConfig, gen: Optional[torch.Generator] = None,
                 moe_impl: str = "dense",
                 rolling_window_decode: bool = False,
-                remat: bool = True) -> TransformerLM:
-    return TransformerLM(cfg, gen, rolling_window_decode, moe_impl, remat)
+                remat: bool = True, mesh=None) -> TransformerLM:
+    return TransformerLM(cfg, gen, rolling_window_decode, moe_impl, remat,
+                         mesh)

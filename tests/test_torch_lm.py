@@ -563,7 +563,9 @@ def test_prefill_checks_the_left_pad_once(monkeypatch):
 
 
 def test_unported_paths_raise():
-    """Expert parallelism (ROADMAP A.13) stays refused by name. Whisper
+    """``moe_impl="ep"`` without a mesh runs dense dispatch, bit for bit,
+    as the reference's ``_ffn_apply`` does (ROADMAP A.13's refusal went
+    with the port of ``moe_ffn_ep``). Whisper
     and Qwen2-VL, and a LayerNorm config, build (A.12a lifted their
     refusals); ``BatchServer`` refuses configs with embedding inputs or
     an encoder by name, since its requests carry tokens only, as the
@@ -578,9 +580,12 @@ def test_unported_paths_raise():
             serve.BatchServer(arch, batch_size=1, cache_len=8, device="cpu")
     moe_cfg = get_arch_config("mixtral-8x7b").reduced().replace(
         dtype="float32")
-    with pytest.raises(NotImplementedError, match="A.13"):
-        build_model(moe_cfg, moe_impl="ep").prefill(
-            {"tokens": torch.zeros((1, 3), dtype=torch.long)}, cache_len=4)
+    dense = build_model(moe_cfg)
+    ep = build_model(moe_cfg, moe_impl="ep")
+    ep.load_state_dict(dense.state_dict())
+    toks = {"tokens": torch.arange(3)[None]}
+    assert torch.equal(ep.prefill(toks, cache_len=4)[0],
+                       dense.prefill(toks, cache_len=4)[0])
     cfg = get_arch_config("qwen3-4b").reduced().replace(dtype="float32")
     ln = build_model(cfg.replace(norm_type="layernorm"))
     assert "bias" in ln.blocks[0]["norm1"] and "wi" in ln.blocks[0]["ffn"]

@@ -7,8 +7,10 @@ rtol/atol 1e-5 (the products sum in another order). The top-k pick breaks
 ties as ``jax.lax.top_k`` does, lowest index first: a zero router
 (uniform probabilities) picks experts 0..k-1, as the reference does. A
 bf16 model's router stays float32 through ``lm_params_from_jax``;
-``moe_impl="ep"`` is refused (ROADMAP A.13). The tests marked ``cuda``
-hold the card's pick and FFN to the CPU's and skip where there is none:
+``moe_impl="ep"`` without a mesh is dense dispatch, as in the reference
+(``tests/test_torch_moe_ep.py`` holds the expert-parallel dispatch).
+The tests marked ``cuda`` hold the card's pick, FFN and expert-parallel
+dispatch to the CPU's and skip where there is none:
 
     python -m pytest -m cuda tests/test_torch_moe.py
 """
@@ -196,12 +198,20 @@ def test_bf16_router_stays_float32_through_lm_params_from_jax(oracle):
 
 
 def test_moe_impl_ep_is_refused_naming_a13():
+    """``moe_impl="ep"`` without a mesh is dense dispatch bit for bit, as
+    the reference's ``_ffn_apply`` runs it (the refusal of ROADMAP A.13
+    went with the port of ``moe_ffn_ep``); an unknown ``moe_impl`` is
+    still refused."""
     cfg = get_arch_config("mixtral-8x7b").reduced().replace(
         dtype="float32")
+    dense = build_model(cfg)
     model = build_model(cfg, moe_impl="ep")
-    with pytest.raises(NotImplementedError, match="A.13"):
-        model.prefill({"tokens": torch.zeros((1, 4), dtype=torch.long)},
-                      cache_len=8)
+    model.load_state_dict(dense.state_dict())
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (2, 12)))
+    want, _, _ = dense.prefill({"tokens": toks}, cache_len=12)
+    got, _, _ = model.prefill({"tokens": toks}, cache_len=12)
+    assert torch.equal(got, want)
     with pytest.raises(ValueError, match="moe_impl"):
         build_model(cfg, moe_impl="sparse")
 
@@ -279,3 +289,30 @@ def test_cuda_moe_ffn_dense_matches_the_cpu(E, k, cuda):
     torch.testing.assert_close(got.cpu(), want, rtol=RTOL, atol=ATOL)
     torch.testing.assert_close(got_aux.cpu(), want_aux, rtol=RTOL,
                                atol=ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 1), (2, 2), (1, 4)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("E,k", ROUTINGS)
+def test_cuda_moe_ffn_ep_matches_the_cpu(E, k, shape, cuda):
+    """Expert parallelism on the card (every rank through ``LocalComm``)
+    against the CPU at capacity 1.0, where pairs drop: the same outputs,
+    aux and dropped-pair count, and two card runs bitwise equal."""
+    from repro_torch.launch.mesh import ExpertMesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    p = {n: torch.from_numpy(v) for n, v in _params(E, seed=E).items()}
+    x = torch.from_numpy(_x(B=4, S=8, seed=E + 1) + 2.0)
+    cfg = MoEConfig(num_experts=E, top_k=k, capacity_factor=1.0)
+    runs = []
+    for dev in ("cpu", cuda, cuda):
+        with moe.count_drops() as log:
+            out, aux = moe.moe_ffn_ep({n: v.to(dev) for n, v in p.items()},
+                                      x.to(dev), cfg, ExpertMesh(*shape),
+                                      dp_axis="data")
+        runs.append((out.cpu(), aux.cpu(), int(log[0][0])))
+    (want, want_aux, want_d), (got, got_aux, got_d), again = runs
+    torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+    torch.testing.assert_close(got_aux, want_aux, rtol=RTOL, atol=ATOL)
+    assert got_d == want_d
+    assert torch.equal(again[0], got) and again[2] == got_d
