@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving and training paths on one NVIDIA GPU
-and check them.
+(and, with ``--only multicard``, on four) and check them.
 
     python3 chip_smoke.py                  # every phase; needs one card
     python3 chip_smoke.py --only kernels   # phases 1-3: build and check
@@ -13,6 +13,8 @@ and check them.
     python3 chip_smoke.py --only examples  # phases 1-2 and the examples' 16
     python3 chip_smoke.py --only analysis  # phases 1-2 and the analysis' 20
     python3 chip_smoke.py --only ep        # phases 1-2 and the MoE EP's 21
+    python3 chip_smoke.py --only ranks     # phases 1-2 and NCCL's 22
+    python3 chip_smoke.py --only multicard # phases 1-2 and 23: four cards
 
 Phases (each raises on failure, so the script exits non-zero):
 
@@ -98,7 +100,7 @@ Phases (each raises on failure, so the script exits non-zero):
     on the card, one launch per layer on the kernel path and none on
     the plain one; then card against CPU at depth 2, decode fed seeded
     tokens and then the CPU's own argmax, the card's prefill launching
-    the kernel once a layer), then a bf16 serving run of 12
+    the kernel once a layer), then a bf16 serving run of 8
     requests (prompts uniform in 512-2048 tokens, 128 new tokens each,
     batch 4) with its tokens/s, the kernel's launches per prefill batch,
     a profile of one short batch and the bf16 kernel-vs-plain
@@ -150,7 +152,7 @@ Phases (each raises on failure, so the script exits non-zero):
     against prefill(128) plus 128 decode steps, within 1e-3 of
     max|logit|; the Mamba mixer alone at full width, B 2, T 256, card
     against CPU (output, final state, conv tail, then 8 decode steps);
-    the reduced model card against CPU. Then the bf16 serving run: 12
+    the reduced model card against CPU. Then the bf16 serving run: 8
     seeded requests of 512-2048 tokens in whole 128-token chunks, 128 new
     tokens, batch 4, one ``flash_attention`` launch a batch, the
     decode-graph gates, two bf16 prefills bitwise equal. MiniCPM3-4B (62
@@ -171,12 +173,12 @@ Phases (each raises on failure, so the script exits non-zero):
     steps (12 launches: the encoder's 6 bidirectional, the decoder's 6
     causal), the cache contract (prefill(128) against prefill(64) plus 64
     decode steps, each reading the encoder memory made once), card
-    against CPU at 2 + 2 layers; then 40 seeded requests of 4-64 tokens,
+    against CPU at 2 + 2 layers; then 20 seeded requests of 4-64 tokens,
     each with its own seeded (1,500, 512) frames, 128 new tokens, batch
     4: the encoder runs once a batch and its memory is carried to every
     decode round. Qwen2-VL-2B (28 layers, d 1536, 12/2 heads of 128,
     tied, vocab 151,936; 3.09 GB in bf16): the same float32 gates on
-    prompts of (320, 290, 266, 384) tokens (the contract at 640), then 20
+    prompts of (320, 290, 266, 384) tokens (the contract at 640), then 8
     seeded requests of 512-2048 positions, each holding one seeded image
     block of 16 x 16 patches (seeded embeddings) among its text (the
     table's), the three M-RoPE streams by the published rule, 128 new
@@ -220,6 +222,36 @@ Phases (each raises on failure, so the script exits non-zero):
     EP (1, 1), one JSON ``ep row`` each (tokens/s, ms a step, the dropped
     share, peak memory, ``flash_attention`` launches; for a prefill the
     profiled device ms and its matrix products' share).
+22. (run after phase 21) NCCL at world 1: the launcher
+    (``repro_torch.launch.ranks``) starts one rank on the card, which
+    holds all four partitions over a ``ProcessGroupComm``: the engine
+    ``Trainer`` on GAT-E (the config's widths, the 20,000-node graph)
+    fits 30 global steps under replay, bitwise the ``LocalComm`` fit
+    from the same weights (phase 15's), with exactly one capture and
+    the engine's four kernels launched; the reduced Mixtral's EP (1, 4)
+    prefill over the group bitwise the ``LocalComm`` mesh's, with equal
+    drops. A JSON ``ranks row``. Phase 23 is left to its own call.
+23. (``--only multicard`` alone; four cards, raises on fewer) four
+    NCCL ranks, one a card. GAT-E at the config's widths on the
+    20,000-node graph, P=4, a partition a card, through
+    ``api.make_trainer(TrainJob(ranks=4))``: step 1 within 1e-6 of the
+    ``LocalComm`` engine's run on card 0 in the same call, then one
+    ``Trainer`` over 30 global, 30 mini and 30 cluster steps with one
+    capture a rank, every rank's losses bitwise equal, a second fit
+    bitwise the first, the engine's four kernels launched on every card
+    and no plain version called; GAT-E global on the 200,000-node graph
+    (steps/s under replay, launches a step, bytes each card sends a
+    step, the profiled busy and NCCL ms a step, each rank's busy share,
+    the host's cores), one JSON ``engine row`` each. Mixtral 8x7B at
+    full width under EP (1, 4), one model rank a card: float32 at depth
+    4, B 2, T 512 against ``LocalComm`` (1, 4) on card 0 (within
+    ``LM_CPU``, equal drops); then bf16 at all 32 layers (each card
+    holds its two experts a layer), three prefills at B 2, T 4,096 (each
+    rank routes its 1,024 positions), at least two bitwise equal, finite,
+    32 ``flash_attention`` launches a prefill a rank, and a decode step
+    over the four model ranks raising the reference's ``ValueError``;
+    one JSON ``ep row`` (ms, tokens/s, the dropped share, peak memory a
+    card, the NCCL share of the profiled device ms).
 14. CUDA graphs per bucket (run after phase 11): the GNN train step
     (forward, backward, Adam) and the served forward are one CUDA graph
     per bucket on the card, the default, so phases 4-11 already run
@@ -236,7 +268,7 @@ Phases (each raises on failure, so the script exits non-zero):
     replay, one JSON ``graphs row`` each. The three served models: 512
     responses in fixed batches bitwise equal eager against replay, a
     cache hit bitwise a recompute under replay, one capture per bucket,
-    and QPS and p50/p99 eager against replay (``serve row``). Last, ten
+    and QPS and p50/p99 eager against replay (``serve row``). Last, five
     alternating pairs of builder threads against inline staging under
     replay on the GAT-E and GCN mini cells, every fit's losses bitwise
     equal (``pairs row``).
@@ -369,10 +401,10 @@ KERNELS = {
         "replaces": "src/repro/kernels/wkv6.py:78"},
 }
 MAX_WIDTH = 64                     # the Reddit config's feature width
-LM_REQUESTS = 12                   # LM serving run: seeded requests
-                                   # (cut from 40 and then 24, with
-                                   # Mixtral's and MiniCPM3's, to keep
-                                   # the full run inside its time),
+LM_REQUESTS = 8                    # LM serving run: seeded requests
+                                   # (cut from 40, 24 and 12, with the
+                                   # other LM paths' to two batches, to
+                                   # keep the full run inside its time),
 LM_PROMPTS = (512, 2048)           # prompt lengths uniform in this range,
 LM_NEW_TOKENS = 128                # new tokens each,
 LM_BATCH = 4                       # in batches of 4
@@ -396,18 +428,18 @@ ROLL_TOL = 1e-4                    # rolling vs full cache, * max|logit|
 JAMBA_LAYERS = 8
 JAMBA_EXPERTS = 8
 JAMBA_PARITY_EXPERTS = 2           # the float32 gates' group: 45.4 GB
-JAMBA_REQUESTS = 12                # prompts of whole 128-token chunks
+JAMBA_REQUESTS = 8                 # prompts of whole 128-token chunks
 MINICPM_REQUESTS = 8               # prompts of LM_PROMPTS' 512-2,048
 JAMBA_PARITY_PROMPTS = (256, 200, 128, 97)   # padded to two chunks
 CONTRACT_TOL = 1e-3                # prefill(S) vs prefill(S/2) + decodes,
                                    # * max|logit|
 # phase 19: Whisper-base (6 + 6 layers, d 512) and Qwen2-VL-2B (28 layers,
 # d 1536, 12/2 heads of 128) at full width and depth, and LM training
-WHISPER_REQUESTS = 40              # decoder prompts of 4-64 tokens, each
+WHISPER_REQUESTS = 20              # decoder prompts of 4-64 tokens, each
 WHISPER_PROMPTS = (4, 64)          # with its own 1,500 seeded frames:
                                    # inside the 448-token text context
 WHISPER_PARITY_PROMPTS = (64, 40, 17, 5)
-VL_REQUESTS = 20                   # prompts of LM_PROMPTS' 512-2,048
+VL_REQUESTS = 8                    # prompts of LM_PROMPTS' 512-2,048
 VL_GRID = 16                       # one image block a prompt, grid (1, 16,
                                    # 16): 256 patches
 VL_PARITY_PROMPTS = (320, 290, 266, 384)
@@ -424,12 +456,17 @@ EP_TOL = 1e-4                      # EP without drops vs dense, * max|logit|
 EP_REPS = 3                        # timed prefills per run
 
 
-def card_label() -> str:
+def card_labels() -> list:
+    """``nvidia-smi``'s name and power limit of every card."""
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip()
-    return out.splitlines()[0]
+    return out.splitlines()
+
+
+def card_label() -> str:
+    return card_labels()[0]
 
 
 # -- phase 3: kernels against their plain versions ---------------------------
@@ -2869,7 +2906,7 @@ def runtime(label: str) -> dict:
 # -- phase 14: CUDA graphs per bucket ----------------------------------------------
 
 
-GRAPH_PAIRS = 10          # threads against inline, alternating pairs
+GRAPH_PAIRS = 5           # threads against inline, alternating pairs
 DENSE_REL = 1e-3          # dense vs compact losses, * max(1, |loss|)
 
 
@@ -3224,22 +3261,32 @@ def _no_plain_versions():
                              f"{calls}")
 
 
-def _exchange_widths(trainer, view) -> int:
-    """Floats per halo value that cross the exchange in one eager step
-    (forward and backward), counted on the engine's communicator."""
+def _exchange_counts(trainer, view) -> dict:
+    """What crosses the exchange in one eager step over the staged
+    ``view`` (forward and backward), counted on the engine's
+    communicator: ``floats_per_value`` (each exchange's width, summed)
+    and ``bytes_sent`` (the bytes this process sends other processes:
+    each buffer moves whole but for its own block; 0 under
+    ``LocalComm``)."""
     import torch
     comm = trainer.engine.comm
-    seen = [0]
+    world = getattr(comm, "world", 1)
+    seen = {"floats_per_value": 0, "bytes_sent": 0.0}
+
+    def count(buf):
+        seen["floats_per_value"] += buf.shape[-1]
+        seen["bytes_sent"] += (buf.numel() * buf.element_size()
+                               * (world - 1) / world)
 
     class Count(torch.autograd.Function):
         @staticmethod
         def forward(ctx, buf):
-            seen[0] += buf.shape[-1]
+            count(buf)
             return buf.view_as(buf)
 
         @staticmethod
         def backward(ctx, g):
-            seen[0] += g.shape[-1]
+            count(g)
             return g
 
     orig = comm.all_to_all
@@ -3248,7 +3295,7 @@ def _exchange_widths(trainer, view) -> int:
         trainer.engine.make_loss_and_grad()(view)
     finally:
         del comm.all_to_all
-    return seen[0]
+    return seen
 
 
 def _step1(engine, view) -> tuple:
@@ -3295,36 +3342,39 @@ def _engine_checks(name: str, job, g, view) -> None:
                              f"{l_err:.3e} / {b_err:.3e}")
 
 
+def _sync(device) -> None:
+    import torch
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _fit_streams(trainer, streams, steps: int) -> tuple:
+    """``steps`` steps over each stream in turn: (losses, wall seconds
+    per stream with the device drained)."""
+    losses, walls = [], []
+    for st in streams:
+        st.seek(0)
+        _sync(trainer.device)
+        t0 = time.perf_counter()
+        losses += trainer.fit(st, steps=steps)["losses"]
+        _sync(trainer.device)
+        walls.append(time.perf_counter() - t0)
+    return losses, walls
+
+
 def _engine_fit(job, streams, cuda_graphs: bool):
     """A fresh engine Trainer fit ``ENGINE_STEPS`` steps over each stream
     in turn, with no restart. Returns (trainer, losses, final
     parameters, wall seconds per stream with the device drained)."""
-    import torch
     trainer, _ = _engine_trainer(job, cuda_graphs)
-    losses, walls = [], []
-    for st in streams:
-        st.seek(0)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        losses += trainer.fit(st, steps=ENGINE_STEPS)["losses"]
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
+    losses, walls = _fit_streams(trainer, streams, ENGINE_STEPS)
     return trainer, losses, _params(trainer), walls
 
 
 def _steady(trainer, streams) -> list:
     """Seconds of ``ENGINE_STEPS`` more steps over each stream, on a
     trainer whose step is already captured (or eager), device drained."""
-    import torch
-    walls = []
-    for st in streams:
-        st.seek(0)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        trainer.fit(st, steps=ENGINE_STEPS)
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
-    return walls
+    return _fit_streams(trainer, streams, ENGINE_STEPS)[1]
 
 
 def _engine_run(name: str, job, g, strategies, label: str, kernels,
@@ -3368,8 +3418,8 @@ def _engine_run(name: str, job, g, strategies, label: str, kernels,
     part_s = time.perf_counter() - t0
     stats = partition_stats(sg)
     view0 = streams[0].build(0)
-    widths = _exchange_widths(eager, eager.engine.stage_view(
-        shard_view(eager.plan, view0)))
+    widths = _exchange_counts(eager, eager.engine.stage_view(
+        shard_view(eager.plan, view0)))["floats_per_value"]
     steps = ENGINE_STEPS * len(strategies)
     per_step = {k: v / steps for k, v in got.items() if v}
     # steady state: the step captured, the same views again
@@ -4554,12 +4604,491 @@ def encdec_lm_phase() -> list:
     return got
 
 
+# -- phases 22-23: one process per card over NCCL -----------------------------
+
+RANK_STEPS = 30                    # steps per strategy in phases 22-23
+MULTICARD = 4                      # cards, and NCCL ranks, of phase 23
+RANK_TOL = 1e-6                    # NCCL step 1 vs LocalComm's, relative
+MC_PARITY = (4, 2, 512)            # float32 EP (1, 4) gate: depth, B, T
+MC_PREFILL = (2, 4096)             # B, T of the full-depth bf16 prefills
+MC_REPS = 3                        # full-depth prefills per rank
+# phase 23 at the configs' sizes; the tests run it over gloo at toy ones
+MC_FULL = dict(device=DEVICE, nodes=20_000, timing_nodes=ENGINE_TIMING_NODES,
+               steps=RANK_STEPS, lm="full", parity=MC_PARITY,
+               prefill=MC_PREFILL, reps=MC_REPS)
+
+
+def _engine_over(job, comm):
+    """The job's engine Trainer with its partitions over ``comm`` (None:
+    every partition in this process), and the job's views."""
+    from repro_torch import api
+    from repro_torch.core.engine import HybridParallelEngine
+    from repro_torch.core.partition import build_partitions
+    from repro_torch.core.trainer import Trainer
+    g, model, opt, views, *_ = api._build(job)
+    sg = build_partitions(g, job.engine_partitions,
+                          method=job.partition_method,
+                          gcn_norm=job.model == "gcn")
+    return Trainer(HybridParallelEngine(model, sg, comm=comm,
+                                        device=job.device), opt), views
+
+
+def _world1_rank(rank: int) -> dict:
+    """Phase 22 in its one rank (NCCL, world 1, P=4 in this process):
+    the engine Trainer over a ProcessGroupComm against phase 15's
+    LocalComm fit, and reduced Mixtral's EP (1, 4) prefill over the
+    group against the LocalComm mesh's. Returns the NCCL paths' kernel
+    launches."""
+    import torch
+    from repro_torch.arch import build_model
+    from repro_torch.config import get_arch_config
+    from repro_torch.core.comm import ProcessGroupComm
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import ExpertMesh
+    from repro_torch.launch.serve_gnn import resolve_graph
+    g = resolve_graph("alipay_like", "gat_e", seed=0)
+    job = _engine_job("gnn_gat_e_alipay", "global", g)
+    local, views = _engine_over(job, None)
+    want = (local.fit(views, steps=RANK_STEPS)["losses"], _params(local))
+    ops.reset_launches()
+    with _no_plain_versions():
+        tr, views = _engine_over(job, ProcessGroupComm(P=ENGINE_P))
+        got = (tr.fit(views, steps=RANK_STEPS)["losses"], _params(tr))
+    counts = dict(ops.launches)
+    tr.assert_compiled_once()
+    caps = tr.trace_counts["train_step"]
+    _bitwise(f"GAT-E {g.num_nodes} nodes, global, P={ENGINE_P}: NCCL world "
+             f"1 vs LocalComm, {RANK_STEPS} steps", got, want)
+    missing = [k for k in ENGINE_KERNELS if counts[k] <= 0]
+    if missing or (tr.graphs_on and caps != 1):
+        raise AssertionError(f"NCCL engine: kernels {missing} not "
+                             f"launched, or {caps} captures")
+    cfg = get_arch_config("mixtral-8x7b").reduced().replace(dtype="float32")
+    model = build_model(cfg, torch.Generator(device=DEVICE).manual_seed(22),
+                        moe_impl="ep", mesh=ExpertMesh(1, 4)
+                        ).requires_grad_(False)
+    toks = torch.randint(0, cfg.vocab_size, (2, 64),
+                         generator=torch.Generator().manual_seed(22))
+    want_l, want_d = _ep_prefill(model, toks)
+    flash = ops.launches["flash_attention"]
+    _moe_as(model, "ep", ExpertMesh(1, 4, ProcessGroupComm(P=4)))
+    got_l, got_d = _ep_prefill(model, toks)
+    counts["flash_attention"] += ops.launches["flash_attention"] - flash
+    same = torch.equal(got_l, want_l)
+    print(f"    reduced {cfg.name} (f32, {cfg.num_layers} layers), EP (1, 4) "
+          f"over NCCL world 1 vs the LocalComm mesh: last logits "
+          f"{'bitwise equal' if same else 'DIFFER'}; pairs dropped "
+          f"{got_d[0]} of {got_d[1]} ({want_d[0]} of {want_d[1]})",
+          flush=True)
+    if not same or got_d != want_d:
+        raise AssertionError("EP over NCCL at world 1 differs from the "
+                             "LocalComm mesh")
+    print("    ranks row " + json.dumps({
+        "phase": 22, "world": 1, "P": ENGINE_P, "backend": "nccl",
+        "graphs": tr.graphs_on, "captures": caps,
+        "launches": {k: v for k, v in counts.items() if v}}), flush=True)
+    return counts
+
+
+def world1_phase() -> dict:
+    """Phase 22: NCCL at world 1 in a rank that the launcher starts (one
+    card); returns the kernel launches of its NCCL paths."""
+    from repro_torch.launch.ranks import launch
+    t0 = time.perf_counter()
+    counts, = launch(_world1_rank, 1, device=DEVICE)
+    print(f"  phase 22: {time.perf_counter() - t0:.1f}s, the rank's start "
+          f"included; phase 23 (four cards) runs only as `python3 "
+          f"chip_smoke.py --only multicard`", flush=True)
+    return counts
+
+
+def _profile_ms(fn, device) -> dict:
+    """Device ms of ``fn()`` from a ``torch.profiler`` trace: every
+    kernel's summed (``busy_ms``), the NCCL kernels' (``nccl_ms``: the
+    exchanges and gathers, which spin on their own stream until the
+    peers arrive, so the two overlap and can exceed the wall time), the
+    rest (``compute_ms``) and its six largest ops; None on the CPU."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    if torch.device(device).type != "cuda":
+        return {"busy_ms": None, "nccl_ms": None, "compute_ms": None,
+                "largest": []}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages()
+          if e.device_type == DeviceType.CUDA and e.self_device_time_total]
+    busy = sum(e.self_device_time_total for e in ev) / 1e3
+    nccl = sum(e.self_device_time_total for e in ev
+               if "nccl" in e.key.lower()) / 1e3
+    largest = sorted(((e.self_device_time_total / 1e3, e.count, e.key[:80])
+                      for e in ev if "nccl" not in e.key.lower()),
+                     reverse=True)[:6]
+    return {"busy_ms": busy, "nccl_ms": nccl, "compute_ms": busy - nccl,
+            "largest": largest}
+
+
+def _mc_engine(rank: int, spec: dict) -> dict:
+    """Phase 23 (a): GAT-E at the config's widths on alipay_like, P=4,
+    ``P // world`` partitions a rank, through ``api.make_trainer``: step
+    1 (rank 0 also runs it with every partition on its card), then one
+    Trainer over global -> mini -> cluster, and a second fit."""
+    import dataclasses
+    import torch.distributed as dist
+    from repro_torch import api
+    from repro_torch.graph import make_dataset
+    from repro_torch.kernels import ops
+    dev, steps, world = spec["device"], spec["steps"], dist.get_world_size()
+    g = make_dataset("alipay_like", seed=0, num_nodes=spec["nodes"])
+    job = _engine_job("gnn_gat_e_alipay", "global", g, device=dev)
+    strategies = ("global", "mini", "cluster")
+    streams = _engine_streams(job, strategies)
+    view0 = streams[0].build(0)
+    res = {}
+    if rank == 0:
+        local, _ = _engine_over(job, None)
+        res["local_step1"] = _step1(local.engine, view0)
+        del local
+    dist.barrier()
+    ranked = dataclasses.replace(job, ranks=world)
+    trainer, *_ = api.make_trainer(ranked)
+    res["step1"] = _step1(trainer.engine, view0)
+    ops.reset_launches()
+    guard = (_no_plain_versions() if dev == "cuda"
+             else contextlib.nullcontext())
+    with guard:
+        losses, walls = _fit_streams(trainer, streams, steps)
+    res["launches"] = dict(ops.launches)
+    trainer.assert_compiled_once()
+    res.update(losses=losses, graphs=trainer.graphs_on,
+               captures=trainer.trace_counts["train_step"],
+               first_fit_steps_per_s=[steps / w for w in walls])
+    params = _params(trainer)
+    _, walls = _fit_streams(trainer, streams, steps)
+    res["steps_per_s"] = [steps / w for w in walls]
+    again, *_ = api.make_trainer(ranked)
+    l2, _ = _fit_streams(again, streams, steps)
+    p2 = _params(again)
+    res["repeat_bitwise"] = l2 == losses and all(
+        bool((p2[k] == params[k]).all()) for k in params)
+    return res
+
+
+def _mc_engine_timing(rank: int, spec: dict) -> dict:
+    """Phase 23 (b): GAT-E global on the large alipay_like graph, P=4
+    over the ranks: steps/s under replay, launches a step, bytes sent a
+    step, the profiled busy and NCCL ms a step and the busy share."""
+    import dataclasses
+    import torch.distributed as dist
+    from repro_torch import api
+    from repro_torch.core.strategies import shard_view
+    from repro_torch.graph import make_dataset
+    from repro_torch.kernels import ops
+    dev, steps = spec["device"], spec["steps"]
+    t0 = time.perf_counter()
+    g = make_dataset("alipay_like", seed=0, num_nodes=spec["timing_nodes"])
+    job = dataclasses.replace(
+        _engine_job("gnn_gat_e_alipay", "global", g, device=dev),
+        ranks=dist.get_world_size())
+    trainer, views, *_ = api.make_trainer(job)
+    setup = time.perf_counter() - t0
+    ops.reset_launches()
+    losses, first = _fit_streams(trainer, [views], steps)
+    launches = {k: v / steps for k, v in ops.launches.items() if v}
+    _, walls = _fit_streams(trainer, [views], steps)
+    step_ms = 1e3 * walls[0] / steps
+    prof_steps = 5
+    prof = _profile_ms(lambda: trainer.fit(views, steps=prof_steps), dev)
+    per = {k: (v / prof_steps if v is not None else None)
+           for k, v in prof.items() if k != "largest"}
+    staged = trainer.engine.stage_view(shard_view(
+        trainer.plan, views.build(0)))
+    return {"setup_s": setup, "losses": losses,
+            "first_fit_steps_per_s": steps / first[0],
+            "steps_per_s": steps / walls[0], "step_ms": step_ms,
+            "launches_per_step": launches,
+            "busy_ms_per_step": per["busy_ms"],
+            "nccl_ms_per_step": per["nccl_ms"],
+            "compute_ms_per_step": per["compute_ms"],
+            "busy_share": (per["compute_ms"] / step_ms
+                           if per["compute_ms"] is not None else None),
+            "largest": [(ms / prof_steps, n / prof_steps, key)
+                        for ms, n, key in prof["largest"]],
+            "bytes_sent_per_step": _exchange_counts(
+                trainer, staged)["bytes_sent"],
+            "graphs": trainer.graphs_on,
+            "captures": trainer.trace_counts["train_step"]}
+
+
+def _mc_mixtral(rank: int, spec: dict) -> dict:
+    """Phase 23 (c): Mixtral 8x7B at full width under EP (1, world), one
+    model rank a card (``make_host_mesh``): float32 at the parity depth
+    over the group, and rank 0's LocalComm (1, world) mesh on its card;
+    then bf16 at full depth, the timed prefills, a profile and the
+    decode step the reference refuses."""
+    import dataclasses
+    import torch
+    import torch.distributed as dist
+    from repro_torch.arch import build_model
+    from repro_torch.config import get_arch_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import ExpertMesh, make_host_mesh
+    dev, world = spec["device"], dist.get_world_size()
+    cfg = get_arch_config("mixtral-8x7b")
+    if spec["lm"] != "full":
+        cfg = cfg.reduced()
+    mesh = make_host_mesh(world)
+    res = {"mesh": [mesh.data, mesh.model, mesh.comm.count]}
+    depth, B, T = spec["parity"]
+    f32 = cfg.replace(dtype="float32", num_layers=depth)
+    toks = torch.randint(0, cfg.vocab_size, (B, T),
+                         generator=torch.Generator().manual_seed(23))
+
+    def f32_model(m):
+        return build_model(f32, torch.Generator(device=dev).manual_seed(23),
+                           moe_impl="ep", mesh=m).requires_grad_(False)
+
+    model = f32_model(mesh)
+    res["f32"] = _ep_prefill(model, toks)
+    del model
+    _free_on(dev)
+    if rank == 0:
+        model = f32_model(ExpertMesh(1, world))
+        res["f32_local"] = _ep_prefill(model, toks)
+        del model
+        _free_on(dev)
+    dist.barrier()
+
+    t0 = time.perf_counter()
+    model = build_model(cfg, torch.Generator(device=dev).manual_seed(0),
+                        moe_impl="ep", mesh=mesh, rolling_window_decode=True
+                        ).requires_grad_(False)
+    _sync(dev)
+    res["build_s"] = time.perf_counter() - t0
+    res["layers"] = cfg.num_layers
+    res["held_gb"] = sum(p.numel() * p.element_size()
+                         for p in model.parameters()) / 1e9
+    B, T = spec["prefill"]
+    toks = torch.randint(0, cfg.vocab_size, (B, T),
+                         generator=torch.Generator().manual_seed(24)
+                         ).to(dev)
+    _, res["dropped"] = _ep_prefill(model, toks)      # warm-up
+    if dev == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    outs = []
+    dist.barrier()
+    _sync(dev)
+    t0 = time.perf_counter()
+    for _ in range(spec["reps"]):
+        outs.append(model.prefill({"tokens": toks}, cache_len=T)[0])
+    _sync(dev)
+    res["ms"] = 1e3 * (time.perf_counter() - t0) / spec["reps"]
+    res["flash_per_prefill"] = ops.launches["flash_attention"] / spec["reps"]
+    res["launches"] = dict(ops.launches)
+    res["finite"] = all(bool(torch.isfinite(o).all()) for o in outs)
+    res["bitwise_repeats"] = sum(torch.equal(o, outs[0]) for o in outs)
+    res["logits"] = outs[0].float().cpu()
+    res["peak_gb"] = (torch.cuda.max_memory_allocated() / 1e9
+                      if dev == "cuda" else None)
+    res["profile"] = _profile_ms(
+        lambda: model.prefill({"tokens": toks}, cache_len=T), dev)
+    _, caches, idx = model.prefill({"tokens": toks[:, :8]}, cache_len=9)
+    try:
+        model.decode_step({"tokens": toks[:, 8:9]}, caches, idx)
+        res["decode"] = "no error"
+    except ValueError as e:
+        res["decode"] = f"ValueError: {e}"
+    del model, caches, outs
+    _free_on(dev)
+    return res
+
+
+def _free_on(device) -> None:
+    import torch
+    if torch.device(device).type == "cuda":
+        _free()
+
+
+def _multicard_rank(rank: int, spec: dict) -> dict:
+    """One of phase 23's ranks: (a), (b) and (c) in turn, each raising on
+    its own failures; the checks across ranks are the parent's."""
+    import os
+    t0 = time.perf_counter()
+    out = {"engine": _mc_engine(rank, spec)}
+    out["timing"] = _mc_engine_timing(rank, spec)
+    out["mixtral"] = _mc_mixtral(rank, spec)
+    out["seconds"] = time.perf_counter() - t0
+    out["pid_cores"] = len(os.sched_getaffinity(0))
+    return out
+
+
+def _multicard_checks(ranks: list, spec: dict, label: str) -> dict:
+    """Phase 23's gates across the ranks, and its rows; returns the
+    launches summed over the cards."""
+    import os
+    import torch
+    world = len(ranks)
+    eng = [r["engine"] for r in ranks]
+    local_loss, local_grads = eng[0]["local_step1"]
+    for r, e in enumerate(eng):
+        loss, grads = e["step1"]
+        l_err = abs(loss - local_loss) / max(1.0, abs(local_loss))
+        g_err = _rel_grads(grads, local_grads)
+        print(f"  rank {r}: step 1 vs LocalComm P={ENGINE_P} on card 0: "
+              f"loss rel err {l_err:.3e}, gradients max rel err "
+              f"{g_err:.3e} (limit {RANK_TOL}); captures {e['captures']} "
+              f"(graphs {e['graphs']}); a second fit "
+              f"{'bitwise equal' if e['repeat_bitwise'] else 'DIFFERS'}")
+        if max(l_err, g_err) > RANK_TOL or not e["repeat_bitwise"]:
+            raise AssertionError(f"rank {r}: step 1 {l_err:.3e} / "
+                                 f"{g_err:.3e}, repeat {e['repeat_bitwise']}")
+        if e["losses"] != eng[0]["losses"]:
+            raise AssertionError(f"rank {r}'s losses differ from rank 0's")
+        if e["graphs"] and e["captures"] != 1:
+            raise AssertionError(f"rank {r}: {e['captures']} captures")
+        if spec["device"] == "cuda":
+            missing = [k for k in ENGINE_KERNELS if e["launches"][k] <= 0]
+            if missing:
+                raise AssertionError(f"rank {r}: {missing} not launched")
+    steps = 3 * spec["steps"]
+    print(f"  GAT-E {spec['nodes']} nodes, P={ENGINE_P} over {world} ranks, "
+          f"global -> mini -> cluster: {steps} losses bitwise equal on "
+          f"every rank; loss {eng[0]['losses'][0]:.5f} -> "
+          f"{eng[0]['losses'][-1]:.5f}")
+    print("  engine row " + json.dumps({
+        "phase": 23, "run": f"gat_e {spec['nodes']} nodes P={ENGINE_P} "
+        f"over {world} cards", "P": ENGINE_P, "ranks": world, "card": label,
+        "strategies": ["global", "mini", "cluster"],
+        "steps_per_s_replay": eng[0]["steps_per_s"],
+        "first_fit_steps_per_s": eng[0]["first_fit_steps_per_s"],
+        "graphs": eng[0]["graphs"],
+        "launches_per_card": [
+            {k: v for k, v in e["launches"].items() if v} for e in eng]}),
+        flush=True)
+    tim = [r["timing"] for r in ranks]
+    if any(t["losses"] != tim[0]["losses"] for t in tim):
+        raise AssertionError("200k: the ranks' losses differ")
+    print("  engine row " + json.dumps({
+        "phase": 23, "run": f"gat_e {spec['timing_nodes']} nodes "
+        f"P={ENGINE_P} over {world} cards", "P": ENGINE_P, "ranks": world,
+        "card": label, "strategies": ["global"],
+        "host_cores": os.cpu_count(),
+        "rank_cores": [r["pid_cores"] for r in ranks],
+        "steps_per_s_replay": tim[0]["steps_per_s"],
+        "first_fit_steps_per_s_replay": tim[0]["first_fit_steps_per_s"],
+        "step_ms": [t["step_ms"] for t in tim],
+        "busy_ms_per_step_all_streams": [t["busy_ms_per_step"] for t in tim],
+        "compute_ms_per_step": [t["compute_ms_per_step"] for t in tim],
+        "busy_share": [t["busy_share"] for t in tim],
+        "exchange_device_ms_per_step": [t["nccl_ms_per_step"] for t in tim],
+        "bytes_sent_per_step_per_card": [t["bytes_sent_per_step"]
+                                         for t in tim],
+        "launches_per_step": tim[0]["launches_per_step"],
+        "setup_s": [t["setup_s"] for t in tim],
+        "graphs": tim[0]["graphs"],
+        "captures": [t["captures"] for t in tim]}), flush=True)
+    _print_largest("200k step, rank 0, ms a step", tim[0]["largest"])
+    lm = [r["mixtral"] for r in ranks]
+    got, want = lm[0]["f32"], lm[0]["f32_local"]
+    drops = [sum(m["f32"][1][i] for m in lm) for i in (0, 1)]
+    err = _rel(got[0], want[0])
+    same = torch.equal(got[0], want[0])
+    alike = all(torch.equal(m["f32"][0], got[0]) for m in lm)
+    depth, B, T = spec["parity"]
+    print(f"  f32 Mixtral depth {depth}, B {B}, T {T}: EP (1, {world}) over "
+          f"{world} NCCL ranks vs LocalComm (1, {world}) on card 0: last "
+          f"logits {'bitwise equal' if same else f'max diff {err:.3e}'} of "
+          f"max|logit| (limit {LM_CPU}); ranks alike {alike}; pairs "
+          f"dropped {drops[0]} of {drops[1]} over the ranks, "
+          f"{want[1][0]} of {want[1][1]} on card 0")
+    if err > LM_CPU or drops != list(want[1]) or not alike:
+        raise AssertionError(f"EP over NCCL vs LocalComm: {err:.3e}, drops "
+                             f"{drops} vs {want[1]}, alike {alike}")
+    m0 = lm[0]
+    B, T = spec["prefill"]
+    drops = [sum(m["dropped"][i] for m in lm) for i in (0, 1)]
+    for r, m in enumerate(lm):
+        ok = (m["finite"] and m["bitwise_repeats"] >= 2
+              and m["decode"].startswith("ValueError")
+              and torch.equal(m["logits"], m0["logits"]))
+        print(f"  rank {r}: {m['layers']} layers, {m['held_gb']:.2f} GB "
+              f"held (made in {m['build_s']:.1f}s), peak "
+              f"{m['peak_gb'] or 0:.1f} GB; {spec['reps']} prefills B {B} "
+              f"T {T}, {m['ms']:.1f} ms each, {m['bitwise_repeats']} "
+              f"bitwise equal to the first, finite {m['finite']}; "
+              f"flash_attention {m['flash_per_prefill']:.0f} a prefill; "
+              f"decode over {world} model ranks: {m['decode'][:60]}")
+        if not ok:
+            raise AssertionError(f"rank {r}: full-depth EP checks failed")
+        if spec["device"] == "cuda" and m["flash_per_prefill"] != m["layers"]:
+            raise AssertionError(f"rank {r}: {m['flash_per_prefill']} "
+                                 "flash_attention launches a prefill")
+    prof = m0["profile"]
+    print("  ep row " + json.dumps({
+        "phase": 23, "run": f"prefill EP (1, {world}) over {world} cards",
+        "layers": m0["layers"], "B": B, "T": T, "card": label,
+        "ms": m0["ms"], "ms_per_rank": [m["ms"] for m in lm],
+        "tokens_per_s": 1e3 * B * T / m0["ms"],
+        "dropped_share": drops[0] / drops[1] if drops[1] else 0.0,
+        "peak_gb_per_card": [m["peak_gb"] for m in lm],
+        "held_gb_per_card": [m["held_gb"] for m in lm],
+        "flash_attention_launches": m0["flash_per_prefill"],
+        "device_busy_ms": prof["busy_ms"], "nccl_ms": prof["nccl_ms"],
+        "compute_ms": prof["compute_ms"],
+        "nccl_share": (prof["nccl_ms"] / prof["busy_ms"]
+                       if prof["busy_ms"] else None)}), flush=True)
+    _print_largest("full-depth prefill, rank 0, ms", prof["largest"])
+    total = {k: 0 for k in KERNELS}
+    for r in ranks:
+        for part in (r["engine"]["launches"], r["mixtral"]["launches"]):
+            for k in total:
+                total[k] += part.get(k, 0)
+    return total
+
+
+def _print_largest(what: str, largest: list) -> None:
+    """The profile's largest ops other than NCCL's."""
+    if largest:
+        print(f"  profile, {what} (NCCL aside), largest:")
+    for ms, n, key in largest:
+        print(f"      {ms:.4f} ms over {n:.0f} calls  {key}")
+
+
+def multicard_phase(label: str, spec: dict = MC_FULL) -> dict:
+    """Phase 23: four cards, four NCCL ranks (:mod:`repro_torch.launch.
+    ranks`); raises on fewer cards. Returns the main paths' launches,
+    summed over the cards."""
+    import torch
+    from repro_torch.launch.ranks import launch
+    if spec["device"] == "cuda":
+        have = torch.cuda.device_count()
+        if have < MULTICARD:
+            raise RuntimeError(f"phase 23 needs {MULTICARD} cards, this "
+                               f"host has {have}")
+        for i, card in enumerate(card_labels()):
+            print(f"  card {i}: {card}")
+    import os
+    print(f"  host: {os.cpu_count()} CPU cores", flush=True)
+    t0 = time.perf_counter()
+    ranks = launch(_multicard_rank, MULTICARD, args=(spec,),
+                   device=spec["device"])
+    got = _multicard_checks(ranks, spec, label)
+    took = ", ".join(f"{r['seconds']:.0f}" for r in ranks)
+    print(f"  phase 23: {time.perf_counter() - t0:.1f}s (the ranks' {took} "
+          "s)", flush=True)
+    return got
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only",
                     choices=["kernels", "gnn-times", "lm-times", "lm",
                              "runtime", "graphs", "engine", "examples",
-                             "analysis", "ep"],
+                             "analysis", "ep", "ranks", "multicard"],
                     default=None,
                     help="kernels: stop after phase 3 (build and check the "
                     "kernels); gnn-times: phases 1-3 and the GNN kernels' "
@@ -4568,7 +5097,9 @@ def main(argv=None) -> int:
                     "phases "
                     "1-2 and 11; graphs: phases 1-2 and 14; engine: "
                     "phases 1-2 and 15; examples: phases 1-2 and 16; "
-                    "analysis: phases 1-2 and 20; ep: phases 1-2 and 21")
+                    "analysis: phases 1-2 and 20; ep: phases 1-2 and 21; "
+                    "ranks: phases 1-2 and 22; multicard: phases 1-2 and "
+                    "23, on four cards")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -4618,6 +5149,14 @@ def main(argv=None) -> int:
     if args.only == "ep":
         phase("21. Mixtral 8x7B's MoE under expert parallelism")
         ep_phase(label)
+        return 0
+    if args.only == "ranks":
+        phase("22. NCCL at world 1: one rank holding P=4")
+        world1_phase()
+        return 0
+    if args.only == "multicard":
+        phase("23. four cards, four NCCL ranks")
+        multicard_phase(label)
         return 0
 
     phase("3. kernels vs plain, on the card")
@@ -4706,6 +5245,8 @@ def main(argv=None) -> int:
         count(got)
     phase("21. Mixtral 8x7B's MoE under expert parallelism")
     count(ep_phase(label))
+    phase("22. NCCL at world 1: one rank holding P=4")
+    count(world1_phase())
     phase("20. analysis on the card")
     analysis_phase(label)
     phase("done")

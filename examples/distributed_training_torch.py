@@ -10,13 +10,18 @@ train step serves global-, mini- and cluster-batch alike while builder
 threads (or sampler processes) build, shard and stage upcoming views —
 deterministically, since view i depends only on (seed, i). Every
 partition runs in this process on one device
-(:class:`~repro_torch.core.comm.LocalComm`); on the card the step is
-captured once, and ``assert_compiled_once()`` certifies that no
-strategy switch captured it again.
+(:class:`~repro_torch.core.comm.LocalComm`), or, with ``--ranks R``,
+``workers // R`` of them in each of R processes, one a card (NCCL;
+gloo with ``--device cpu``; :mod:`repro_torch.launch.ranks`), rank 0
+printing; on the card the step is captured once, and
+``assert_compiled_once()`` certifies that no strategy switch captured it
+again.
 
     PYTHONPATH=src python examples/distributed_training_torch.py
     PYTHONPATH=src python examples/distributed_training_torch.py \
         --device cpu --steps 6 --nodes 800 --workers 4
+    PYTHONPATH=src python examples/distributed_training_torch.py \
+        --ranks 4       # P=8 over four cards, two partitions each
 """
 import argparse
 import time
@@ -25,6 +30,7 @@ import torch
 
 from repro_torch.config import GNNConfig
 from repro_torch.core.clustering import label_propagation_clusters
+from repro_torch.core.comm import ProcessGroupComm, check_ranks
 from repro_torch.core.engine import HybridParallelEngine
 from repro_torch.core.partition import build_partitions, partition_stats
 from repro_torch.core.strategies import global_batch_view, strategy_views
@@ -40,7 +46,12 @@ def parse_args(argv=None):
     ap.add_argument("--steps", type=int, default=200)
     ap.add_argument("--nodes", type=int, default=8000)
     ap.add_argument("--workers", type=int, default=8,
-                    help="partitions, all in this process on one device")
+                    help="partitions, all in this process on one device "
+                    "unless --ranks spreads them")
+    ap.add_argument("--ranks", type=int, default=1,
+                    help="processes, one a card (gloo processes with "
+                    "--device cpu), each holding workers // ranks "
+                    "partitions")
     ap.add_argument("--partition", default="1d_src",
                     choices=["1d_src", "1d_dst", "vertex_cut"])
     ap.add_argument("--backend", default="csc",
@@ -56,10 +67,30 @@ def parse_args(argv=None):
 
 def main(argv=None) -> dict:
     """Train over the three strategies; return the per-strategy losses,
-    the final parameters (on the CPU) and the trainer."""
+    the final parameters (on the CPU) and the trainer (rank 0's losses
+    and parameters, and no trainer, over several ranks)."""
     args = parse_args(argv)
+    if args.ranks == 1:
+        return run(args)
+    from repro_torch.launch.ranks import launch
+    check_ranks(args.workers, args.ranks)
+    return launch(_rank, args.ranks, args=(argv,), device=args.device)[0]
+
+
+def _rank(rank: int, argv) -> dict:
+    """One of ``--ranks`` processes: :func:`run` on its partitions."""
+    args = parse_args(argv)
+    out = run(args, ProcessGroupComm(P=args.workers))
+    return {"losses": out["losses"], "params": out["params"],
+            "trainer": None}
+
+
+def run(args, comm=None) -> dict:
+    """:func:`main`'s fit, over ``comm`` (every partition in this
+    process when None); only rank 0 prints."""
+    say = print if comm is None or comm.rank == 0 else (lambda *a: None)
     g = make_dataset("alipay_like", num_nodes=args.nodes, seed=0)
-    print(f"graph: {g.num_nodes} nodes, {g.num_edges} edges, "
+    say(f"graph: {g.num_nodes} nodes, {g.num_edges} edges, "
           f"{g.edge_features.shape[1]} edge attrs, "
           f"max degree {g.in_degree().max()}")
 
@@ -71,8 +102,8 @@ def main(argv=None) -> dict:
 
     sg = build_partitions(g, args.workers, method=args.partition,
                           gcn_norm=False)
-    print("partition stats:", partition_stats(sg))
-    engine = HybridParallelEngine(model, sg, device=args.device)
+    say("partition stats:", partition_stats(sg))
+    engine = HybridParallelEngine(model, sg, comm=comm, device=args.device)
     trainer = Trainer(engine, adam(5e-3),
                       fault_policy=fault_policy_from(args))
 
@@ -107,11 +138,11 @@ def main(argv=None) -> dict:
         # distributed inference through the same engine (paper §4.3)
         acc = trainer.evaluate(eval_view)
         losses[name] = out["losses"]
-        print(f"[{name:8s}] {steps_per} steps, {wall:.1f}s "
+        say(f"[{name:8s}] {steps_per} steps, {wall:.1f}s "
               f"({wall / steps_per * 1e3:.0f} ms/step), "
               f"loss {out['losses'][-1]:.4f}, test acc {acc:.4f}")
     trainer.assert_compiled_once()
-    print("done: one engine, three strategies, one train step "
+    say("done: one engine, three strategies, one train step "
           f"(captured {trainer.trace_counts['train_step']}x over "
           f"{trainer.step_num} steps, {trainer.device}).")
     return {"losses": losses, "trainer": trainer,

@@ -13,7 +13,11 @@ CompactTrainer` on ``job.device`` — the card unless the job says
 checkpoints; with ``engine_partitions > 0`` it runs the engine
 :class:`~repro_torch.core.trainer.Trainer` over that many partitions of
 the graph instead, all in this process on the job's device
-(:class:`~repro_torch.core.comm.LocalComm`).
+(:class:`~repro_torch.core.comm.LocalComm`), or, with ``ranks > 1``,
+``P // ranks`` of them in each of ``ranks`` processes, one a card (the
+counterpart of the reference's one shard per device): call ``train`` in
+every rank that :func:`repro_torch.launch.ranks.launch` starts, as
+``python -m repro_torch.launch.train gnn --ranks R`` does.
 """
 from __future__ import annotations
 
@@ -54,6 +58,7 @@ class TrainJob:
     halo_hops: int = 0
     neighbor_cap: int = 0
     engine_partitions: int = 0         # >0: the distributed engine
+    ranks: int = 1                     # processes it spans (one a card)
     partition_method: str = "1d_src"   # 1d_src | 1d_dst | vertex_cut
     prefetch_workers: Optional[int] = None
     prefetch_mode: str = "thread"      # thread | process (sampler procs)
@@ -132,9 +137,33 @@ def _build(job: TrainJob):
     return g, model, opt, views, eval_view, eval_mask
 
 
+def _rank_comm(job: TrainJob):
+    """The job's communicator: None (a ``LocalComm`` of every partition)
+    at ``ranks == 1``; else a ``ProcessGroupComm`` over this process's
+    group, which must have ``ranks`` processes, each holding ``P //
+    ranks`` partitions."""
+    if job.ranks == 1:
+        return None
+    import torch.distributed as dist
+    from repro_torch.core.comm import ProcessGroupComm, check_ranks
+    if not job.engine_partitions:
+        raise ValueError(f"ranks={job.ranks} spreads the engine's "
+                         "partitions: set engine_partitions")
+    check_ranks(job.engine_partitions, job.ranks)
+    if not (dist.is_available() and dist.is_initialized()
+            and dist.get_world_size() == job.ranks):
+        raise RuntimeError(
+            f"TrainJob(ranks={job.ranks}) runs in each of {job.ranks} "
+            "processes of a torch.distributed group: start them with "
+            "repro_torch.launch.ranks.launch (as `python -m "
+            "repro_torch.launch.train gnn --ranks R` does)")
+    return ProcessGroupComm(P=job.engine_partitions)
+
+
 def make_trainer(job: TrainJob):
     """``(trainer, views, eval_view, eval_mask, graph, model)`` for the
     job, without running it; ``train()`` is this plus ``fit``."""
+    comm = _rank_comm(job)
     g, model, opt, views, eval_view, eval_mask = _build(job)
     if job.engine_partitions:
         from repro_torch.core.engine import HybridParallelEngine
@@ -143,7 +172,8 @@ def make_trainer(job: TrainJob):
         sg = build_partitions(g, job.engine_partitions,
                               method=job.partition_method,
                               gcn_norm=job.model == "gcn")
-        trainer = Trainer(HybridParallelEngine(model, sg, device=job.device),
+        trainer = Trainer(HybridParallelEngine(model, sg, comm=comm,
+                                               device=job.device),
                           opt, fault_policy=job.fault_policy)
     else:
         from repro_torch.core.trainer import CompactTrainer
@@ -162,11 +192,14 @@ def train(job: TrainJob, log=None) -> TrainResult:
     ``fit`` between steps after a signal handler's request) saves a
     checkpoint into ``job.checkpoint_dir`` on its way out. ``log``
     takes ``fit``'s progress lines (default: the ``repro_torch.api``
-    logger's ``info``, as the reference's ``api.py:199``)."""
+    logger's ``info``, as the reference's ``api.py:199``; over several
+    ranks, rank 0's only)."""
     from repro_torch.runtime.faults import TrainingInterrupted
     from repro_torch.utils import get_logger
-    log = log or get_logger("api").info
     trainer, views, eval_view, eval_mask, g, model = make_trainer(job)
+    if log is None:
+        rank = trainer.engine.comm.rank if job.engine_partitions else 0
+        log = get_logger("api").info if rank == 0 else _quiet
     t0 = time.perf_counter()
     try:
         out = trainer.fit(views, steps=job.steps, eval_every=job.eval_every,
@@ -201,6 +234,10 @@ def train(job: TrainJob, log=None) -> TrainResult:
     return TrainResult(params=params, model=model, graph=g,
                        history=history, final_acc=final_acc, wall_s=wall,
                        gcn_norm=job.model == "gcn", trainer=trainer)
+
+
+def _quiet(*_args) -> None:
+    """The progress log of a rank other than 0."""
 
 
 def infer(result: TrainResult,

@@ -19,7 +19,8 @@ import torch
 
 from repro_torch.arch.mamba import (mamba_apply, mamba_init,
                                     mamba_init_cache)
-from repro_torch.arch.moe import moe_ffn_dense, moe_ffn_ep, moe_init
+from repro_torch.arch.moe import (moe_ffn_dense, moe_ffn_ep,
+                                  moe_ffn_ep_replicated, moe_init)
 from repro_torch.arch.rwkv6_block import (rwkv_channel_apply,
                                           rwkv_channel_init, rwkv_init_cache,
                                           rwkv_time_apply, rwkv_time_init)
@@ -48,13 +49,15 @@ def norm_apply(cfg: ArchConfig, p, x: torch.Tensor) -> torch.Tensor:
 
 def block_init(gen: torch.Generator, cfg: ArchConfig, kind: str,
                dtype, cross_attention: bool = False,
-               use_moe: bool = True) -> dict:
+               use_moe: bool = True, experts=None) -> dict:
     """The weights of one block of ``kind`` ("attn" | "mamba" | "rwkv"),
     drawn from ``gen`` on its device, as a dict with the reference's
     names. ``cross_attention`` adds ``norm_x`` and ``xattn`` to an
     attention block (Whisper's decoder). ``use_moe``: whether THIS
     layer's FFN is MoE when the config has one (the reference's
-    ``moe_every`` rule picks it per layer)."""
+    ``moe_every`` rule picks it per layer); ``experts`` (lo, hi) keeps
+    only those experts of its stacks (:func:`~repro_torch.arch.moe.
+    moe_init`)."""
     if kind not in KINDS:
         raise ValueError(kind)
     p: dict = {"norm1": _norm_init(cfg, dtype, gen.device)}
@@ -76,7 +79,7 @@ def block_init(gen: torch.Generator, cfg: ArchConfig, kind: str,
         p["norm2"] = _norm_init(cfg, dtype, gen.device)
         if cfg.moe is not None and use_moe:
             p["ffn"] = moe_init(gen, cfg.d_model, cfg.d_ff,
-                                cfg.moe.num_experts, dtype)
+                                cfg.moe.num_experts, dtype, experts)
         elif kind == "attn" and cfg.norm_type == "layernorm":
             p["ffn"] = gelu_mlp_init(gen, cfg.d_model, cfg.d_ff, dtype)
         else:
@@ -123,10 +126,13 @@ def _ffn_apply(p_ffn, x: torch.Tensor, cfg: ArchConfig, moe_impl: str,
     """The block's FFN and its auxiliary loss (0 without MoE). The
     reference's rule (``repro/arch/blocks.py:_ffn_apply``): expert
     parallelism only when ``moe_impl == "ep"`` and a mesh is given,
-    with the batch split over its ``data`` axis; dense dispatch
-    otherwise."""
+    with the batch split over its ``data`` axis (and S over the model
+    ranks that other processes hold, when the mesh's communicator holds
+    fewer than all of them); dense dispatch otherwise."""
     if cfg.moe is not None and "router" in p_ffn:
         if moe_impl == "ep" and mesh is not None:
+            if mesh.comm.count != mesh.model:
+                return moe_ffn_ep_replicated(p_ffn, x, cfg.moe, mesh)
             return moe_ffn_ep(p_ffn, x, cfg.moe, mesh,
                               dp_axis="data")
         return moe_ffn_dense(p_ffn, x, cfg.moe)

@@ -32,6 +32,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.arch.blocks import (_norm_init, block_apply,
                                      block_cache_init, block_init,
                                      norm_apply)
+from repro_torch.arch.moe import expert_range
 from repro_torch.config import ArchConfig
 from repro_torch.nn.attention import left_pad_starts
 from repro_torch.nn.layers import ParamTree, _fan_in_init, embedding_init
@@ -66,9 +67,13 @@ class TransformerLM(nn.Module):
     MoE layers' expert-parallel dispatch over it in ``loss``,
     ``prefill`` and ``decode_step``, as the reference's
     ``build_model(cfg, moe_impl, mesh)``; without a mesh they run dense
-    dispatch. The mesh's communicator must hold every model rank in
-    this process (``LocalComm``): the model hands each MoE layer the
-    whole batch."""
+    dispatch. The mesh's communicator may hold every model rank in this
+    process (``LocalComm``), or fewer, one a process under the launcher
+    (:mod:`repro_torch.launch.ranks`): each process then holds only its
+    ranks' experts (drawn whole from ``gen`` and cut, bitwise a whole
+    model's), runs the dense part on the whole batch, and hands each MoE
+    layer its block of the sequence
+    (:func:`~repro_torch.arch.moe.moe_ffn_ep_replicated`)."""
 
     def __init__(self, cfg: ArchConfig, gen: Optional[torch.Generator] = None,
                  rolling_window_decode: bool = False,
@@ -77,11 +82,6 @@ class TransformerLM(nn.Module):
         if moe_impl not in ("dense", "ep"):
             raise ValueError(f"moe_impl must be 'dense' or 'ep', got "
                              f"{moe_impl!r}")
-        if mesh is not None and mesh.comm.count != mesh.model:
-            raise ValueError(
-                f"the model's mesh must hold its {mesh.model} model ranks "
-                f"in this process, its communicator holds "
-                f"{mesh.comm.count}")
         self.cfg = cfg
         self.moe_impl = moe_impl
         self.mesh = mesh
@@ -114,6 +114,12 @@ class TransformerLM(nn.Module):
                                           dt)}
         group_kinds, _ = self._group_structure()
         g = len(group_kinds)
+        experts = None          # every expert, unless other processes
+        mesh = self.mesh        # hold some of them
+        if (cfg.moe is not None and self.moe_impl == "ep"
+                and mesh is not None and mesh.comm.count != mesh.model):
+            experts = expert_range(cfg.moe.num_experts, mesh.model,
+                                   mesh.comm.start, mesh.comm.count)
         if cfg.moe is not None and cfg.moe_every > 1 and g % cfg.moe_every:
             # the reference's rule (repro/arch/model.py:94-106): the
             # group's slots share the MoE pattern, so its size is a
@@ -125,7 +131,7 @@ class TransformerLM(nn.Module):
             block_init(gen, cfg, kind, dt,
                        cross_attention=cfg.cross_attention,
                        use_moe=(cfg.moe_every <= 1 or (i % g) % cfg.moe_every
-                                == cfg.moe_every - 1))
+                                == cfg.moe_every - 1), experts=experts)
             for i, kind in enumerate(self.kinds)]
         if cfg.encoder_layers:
             params["encoder"] = [block_init(gen, cfg, "attn", dt)

@@ -15,10 +15,15 @@ communicator's ``all_to_all``. Tokens past an expert's capacity are
 dropped, earlier tokens first served, as in the reference, so the result
 equals dense dispatch only where nothing drops. Under ``LocalComm`` every
 rank lives in this process on one device (the exchange is a transpose);
-under ``ProcessGroupComm`` each process holds one model rank. The step
-has static shapes, no host sync and no atomic scatter: each kept
-(token, expert) pair owns one buffer slot, so dispatch and combine are
-gathers, and their backwards are gathers too.
+under ``ProcessGroupComm`` each process holds its own model ranks, one
+per card under the launcher (:mod:`repro_torch.launch.ranks`), and only
+their experts (``moe_init``'s ``experts``). The step has static shapes,
+no host sync and no atomic scatter: each kept (token, expert) pair owns
+one buffer slot, so dispatch and combine are gathers, and their
+backwards are gathers too. ``moe_ffn_ep_replicated`` is the model's
+call where the communicator holds fewer model ranks than the mesh has:
+every process runs the dense part on the whole batch, and hands the MoE
+only its block of the sequence.
 """
 from __future__ import annotations
 
@@ -33,20 +38,46 @@ from repro_torch.nn.layers import _fan_in_init
 
 
 def moe_init(gen: torch.Generator, d_model: int, d_ff: int,
-             num_experts: int, dtype) -> dict:
+             num_experts: int, dtype, experts=None) -> dict:
     """The router, float32 whatever ``dtype`` is (as the reference's), and
     the experts' SwiGLU weights ``(E, d_in, d_out)``. ``_fan_in_init``
     takes fan_in from ``shape[0]``, which for the expert stacks is E: the
-    reference draws them so, and the port copies it."""
+    reference draws them so, and the port copies it. ``experts`` (lo,
+    hi), from :func:`expert_range`, keeps experts ``lo:hi`` of each
+    stack: every stack is drawn whole from ``gen``, so the kept ones are
+    bitwise a whole model's, and the rest is dropped at once (one
+    stack's draw is the peak)."""
+    lo, hi = (0, num_experts) if experts is None else experts
+
+    def stack(shape):
+        w = _fan_in_init(gen, shape, dtype=dtype)
+        return w if (lo, hi) == (0, num_experts) else w[lo:hi].clone()
+
     return {
         "router": _fan_in_init(gen, (d_model, num_experts),
                                dtype=torch.float32),
-        "wi_gate": _fan_in_init(gen, (num_experts, d_model, d_ff),
-                                dtype=dtype),
-        "wi_up": _fan_in_init(gen, (num_experts, d_model, d_ff),
-                              dtype=dtype),
-        "wo": _fan_in_init(gen, (num_experts, d_ff, d_model), dtype=dtype),
+        "wi_gate": stack((num_experts, d_model, d_ff)),
+        "wi_up": stack((num_experts, d_model, d_ff)),
+        "wo": stack((num_experts, d_ff, d_model)),
     }
+
+
+def _per_device(E: int, M: int) -> int:
+    """Experts per model rank, ``E_pad // M`` with ``E_pad = max(E, M)``;
+    raises where the reference does (``E_pad`` not a multiple of M)."""
+    E_pad = max(E, M)
+    if E_pad % M != 0:
+        raise ValueError(f"expert count {E} must pad to a multiple of "
+                         f"the device count {M}")
+    return E_pad // M
+
+
+def expert_range(E: int, model: int, start: int, count: int) -> tuple:
+    """(lo, hi): the real experts (of ``E``) that model ranks ``start`` to
+    ``start + count`` of ``model`` own; the dead ones past ``E`` are
+    zeros made at the call (:func:`_expert_slice`)."""
+    per = _per_device(E, model)
+    return min(start * per, E), min((start + count) * per, E)
 
 
 def top_k_mask(probs: torch.Tensor, k: int) -> torch.Tensor:
@@ -223,11 +254,8 @@ def moe_ffn_ep(p, x: torch.Tensor, moe_cfg, mesh, dp_axis=None):
     comm = mesh.comm
     M, L = mesh.model, comm.count
     E = moe_cfg.num_experts
-    E_pad = max(E, M)
-    if E_pad % M != 0:
-        raise ValueError(f"expert count {E} must pad to a multiple of "
-                         f"the device count {M}")
-    per_dev = E_pad // M
+    per_dev = _per_device(E, M)
+    E_pad = per_dev * M
     Dp = mesh.data if dp_axis is not None else 1
     B, S, D = x.shape
     for name, n, ranks in (("batch", B, Dp), ("sequence", S, L)):
@@ -238,9 +266,10 @@ def moe_ffn_ep(p, x: torch.Tensor, moe_cfg, mesh, dp_axis=None):
                              "that split it")
 
     gates, frac, prob = _route(p, x, moe_cfg)            # the whole block
-    if L != M:          # one model rank per process: the global means
-        frac = comm.all_reduce(frac[None]) / M
-        prob = (comm.all_reduce(prob[None]) + prob - prob.detach()) / M
+    if L != M:          # M // L processes: the global means
+        frac = comm.all_reduce(frac[None]) / (M // L)
+        prob = (comm.all_reduce(prob[None]) + prob - prob.detach()) \
+            / (M // L)
     aux = E * torch.sum(frac * prob)
 
     b, s = B // Dp, S // L
@@ -285,7 +314,7 @@ def moe_ffn_ep(p, x: torch.Tensor, moe_cfg, mesh, dp_axis=None):
 
     # ---- this process's experts ----------------------------------------
     lo, hi = comm.start * per_dev, (comm.start + L) * per_dev
-    wg, wu, wo = (_expert_slice(p[k], E_pad, lo, hi)
+    wg, wu, wo = (_expert_slice(p[k], E, E_pad, lo, hi)
                   for k in ("wi_gate", "wi_up", "wo"))
     h = F.silu(torch.matmul(buf, wg))
     h = h * torch.matmul(buf, wu)
@@ -304,12 +333,118 @@ def moe_ffn_ep(p, x: torch.Tensor, moe_cfg, mesh, dp_axis=None):
     return out.to(x.dtype), aux
 
 
-def _expert_slice(w: torch.Tensor, E_pad: int, lo: int, hi: int):
-    """Experts ``lo:hi`` of the stack ``w`` (E, ...) padded with zero
-    (dead) experts to ``E_pad``; a view where no dead expert is in
-    range."""
-    E = w.shape[0]
+def _expert_slice(w: torch.Tensor, E: int, E_pad: int, lo: int, hi: int):
+    """Experts ``lo:hi`` of ``E_pad`` from ``w``: a whole stack (E, ...),
+    or the process's own (its real experts of ``lo:hi``, as
+    :func:`moe_init` keeps them), padded with zero (dead) experts past
+    ``E``; a view where no dead expert is in range."""
+    if w.shape[0] != E:                 # already the process's own
+        real = max(0, min(hi, E) - lo)
+        if w.shape[0] != real:
+            raise ValueError(f"an expert stack of {w.shape[0]} experts is "
+                             f"neither the whole {E} nor experts "
+                             f"{lo}:{min(hi, E)}")
+        if real == hi - lo:
+            return w
+        dead = w.new_zeros((hi - lo - real,) + tuple(w.shape[1:]))
+        return torch.cat([w, dead], dim=0)
     if hi <= E:
         return w[lo:hi]
     dead = w.new_zeros((E_pad - E,) + tuple(w.shape[1:]))
     return torch.cat([w, dead], dim=0)[lo:hi]
+
+
+# ---------------------------------------------------------------------------
+# the model's call over processes
+# ---------------------------------------------------------------------------
+
+
+class _Replicated(torch.autograd.Function):
+    """A weight every process holds whole and applies to its own tokens
+    (the router): the identity, whose backward sums the cotangent over
+    the processes, as ``shard_map`` transposes a replicated input into a
+    ``psum``."""
+
+    @staticmethod
+    def forward(ctx, w, comm):
+        ctx.comm = comm
+        return w.view_as(w)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.comm.all_reduce(g[None]), None
+
+
+def _seq_rows(a: torch.Tensor, L: int) -> torch.Tensor:
+    """(B, L * s, D) -> (L, B, s, D): a process's sequence block as the
+    communicator's rows, one per model rank."""
+    B, Ls, D = a.shape
+    return a.reshape(B, L, Ls // L, D).transpose(0, 1)
+
+
+def _seq_unrows(a: torch.Tensor) -> torch.Tensor:
+    """(n, B, s, D) -> (B, n * s, D)."""
+    n, B, s, D = a.shape
+    return a.transpose(0, 1).reshape(B, n * s, D)
+
+
+class _SeqBlock(torch.autograd.Function):
+    """(B, S, D), the same on every process -> this process's columns of
+    S (``count`` blocks of ``S // model`` from block ``start``); the
+    backward gathers every process's block cotangent into the whole
+    one."""
+
+    @staticmethod
+    def forward(ctx, x, comm, M):
+        s = x.shape[1] // M
+        ctx.comm = comm
+        lo = comm.start * s
+        return x[:, lo:lo + comm.count * s].contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        rows = _seq_rows(g, ctx.comm.count).contiguous()
+        return _seq_unrows(ctx.comm.all_gather(rows)), None, None
+
+
+class _SeqGather(torch.autograd.Function):
+    """The transpose of :class:`_SeqBlock`: every process's block
+    gathered into the whole (B, S, D); the backward keeps this process's
+    block of the cotangent (every process holds the same one)."""
+
+    @staticmethod
+    def forward(ctx, y, comm, M):
+        ctx.comm, ctx.M = comm, M
+        rows = _seq_rows(y, comm.count).contiguous()
+        return _seq_unrows(comm.all_gather(rows))
+
+    @staticmethod
+    def backward(ctx, g):
+        s = g.shape[1] // ctx.M
+        lo = ctx.comm.start * s
+        return g[:, lo:lo + ctx.comm.count * s].contiguous(), None, None
+
+
+def moe_ffn_ep_replicated(p, x: torch.Tensor, moe_cfg, mesh):
+    """:func:`moe_ffn_ep` for a model whose communicator holds
+    ``mesh.comm.count`` of the mesh's ``model`` ranks (one a process
+    under the launcher): ``x`` (B, S, D) is the whole batch, the same on
+    every process, since the dense part runs replicated; this process's
+    block of S (B over ``data`` inside it) goes through
+    :func:`moe_ffn_ep`, and the outputs are gathered back, as the
+    reference's ``shard_map`` splits "B over ``data``, S over ``model``".
+    The router's gradient is summed over the processes; each process's
+    experts take theirs from every process's tokens through the
+    exchange, and the dense part's is whole on every process. Raises
+    ``ValueError`` before any exchange where S does not split."""
+    comm, M = mesh.comm, mesh.model
+    B, S, D = x.shape
+    if S % M != 0:
+        raise ValueError(f"moe_ffn_ep: the sequence axis of x "
+                         f"{tuple(x.shape)} ({S}) is not evenly divisible "
+                         f"by the {M} ranks of the mesh that split it")
+    p = {"router": _Replicated.apply(p["router"], comm),
+         **{k: p[k] for k in ("wi_gate", "wi_up", "wo")}}
+    out, aux = moe_ffn_ep(p, _SeqBlock.apply(x, comm, M), moe_cfg, mesh,
+                          dp_axis="data")
+    return _SeqGather.apply(out, comm, M), aux

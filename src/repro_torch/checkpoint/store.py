@@ -105,6 +105,12 @@ def _step_path(directory: str, step: int) -> str:
     return os.path.join(directory, f"step_{step:08d}.npz")
 
 
+def checkpoint_path(directory: str, step: int) -> str:
+    """Where :func:`save_checkpoint` puts step ``step``: what the ranks
+    that do not write (one process writes for a group) hand back."""
+    return _step_path(directory, step)
+
+
 def _clean_tmp(directory: str, keep_path: Optional[str] = None) -> int:
     """Remove orphaned ``*.tmp`` files (a crash mid-save leaves exactly
     one; single-writer, so any .tmp not being written right now is

@@ -58,8 +58,8 @@ from typing import Mapping, Optional
 import numpy as np
 import torch
 
-from repro_torch.checkpoint import (latest_step, load_checkpoint,
-                                    save_checkpoint)
+from repro_torch.checkpoint import (checkpoint_path, latest_step,
+                                    load_checkpoint, save_checkpoint)
 from repro_torch.core.engine import VIEW_KEYS
 from repro_torch.core.mpgnn import accuracy_block, loss_block
 from repro_torch.core.strategies import shard_view
@@ -871,6 +871,16 @@ class Trainer(BaseTrainer):
     The trainer trains the engine's model, after loading ``params`` (a
     ``state_dict``) when given; ``self.params`` maps names to the live
     parameters, which the optimizer updates in place.
+
+    Over a :class:`~repro_torch.core.comm.ProcessGroupComm` every rank
+    runs this trainer on its own partitions: each captures the same step,
+    whose collectives come in the same order on every rank (NCCL's
+    capture needs the eager first step to have connected the peers); the
+    loss is the group's, the same bits on every rank, so every rank
+    takes the same divergence decision; evaluation gathers every
+    partition's logits on every rank; rank 0 writes the checkpoints and
+    the others wait for the file (:meth:`save`), and every rank reads it
+    back on ``resume``.
     """
 
     def __init__(self, engine, opt, params: Optional[Mapping] = None,
@@ -974,6 +984,16 @@ class Trainer(BaseTrainer):
         for k, p in self.params.items():
             p.grad = grads[k]
         return loss
+
+    def save(self, directory: str, keep: Optional[int] = None) -> str:
+        """:meth:`BaseTrainer.save` by the group's rank 0 (every rank
+        holds the same state); every rank returns once the file is in
+        place."""
+        comm = self.engine.comm
+        path = (super().save(directory, keep) if comm.rank == 0
+                else checkpoint_path(directory, self.step_num))
+        comm.barrier()
+        return path
 
     def reset(self, params: Optional[Mapping] = None) -> None:
         """:meth:`BaseTrainer.reset`, keeping the captured step; the eval

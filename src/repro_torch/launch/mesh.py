@@ -11,8 +11,10 @@ two sizes and the communicator that carries that exchange
 (:mod:`repro_torch.core.comm`): :class:`LocalComm` (the default) holds
 every ``data x model`` rank in one process on the caller's device, and
 its exchange is a transpose of stacked buffers; a
-:class:`ProcessGroupComm` holds one model rank per process over
-``torch.distributed``.
+:class:`ProcessGroupComm` spreads the model ranks over the processes of
+a ``torch.distributed`` group, one a card under the launcher
+(:mod:`repro_torch.launch.ranks`), each process holding every data row
+of its model ranks.
 
 The production mesh, the TPU v5e constants, ``dryrun.py``,
 ``roofline.py`` and ``sharding.py`` stay unported (README).
@@ -22,9 +24,8 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import Optional
 
-import torch
 
-from repro_torch.core.comm import Comm, LocalComm
+from repro_torch.core.comm import Comm, LocalComm, ProcessGroupComm
 
 
 @dataclass(frozen=True)
@@ -49,14 +50,28 @@ class ExpertMesh:
 
 
 def make_host_mesh(model_parallel: int = 1) -> ExpertMesh:
-    """The reference's host mesh: the local devices (the cards, or 1 on a
-    host without one) as ``count // model_parallel`` data rows of
-    ``model_parallel`` model ranks."""
-    n = torch.cuda.device_count() or 1
+    """The reference's host mesh, one rank per device: ``count //
+    model_parallel`` data rows of ``model_parallel`` model ranks. A
+    process outside a ``torch.distributed`` group is one device (its
+    card, or the CPU), so its mesh is (1, 1) in this process; inside the
+    launcher's group of ``W`` processes, one a card, the mesh's model
+    ranks are the processes (a :class:`ProcessGroupComm`), which
+    ``model_parallel`` must then equal: the port splits the data axis
+    inside a process only."""
+    import torch.distributed as dist
+    n = (dist.get_world_size() if dist.is_available()
+         and dist.is_initialized() else 1)
     if n % model_parallel != 0:
         raise ValueError(f"device count {n} must be a multiple of "
                          f"model_parallel {model_parallel}")
-    return ExpertMesh(n // model_parallel, model_parallel)
+    if n == 1:
+        return ExpertMesh(1, 1)
+    if model_parallel != n:
+        raise ValueError(f"{n} ranks as {n // model_parallel} data rows of "
+                         f"{model_parallel} model ranks: the port's mesh "
+                         "holds every data row in each process, so "
+                         "model_parallel must be the rank count")
+    return ExpertMesh(1, n, ProcessGroupComm())
 
 
 __all__ = ["ExpertMesh", "make_host_mesh"]

@@ -11,7 +11,13 @@ SIGINT and SIGTERM during training stop it after the step in flight,
 save a checkpoint (with ``--checkpoint-dir``), retire the prefetch pool
 and exit with 128 + the signal's number; ``--resume`` picks the run back
 up. ``--engine-partitions P`` trains with the distributed engine over P
-partitions of the graph (``--partition-method``), all on the one device.
+partitions of the graph (``--partition-method``), all on the one device;
+with ``--ranks R`` over R processes, ``P // R`` partitions each, one a
+card (NCCL; the host must have R cards) or over gloo with ``--device
+cpu`` (:mod:`repro_torch.launch.ranks`)::
+
+    PYTHONPATH=src python -m repro_torch.launch.train gnn --dataset cora \
+        --engine-partitions 4 --ranks 4 --steps 10 --device cpu
 
     PYTHONPATH=src python -m repro_torch.launch.train lm --arch qwen2-vl-2b \
         --steps 50 --batch 8 --seq 128
@@ -251,6 +257,10 @@ def main(argv=None) -> int:
                         "many partitions of the graph, all in this "
                         "process on the one device (0 = the bucketed "
                         "single-block trainer)")
+    g.add_argument("--ranks", type=int, default=1,
+                   help="spread the engine's partitions over this many "
+                        "processes, one a card (gloo processes with "
+                        "--device cpu); P must be a multiple")
     g.add_argument("--partition-method", default="1d_src",
                    choices=["1d_src", "1d_dst", "vertex_cut"],
                    help="how the engine assigns edges to partitions")
@@ -278,12 +288,21 @@ def main(argv=None) -> int:
         return 0
 
     import repro_torch.api as api
+    from repro_torch.core.comm import check_ranks
     from repro_torch.runtime.faults import TrainingInterrupted
+    if args.ranks != 1:
+        if not args.engine_partitions:
+            ap.error("--ranks spreads the engine's partitions: give "
+                     "--engine-partitions P")
+        try:
+            check_ranks(args.engine_partitions, args.ranks)
+        except ValueError as e:
+            ap.error(str(e))
     job = api.TrainJob(
         dataset=args.dataset, model=args.model, strategy=args.strategy,
         steps=args.steps, num_layers=args.layers, hidden=args.hidden,
         lr=args.lr, compact=args.compact, halo_hops=args.halo_hops,
-        engine_partitions=args.engine_partitions,
+        engine_partitions=args.engine_partitions, ranks=args.ranks,
         partition_method=args.partition_method,
         device=args.device, prefetch_workers=args.prefetch_workers,
         prefetch_mode=args.prefetch_mode,
@@ -292,6 +311,8 @@ def main(argv=None) -> int:
         checkpoint_every=args.checkpoint_every,
         keep_checkpoints=args.keep_checkpoints, resume=args.resume)
 
+    if args.ranks > 1:
+        return _train_ranks(job)
     try:
         with stop_between_steps_on_signals():
             result = api.train(job)
@@ -304,6 +325,39 @@ def main(argv=None) -> int:
     print(f"[{result.trainer.device}] final test acc: "
           f"{result.final_acc:.4f} at step {result.trainer.step_num} "
           f"({result.wall_s:.1f}s)")
+    print(f"final train loss: {result.history[-1]['loss']!r}")
+    return 0
+
+
+def train_rank(rank: int, job) -> dict:
+    """One rank of ``gnn --ranks R``: ``api.train(job)`` on this rank's
+    partitions; what the parent prints."""
+    import repro_torch.api as api
+    result = api.train(job)
+    return {"final_acc": result.final_acc,
+            "loss": result.history[-1]["loss"],
+            "step": result.trainer.step_num, "wall_s": result.wall_s,
+            "device": str(result.trainer.device),
+            "captures": result.trainer.trace_counts["train_step"]}
+
+
+def _train_ranks(job) -> int:
+    """``gnn --ranks R``: R processes (:mod:`repro_torch.launch.ranks`),
+    which must end on the same loss, bit for bit; rank 0's result is
+    printed."""
+    from repro_torch.launch.ranks import launch
+    out = launch(train_rank, job.ranks, args=(job,),
+                 device=job.device or "cuda")
+    if len({repr(r["loss"]) for r in out}) != 1:
+        raise RuntimeError(f"the ranks ended on different losses: "
+                           f"{[r['loss'] for r in out]}")
+    r0 = out[0]
+    kind = r0["device"].split(":")[0]
+    print(f"[{kind} x{job.ranks} ranks] final test acc: "
+          f"{r0['final_acc']:.4f} at step {r0['step']} "
+          f"({r0['wall_s']:.1f}s; captures per rank "
+          f"{[r['captures'] for r in out]})")
+    print(f"final train loss: {r0['loss']!r}")
     return 0
 
 

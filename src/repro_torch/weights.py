@@ -20,10 +20,12 @@ import torch
 from torch import nn
 
 
-def params_from_jax(tree) -> "OrderedDict[str, torch.Tensor]":
+def params_from_jax(tree, mesh=None) -> "OrderedDict[str, torch.Tensor]":
     """A ``state_dict`` from the JAX package's params, given as the
     nested dict/list of numpy arrays that
-    ``jax.tree_util.tree_map(np.asarray, params)`` returns."""
+    ``jax.tree_util.tree_map(np.asarray, params)`` returns. With an
+    expert-parallel ``mesh`` the MoE expert stacks keep only the
+    experts its process holds (:func:`local_experts`)."""
     out: "OrderedDict[str, torch.Tensor]" = OrderedDict()
 
     def walk(node, prefix):
@@ -39,6 +41,28 @@ def params_from_jax(tree) -> "OrderedDict[str, torch.Tensor]":
             walk(v, f"{prefix}.{k}" if prefix else str(k))
 
     walk(tree, "")
+    return local_experts(out, mesh)
+
+
+def local_experts(state: Mapping[str, torch.Tensor], mesh=None
+                  ) -> "OrderedDict[str, torch.Tensor]":
+    """``state`` with every MoE expert stack (``wi_gate``, ``wi_up`` and
+    ``wo`` beside a ``router``) cut to the experts that ``mesh``'s
+    process holds (:func:`~repro_torch.arch.moe.expert_range`), as a
+    model built over that mesh holds them; unchanged where the
+    communicator holds every model rank, or without a mesh."""
+    if mesh is None or mesh.comm.count == mesh.model:
+        return OrderedDict(state)
+    from repro_torch.arch.moe import expert_range
+    out: "OrderedDict[str, torch.Tensor]" = OrderedDict()
+    for key, value in state.items():
+        head, _, leaf = key.rpartition(".")
+        router = f"{head}.router" if head else "router"
+        if leaf in ("wi_gate", "wi_up", "wo") and router in state:
+            lo, hi = expert_range(state[router].shape[-1], mesh.model,
+                                  mesh.comm.start, mesh.comm.count)
+            value = value[lo:hi].clone()
+        out[key] = value
     return out
 
 
@@ -100,7 +124,8 @@ def opt_state_to_jax(state: Mapping) -> dict:
     return out
 
 
-def lm_params_from_jax(cfg, tree) -> "OrderedDict[str, torch.Tensor]":
+def lm_params_from_jax(cfg, tree, mesh=None
+                       ) -> "OrderedDict[str, torch.Tensor]":
     """A :class:`~repro_torch.arch.TransformerLM` ``state_dict`` from the
     JAX package's LM params (``repro/arch/model.py``), given as numpy
     arrays (``jax.tree_util.tree_map(np.asarray, params)``).
@@ -125,7 +150,8 @@ def lm_params_from_jax(cfg, tree) -> "OrderedDict[str, torch.Tensor]":
     ``encoder_layers`` axis: leaf ``a[i]`` becomes ``encoder.<i>.<path>``;
     ``enc_norm``, the decoder blocks' ``norm_x`` and ``xattn``, the
     LayerNorms' ``bias`` and the GELU MLP's ``wi``/``wo`` (``w``, ``b``)
-    keep their names."""
+    keep their names. With an expert-parallel ``mesh`` the expert stacks
+    keep the experts its process holds (:func:`local_experts`)."""
     out: "OrderedDict[str, torch.Tensor]" = OrderedDict()
     groups = tree["blocks"]
     per_group = len(groups)
@@ -154,4 +180,4 @@ def lm_params_from_jax(cfg, tree) -> "OrderedDict[str, torch.Tensor]":
     if n_groups is not None and n_groups * per_group != cfg.num_layers:
         raise ValueError(f"{n_groups} groups of {per_group} blocks, the "
                          f"config has {cfg.num_layers} layers")
-    return out
+    return local_experts(out, mesh)

@@ -56,3 +56,17 @@ def test_importing_every_module_pulls_in_no_jax():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert len(modules) > 20 and len(EXAMPLES) == 4
+
+
+def test_the_rank_launcher_is_checked():
+    """``launch/ranks.py``, which every spawned rank imports first, and the
+    test workers' modules that the ranks run, are among the files held to
+    the rule (the workers import neither JAX nor ``repro``)."""
+    assert PORT / "launch" / "ranks.py" in FILES
+    for worker in ("torch_ranks_workers.py", "torch_engine_workers.py"):
+        tree = ast.parse((ROOT / "tests" / worker).read_text())
+        names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
+                 for a in n.names] + [
+            n.module for n in ast.walk(tree)
+            if isinstance(n, ast.ImportFrom) and n.module]
+        assert not [m for m in names if _forbidden(m)], worker

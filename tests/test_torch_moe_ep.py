@@ -29,6 +29,8 @@ JAX package's ``moe_ffn_ep`` over a ``jax.sharding.Mesh``.
   ``LocalComm``: the outputs and the gradients of x bitwise equal; aux
   and the weight gradients, which the processes sum in another order,
   within 1e-6 of max(1, each one's max).
+- A model over a mesh split over processes holds its rank's experts and
+  refuses a sequence that does not split, before any exchange.
 - An EP prefill and an EP loss's backward, recorded by
   ``repro_torch.analysis``: no host sync, no float64 and no
   accumulating scatter.
@@ -523,7 +525,8 @@ def test_ep_records_no_sync_scatter_or_f64():
 
 class _OneRankMesh:
     """A two-rank model axis whose communicator holds one rank, as a
-    ``ProcessGroupComm`` of two processes does."""
+    ``ProcessGroupComm`` of two processes does; it has no collective, so
+    a call that reached the exchange would fail otherwise."""
     data, model = 1, 2
 
     class comm:
@@ -531,8 +534,16 @@ class _OneRankMesh:
 
 
 def test_the_model_refuses_a_mesh_split_over_processes():
-    """The model hands each MoE layer the whole batch, so its mesh must
-    hold every model rank in this process."""
+    """A model whose mesh is split over processes (one model rank here)
+    holds only its rank's experts, and refuses, with the reference's
+    ``ValueError`` and before any exchange, a sequence that does not
+    split over the model ranks: a decode step's S = 1, or an odd S. (The
+    split itself runs over gloo in ``test_torch_ranks.py``.)"""
     cfg = get_arch_config("mixtral-8x7b").reduced().replace(dtype="float32")
-    with pytest.raises(ValueError, match="holds 1"):
-        build_model(cfg, moe_impl="ep", mesh=_OneRankMesh())
+    model = build_model(cfg, moe_impl="ep", mesh=_OneRankMesh())
+    E = cfg.moe.num_experts
+    assert model.blocks[0].ffn["wi_gate"].shape[0] == E // 2
+    for S in (1, 3):
+        toks = torch.zeros((2, S), dtype=torch.long)
+        with pytest.raises(ValueError, match="evenly divisible"):
+            model.prefill({"tokens": toks}, cache_len=S)
