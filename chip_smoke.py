@@ -15,6 +15,7 @@
     python3 chip_smoke.py --only ep        # phases 1-2 and the MoE EP's 21
     python3 chip_smoke.py --only ranks     # phases 1-2 and NCCL's 22
     python3 chip_smoke.py --only multicard # phases 1-2 and 23: four cards
+    python3 chip_smoke.py --only dryrun    # phases 1-2 and the dry-run's 24
 
 Phases (each raises on failure, so the script exits non-zero):
 
@@ -252,6 +253,20 @@ Phases (each raises on failure, so the script exits non-zero):
     over the four model ranks raising the reference's ``ValueError``;
     one JSON ``ep row`` (ms, tokens/s, the dropped share, peak memory a
     card, the NCCL share of the profiled device ms).
+24. (run after phase 22) the dry-run against one card: Qwen3-4B at full
+    width and 4 of its 36 layers in bf16, planned by
+    ``repro_torch.launch.dryrun.run_one`` at mesh (1, 1) (the port's
+    step traced on fake tensors on the host), then run on the card:
+    AdamW train steps at B 1, T 4,096 under remat full, dots and none,
+    phase 12's prefill (B 4, T 2,048) and one decode round after it.
+    For each, the planned held bytes against ``memory_allocated`` once
+    the state exists (within 1%) and the planned peak against
+    ``max_memory_allocated`` (a ratio within [0.8, 1.25]), counted from
+    what the card holds once a reduced step has made cuBLAS's
+    workspaces; the train peaks must order none >= dots >= full,
+    planned and on the card; one JSON ``dryrun row`` each, with the
+    step's CUDA-event ms beside the roofline's bound from the same
+    record (printed, not gated).
 14. CUDA graphs per bucket (run after phase 11): the GNN train step
     (forward, backward, Adam) and the served forward are one CUDA graph
     per bucket on the card, the default, so phases 4-11 already run
@@ -340,6 +355,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import math
 import subprocess
 import sys
 import time
@@ -5083,12 +5099,240 @@ def multicard_phase(label: str, spec: dict = MC_FULL) -> dict:
     return got
 
 
+# phase 24: the dry-run's plan of one card against the card
+DRYRUN_LAYERS = 4                  # Qwen3-4B at full width, 4 of 36 layers
+DRYRUN_TRAIN = (1, 4096)           # B, T of the AdamW train steps
+DRYRUN_PREFILL = (4, 2048)         # phase 12's served prefill, bf16
+DRYRUN_HELD_TOL = 0.01             # planned vs the card's held bytes
+DRYRUN_PEAK = (0.8, 1.25)          # planned / the card's peak bytes
+
+
+def _dryrun_warm(cfg, dev) -> int:
+    """Run a reduced model's train step, prefill and decode on the card,
+    so that cuBLAS's workspaces exist, drop it, and return the bytes the
+    card holds then: what the phase's numbers are counted from."""
+    import torch
+    from repro_torch.arch import build_model
+    from repro_torch.launch.faketrace import train_step
+    from repro_torch.optim import adamw
+    small = cfg.reduced().replace(dtype=cfg.dtype)
+    model = build_model(small, torch.Generator(device=dev).manual_seed(0))
+    params = dict(model.named_parameters())
+    opt = adamw(1e-4)
+    state = opt.init(params)
+    tok = torch.zeros((2, 64), dtype=torch.int32, device=dev)
+    train_step(model, opt, state, params, {"tokens": tok, "labels": tok})
+    _, caches, idx = model.prefill({"tokens": tok}, 64)
+    model.decode_step({"tokens": tok[:, :1]}, caches, idx - 1)
+    del model, params, opt, state, caches
+    _free()
+    torch.cuda.synchronize()
+    return torch.cuda.memory_allocated()
+
+
+def _shape(kind: str, B: int, T: int):
+    """Phase 24's input shape of a step of ``kind``, named as the
+    workload of that kind."""
+    from repro_torch.config import InputShape
+    name = {"train": "train_4k", "prefill": "prefill_32k",
+            "decode": "decode_32k"}[kind]
+    return InputShape(name, T, B, kind)
+
+
+def _dryrun_plan(cfg, kind: str, B: int, T: int, remat: str = "full"):
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import ShapeMesh
+    shape = _shape(kind, B, T)
+    rec = dryrun.run_one("qwen3-4b", shape.name, "card", "dense", False,
+                         None, verbose=False, opts={"remat": remat},
+                         mesh=ShapeMesh(("data", "model"), (1, 1)),
+                         cfg=cfg, shape=shape)
+    if rec["status"] != "ok":
+        raise AssertionError(f"dry-run of {kind}: {rec.get('error')}\n"
+                             f"{rec.get('trace')}")
+    return rec
+
+
+def _dryrun_row(label: str, run: str, rec: dict, held: int, peak: int,
+                ms: float) -> dict:
+    import torch
+    row = {"phase": 24, "run": run,
+           "held_planned": rec["held_bytes_per_device"],
+           "held_card": held,
+           "held_rel_err": rec["held_bytes_per_device"] / held - 1,
+           "peak_planned": rec["memory_per_device_bytes"],
+           "peak_card": peak,
+           "peak_ratio": rec["memory_per_device_bytes"] / peak,
+           "ms": ms, "bound_ms": rec["bound_s"] * 1e3,
+           "bound_share": rec["bound_s"] * 1e3 / ms,
+           "dominant": rec["dominant"],
+           "traced_flops": rec["traced_flops_per_device"],
+           "traced_bytes": rec["traced_bytes_per_device"],
+           "trace_s": rec["trace_seconds"], "card": label,
+           "torch": torch.__version__}
+    print("  dryrun row " + json.dumps(row), flush=True)
+    bad = []
+    if abs(row["held_rel_err"]) > DRYRUN_HELD_TOL:
+        bad.append(f"held bytes off by {row['held_rel_err']:+.4f}")
+    lo, hi = DRYRUN_PEAK
+    if not lo <= row["peak_ratio"] <= hi:
+        bad.append(f"peak ratio {row['peak_ratio']:.4f} outside "
+                   f"[{lo}, {hi}]")
+    if bad:
+        raise AssertionError(f"dry-run {run}: " + "; ".join(bad))
+    return row
+
+
+def _softmax_buffers(dev) -> dict:
+    """The buffers softmax's backward holds beyond its output on the card,
+    in tensors of the output's size, with its gradient input contiguous
+    and not (what ``launch/faketrace.py`` books for it)."""
+    import torch
+    shape = (1, 8, 4, 1024, 1024)
+    n = math.prod(shape) * 4
+    out = torch.randn(shape, device=dev)
+    got = {}
+    for name, g in (("contiguous", torch.randn(shape, device=dev)),
+                    ("permuted", torch.randn((8, 1024, 4, 1, 1024),
+                                             device=dev).permute(
+                                                 3, 0, 2, 1, 4))):
+        torch.cuda.synchronize(dev)
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        r = torch.ops.aten._softmax_backward_data(g, out, -1, torch.float32)
+        torch.cuda.synchronize(dev)
+        got[name] = (torch.cuda.max_memory_allocated() - base - n) / n
+        del r
+    print(f"  softmax backward's own buffers, in output-sized tensors: "
+          f"{got['contiguous']:.3f} (contiguous gradient), "
+          f"{got['permuted']:.3f} (permuted)", flush=True)
+    return got
+
+
+def _card_ms(fn, dev) -> float:
+    import torch
+    start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    fn()
+    stop.record()
+    torch.cuda.synchronize(dev)
+    return start.elapsed_time(stop)
+
+
+def dryrun_phase(label: str) -> dict:
+    """Phase 24: the dry-run (``repro_torch.launch.dryrun.run_one`` at
+    mesh (1, 1)) against the card, Qwen3-4B at full width and
+    ``DRYRUN_LAYERS`` layers in bf16: train steps (loss, gradients,
+    AdamW) under remat full, dots and none, then a served prefill and
+    one decode round. For each, the planned held bytes against
+    ``torch.cuda.memory_allocated`` once the state exists (within
+    ``DRYRUN_HELD_TOL``) and the planned peak against
+    ``max_memory_allocated`` (a ratio within ``DRYRUN_PEAK``); the train
+    peaks must order none >= dots >= full, planned and on the card; the
+    step's time against the roofline's bound from the same record is
+    printed. Returns the prefill's kernel launches."""
+    import torch
+    from repro_torch.arch import build_model
+    from repro_torch.config import get_arch_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.dryrun import input_specs
+    from repro_torch.launch.faketrace import train_step
+    from repro_torch.launch.mesh import ShapeMesh
+    from repro_torch.optim import adamw
+    t0 = time.perf_counter()
+    dev = torch.device(DEVICE)
+    cfg = get_arch_config("qwen3-4b").replace(num_layers=DRYRUN_LAYERS)
+    one = ShapeMesh(("data", "model"), (1, 1))
+    _softmax_buffers(dev)
+    base = _dryrun_warm(cfg, dev)
+
+    def held_now() -> int:
+        torch.cuda.synchronize(dev)
+        return torch.cuda.memory_allocated() - base
+
+    def peak_since(fn):
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats()
+        ms = _card_ms(fn, dev)
+        return torch.cuda.max_memory_allocated() - base, ms
+
+    rows, peaks = [], {}
+    B, T = DRYRUN_TRAIN
+    for remat in ("full", "dots", "none"):
+        rec = _dryrun_plan(cfg, "train", B, T, remat)
+        model = build_model(cfg, torch.Generator(device=dev).manual_seed(0),
+                            remat=True, remat_policy=remat)
+        params = dict(model.named_parameters())
+        opt = adamw(1e-4)
+        state = opt.init(params)
+        batch, _ = input_specs(cfg, _shape("train", B, T), one,
+                               device=dev)
+        out = {}
+
+        def step():
+            out["r"] = train_step(model, opt, state, params, batch)
+        step()                          # the gradients exist: all held
+        held = held_now()
+        out.clear()                     # each step makes its gradients
+        peak, ms = peak_since(step)
+        loss = float(out["r"][0])
+        if not math.isfinite(loss):
+            raise AssertionError(f"train ({remat}): loss {loss}")
+        out.clear()
+        rows.append(_dryrun_row(label, f"train remat {remat}", rec, held,
+                                peak, ms))
+        peaks[remat] = (rec["memory_per_device_bytes"], peak)
+        del model, params, opt, state, batch, out
+        _free()
+    for i, what in enumerate(("planned", "card")):
+        p = {k: v[i] for k, v in peaks.items()}
+        if not p["none"] >= p["dots"] >= p["full"]:
+            raise AssertionError(f"{what} train peaks do not order none >= "
+                                 f"dots >= full: {p}")
+    print("  train peaks, planned and on the card (GB): " + ", ".join(
+        f"{k} {v[0] / 1e9:.3f} / {v[1] / 1e9:.3f}" for k, v in peaks.items()))
+
+    B, T = DRYRUN_PREFILL
+    rec = _dryrun_plan(cfg, "prefill", B, T)
+    model = build_model(cfg, torch.Generator(device=dev).manual_seed(0),
+                        remat=False)
+    batch, _ = input_specs(cfg, _shape("prefill", B, T), one, device=dev)
+    held = held_now()
+    out = {}
+    ops.reset_launches()
+    peak, ms = peak_since(lambda: out.update(
+        r=model.prefill(batch, T)))
+    launches = dict(ops.launches)
+    if launches["flash_attention"] != DRYRUN_LAYERS:
+        raise AssertionError(f"prefill: {launches['flash_attention']} "
+                             "flash_attention launches")
+    logits, caches, idx = out.pop("r")
+    if not bool(torch.isfinite(logits.float()).all()):
+        raise AssertionError("prefill: logits not finite")
+    rows.append(_dryrun_row(label, "prefill", rec, held, peak, ms))
+    del logits, batch
+    rec = _dryrun_plan(cfg, "decode", B, T)
+    batch, _ = input_specs(cfg, _shape("decode", B, T), one, device=dev)
+    held = held_now()
+    peak, ms = peak_since(lambda: out.update(
+        r=model.decode_step(batch, caches, T - 1)))
+    if not bool(torch.isfinite(out.pop("r")[0].float()).all()):
+        raise AssertionError("decode: logits not finite")
+    rows.append(_dryrun_row(label, "decode", rec, held, peak, ms))
+    del model, caches, batch
+    _free()
+    print(f"  phase 24: {len(rows)} plans against the card in "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only",
                     choices=["kernels", "gnn-times", "lm-times", "lm",
                              "runtime", "graphs", "engine", "examples",
-                             "analysis", "ep", "ranks", "multicard"],
+                             "analysis", "ep", "ranks", "multicard",
+                             "dryrun"],
                     default=None,
                     help="kernels: stop after phase 3 (build and check the "
                     "kernels); gnn-times: phases 1-3 and the GNN kernels' "
@@ -5099,7 +5343,7 @@ def main(argv=None) -> int:
                     "phases 1-2 and 15; examples: phases 1-2 and 16; "
                     "analysis: phases 1-2 and 20; ep: phases 1-2 and 21; "
                     "ranks: phases 1-2 and 22; multicard: phases 1-2 and "
-                    "23, on four cards")
+                    "23, on four cards; dryrun: phases 1-2 and 24")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -5157,6 +5401,10 @@ def main(argv=None) -> int:
     if args.only == "multicard":
         phase("23. four cards, four NCCL ranks")
         multicard_phase(label)
+        return 0
+    if args.only == "dryrun":
+        phase("24. the dry-run against one card")
+        dryrun_phase(label)
         return 0
 
     phase("3. kernels vs plain, on the card")
@@ -5247,6 +5495,8 @@ def main(argv=None) -> int:
     count(ep_phase(label))
     phase("22. NCCL at world 1: one rank holding P=4")
     count(world1_phase())
+    phase("24. the dry-run against one card")
+    count(dryrun_phase(label))
     phase("20. analysis on the card")
     analysis_phase(label)
     phase("done")

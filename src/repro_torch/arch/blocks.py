@@ -17,6 +17,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.arch.hints import shard_hint
 from repro_torch.arch.mamba import (mamba_apply, mamba_init,
                                     mamba_init_cache)
 from repro_torch.arch.moe import (moe_ffn_dense, moe_ffn_ep,
@@ -162,6 +163,8 @@ def block_apply(p, x: torch.Tensor, cfg: ArchConfig, kind: str, *,
     new_cache = None
     if kind in ("attn", "mamba"):
         h = norm_apply(cfg, p["norm1"], x)
+        if kind == "attn":
+            h = shard_hint(h, "batch", "seq", None)
         if kind == "mamba":
             out = mamba_apply(p["mixer"], h, cfg.mamba, cache=cache)
         elif cfg.mla is not None:
@@ -191,6 +194,8 @@ def block_apply(p, x: torch.Tensor, cfg: ArchConfig, kind: str, *,
                 head_dim=cfg.resolved_head_dim, kv_x=enc_memory,
                 causal=False)
         h2 = norm_apply(cfg, p["norm2"], x)
+        if kind == "attn":
+            h2 = shard_hint(h2, "batch", "seq", None)
         f, aux = _ffn_apply(p["ffn"], h2, cfg, moe_impl, mesh)
         x = x + f
     elif kind == "rwkv":
@@ -208,4 +213,5 @@ def block_apply(p, x: torch.Tensor, cfg: ArchConfig, kind: str, *,
         aux = x.new_zeros((), dtype=torch.float32)
     else:
         raise ValueError(kind)
+    x = shard_hint(x, "batch", "seq", None)
     return x, new_cache, aux

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.arch.hints import shard_hint
 from repro_torch.nn.layers import _fan_in_init
 
 
@@ -161,6 +162,7 @@ def mamba_apply(p, x: torch.Tensor, mc, cache=None):
         xc = (xc + p["conv_b"].float()).to(x.dtype)
         new_conv = window[:, -(K - 1):]
     xc = F.silu(xc)
+    xc = shard_hint(xc, "batch", None, "heads_flat")
 
     proj = xc @ p["x_proj"]
     dt_rank = p["dt_proj"].shape[0]

@@ -12,32 +12,49 @@ reads; Qwen2-VL takes precomputed ``embeds`` and three M-RoPE position
 streams. Parameter names are the reference's pytree paths, with the
 stacked ``blocks`` and ``encoder`` unrolled to one entry per layer
 (:func:`repro_torch.weights.lm_params_from_jax` maps one onto the
-other). ``arch/hints.py:shard_hint`` is a no-op on one device and is not
-ported.
+other). The activation hints (:mod:`repro_torch.arch.hints`) sit where
+the reference's do; they return their input as it is and, armed by the
+dry-run, record how the planned mesh shards it.
 
 :meth:`TransformerLM.loss` is the reference's training path under
 autograd (``_sdpa``, MLA decompressed, Mamba's plain SSD, RWKV-6's plain
-``wkv_chunked``); ``remat`` recomputes each layer group in the backward
-(``torch.utils.checkpoint``), as the reference's ``jax.checkpoint`` of a
-group. Prefill and decode run the kernels on the card.
+``wkv_chunked``). With ``remat`` the backward recomputes what the
+forward did not keep (``torch.utils.checkpoint``), as the reference's
+``jax.checkpoint``: ``remat_granularity`` "group" checkpoints each layer
+group, "block" each block; ``remat_policy`` "full" keeps nothing inside
+a checkpoint, "dots" keeps the outputs of the 2-D products (``aten.mm``
+and ``aten.addmm``, what ``x @ w`` dispatches; the counterpart of
+``dots_with_no_batch_dims_saveable``) and "none" checkpoints nothing.
+Prefill and decode run the kernels on the card.
 """
 from __future__ import annotations
 
+import functools
 from typing import List, Optional
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.arch.blocks import (_norm_init, block_apply,
                                      block_cache_init, block_init,
                                      norm_apply)
+from repro_torch.arch.hints import shard_hint
 from repro_torch.arch.moe import expert_range
 from repro_torch.config import ArchConfig
 from repro_torch.nn.attention import left_pad_starts
 from repro_torch.nn.layers import ParamTree, _fan_in_init, embedding_init
 
 LOSS_CHUNK = 512
+REMAT_POLICIES = ("full", "dots", "none")
+REMAT_GRANULARITIES = ("group", "block")
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
 
 
 def _dtype(cfg: ArchConfig) -> torch.dtype:
@@ -62,7 +79,8 @@ class TransformerLM(nn.Module):
     ``torch.Generator``; its device is where the weights are made) in the
     config's dtype. ``gen=None`` draws from
     ``torch.Generator().manual_seed(0)`` on the CPU. ``remat``: the
-    loss's backward recomputes each layer group. ``moe_impl="ep"`` with
+    loss's backward recomputes each layer group (``remat_policy`` and
+    ``remat_granularity``: see the module's docstring). ``moe_impl="ep"`` with
     a ``mesh`` (:class:`~repro_torch.launch.mesh.ExpertMesh`) runs the
     MoE layers' expert-parallel dispatch over it in ``loss``,
     ``prefill`` and ``decode_step``, as the reference's
@@ -77,11 +95,22 @@ class TransformerLM(nn.Module):
 
     def __init__(self, cfg: ArchConfig, gen: Optional[torch.Generator] = None,
                  rolling_window_decode: bool = False,
-                 moe_impl: str = "dense", remat: bool = True, mesh=None):
+                 moe_impl: str = "dense", remat: bool = True, mesh=None,
+                 remat_policy: str = "full",
+                 remat_granularity: str = "group"):
         super().__init__()
         if moe_impl not in ("dense", "ep"):
             raise ValueError(f"moe_impl must be 'dense' or 'ep', got "
                              f"{moe_impl!r}")
+        if remat_policy not in REMAT_POLICIES:
+            raise ValueError(f"remat_policy must be one of "
+                             f"{REMAT_POLICIES}, got {remat_policy!r}")
+        if remat_granularity not in REMAT_GRANULARITIES:
+            raise ValueError(f"remat_granularity must be one of "
+                             f"{REMAT_GRANULARITIES}, got "
+                             f"{remat_granularity!r}")
+        self.remat_policy = remat_policy
+        self.remat_granularity = remat_granularity
         self.cfg = cfg
         self.moe_impl = moe_impl
         self.mesh = mesh
@@ -197,7 +226,8 @@ class TransformerLM(nn.Module):
                   cache_index=None, enc_memory=None, valid=None,
                   kv_start=None, train: bool = False):
         """All layers; returns (x, new caches, the summed aux loss).
-        Training with ``remat`` checkpoints each layer group."""
+        Training with ``remat`` checkpoints each layer group, or each
+        block, under ``remat_policy``."""
         cfg = self.cfg
         new_caches = [] if caches is not None else None
         aux = x.new_zeros((), dtype=torch.float32)
@@ -218,10 +248,17 @@ class TransformerLM(nn.Module):
                     new_caches.append(nc)
             return x, aux
 
-        g = len(self._group_structure()[0])
+        do_remat = train and self.remat and self.remat_policy != "none"
+        g = (1 if self.remat_granularity == "block"
+             else len(self._group_structure()[0]))
+        context = (functools.partial(create_selective_checkpoint_contexts,
+                                     _save_dots)
+                   if self.remat_policy == "dots" else None)
+        kw = {} if context is None else {"context_fn": context}
         for lo in range(0, len(self.kinds), g):
-            if train and self.remat:
-                x, a = checkpoint(layers, x, lo, lo + g, use_reentrant=False)
+            if do_remat:
+                x, a = checkpoint(layers, x, lo, lo + g, use_reentrant=False,
+                                  **kw)
             else:
                 x, a = layers(x, lo, lo + g)
             aux = aux + a
@@ -229,13 +266,15 @@ class TransformerLM(nn.Module):
 
     def _embed(self, batch) -> torch.Tensor:
         if self.cfg.embed_inputs:
-            return batch["embeds"].to(_dtype(self.cfg))
-        return self.embed["table"][batch["tokens"]]
+            x = batch["embeds"].to(_dtype(self.cfg))
+        else:
+            x = self.embed["table"][batch["tokens"]]
+        return shard_hint(x, "batch", "seq", None)
 
     def _logits(self, h: torch.Tensor) -> torch.Tensor:
         table = (self.embed["table"].T if self.cfg.tie_embeddings
                  else self.lm_head)
-        return h @ table.to(h.dtype)
+        return shard_hint(h @ table.to(h.dtype), "batch", None, "vocab")
 
     # ------------------------------------------------------------------ loss
 
@@ -352,6 +391,7 @@ class TransformerLM(nn.Module):
 def build_model(cfg: ArchConfig, gen: Optional[torch.Generator] = None,
                 moe_impl: str = "dense",
                 rolling_window_decode: bool = False,
-                remat: bool = True, mesh=None) -> TransformerLM:
+                remat: bool = True, mesh=None, remat_policy: str = "full",
+                remat_granularity: str = "group") -> TransformerLM:
     return TransformerLM(cfg, gen, rolling_window_decode, moe_impl, remat,
-                         mesh)
+                         mesh, remat_policy, remat_granularity)

@@ -1,14 +1,16 @@
 """Model and training configuration (the counterpart of
 ``repro/config.py``): the GNN side's ``GNNConfig`` and ``TrainConfig``,
-and the LM zoo's ``ArchConfig`` with its sub-configs, ``reduced()`` and
-``get_arch_config``. A copy, not an import: the port stands alone.
+and the LM zoo's ``ArchConfig`` with its sub-configs, ``reduced()``, the
+analytic ``param_count`` and ``active_param_count`` that the dry-run's
+roofline reads, the four workload ``INPUT_SHAPES``, ``ASSIGNED_ARCHS``
+and ``get_arch_config``. A copy, not an import: the port stands alone.
 """
 from __future__ import annotations
 
 import dataclasses
 import importlib
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -138,6 +140,84 @@ class ArchConfig:
             return self.d_model // self.num_heads
         return 0
 
+    def param_count(self) -> int:
+        """Analytic total parameter count (the roofline's MODEL_FLOPS),
+        the reference's formula: the products' weights, no norms or
+        biases."""
+        d, f, v = self.d_model, self.d_ff, self.vocab_size
+        hd = self.resolved_head_dim
+        emb = v * d * (1 if self.tie_embeddings else 2)
+        per_attn = 0
+        if self.num_heads:
+            q = d * self.num_heads * hd
+            kv = 2 * d * self.num_kv_heads * hd
+            o = self.num_heads * hd * d
+            per_attn = q + kv + o
+        if self.mla is not None:
+            m = self.mla
+            qh = m.qk_nope_head_dim + m.qk_rope_head_dim
+            per_attn = (d * m.q_lora_rank + m.q_lora_rank * self.num_heads * qh
+                        + d * (m.kv_lora_rank + m.qk_rope_head_dim)
+                        + m.kv_lora_rank * self.num_heads
+                        * (m.qk_nope_head_dim + m.v_head_dim)
+                        + self.num_heads * m.v_head_dim * d)
+        per_ffn = 3 * d * f  # SwiGLU
+        if self.moe is not None:
+            moe_ffn = self.moe.num_experts * 3 * d * f \
+                + d * self.moe.num_experts
+            # average per layer given MoE on every moe_every-th layer
+            k = max(self.moe_every, 1)
+            per_ffn = moe_ffn / k + (3 * d * f) * (k - 1) / k
+        per_mamba = 0
+        if self.mamba is not None:
+            mc = self.mamba
+            d_in = mc.expand * d
+            per_mamba = (2 * d * d_in            # in_proj (x, z)
+                         + d_in * mc.d_conv      # conv
+                         + d_in * (2 * mc.d_state + (mc.dt_rank or d // 16))
+                         + (mc.dt_rank or d // 16) * d_in
+                         + d_in * d              # out_proj
+                         + d_in * mc.d_state)    # A_log
+        per_rwkv = 0
+        if self.rwkv is not None:
+            rc = self.rwkv
+            # r,k,v,gate,out projections + low-rank data-dependent decay
+            per_rwkv = 5 * d * d + 2 * rc.decay_lora * d
+        total = emb
+        n_attn, n_mix = self._layer_split()
+        if self.rwkv is not None:
+            total += self.num_layers * (per_rwkv + 2 * d * f)
+        elif self.mamba is not None and self.attn_every:
+            total += n_attn * (per_attn + per_ffn)
+            total += n_mix * (per_mamba + per_ffn)
+        elif self.mamba is not None:
+            total += self.num_layers * (per_mamba + per_ffn)
+        else:
+            total += self.num_layers * (per_attn + per_ffn)
+        if self.encoder_layers:
+            # encoder self-attn + ffn; decoder additionally has cross-attn
+            total += self.encoder_layers * (per_attn + per_ffn)
+            total += self.num_layers * per_attn
+        return int(total)
+
+    def active_param_count(self) -> int:
+        """Active parameters per token (MoE counts only top_k experts)."""
+        if self.moe is None:
+            return self.param_count()
+        d, f = self.d_model, self.d_ff
+        k = max(self.moe_every, 1)
+        n_moe_layers = self.num_layers // k
+        all_experts = n_moe_layers * self.moe.num_experts * 3 * d * f
+        active_experts = n_moe_layers * self.moe.top_k * 3 * d * f
+        return int(self.param_count() - all_experts + active_experts)
+
+    def _layer_split(self) -> Tuple[int, int]:
+        """(attention layers, mixer layers) for hybrid archs."""
+        if self.attn_every:
+            n_attn = self.num_layers // self.attn_every
+            return n_attn, self.num_layers - n_attn
+        return self.num_layers, 0
+
     def replace(self, **kw) -> "ArchConfig":
         return dataclasses.replace(self, **kw)
 
@@ -179,6 +259,40 @@ class ArchConfig:
         return self.replace(**kw)
 
 
+# ---------------------------------------------------------------------------
+# Input shapes (the four assigned workloads) and the zoo's members
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+INPUT_SHAPES = {
+    "train_4k": InputShape("train_4k", 4096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524288, 1, "decode"),
+}
+
+ASSIGNED_ARCHS = [
+    "dbrx-132b",
+    "mixtral-8x7b",
+    "qwen3-4b",
+    "rwkv6-1.6b",
+    "phi3-medium-14b",
+    "whisper-base",
+    "qwen3-32b",
+    "minicpm3-4b",
+    "jamba-1.5-large-398b",
+    "qwen2-vl-2b",
+]
+
+
 def _module_name(arch: str) -> str:
     return arch.replace("-", "_").replace(".", "_")
 
@@ -193,3 +307,7 @@ def get_arch_config(name: str) -> ArchConfig:
     except ModuleNotFoundError as e:
         raise ValueError(f"unknown architecture {name!r}") from e
     return mod.CONFIG
+
+
+def list_arch_configs() -> dict:
+    return {a: get_arch_config(a) for a in ASSIGNED_ARCHS}
