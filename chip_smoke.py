@@ -16,6 +16,7 @@
     python3 chip_smoke.py --only ranks     # phases 1-2 and NCCL's 22
     python3 chip_smoke.py --only multicard # phases 1-2 and 23: four cards
     python3 chip_smoke.py --only dryrun    # phases 1-2 and the dry-run's 24
+    python3 chip_smoke.py --only surface   # phases 1-2 and the public ops' 25
 
 Phases (each raises on failure, so the script exits non-zero):
 
@@ -267,6 +268,31 @@ Phases (each raises on failure, so the script exits non-zero):
     planned and on the card; one JSON ``dryrun row`` each, with the
     step's CUDA-event ms beside the roofline's bound from the same
     record (printed, not gated).
+25. (run after phase 24) the rest of the JAX package's public surface
+    on the card: ``repro_torch.core.tgar``'s ``segment_sum`` at width
+    32, ``segment_max`` at 64 and ``segment_softmax`` at 4 heads of 8
+    over the 1,000,000-node alipay_like edge set (5,999,786 edges, phase
+    6's graph, kept from there) in a shuffled order, over its nodes and 8
+    more segments that stay empty, with one negative id and one past the
+    segments (dropped, as ``jax.ops.segment_*`` drop them): forward and
+    ``torch.autograd.grad``, each call planning its ids on the host.
+    Calls over the first 100,000 edges are recorded (no ``index_add_`` or
+    ``scatter_*`` op, every kernel call through CUDA, no plain version);
+    two calls over every edge must be bitwise equal, the launch counters
+    must show ``segment_sum``, ``segment_sum_bwd``, ``edge_softmax``,
+    ``edge_softmax_bwd`` and ``segment_max``, and each is held against
+    its plain version on the same inputs (the sum within 1e-5 of a
+    float64 sum's row scale; the softmax 1e-5 of a float64 run;
+    ``segment_max`` and its tie-splitting gradient exactly, -inf on the
+    empty rows). A third call of each is timed, its plan's build inside
+    it, beside the same work on that plan and the ``csc`` backend's (a
+    JSON ``surface row`` each). ``repro_torch.launch.train.train_gnn(
+    "alipay_like", "gat_e", "global", steps=30, hidden=32,
+    eval_every=5)`` runs on the card, and its losses must lie within
+    1e-3 * max(1, |loss|) of the same call on the CPU, which runs in a
+    thread beside the two calls and the plain checks (a JSON
+    ``train_gnn row``). The phase keeps to 30 s, the graph's generation
+    aside.
 14. CUDA graphs per bucket (run after phase 11): the GNN train step
     (forward, backward, Adam) and the served forward are one CUDA graph
     per bucket on the card, the default, so phases 4-11 already run
@@ -1184,6 +1210,24 @@ def _bound(nbytes: float, nops: float,
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+_SIZED_GRAPHS: dict = {}
+
+
+def _graph(dataset: str, model: str, **graph_kw):
+    """The named graph as ``model`` sees it (GCN adds self-loops). One
+    sized with ``graph_kw`` (``num_nodes``) is made once a run and kept:
+    phases 6 and 25 both read the 1,000,000-node alipay_like graph, whose
+    generation on the host takes tens of seconds."""
+    from repro_torch.launch.serve_gnn import resolve_graph
+    if not graph_kw:
+        return resolve_graph(dataset, model, seed=0)
+    key = (dataset, model, tuple(sorted(graph_kw.items())))
+    if key not in _SIZED_GRAPHS:
+        _SIZED_GRAPHS[key] = resolve_graph(dataset, model, seed=0,
+                                           **graph_kw)
+    return _SIZED_GRAPHS[key]
+
+
 def _layer0_inputs(config: str, **graph_kw):
     """The Sum-stage operands of layer 0 of a full-graph forward on the
     card for the config module ``config``: (graph, block, masked logits
@@ -1193,11 +1237,11 @@ def _layer0_inputs(config: str, **graph_kw):
     from repro_torch.core.tgar import tree_take
     from repro_torch.graph import build_block
     from repro_torch.kernels.ref import NEG
-    from repro_torch.launch.serve_gnn import make_model, resolve_graph
+    from repro_torch.launch.serve_gnn import make_model
     cfg, dataset = get_gnn_config(config)
     model = cfg.model
     t0 = time.perf_counter()
-    g = resolve_graph(dataset, model, seed=0, **graph_kw)
+    g = _graph(dataset, model, **graph_kw)
     t_gen = time.perf_counter() - t0
     layer = make_model(g, model, cfg.num_layers, cfg.hidden_dim,
                        seed=0).layers[0].to(DEVICE)
@@ -1406,8 +1450,7 @@ def _dest_plan(dataset: str, model: str, **graph_kw):
     """The destination plan of a full-graph block of ``dataset`` (as
     ``model`` sees it: GCN adds self-loops), on the card."""
     from repro_torch.graph import build_block
-    from repro_torch.launch.serve_gnn import resolve_graph
-    g = resolve_graph(dataset, model, seed=0, **graph_kw)
+    g = _graph(dataset, model, **graph_kw)
     return build_block(g, csc_plan=True).csc_plan.to(DEVICE)
 
 
@@ -5326,13 +5369,389 @@ def dryrun_phase(label: str) -> dict:
     return launches
 
 
+# phase 25: the Sum stage's public primitives at the 1,000,000-node
+# alipay_like edge set, and the legacy train_gnn on the card
+SURFACE_SUM_WIDTH = 32             # segment_sum: the GAT-E gathers' width
+SURFACE_MAX_WIDTH = 64             # segment_max: the Reddit config's width
+SURFACE_HEADS = (4, 8)             # segment_softmax: GAT-E's heads of 8
+SURFACE_MASKED = 0.1               # share of masked edges in the softmax
+SURFACE_EMPTY = 8                  # segments past the graph's nodes: empty
+SURFACE_RECORDED = 100_000         # edges of the recorded calls
+SURFACE_JOB = ("alipay_like", "gat_e", "global")
+SURFACE_TRAIN = dict(steps=TRAIN_STEPS, hidden=32, eval_every=5)
+SURFACE_LIMIT_S = 30.0             # the phase, its graph's generation aside
+_SCATTERS = frozenset({"index_add", "index_add_", "scatter_add",
+                       "scatter_add_", "scatter_reduce", "scatter_reduce_",
+                       "index_put", "index_put_", "_index_put_impl_"})
+
+
+def _plain_segment_sum(x, ids, n):
+    """``jax.ops.segment_sum`` in plain PyTorch on the card (atomic
+    ``index_add_``): ids outside [0, n) are dropped."""
+    kept = (ids >= 0) & (ids < n)
+    return x.new_zeros((n,) + tuple(x.shape[1:])).index_add_(
+        0, ids[kept], x[kept])
+
+
+def _plain_segment_max(x, ids, n, g):
+    """``jax.ops.segment_max`` (E, D) -> (N, D) and the gradient of
+    ``sum(out * g)`` by JAX's rule, in plain PyTorch on the card: -inf on
+    an empty row, ties split by the reciprocal of their count."""
+    import torch
+    kept = (ids >= 0) & (ids < n)
+    rows = ids.clamp(0, n - 1)
+    idx = rows[kept, None].expand(-1, x.shape[1])
+    out = x.new_full((n, x.shape[1]), float("-inf")).scatter_reduce_(
+        0, idx, x[kept], "amax", include_self=True)
+    hit = (x == out[rows]) & kept[:, None]
+    count = x.new_zeros(out.shape).index_add_(0, rows, hit.to(x.dtype))
+    share = (g * (1.0 / count.clamp_min(1.0)))[rows]
+    return out, torch.where(hit, share, torch.zeros_like(share))
+
+
+def _plain_segment_softmax(lg, v, ids, n, mask):
+    """``repro/core/tgar.py:59`` in plain PyTorch on the card, over the
+    kept edges, differentiable by torch's own rules (in the inputs'
+    type: the phase runs it in float64)."""
+    import torch
+    from repro_torch.kernels.ref import NEG
+    kept = (ids >= 0) & (ids < n)
+    lg, v, mask, ids = lg[kept], v[kept], mask[kept], ids[kept]
+    masked = torch.where(mask[:, None] > 0, lg, torch.full_like(lg, NEG))
+    idx = ids[:, None].expand_as(masked)
+    seg_max = masked.new_full((n, lg.shape[1]), float("-inf")).scatter_reduce(
+        0, idx, masked, "amax", include_self=True).clamp_min(NEG)
+    ex = torch.exp(masked - seg_max[ids]) * mask[:, None]
+    den = ex.new_zeros((n, lg.shape[1])).index_add(0, ids, ex)
+    num = v.new_zeros((n,) + tuple(v.shape[1:])).index_add(
+        0, ids, ex[..., None] * v)
+    return num / den.clamp_min(1e-9)[..., None]
+
+
+def _wall_ms(fn) -> float:
+    """One call's milliseconds on the host's clock, the card drained."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def _with_grads(out, inputs, g):
+    import torch
+    return (out.detach(),) + tuple(torch.autograd.grad(out, inputs, g))
+
+
+class _SurfaceInputs:
+    """Phase 25's operands on the card: the 1M graph's destinations in a
+    shuffled order over ``N`` segments (its nodes, each of which has an
+    in-edge, and ``SURFACE_EMPTY`` more that stay empty), one id made
+    negative and one past ``N``; seeded data and cotangents."""
+
+    def __init__(self, g):
+        import numpy as np
+        import torch
+        dev = torch.device(DEVICE)
+        self.E, self.N = g.num_edges, g.num_nodes + SURFACE_EMPTY
+        E, N = self.E, self.N
+        rng = np.random.default_rng(25)
+        ids = g.dst[rng.permutation(E)].astype(np.int64)
+        ids[rng.choice(E, 2, replace=False)] = (-1, N + 3)
+        self.ids = torch.from_numpy(ids).to(dev)
+        gen = torch.Generator(device=dev).manual_seed(25)
+
+        def randn(*shape):
+            return torch.randn(shape, generator=gen, device=dev)
+
+        H, Dh = SURFACE_HEADS
+        self.xs = randn(E, SURFACE_SUM_WIDTH).requires_grad_()
+        self.gs = randn(N, SURFACE_SUM_WIDTH)
+        # values from a few levels, so that rows hold ties for their max
+        self.xm = randn(E, SURFACE_MAX_WIDTH).mul(2).round().requires_grad_()
+        self.gm = randn(N, SURFACE_MAX_WIDTH)
+        self.lg = randn(E, H).requires_grad_()
+        self.v = randn(E, H, Dh).requires_grad_()
+        self.mask = (torch.rand(E, generator=gen, device=dev)
+                     >= SURFACE_MASKED).float()
+        self.gsm = randn(N, H, Dh)
+
+    def calls(self, e: int) -> dict:
+        """The three public calls, forward and gradients, over the first
+        ``e`` edges."""
+        from repro_torch.core import tgar
+        i, N = self.ids[:e], self.N
+
+        def ssum():
+            x = self.xs[:e]
+            return _with_grads(tgar.segment_sum(x, i, N), (x,), self.gs)
+
+        def smax():
+            x = self.xm[:e]
+            return _with_grads(tgar.segment_max(x, i, N), (x,), self.gm)
+
+        def ssoft():
+            a, b = self.lg[:e], self.v[:e]
+            return _with_grads(tgar.segment_softmax(a, b, i, N,
+                                                    self.mask[:e]),
+                               (a, b), self.gsm)
+        return {"segment_sum": ssum, "segment_max": smax,
+                "segment_softmax": ssoft}
+
+
+def _surface_recorded(inp: _SurfaceInputs) -> None:
+    """The calls over the first ``SURFACE_RECORDED`` edges, recorded (the
+    recorder's cost grows with a call, what it shows does not): no atomic
+    scatter on the card, every kernel through CUDA, no plain version."""
+    from repro_torch.analysis.oplog import record_ops
+    with _no_plain_versions():
+        _, log = record_ops(lambda: {k: f() for k, f in inp.calls(
+            SURFACE_RECORDED).items()})
+    scatters = sorted({e.name for e in log if e.name in _SCATTERS})
+    routes = sorted({(e.name, e.route) for e in log.kernels()})
+    if scatters or any(r != "cuda" for _, r in routes):
+        raise AssertionError(f"public Sum-stage ops: scatters {scatters}, "
+                             f"kernel routes {routes}")
+    print(f"  recorded over {SURFACE_RECORDED} edges: "
+          f"{len(log.kernels())} kernel calls "
+          f"({', '.join(n for n, _ in routes)}), all cuda; no scatter op, "
+          "no plain version", flush=True)
+
+
+def _surface_plain(inp: _SurfaceInputs, first: dict) -> None:
+    """Each op's first call against its plain version on the same
+    inputs: the sum in float64, each element within 1e-5 of its row's sum
+    of |x| (phase 3's rule: a hub row's thousands of float32 terms round
+    at that scale, in any order); its gradient, the max and the max's
+    gradient exactly; the softmax within 1e-5 of a float64 plain run."""
+    import torch
+    E, N, ids = inp.E, inp.N, inp.ids
+    errs = {}
+    with torch.no_grad():
+        x64 = inp.xs.detach().double()
+        want = _plain_segment_sum(x64, ids, N)
+        scale = _plain_segment_sum(x64.abs(), ids, N)
+        err = (first["segment_sum"][0].double() - want).abs()
+        if bool((err > ATOL + RTOL * scale).any()):
+            raise AssertionError(f"segment_sum: past {RTOL} of sum|x| of a "
+                                 f"float64 sum (max {float(err.max()):.3e})")
+        errs["segment_sum"] = float(err.max())
+        del x64, want, scale, err
+        kept = ((ids >= 0) & (ids < N))[:, None]
+        exact = {"segment_sum grad": (first["segment_sum"][1], torch.where(
+            kept, inp.gs[ids.clamp(0, N - 1)], 0.0))}
+        ref, ref_g = _plain_segment_max(inp.xm.detach(), ids, N, inp.gm)
+        exact["segment_max"] = (first["segment_max"][0], ref)
+        exact["segment_max grad"] = (first["segment_max"][1], ref_g)
+        for name, (a, b) in exact.items():
+            if not torch.equal(a, b):
+                raise AssertionError(f"{name}: not its plain version "
+                                     "exactly")
+            errs[name] = 0.0
+        empty = int(torch.isneginf(ref).all(1).sum())
+        del exact, ref, ref_g
+    lg64, v64 = (t.detach().double().requires_grad_()
+                 for t in (inp.lg, inp.v))
+    ref_s = _plain_segment_softmax(lg64, v64, ids, N, inp.mask.double())
+    ref_sg = torch.autograd.grad(ref_s, (lg64, v64), inp.gsm.double())
+    for name, a, b in zip(("segment_softmax", "segment_softmax d_logits",
+                           "segment_softmax d_values"),
+                          first["segment_softmax"], (ref_s,) + ref_sg):
+        b = b.detach().float()
+        torch.testing.assert_close(a, b, rtol=RTOL, atol=ATOL)
+        errs[name] = float((a - b).abs().max())
+    print("  against their plain versions (max |diff|; max exactly): "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + f"; {empty} empty rows give -inf", flush=True)
+
+
+def _surface_times(inp: _SurfaceInputs, first: dict, label: str) -> None:
+    """One more public call of each op, timed on the host's clock (the
+    plan's build timed inside it) and bitwise its first call; then the
+    same work on the plan that call built, and the ``csc`` backend's,
+    timed with CUDA events. A JSON ``surface row`` each."""
+    import torch
+    from repro_torch.core import aggregate as agg
+    from repro_torch.core import tgar
+    from repro_torch.kernels.ref import NEG
+    E, N, ids = inp.E, inp.N, inp.ids
+    H, Dh = SURFACE_HEADS
+    real, plan_ms, built = tgar._segments, {}, {}
+    rows = {}
+    for k, f in inp.calls(E).items():
+        def timed_segments(*a, k=k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            built["s"] = real(*a)
+            torch.cuda.synchronize()
+            plan_ms[k] = (time.perf_counter() - t0) * 1e3
+            return built["s"]
+        out = {}
+        tgar._segments = timed_segments
+        try:
+            public = _wall_ms(lambda: out.update(r=f()))
+        finally:
+            tgar._segments = real
+        if not all(torch.equal(a, b) for a, b in zip(out["r"], first[k])):
+            raise AssertionError(f"{k}: a third call differs")
+        rows[k] = public
+    segs, csc = built["s"], agg.get_backend("csc")
+    xs, xm, lg, v, mask = inp.xs, inp.xm, inp.lg, inp.v, inp.mask
+    prebuilt = {
+        "segment_sum": (lambda: _with_grads(
+            tgar._planned_sum(xs, segs), (xs,), inp.gs),
+            lambda: _with_grads(csc.segment_sum(xs, ids, N, segs.plan),
+                                (xs,), inp.gs)),
+        "segment_max": (lambda: _with_grads(
+            tgar._SegmentMaxSplit.apply(xm, segs), (xm,), inp.gm),
+            lambda: _with_grads(csc.segment_max(xm, ids, N, segs.plan),
+                                (xm,), inp.gm)),
+        "segment_softmax": (lambda: _with_grads(
+            tgar._planned_softmax(lg, v, segs, mask), (lg, v), inp.gsm),
+            lambda: _with_grads(csc.edge_softmax(
+                torch.where(mask[:, None] > 0, lg, torch.full_like(lg, NEG)),
+                v * mask[:, None, None], ids, N, segs.plan), (lg, v),
+                inp.gsm))}
+    widths = {"segment_sum": f"D={SURFACE_SUM_WIDTH}",
+              "segment_max": f"D={SURFACE_MAX_WIDTH}",
+              "segment_softmax": f"H={H} D={Dh}"}
+    for k, (same, backend) in prebuilt.items():
+        public = rows[k]
+        same_ms, csc_ms = _time_ms(same), _time_ms(backend)
+        row = {"phase": 25, "op": k, "E": E, "N": N, "shape": widths[k],
+               "public_ms": public, "prebuilt_ms": same_ms,
+               "csc_ms": csc_ms, "plan_ms": plan_ms[k],
+               "plan_share": plan_ms[k] / public, "card": label}
+        print(f"  {k} [E={E} N={N} {widths[k]}], forward and gradients: "
+              f"public {public:.1f} ms, of it the plan's build "
+              f"{plan_ms[k]:.1f} ms ({row['plan_share']:.1%}); the same "
+              f"work on the plan prebuilt {same_ms:.3f} ms (the csc "
+              f"backend {csc_ms:.3f} ms)", flush=True)
+        print("    surface row " + json.dumps(row), flush=True)
+
+
+def _surface_cpu_train(out: dict) -> None:
+    """``train_gnn`` on the CPU, the card run's reference (run in a
+    thread beside the card's work; an exception is kept for the join)."""
+    from repro_torch.launch.train import train_gnn
+    try:
+        t0 = time.perf_counter()
+        out["run"] = train_gnn(*SURFACE_JOB, device="cpu", **SURFACE_TRAIN)
+        out["s"] = time.perf_counter() - t0
+    except BaseException as e:          # re-raised by the joining thread
+        out["error"] = e
+
+
+def surface_phase(label: str) -> dict:
+    """Phase 25: the rest of the JAX package's public surface on the
+    card. ``segment_sum`` at width 32, ``segment_max`` at 64 and
+    ``segment_softmax`` at 4 heads of 8 over the 1,000,000-node
+    alipay_like edge set in a shuffled order, with one negative id and
+    one past the segments: forward and ``torch.autograd.grad``; recorded
+    over the first edges (no atomic scatter, no plain version), then over
+    every edge: two calls bitwise equal, B.1-B.5 launched, each held
+    against its plain version (1e-5; the max exactly), a third call
+    timed beside the same work on a prebuilt plan. ``train_gnn`` on
+    GAT-E on the card, held to its CPU run, which runs in a thread while
+    the card checks the ops (the host's clock reads the third calls
+    after it). Returns the launches."""
+    import threading
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import train_gnn
+    t0 = time.perf_counter()
+    g = _graph("alipay_like", "gat_e", num_nodes=KERNEL_NODES)
+    t_gen = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    stages = {}
+
+    def stage(name: str) -> None:
+        stages[name] = time.perf_counter() - t0 - sum(stages.values())
+
+    inp = _SurfaceInputs(g)
+    stage("inputs")
+    ops.reset_launches()
+    _surface_recorded(inp)
+    stage("recorded")
+    card = train_gnn(*SURFACE_JOB, **SURFACE_TRAIN)
+    stage("train_gnn on the card")
+    cpu = {}
+    worker = threading.Thread(target=_surface_cpu_train, args=(cpu,))
+    worker.start()
+    try:
+        runs = [{k: f() for k, f in inp.calls(inp.E).items()}
+                for _ in range(2)]
+        first = runs[0]
+        for k in first:
+            if not all(torch.equal(a, b)
+                       for a, b in zip(first[k], runs[1][k])):
+                raise AssertionError(f"{k}: two calls differ")
+        del runs
+        stage("two calls")
+        _surface_plain(inp, first)
+        stage("plain versions")
+    finally:
+        worker.join()
+    stage("the CPU's train_gnn, beyond")
+    if "error" in cpu:
+        raise cpu["error"]
+    launches = dict(ops.launches)
+    need = ("segment_sum", "segment_sum_bwd", "edge_softmax",
+            "edge_softmax_bwd", "segment_max")
+    if not all(launches[k] > 0 for k in need):
+        raise AssertionError(f"phase 25 launched {launches}")
+    _surface_times(inp, first, label)
+    stage("timed")
+    _surface_train_check(card, cpu, label)
+    took = time.perf_counter() - t0
+    print(f"  launches {({k: v for k, v in launches.items() if v})}; "
+          "seconds by stage: " + ", ".join(f"{k} {v:.2f}"
+                                           for k, v in stages.items()),
+          flush=True)
+    print(f"  phase 25: {took:.1f}s (the 1M graph: {t_gen:.1f}s to get, "
+          "0 where phase 6 made it)", flush=True)
+    if took > SURFACE_LIMIT_S:
+        raise AssertionError(f"phase 25 took {took:.1f}s, over "
+                             f"{SURFACE_LIMIT_S}s")
+    return {k: launches[k] for k in KERNELS}
+
+
+def _surface_train_check(card: dict, cpu: dict, label: str) -> None:
+    """``train_gnn``'s card run against its CPU run: the losses within
+    ``LOSS_TOL`` * max(1, |loss|), the model on the card."""
+    ref = cpu["run"]
+    if next(card["model"].parameters()).device.type != "cuda":
+        raise AssertionError("train_gnn did not train on the card")
+    got = [h["loss"] for h in card["history"]]
+    want = [h["loss"] for h in ref["history"]]
+    if len(got) != len(want):
+        raise AssertionError(f"train_gnn card vs CPU: {got} against {want}")
+    rel = max(abs(a - b) / max(1.0, abs(b)) for a, b in zip(got, want))
+    if rel > LOSS_TOL:
+        raise AssertionError(f"train_gnn card vs CPU: {got} against {want}")
+    steps = SURFACE_TRAIN["steps"]
+    print(f"  train_gnn{SURFACE_JOB} steps={steps} hidden="
+          f"{SURFACE_TRAIN['hidden']}: card vs CPU losses at steps "
+          f"{[h['step'] for h in card['history']]} max rel err {rel:.3e} "
+          f"(limit {LOSS_TOL}); final test acc {card['final_acc']:.4f} vs "
+          f"{ref['final_acc']:.4f}; fit {card['wall_s']:.2f} s on the card "
+          f"({steps / card['wall_s']:.1f} steps/s, its capture and "
+          f"{len(card['history'])} evaluations included), "
+          f"{ref['wall_s']:.2f} s on the CPU beside the card's work",
+          flush=True)
+    print("    train_gnn row " + json.dumps({
+        "phase": 25, "card_s": card["wall_s"], "cpu_s": ref["wall_s"],
+        "steps_per_s": steps / card["wall_s"], "loss_rel_err": rel,
+        "final_acc": card["final_acc"], "card": label}), flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only",
                     choices=["kernels", "gnn-times", "lm-times", "lm",
                              "runtime", "graphs", "engine", "examples",
                              "analysis", "ep", "ranks", "multicard",
-                             "dryrun"],
+                             "dryrun", "surface"],
                     default=None,
                     help="kernels: stop after phase 3 (build and check the "
                     "kernels); gnn-times: phases 1-3 and the GNN kernels' "
@@ -5343,7 +5762,8 @@ def main(argv=None) -> int:
                     "phases 1-2 and 15; examples: phases 1-2 and 16; "
                     "analysis: phases 1-2 and 20; ep: phases 1-2 and 21; "
                     "ranks: phases 1-2 and 22; multicard: phases 1-2 and "
-                    "23, on four cards; dryrun: phases 1-2 and 24")
+                    "23, on four cards; dryrun: phases 1-2 and 24; "
+                    "surface: phases 1-2 and 25")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -5405,6 +5825,10 @@ def main(argv=None) -> int:
     if args.only == "dryrun":
         phase("24. the dry-run against one card")
         dryrun_phase(label)
+        return 0
+    if args.only == "surface":
+        phase("25. the Sum stage's public ops and train_gnn")
+        surface_phase(label)
         return 0
 
     phase("3. kernels vs plain, on the card")
@@ -5497,6 +5921,8 @@ def main(argv=None) -> int:
     count(world1_phase())
     phase("24. the dry-run against one card")
     count(dryrun_phase(label))
+    phase("25. the Sum stage's public ops and train_gnn")
+    count(surface_phase(label))
     phase("20. analysis on the card")
     analysis_phase(label)
     phase("done")

@@ -100,6 +100,13 @@ class TrainResult:
     gcn_norm: bool = True
     trainer: Optional[Any] = None
 
+    def as_dict(self) -> dict:
+        """The legacy :func:`repro_torch.launch.train.train_gnn` return
+        shape (the reference's ``TrainResult.as_dict``)."""
+        return {"history": self.history, "wall_s": self.wall_s,
+                "params": self.params, "final_acc": self.final_acc,
+                "model": self.model, "graph": self.graph}
+
 
 def _build(job: TrainJob):
     """(graph, model, opt, views, eval_view, eval_mask) for a job."""

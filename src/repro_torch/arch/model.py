@@ -44,7 +44,8 @@ from repro_torch.arch.hints import shard_hint
 from repro_torch.arch.moe import expert_range
 from repro_torch.config import ArchConfig
 from repro_torch.nn.attention import left_pad_starts
-from repro_torch.nn.layers import ParamTree, _fan_in_init, embedding_init
+from repro_torch.nn.layers import (ParamTree, _fan_in_init, embedding_apply,
+                                  embedding_init, unembed_apply)
 
 LOSS_CHUNK = 512
 REMAT_POLICIES = ("full", "dots", "none")
@@ -268,13 +269,13 @@ class TransformerLM(nn.Module):
         if self.cfg.embed_inputs:
             x = batch["embeds"].to(_dtype(self.cfg))
         else:
-            x = self.embed["table"][batch["tokens"]]
+            x = embedding_apply(self.embed, batch["tokens"])
         return shard_hint(x, "batch", "seq", None)
 
     def _logits(self, h: torch.Tensor) -> torch.Tensor:
-        table = (self.embed["table"].T if self.cfg.tie_embeddings
-                 else self.lm_head)
-        return shard_hint(h @ table.to(h.dtype), "batch", None, "vocab")
+        logits = (unembed_apply(self.embed, h) if self.cfg.tie_embeddings
+                  else h @ self.lm_head.to(h.dtype))
+        return shard_hint(logits, "batch", None, "vocab")
 
     # ------------------------------------------------------------------ loss
 

@@ -132,6 +132,32 @@ class ReferenceBackend(AggregationBackend):
         return num / torch.clamp_min(den, 1e-9)[..., None]
 
 
+def reference_edge_softmax_bwd(g, logits, values, out, segment_ids,
+                               num_segments: int):
+    """The pre-fusion softmax backward of ``repro/core/aggregate.py:257``,
+    line for line: the documented oracle of the fused backward
+    (``edge_softmax_bwd``), recomputing the row max and denominator with
+    segment passes and gathering ``g``, ``out`` and the statistics per
+    edge. Plain segment math for the CPU; no path of the port runs it.
+
+    g / out (N, H, D), logits (E, H) with NEG on masked edges, values
+    (E, H, D) -> (d_logits (E, H), d_values (E, H, D))."""
+    ref = ReferenceBackend()
+    ids = segment_ids.long()
+    seg_max = torch.clamp_min(ref.segment_max(logits, ids, num_segments),
+                              NEG)
+    ex = torch.exp(logits - seg_max[ids])
+    ex = torch.where(logits > NEG / 2, ex, torch.zeros_like(ex))
+    den = ref.segment_sum(ex, ids, num_segments)
+    p = ex / torch.clamp_min(den, 1e-9)[ids]
+    g_e = g[ids]                                           # (E, H, D)
+    d_values = p[..., None] * g_e
+    vg = torch.sum(values * g_e, dim=-1)                   # (E, H)
+    og = torch.sum(out[ids] * g_e, dim=-1)                 # (E, H)
+    d_logits = p * (vg - og)
+    return d_logits, d_values
+
+
 class _CSCSegmentSum(torch.autograd.Function):
     """``segment_sum_op`` with the plan-driven gather kernel as its
     backward (segment-sum is linear: ``d_data[e] = g[edge_dst[e]]``); only

@@ -11,6 +11,8 @@ draws, same sets, bit for bit.
   path's fresh-per-hop sets over a stamp array (O(view) work).
 - :func:`bfs_layers_loop` — the per-node Python loop, the oracle the
   vectorized expansion is held against.
+- :func:`subgraph_size_stats` — the paper's §1 subgraph-explosion
+  measure: the share of the graph a K-hop neighbourhood touches.
 """
 from __future__ import annotations
 
@@ -221,3 +223,14 @@ def khop_subgraph_view(g: Graph, targets: np.ndarray, K: int,
     loss_mask = np.zeros(N, np.float32)
     loss_mask[np.unique(targets)] = 1.0
     return node_active, edge_active, loss_mask, visited
+
+
+def subgraph_size_stats(g: Graph, targets: np.ndarray, K: int) -> dict:
+    """Paper §1: subgraph explosion metrics (fraction of graph touched)."""
+    hops, visited = bfs_layers(g, targets, K)
+    return {
+        "targets": int(len(np.unique(targets))),
+        "touched_nodes": int(visited.sum()),
+        "touched_frac": float(visited.sum() / g.num_nodes),
+        "hop_sizes": [int(len(h)) for h in hops],
+    }

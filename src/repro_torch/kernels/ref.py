@@ -1,7 +1,8 @@
 """Plain PyTorch versions of the CUDA kernels, forward and backward: the
 same functions, the same masked-row and clipping semantics, on whatever
 device their inputs lie. The Sum-stage kernels' come first, then the LM
-zoo's (``flash_attention_ref``, ``wkv6_ref``).
+zoo's (``flash_attention_ref``, ``wkv6_ref``), with the reference's
+float32 attention oracle ``mha_ref`` beside ``flash_attention_ref``.
 
 The kernel wrappers in :mod:`repro_torch.kernels.ops` take these for
 tensors on the CPU; ``chip_smoke.py`` holds each kernel against them on
@@ -124,6 +125,27 @@ def edge_softmax_bwd_ref(g: torch.Tensor, logits: torch.Tensor,
     d_values = p[..., None] * gi
     d_logits = p * ((values * gi).sum(-1) - og[rows])
     return d_logits, d_values
+
+
+def mha_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            causal: bool = True, sliding_window: int = 0) -> torch.Tensor:
+    """q, k, v (B, T, H, D) -> (B, T, H, D) in q's dtype: the float32
+    softmax oracle of ``repro/kernels/ref.py:63``, with masked scores at
+    ``NEG`` (a row with no visible key, which neither mask makes, would
+    average its values)."""
+    B, T, H, D = q.shape
+    scale = 1.0 / math.sqrt(D)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    qi = torch.arange(T, device=q.device)[:, None]
+    ki = torch.arange(T, device=q.device)[None, :]
+    ok = torch.ones((T, T), dtype=torch.bool, device=q.device)
+    if causal:
+        ok = ok & (ki <= qi)
+    if sliding_window:
+        ok = ok & (ki > qi - sliding_window)
+    s = torch.where(ok[None, None], s, torch.full_like(s, NEG))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(q.dtype)
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

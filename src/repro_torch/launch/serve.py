@@ -46,6 +46,9 @@ from repro_torch.arch import build_model
 from repro_torch.config import ArchConfig, get_arch_config
 from repro_torch.core.trainer import _assert_once_per_bucket, capture, warm_up
 from repro_torch.device import resolve_device
+from repro_torch.utils.logging import get_logger
+
+log = get_logger("serve")
 
 
 @dataclass
@@ -377,6 +380,8 @@ def main(argv=None) -> int:
         batch = reqs[i:i + args.batch]
         server.run(batch)
         done.extend(batch)
+        log.info("served batch %d: %d requests", i // args.batch,
+                 len(batch))
     s = server.stats
     print(f"[{server.device}] {cfg.name} ({cfg.num_layers} layers, d "
           f"{cfg.d_model}, {cfg.dtype}): served {len(done)} requests "

@@ -27,7 +27,9 @@ vocabulary capped at 1,024) on its synthetic token stream with AdamW
 under a warmup-cosine schedule, as the reference's ``train_lm``, and
 prints ``final loss: ...``. The model's loss is the plain PyTorch path
 under autograd; the forward-only kernels serve, and refuse to be
-trained through.
+trained through. ``train_gnn`` is the reference's deprecated Python
+shim over :func:`repro_torch.api.train`, with its keywords and return
+dict.
 """
 from __future__ import annotations
 
@@ -37,6 +39,40 @@ import signal
 import sys
 import time
 from typing import Mapping, Optional
+
+from repro_torch.utils.logging import get_logger
+
+log = get_logger("train")
+
+
+def train_gnn(dataset: str, model_name: str, strategy: str, steps: int,
+              hidden: int = 64, lr: float = 1e-2, seed: int = 0,
+              num_layers: int = 2, eval_every: int = 20,
+              use_engine: Optional[int] = None,
+              partition_method: str = "1d_src",
+              prefetch_workers: Optional[int] = None,
+              prefetch_mode: str = "thread",
+              compact: bool = False, fault_policy=None,
+              checkpoint_dir: Optional[str] = None,
+              checkpoint_every: int = 0, resume: bool = False,
+              device: Optional[str] = None) -> dict:
+    """Deprecated shim, kept for the reference's keyword set and return
+    dict (``repro/launch/train.py:35``): build a
+    :class:`repro_torch.api.TrainJob` and call :func:`repro_torch.api.train`
+    instead. Runs on ``device``, the card unless the caller asks for
+    ``"cpu"``. Returns ``history``, ``wall_s``, ``params``, ``final_acc``,
+    ``model`` and ``graph`` (``TrainResult.as_dict``)."""
+    import repro_torch.api as api
+    job = api.TrainJob(
+        dataset=dataset, model=model_name, strategy=strategy, steps=steps,
+        hidden=hidden, lr=lr, seed=seed, num_layers=num_layers,
+        eval_every=eval_every, engine_partitions=use_engine or 0,
+        partition_method=partition_method,
+        prefetch_workers=prefetch_workers, prefetch_mode=prefetch_mode,
+        compact=compact, fault_policy=fault_policy,
+        checkpoint_dir=checkpoint_dir, checkpoint_every=checkpoint_every,
+        resume=resume, device=device)
+    return api.train(job, log=log.info).as_dict()
 
 
 def fault_policy_from(args):
@@ -172,9 +208,7 @@ def train_lm(arch: str, steps: int, batch: int, seq: int,
     from repro_torch.device import resolve_device
     from repro_torch.launch.microbatch import microbatched_value_and_grad
     from repro_torch.optim import adamw, warmup_cosine_schedule
-    from repro_torch.utils.logging import get_logger
 
-    log = get_logger("train")
     dev = resolve_device(device)
     cfg = get_arch_config(arch)
     if reduced:

@@ -1,6 +1,7 @@
 """Dense building blocks, initialised from an explicit ``torch.Generator``
 (on the generator's device), the LM zoo's norms, embedding and SwiGLU,
-the classification loss, and Whisper's LayerNorm and GELU MLP.
+the classification losses, dropout, and Whisper's LayerNorm and GELU
+MLP.
 
 Weights keep the reference's ``(in, out)`` layout (``y = x @ w + b``), so
 parameters carried over from the JAX package load as they are. The LM
@@ -29,6 +30,20 @@ def _fan_in_init(gen: torch.Generator, shape, scale: float = 1.0,
     w = torch.randn(tuple(shape), generator=gen, device=gen.device,
                     dtype=torch.float32) * std
     return w.to(dtype)
+
+
+def glorot(shape, dtype: torch.dtype = torch.float32,
+           generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Glorot-uniform in ``+-sqrt(6 / (fan_in + fan_out))`` with
+    ``fan_in, fan_out = shape[0], shape[-1]``, drawn in float32 on the
+    generator's device from ``generator`` (the reference's JAX key) and
+    cast to ``dtype``."""
+    fan_in, fan_out = shape[0], shape[-1]
+    limit = math.sqrt(6.0 / (fan_in + fan_out))
+    device = generator.device if generator is not None else None
+    w = torch.rand(tuple(shape), generator=generator, device=device,
+                   dtype=torch.float32)
+    return (w * (2 * limit) - limit).to(dtype)
 
 
 # -- products over fixed row tiles ---------------------------------------------
@@ -112,6 +127,38 @@ def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     return torch.mean(nll)
 
 
+def binary_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                         mask: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
+    """Mean binary cross-entropy on logits in float32, in the stable
+    form ``max(x, 0) - x * y + log1p(exp(-|x|))``; the masked mean
+    divides by the mask sum clamped at 1."""
+    logits = logits.float()
+    labels = labels.float()
+    nll = (torch.clamp_min(logits, 0) - logits * labels
+           + torch.log1p(torch.exp(-torch.abs(logits))))
+    if mask is not None:
+        mask = mask.float()
+        return torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)
+    return torch.mean(nll)
+
+
+def dropout(x: torch.Tensor, rate: float,
+            generator: Optional[torch.Generator] = None,
+            deterministic: bool = False) -> torch.Tensor:
+    """Inverted dropout: each element kept with probability ``1 -
+    rate`` and scaled by ``1 / (1 - rate)``, the rest zero; ``x`` itself
+    when ``deterministic`` or ``rate`` is 0. The mask is drawn from
+    ``generator`` (on ``x``'s device), which takes the place of the
+    reference's JAX key: the same generator state gives the same mask,
+    though not JAX's bits."""
+    if deterministic or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros_like(x)).to(x.dtype)
+
+
 # -- the LM zoo's building blocks ----------------------------------------------
 
 
@@ -166,6 +213,16 @@ def embedding_init(gen: torch.Generator, vocab: int, dim: int,
     return {"table": (torch.randn((vocab, dim), generator=gen,
                                   device=gen.device, dtype=torch.float32)
                       * 0.02).to(dtype)}
+
+
+def embedding_apply(p, ids: torch.Tensor) -> torch.Tensor:
+    """The table's rows at ``ids``."""
+    return p["table"][ids]
+
+
+def unembed_apply(p, x: torch.Tensor) -> torch.Tensor:
+    """Logits through the (possibly tied) embedding table."""
+    return x @ p["table"].T.to(x.dtype)
 
 
 def swiglu_init(gen: torch.Generator, d_model: int, d_ff: int,

@@ -1,6 +1,7 @@
 from repro_torch.serving.cache import EmbeddingCache
-from repro_torch.serving.server import (GNNServer, ServerClosedError,
+from repro_torch.serving.server import (GNNServer, ServeStats,
+                                        ServerClosedError,
                                         ServerOverloadedError)
 
-__all__ = ["EmbeddingCache", "GNNServer", "ServerClosedError",
-           "ServerOverloadedError"]
+__all__ = ["EmbeddingCache", "GNNServer", "ServeStats",
+           "ServerClosedError", "ServerOverloadedError"]

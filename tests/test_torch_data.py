@@ -1,15 +1,17 @@
 """The port's host data path against the JAX package's, bit for bit:
-datasets, compact K-hop views, staged bucket blocks, the plan, and the
-LM zoo's synthetic token stream."""
+datasets, compact K-hop views and the subgraph-size measure, staged
+bucket blocks, the plan, and the LM zoo's synthetic token stream."""
 import jax  # noqa: F401 — imported first so JAX stays on the CPU
 import numpy as np
 import pytest
 import torch
 
+from repro.core.subgraph import subgraph_size_stats as jax_size_stats
 from repro.core.views import CompactBlockBuilder as JaxStager
 from repro.core.views import ViewBuilder as JaxViewBuilder
 from repro.graph.datasets import make_dataset as jax_dataset
 from repro.kernels.ops import build_bucket_csc_plan as jax_bucket_plan
+from repro_torch.core.subgraph import subgraph_size_stats
 from repro_torch.core.views import (BucketSpec, CompactBlockBuilder,
                                     ViewBuilder)
 from repro_torch.graph import DATASETS, make_dataset
@@ -63,6 +65,20 @@ def test_khop_compact_identical(name, cap):
               "loss_local"):
         _assert_same(getattr(jv, f), getattr(pv, f), f)
     assert jv.meta == pv.meta
+
+
+@pytest.mark.parametrize("name,K", [("alipay_like", 1), ("alipay_like", 3),
+                                    ("reddit_like", 2)])
+def test_subgraph_size_stats_identical(name, K):
+    """The paper's §1 subgraph-explosion measure, value for value (its
+    ``hop_sizes`` and the touched share as Python numbers)."""
+    jg, pg = _pair(name, num_nodes=SMALL[name])
+    targets = np.random.default_rng(5).choice(jg.num_nodes, 7,
+                                              replace=False)
+    want = jax_size_stats(jg, targets, K)
+    got = subgraph_size_stats(pg, targets, K)
+    assert got == want
+    assert [type(v) for v in got.values()] == [int, int, float, list]
 
 
 @pytest.mark.parametrize("gcn_norm", [True, False])
