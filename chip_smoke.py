@@ -17,6 +17,8 @@
     python3 chip_smoke.py --only multicard # phases 1-2 and 23: four cards
     python3 chip_smoke.py --only dryrun    # phases 1-2 and the dry-run's 24
     python3 chip_smoke.py --only surface   # phases 1-2 and the public ops' 25
+    python3 chip_smoke.py --only cache     # phases 1-2 and the cache's 26
+    python3 chip_smoke.py --only softmax-times  # phases 1-2, B.3's times
 
 Phases (each raises on failure, so the script exits non-zero):
 
@@ -41,7 +43,11 @@ Phases (each raises on failure, so the script exits non-zero):
    64, 128 and 130 over hub rows of 65 to 5,000 edges; and rows of 65 to
    5,000 edges behind a leading row of 0, 1, 17 or 63 edges must give the
    same bits through ``segment_sum``, ``edge_softmax`` and
-   ``segment_max`` (row cuts counted from the row's start);
+   ``segment_max`` (row cuts counted from the row's start), and through
+   ``edge_softmax`` also behind 110,000 filler rows, in plans past its
+   schedule switch that it runs as merge-path chunks, as must rows of 0
+   to 5,000 edges (masked and all-masked among them) behind four counts
+   of filler rows: the bits of the rows schedule;
 4. serve GAT-E (alipay_like, 20,000 nodes, published widths) on the card
    through ``repro_torch.launch.serve_gnn``: 512 requests, 4 clients,
    cache on; every response held against the same port run on the CPU,
@@ -291,8 +297,20 @@ Phases (each raises on failure, so the script exits non-zero):
     eval_every=5)`` runs on the card, and its losses must lie within
     1e-3 * max(1, |loss|) of the same call on the CPU, which runs in a
     thread beside the two calls and the plain checks (a JSON
-    ``train_gnn row``). The phase keeps to 30 s, the graph's generation
-    aside.
+    ``train_gnn row``). ``combine_messages`` under ``max`` with no plan
+    (``backend=None`` and ``"csc"``) over the edges into 20,000 segments,
+    messages from a few levels so that rows tie: on the card through the
+    kernels, no scatter op, its forward and its tie-splitting gradient
+    equal to the CPU's exactly. The phase keeps to 30 s, the graph's
+    generation aside.
+26. (run after phase 4) the cache contract past ``edge_softmax``'s
+    schedule switch: GAT-E served at the config's widths on alipay_like
+    at 200,000 nodes (1,199,822 edges) with the default ladder, for 4,097
+    and 16,385 targets (seeded, and the graph's highest in-degree node):
+    each view's bucket and schedule printed (the recompute's 2-hop view
+    past 2^19 rows plus edges both times, the hit's 1-hop view under it
+    and then past it, or the run fails), and the hit bitwise equal to the
+    recompute and to a ``cache=False`` server. The phase keeps to 30 s.
 14. CUDA graphs per bucket (run after phase 11): the GNN train step
     (forward, backward, Adam) and the served forward are one CUDA graph
     per bucket on the card, the default, so phases 4-11 already run
@@ -908,6 +926,53 @@ def _check_case(plan, lg, v, rng, worst: dict, name: str,
 
 OFFSET_DEGREES = (65, 412, 2832, 5000)
 OFFSET_LEADS = (0, 1, 17, 63)
+# filler rows of 0-8 edges put in front of the same rows to take a plan
+# past edge_softmax's schedule switch (csrc/edge_softmax.cu's kLargePlan)
+SWITCH_FILL = 110_000
+# rows that must give the same bits in a plan under the switch and in
+# plans past it: (edges, share of them masked)
+SWITCH_ROWS = ((0, 0.0), (1, 0.0), (3, 0.0), (6, 0.3), (17, 0.0),
+               (63, 0.0), (64, 0.0), (65, 0.0), (130, 0.3), (412, 1.0),
+               (2832, 0.0), (5000, 0.2), (5000, 1.0))
+
+
+def large_plan(name: str = "kLargePlan") -> int:
+    """``kLargePlan`` of ``csrc/edge_softmax.cu``, the rows plus edges
+    from which ``edge_softmax`` runs merge-path chunks (``kWideChunks``:
+    from which its chunks are twice as long)."""
+    import re
+    text = (ROOT / "src/repro_torch/kernels/csrc/edge_softmax.cu").read_text()
+    m = re.search(name + r"\s*=\s*int64_t\{(\d+)\}\s*<<\s*(\d+)", text)
+    return int(m.group(1)) << int(m.group(2))
+
+
+def _behind_fillers(fill: int, seed: int, lengths, logits, values):
+    """``fill`` seeded filler rows of 0-8 edges, then rows of ``lengths``
+    edges with the given data: (plan, logits, values, the rows' first
+    row), on the card."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.plan import build_csc_plan
+    front = np.random.default_rng(seed).integers(0, 9, fill)
+    k = int(front.sum())
+    sizes = np.concatenate([front, np.asarray(lengths, np.int64)])
+    ids = np.repeat(np.arange(len(sizes), dtype=np.int32), sizes)
+    plan = build_csc_plan(ids, len(sizes)).to(DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    lg = torch.cat([torch.randn((k,) + tuple(logits.shape[1:]),
+                                generator=gen, device=DEVICE) * 3, logits])
+    v = torch.cat([torch.randn((k,) + tuple(values.shape[1:]),
+                               generator=gen, device=DEVICE), values])
+    return plan, lg, v, fill
+
+
+def _same_rows(want, got, what: str) -> None:
+    import torch
+    for name, x, y in zip(("out", "m", "den"), want, got):
+        if not torch.equal(x, y):
+            bad = int((x != y).flatten(1).any(1).sum())
+            raise AssertionError(f"edge_softmax {name}: {bad} rows of {what} "
+                                 "differ from the rows schedule's bits")
 
 
 def check_offsets() -> None:
@@ -915,12 +980,19 @@ def check_offsets() -> None:
     C.14): rows of 65 to 5,000 edges behind a leading row of 0, 1, 17 or
     63 edges, through ``segment_sum`` at widths 32 and 4, ``edge_softmax``
     (4 heads of 8) and ``segment_max``; each launched twice, bitwise
-    equal, and held against its plain version."""
+    equal, and held against its plain version. ``edge_softmax`` also
+    across its schedule switch: the same rows behind ``SWITCH_FILL``
+    filler rows, in plans of 2^19 rows plus edges or more that it runs as
+    merge-path chunks, and SWITCH_ROWS (short, long, masked, all-masked)
+    in one plan under the switch and behind fillers past it, must give
+    the rows schedule's bits."""
     import numpy as np
     import torch
     from repro_torch.kernels import ops
     from repro_torch.kernels.plan import build_csc_plan
-    from repro_torch.kernels.ref import edge_softmax_ref, segment_max_ref
+    from repro_torch.kernels.ref import (NEG, edge_softmax_ref,
+                                         segment_max_ref)
+    large = large_plan()
     for deg in OFFSET_DEGREES:
         rows = []
         for lead in OFFSET_LEADS:
@@ -935,9 +1007,9 @@ def check_offsets() -> None:
                                   3).to(DEVICE)
             flat = v.flatten(1)
 
-            def softmax_ok(out, what):
-                for x, w in zip(out, edge_softmax_ref(lg, v, plan.perm,
-                                                      plan.indptr, 3)):
+            def softmax_ok(out, what, lg=lg, v=v, plan=plan):
+                for x, w in zip(out, edge_softmax_ref(
+                        lg, v, plan.perm, plan.indptr, plan.num_segments)):
                     torch.testing.assert_close(x, w, rtol=RTOL, atol=ATOL,
                                                msg=what)
 
@@ -945,38 +1017,93 @@ def check_offsets() -> None:
                 torch.testing.assert_close(out[0], segment_max_ref(
                     flat, plan.perm, plan.indptr, 3), rtol=0, atol=0,
                     msg=what)
-            # name -> (kernel call, check against the plain version)
+            # the same two rows (and the empty one) behind filler rows, in
+            # a plan that edge_softmax runs as merge-path chunks
+            big, big_lg, big_v, first = _behind_fillers(
+                SWITCH_FILL, 9 + lead, [lead, deg, 0], lg, v)
+            if big.num_segments + big.num_edges < large:
+                raise AssertionError("the filler rows fall short of the "
+                                     "schedule switch")
+            # name -> (kernel call, check against the plain version, the
+            # row's index)
             calls = {
                 "segment_sum d32": (
                     lambda: (ops.segment_sum_op(flat, plan),),
-                    lambda out, what: _sum_f64_err(out[0], flat, plan, what)),
+                    lambda out, what: _sum_f64_err(out[0], flat, plan, what),
+                    1),
                 "segment_sum d4": (
                     lambda: (ops.segment_sum_op(lg, plan),),
-                    lambda out, what: _sum_f64_err(out[0], lg, plan, what)),
+                    lambda out, what: _sum_f64_err(out[0], lg, plan, what),
+                    1),
                 "edge_softmax": (lambda: ops.edge_softmax_fwd_op(lg, v, plan),
-                                 softmax_ok),
+                                 softmax_ok, 1),
+                "edge_softmax chunks": (
+                    lambda: ops.edge_softmax_fwd_op(big_lg, big_v, big),
+                    lambda out, what: softmax_ok(out, what, big_lg, big_v,
+                                                 big), first + 1),
                 "segment_max": (lambda: (ops.segment_max_op(flat, plan),),
-                                max_ok),
+                                max_ok, 1),
             }
             got = {}
-            for name, (kern, check) in calls.items():
+            for name, (kern, check, r) in calls.items():
                 a, b = kern(), kern()
                 torch.cuda.synchronize()
                 if not all(torch.equal(x, y) for x, y in zip(a, b)):
                     raise AssertionError(f"{name}: two launches differ")
                 check(a, f"{name}, {deg} edges behind {lead}")
-                got[name] = [x[1].cpu() for x in a]
+                got[name] = [x[r].cpu() for x in a]
+            del big, big_lg, big_v
             rows.append(got)
-        for lead, got in zip(OFFSET_LEADS[1:], rows[1:]):
+        for lead, got in zip(OFFSET_LEADS, rows):
             for name, outs in got.items():
-                if not all(torch.equal(x, y)
-                           for x, y in zip(rows[0][name], outs)):
+                want = rows[0][name.replace(" chunks", "")]
+                if not all(torch.equal(x, y) for x, y in zip(want, outs)):
                     raise AssertionError(
                         f"{name}: a row of {deg} edges behind {lead} edges "
                         "differs from the same row at offset 0")
         print(f"  offsets: a row of {deg} edges behind 0, 1, 17, 63 edges: "
               "bitwise equal (segment_sum d32/d4, edge_softmax, "
-              "segment_max)", flush=True)
+              f"segment_max); edge_softmax behind {SWITCH_FILL} filler rows "
+              "too (merge-path chunks): bitwise the rows schedule's",
+              flush=True)
+    # SWITCH_ROWS under the switch and behind fillers past it, at offsets
+    # that move the rows across chunk edges
+    rng = np.random.default_rng(32)
+    lengths = [k for k, _ in SWITCH_ROWS]
+    lg = rng.normal(size=(sum(lengths), 4)).astype(np.float32) * 3
+    v = rng.normal(size=(sum(lengths), 4, 8)).astype(np.float32)
+    masked = np.concatenate([rng.random(k) < share for k, share in
+                             SWITCH_ROWS])
+    lg[masked], v[masked] = NEG, 0.0
+    lg, v = (torch.from_numpy(a).to(DEVICE) for a in (lg, v))
+    plan = build_csc_plan(np.repeat(np.arange(len(lengths), dtype=np.int32),
+                                    lengths), len(lengths)).to(DEVICE)
+    want = ops.edge_softmax_fwd_op(lg, v, plan)
+    for x, w in zip(want, edge_softmax_ref(lg, v, plan.perm, plan.indptr,
+                                           len(lengths))):
+        torch.testing.assert_close(x, w, rtol=RTOL, atol=ATOL)
+    plans = 0
+    wide = large_plan("kWideChunks")
+    for fill in (SWITCH_FILL, SWITCH_FILL + 1, SWITCH_FILL + 17,
+                 SWITCH_FILL + 250, wide // 4):
+        big, big_lg, big_v, first = _behind_fillers(fill, fill, lengths, lg,
+                                                    v)
+        if big.num_segments + big.num_edges < (wide if fill == wide // 4
+                                               else large):
+            raise AssertionError("the filler rows fall short of the switch")
+        got = ops.edge_softmax_fwd_op(big_lg, big_v, big)
+        again = ops.edge_softmax_fwd_op(big_lg, big_v, big)
+        if not all(torch.equal(x, y) for x, y in zip(got, again)):
+            raise AssertionError("edge_softmax chunks: two launches differ")
+        _same_rows(want, [x[first:] for x in got],
+                   f"SWITCH_ROWS behind {fill} filler rows")
+        plans += 1
+        del big, big_lg, big_v, got, again
+    print(f"  schedule switch: {len(lengths)} rows of 0 to 5,000 edges "
+          f"(masked, all-masked among them) under the switch and behind "
+          f"{plans} counts of filler rows past it (>= {large} rows plus "
+          f"edges; the last past {wide}, chunks twice as long): out, m, den "
+          "bitwise equal", flush=True)
 
 
 def check_kernels() -> dict:
@@ -1179,6 +1306,94 @@ def serve(config: str, label: str, requests: int = 512,
     return launches
 
 
+# -- phase 26: the cache contract past the schedule switch ---------------------
+
+CACHE_NODES = 200_000              # alipay_like nodes: its default ladder
+                                   # runs from (32768, 262144) to (262144,
+                                   # 2097152), only the first under 2^19
+# targets a case (and the graph's highest in-degree node): at 4,096 the
+# full recompute's 2-hop view lands past edge_softmax's schedule switch and
+# the hit's 1-hop view under it; at 16,384 both land past it
+CACHE_TARGETS = ((4096, False), (16_384, True))
+CACHE_LIMIT_S = 30.0               # the phase, its graph's generation aside
+
+
+def cache_phase(label: str) -> dict:
+    """Phase 26: GAT-E served at the config's widths (seed-0 weights) on
+    alipay_like at ``CACHE_NODES`` nodes with the default ladder; for
+    each of ``CACHE_TARGETS``, seeded targets and the hub are served
+    once (every target a miss: the 2-hop view, whose top-layer rows the
+    cache keeps), again (every target a hit: the top layer over the 1-hop
+    view) and by a ``cache=False`` server. Each view's bucket and
+    ``edge_softmax`` schedule are printed and must fall on the stated
+    sides of ``kLargePlan``; the hit must equal the recompute and the
+    server without a cache bit for bit. Returns the launches."""
+    import numpy as np
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve_gnn import build_server
+    cfg, dataset = _config("gnn_gat_e_alipay")
+    model, hidden, layers = cfg.model, cfg.hidden_dim, cfg.num_layers
+    t0 = time.perf_counter()
+    g = _graph(dataset, model, num_nodes=CACHE_NODES)
+    t_gen = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    large = large_plan()
+    indeg = np.bincount(g.dst, minlength=g.num_nodes)
+    hub = int(indeg.argmax())
+    kw = dict(max_batch=16, max_wait_ms=2.0)
+    ops.reset_launches()
+
+    def schedule(bucket) -> str:
+        return "chunks" if sum(bucket) >= large else "rows"
+    failed = []
+    for count, hit_past in CACHE_TARGETS:
+        rng = np.random.default_rng(count)
+        targets = np.union1d(rng.choice(g.num_nodes, count, replace=False),
+                             [hub])
+        cached = build_server(g, model, layers, hidden, seed=0,
+                              device=DEVICE, **kw)
+        full = cached.submit(targets)
+        hits0 = cached.cache.hits
+        again = cached.submit(targets)
+        hits = cached.cache.hits - hits0
+        plain = build_server(g, model, layers, hidden, seed=0, device=DEVICE,
+                             cache=False, **kw).submit(targets)
+        (miss_bucket,) = cached._full_step.calls
+        (hit_bucket,) = cached._hit_step.calls
+        if hits != len(targets):
+            raise AssertionError(f"{count} targets: {hits} cache hits")
+        if sum(miss_bucket) < large or (sum(hit_bucket) >= large) != hit_past:
+            raise AssertionError(
+                f"{count} targets: buckets {miss_bucket} and {hit_bucket} "
+                f"against the switch at {large} rows plus edges")
+        same = [bool(np.array_equal(again, full)),
+                bool(np.array_equal(again, plain))]
+        print(f"  {len(targets)} targets (the hub {hub}, {int(indeg[hub])} "
+              f"in-edges, among them): recompute's 2-hop view in bucket "
+              f"{miss_bucket} ({schedule(miss_bucket)}), the hit's 1-hop "
+              f"view in {hit_bucket} ({schedule(hit_bucket)}); {hits} hits; "
+              f"hit vs recompute max_abs_err "
+              f"{float(np.abs(again - full).max()):.3e} bitwise={same[0]}, "
+              f"vs cache=False {float(np.abs(again - plain).max()):.3e} "
+              f"bitwise={same[1]}", flush=True)
+        if not all(same) or not np.isfinite(again).all():
+            failed.append(count)
+        del cached
+    if failed:
+        raise AssertionError(f"{failed} targets: a cache hit is not bitwise "
+                             "the recompute")
+    launches = dict(ops.launches)
+    took = time.perf_counter() - t0
+    print(f"  launches {({k: v for k, v in launches.items() if v})}",
+          flush=True)
+    print(f"  phase 26: {took:.1f}s ({dataset} at {g.num_nodes} nodes, "
+          f"{g.num_edges} edges: {t_gen:.1f}s to get; {label})", flush=True)
+    if took > CACHE_LIMIT_S:
+        raise AssertionError(f"phase 26 took {took:.1f}s, over "
+                             f"{CACHE_LIMIT_S}s")
+    return {k: launches[k] for k in KERNELS}
+
+
 # -- phase 6: kernel times ----------------------------------------------------
 
 
@@ -1313,6 +1528,58 @@ def _softmax_row(plan, logit, value) -> dict:
     return dict(ms=ms, device_ms=_device_ms(kern), plain_ms=plain,
                 bound_ms=bound, bound_by=by, library_ms=None,
                 shape=f"E={E} N={N} H={H} D={D}")
+
+
+# alipay_like power-law plans on either side of edge_softmax's schedule
+# switch: 0.35, 0.7 and 1.4 million rows plus edges
+SWITCH_NODES = (50_000, 100_000, 200_000)
+
+
+def softmax_times(label: str) -> None:
+    """``edge_softmax`` (B.3) alone, at the plans phase 6 times it on: the
+    1,000,000-node alipay_like layer 0, a hub-free plan of its N and E,
+    and the SWITCH_NODES plans; each held against its plain version and
+    timed (one JSON ``plan row`` each, its schedule in its name)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.plan import build_csc_plan
+    large = large_plan()
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+
+    def row(name: str, plan, logit, value) -> None:
+        kind = ("chunks" if plan.num_segments + plan.num_edges >= large
+                else "rows")
+        _plan_row("edge_softmax", f"{name}, {kind}",
+                  {**_softmax_row(plan, logit, value), "card": label})
+    with torch.inference_mode():
+        _, block, logit, value = _layer0_inputs("gnn_gat_e_alipay",
+                                                num_nodes=KERNEL_NODES)
+        plan = block.csc_plan
+        E, H, D = value.shape
+        N = plan.num_segments
+        row(f"alipay_like, {N} nodes (power law)", plan, logit, value)
+        del block, plan, logit, value
+        ids = np.sort(np.random.default_rng(0).integers(0, N, E))
+        plan = build_csc_plan(ids.astype(np.int32), N).to(DEVICE)
+        row(f"uniform, {N} nodes (hub-free)", plan, torch.randn(
+            (E, H), generator=gen, device=DEVICE) * 3, torch.randn(
+            (E, H, D), generator=gen, device=DEVICE))
+        del plan
+        switch_rows(H, D, gen, row)
+
+
+def switch_rows(H: int, D: int, gen, row) -> None:
+    """``row(name, plan, logit, value)`` for ``edge_softmax`` on the
+    SWITCH_NODES alipay_like plans, either side of its schedule switch
+    (kLargePlan): 0.35, 0.7 and 1.4 million items, between the cells' 20k
+    plan (0.14 million) and the 1M one (7 million)."""
+    import torch
+    for nodes in SWITCH_NODES:
+        plan = _dest_plan("alipay_like", "gat_e", num_nodes=nodes)
+        e = plan.num_edges
+        row(f"alipay_like, {nodes} nodes (power law)", plan, torch.randn(
+            (e, H), generator=gen, device=DEVICE) * 3, torch.randn(
+            (e, H, D), generator=gen, device=DEVICE))
 
 
 def _max_row(plan, data) -> dict:
@@ -1486,17 +1753,8 @@ def plan_rows(E: int, N: int, H: int, D: int, gen) -> None:
                        device=DEVICE)
     _plan_row("segment_max", "reddit_like (SAGE-max cells)",
               _max_row(plan, data))
-    # edge_softmax on either side of its schedule switch (2^19 rows plus
-    # edges, csrc/edge_softmax.cu's kLargePlan): alipay_like power-law
-    # plans of 0.35, 0.7 and 1.4 million items, between the cells' 20k
-    # plan (0.14 million) and the 1M one (7 million)
-    for nodes in (50_000, 100_000, 200_000):
-        plan = _dest_plan("alipay_like", "gat_e", num_nodes=nodes)
-        e = plan.num_edges
-        _plan_row("edge_softmax", f"alipay_like, {nodes} nodes (power law)",
-                  _softmax_row(plan, torch.randn(
-                      (e, H), generator=gen, device=DEVICE) * 3, torch.randn(
-                      (e, H, D), generator=gen, device=DEVICE)))
+    switch_rows(H, D, gen, lambda name, *a: _plan_row(
+        "edge_softmax", name, _softmax_row(*a)))
     # bucket-padded views with short uniform rows, the kind the serving
     # and mini-batch paths stage: a GAT-E serving bucket and a SAGE-max
     # training bucket
@@ -5565,6 +5823,67 @@ def _surface_plain(inp: _SurfaceInputs, first: dict) -> None:
           + f"; {empty} empty rows give -inf", flush=True)
 
 
+SURFACE_COMBINE_ROWS = 20_000       # combine_messages: the edges into
+                                    # these segments (about 6 each)
+SURFACE_COMBINE_HEADS = (4, 16)
+
+
+def _surface_combine(inp: _SurfaceInputs) -> None:
+    """``combine_messages`` under ``max`` with no plan (``backend=None``
+    and ``"csc"``) over the edges into the first SURFACE_COMBINE_ROWS
+    segments (and the negative id), messages from a few levels so that
+    rows tie for their max: on the card through the kernels (no atomic
+    scatter, no plain version), its forward and its gradient (the
+    reference's even tie split) equal to the same call on the CPU
+    exactly."""
+    import torch
+    from repro_torch.analysis.oplog import record_ops
+    from repro_torch.core import tgar
+    from repro_torch.kernels import ops
+    n = SURFACE_COMBINE_ROWS + SURFACE_EMPTY
+    sel = inp.ids < SURFACE_COMBINE_ROWS
+    dst = inp.ids[sel]
+    e = int(dst.numel())
+    H, Dh = SURFACE_COMBINE_HEADS
+    gen = torch.Generator(device=DEVICE).manual_seed(26)
+    value = torch.randn((e, H, Dh), generator=gen, device=DEVICE).mul(
+        2).round()
+    mask = (torch.rand(e, generator=gen, device=DEVICE) >= 0.1).float()
+    g = torch.randn((n, H, Dh), generator=gen, device=DEVICE)
+    layer = type("MaxLayer", (), {"combine": "max"})()
+
+    def call(device, backend):
+        v = value.to(device).requires_grad_()
+        out = tgar.combine_messages(layer, {"value": v}, dst.to(device), n,
+                                    mask.to(device), backend=backend)
+        return _with_grads(out, (v,), g.to(device))
+    cpu = call("cpu", None)
+    for backend in (None, "csc"):
+        before = dict(ops.launches)
+        with _no_plain_versions():
+            card, log = record_ops(lambda: call(DEVICE, backend))
+        torch.cuda.synchronize()
+        used = {k: ops.launches[k] - before[k] for k in ops.launches
+                if ops.launches[k] > before[k]}
+        scatters = sorted({x.name for x in log if x.name in _SCATTERS})
+        if scatters or not {"segment_max", "segment_sum",
+                            "segment_sum_bwd"} <= set(used):
+            raise AssertionError(f"combine_messages backend={backend}: "
+                                 f"scatters {scatters}, launches {used}")
+        for what, a, b in zip(("forward", "gradient"), card, cpu):
+            if not torch.equal(a.cpu(), b):
+                raise AssertionError(f"combine_messages backend={backend} "
+                                     f"max {what}: card vs CPU differ")
+    ties = int(((cpu[1] != 0) & (cpu[1] != g[dst.clamp(0, n - 1)].cpu())
+                ).sum())
+    if ties == 0:
+        raise AssertionError("combine_messages: no tied maximum to split")
+    print(f"  combine_messages max, no plan (None, csc) [E={e} N={n} H={H} "
+          f"D={Dh}]: card vs CPU forward and gradient bitwise equal; "
+          f"{ties} gradient entries a share of a tie; kernels {used}, no "
+          "scatter op", flush=True)
+
+
 def _surface_times(inp: _SurfaceInputs, first: dict, label: str) -> None:
     """One more public call of each op, timed on the host's clock (the
     plan's build timed inside it) and bitwise its first call; then the
@@ -5695,6 +6014,8 @@ def surface_phase(label: str) -> dict:
     stage("the CPU's train_gnn, beyond")
     if "error" in cpu:
         raise cpu["error"]
+    _surface_combine(inp)           # counts plain calls: none beside it
+    stage("combine_messages")
     launches = dict(ops.launches)
     need = ("segment_sum", "segment_sum_bwd", "edge_softmax",
             "edge_softmax_bwd", "segment_max")
@@ -5751,7 +6072,8 @@ def main(argv=None) -> int:
                     choices=["kernels", "gnn-times", "lm-times", "lm",
                              "runtime", "graphs", "engine", "examples",
                              "analysis", "ep", "ranks", "multicard",
-                             "dryrun", "surface"],
+                             "dryrun", "surface", "cache",
+                             "softmax-times"],
                     default=None,
                     help="kernels: stop after phase 3 (build and check the "
                     "kernels); gnn-times: phases 1-3 and the GNN kernels' "
@@ -5763,7 +6085,9 @@ def main(argv=None) -> int:
                     "analysis: phases 1-2 and 20; ep: phases 1-2 and 21; "
                     "ranks: phases 1-2 and 22; multicard: phases 1-2 and "
                     "23, on four cards; dryrun: phases 1-2 and 24; "
-                    "surface: phases 1-2 and 25")
+                    "surface: phases 1-2 and 25; cache: phases 1-2 and "
+                    "26; softmax-times: phases 1-2 and edge_softmax's "
+                    "phase-6 times")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -5830,6 +6154,14 @@ def main(argv=None) -> int:
         phase("25. the Sum stage's public ops and train_gnn")
         surface_phase(label)
         return 0
+    if args.only == "cache":
+        phase("26. the cache contract at 200,000 nodes")
+        cache_phase(label)
+        return 0
+    if args.only == "softmax-times":
+        phase("6. edge_softmax times")
+        softmax_times(label)
+        return 0
 
     phase("3. kernels vs plain, on the card")
     errs = check_kernels()
@@ -5863,6 +6195,9 @@ def main(argv=None) -> int:
     print(f"  {got['edge_softmax'] / requests:.3f} edge_softmax launches "
           "per served request")
     count(got)
+
+    phase("26. the cache contract at 200,000 nodes")
+    count(cache_phase(label))
 
     phase("5. serve GCN (reddit_like + self-loops)")
     got = serve("gnn_gcn_reddit", label, requests)

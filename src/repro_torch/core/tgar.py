@@ -290,25 +290,69 @@ def tree_take(tree: Dict[str, torch.Tensor], idx: torch.Tensor,
     return {k: agg.take(v, idx, plan) for k, v in tree.items()}
 
 
+class _ReferenceRoute(agg.ReferenceBackend):
+    """The JAX ``reference`` backend's results over one call's ids, as
+    the public primitives above give them: on CPU tensors their plain
+    segment math, on CUDA tensors the kernels over one plan built here
+    from the ids (``segment_sum``; ``segment_max`` with the even tie
+    split of :class:`_SegmentMaxSplit`; the fused ``edge_softmax``).
+    The reference's softmax clamps its denominator at 1e-9, the kernel at
+    1e-20, and the two agree: ``combine`` hands in logits that are NEG on
+    masked edges and values zeroed there, so a row with a live edge has a
+    denominator of at least 1 and an all-masked or empty row gives 0
+    under both."""
+
+    def __init__(self, segment_ids: torch.Tensor, num_segments: int,
+                 on_card: bool):
+        self.segs = (_segments(segment_ids, num_segments,
+                               segment_ids.device) if on_card else None)
+
+    def segment_sum(self, data, segment_ids, num_segments, plan=None):
+        if self.segs is None:
+            return segment_sum(data, segment_ids, num_segments)
+        return _planned_sum(data, self.segs)
+
+    def segment_max(self, data, segment_ids, num_segments, plan=None):
+        if self.segs is None:
+            return segment_max(data, segment_ids, num_segments)
+        return _SegmentMaxSplit.apply(data, self.segs)
+
+    def edge_softmax(self, logits, values, segment_ids, num_segments,
+                     plan=None):
+        if self.segs is None:
+            ids, logits, values = _kept(segment_ids, num_segments, logits,
+                                        values)
+            return super().edge_softmax(logits, values, ids, num_segments)
+        kept = self.segs.kept
+        if kept is not None:
+            logits = torch.where(kept[:, None], logits,
+                                 torch.full_like(logits, NEG))
+            values = _drop(values, self.segs)
+        return agg._CSCEdgeSoftmax.apply(logits, values, self.segs.plan)
+
+
 def combine_messages(layer: TGARLayer, msg, dst, num_segments: int,
                      edge_mask, backend=None, plan: Optional[CSCPlan] = None):
     """The Sum stage on a single block (non-distributed path): the shared
     :func:`~repro_torch.core.aggregate.combine` under ``layer.combine``.
 
-    ``backend=None`` is the reference's ``"reference"`` on CPU tensors
-    and ``"csc"`` on CUDA ones, where the plain backend does not run.
-    The ``csc`` backend takes ``plan``, or one built here from ``dst``
-    when it is None. Its results are the reference's, with one rule of
-    its own: under ``combine == "max"`` every entry that ties for a row's
-    max takes the row's whole cotangent, the JAX ``csc`` kernel's rule,
-    where ``"reference"`` splits it evenly (ROADMAP C.1)."""
-    if backend is None:
-        backend = "csc" if _on_card(msg["value"]) else "reference"
-    if plan is None and agg.get_backend(backend).name == "csc":
-        plan = build_csc_plan(dst.detach().cpu().numpy(),
-                              num_segments).to(dst.device)
+    As in the reference, ``backend=None`` is ``"reference"``, and
+    ``"csc"`` without a plan is the reference's segment math: both give
+    the JAX ``reference`` backend's results on either device, through
+    :class:`_ReferenceRoute` (on the card, the kernels over a plan built
+    here from ``dst``; tied maxima split the cotangent evenly, ROADMAP
+    C.1). ``"csc"`` with ``plan`` runs the kernels over it, with the
+    JAX ``csc`` kernel's rule under ``combine == "max"``: every entry
+    that ties for a row's max takes the row's whole cotangent. Any other
+    backend runs as :func:`~repro_torch.core.aggregate.combine` runs
+    it."""
+    be = agg.get_backend("reference" if backend is None else backend)
+    if (be.name == "reference"
+            or (be.name == "csc" and plan is None)):
+        be, plan = _ReferenceRoute(dst, num_segments,
+                                   _on_card(msg["value"])), None
     return agg.combine(layer.combine, msg, dst, num_segments, edge_mask,
-                       backend=backend, plan=plan)
+                       backend=be, plan=plan)
 
 
 def layer_forward_block(layer: TGARLayer, h: torch.Tensor, block: GraphBlock,

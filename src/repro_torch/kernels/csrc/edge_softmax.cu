@@ -11,56 +11,57 @@
 // the float32 rate, so the floor is
 // (E*H*(1+D) + N*H*(D+2)) * 4 bytes (plus the plan) over 3.35 TB/s.
 //
-// Design: two schedules, chosen by the plan's size alone, so that no
-// row's degree sets the time.
+// Design: one set of units, two schedules that run them, chosen by the
+// plan's size alone, so that no row's degree sets the time.
+// - The units are row_pieces.cuh's, which segment_sum.cu, segment_max.cu
+//   and edge_softmax_bwd.cu share: a row's first kPiece edges (its row
+//   unit, also when the row is empty), and the rest of a long row cut
+//   into pieces of kPiece edges counted from the row's start. Each unit
+//   folds its edges from its start in groups of kUnroll (fold_group): it
+//   issues the group's logit and value loads, then m_new = max(m,
+//   x_1..x_U), one rescale exp(m - m_new), and the edges' p = exp(x -
+//   m_new) summed in edge order. A unit that is a whole row is written
+//   straight out: out = acc / max(l, 1e-20), m, den = l. A row that is
+//   cut leaves its state (acc, m, l) per unit in the slots row_pieces.cuh
+//   lays out (slot 1 of piece_ptr[r] from its row unit, slot 0 of each
+//   piece), and the second launch (edge_softmax_merge) gives the row to
+//   the warp of its last piece, which folds the slots in row order,
+//   (m, l, acc) <- (max(m, m'), l*s + l'*s', acc*s + acc'*s') with s =
+//   exp(m - max), s' = exp(m' - max), and divides once at the end: the
+//   1e-20 clamp applies only there. So a row's bits are a function of
+//   its edges and data alone, whichever schedule runs it and wherever it
+//   lies in the plan: a served cache hit (the top layer over a 1-hop
+//   view) equals a full recompute (over a K-hop view) at every bucket.
 // - Below kLargePlan (2^19) rows plus edges, every plan the cells run
-//   (their buckets and layers): the row-and-piece schedule of
-//   row_pieces.cuh, which segment_sum.cu, segment_max.cu and
-//   edge_softmax_bwd.cu share: a warp per row takes its first kPiece
-//   edges, and the rest of a long row is cut into pieces of kPiece
-//   edges counted from the row's start, one more warp per piece. A
-//   row's cuts, and so its bits, are the same wherever it lies in the
-//   plan: a served cache hit (the top layer over a 1-hop view) equals a
-//   full recompute (over a K-hop view) on hub rows too.
-// - From kLargePlan on: merge-path chunks. The plan's rows and real
-//   edges form one sequence in plan order: row r's edges
-//   perm[indptr[r]:indptr[r+1]], then an end marker for r, N + E items
-//   in all (E = indptr[N]; pad edges sort past it and join no row).
-//   Chunk k is items [k*kChunk, (k+1)*kChunk), one warp each, so a
-//   warp's work is bounded by its items whatever the rows' lengths, and
-//   a million short rows cost 27,000 warps, not a million. On an H100
-//   80GB HBM3 (PERF.md), alipay_like power-law plans of 0.7 to 7
-//   million items take 0.86-0.74x the time in chunks that they take in
-//   rows and pieces: a warp per 6-edge row is a chain of dependent
-//   loads (indptr, perm, then the edges) that chunks stream through.
-//   At 0.14 million items (the GAT-E cells' 20k-node plan) chunks take
-//   1.9x: too few chunks to fill the card, each a serial walk. Chunks
-//   cut rows where the item count falls, so a long row's bits depend on
-//   its offset in the plan: offset invariance holds below kLargePlan
-//   only.
+//   (their buckets and layers): a warp per unit (rows, then pieces).
+// - From kLargePlan on: merge-path chunks over the same units. The
+//   plan's rows and real edges form one sequence in plan order: row r's
+//   edges perm[indptr[r]:indptr[r+1]], then an end marker for r, N + E
+//   items in all (E = indptr[N]; pad edges sort past it and join no
+//   row). Row r's unit j starts at item r + indptr[r] + j*kPiece. Chunk k
+//   is items [k*C, (k+1)*C), one warp each, and takes the units that
+//   start in it, so a warp's work is bounded by C + kPiece items whatever
+//   the rows' lengths, and a million short rows cost some 27,000 to
+//   55,000 warps, not a million. C is kChunk (128), or 256 from
+//   kWideChunks (2^22) rows plus edges on, where the plan is many waves
+//   of chunks and fewer searches pay more than a shorter tail. The chunk
+//   size sets no bits: only the units do. The warp streams its units'
+//   groups in plan order across unit and row ends, two groups' loads in
+//   flight in two register buffers that take turns (a copy from one to
+//   the other would wait for its loads): a chunk of 40 short rows is not
+//   40 round trips, where a warp per 6-edge row is a chain of dependent
+//   loads (indptr, perm, then the edges). On an H100 80GB HBM3 (PERF.md)
+//   chunks take less time than rows and pieces on alipay_like power-law
+//   plans of 0.7 to 7 million items, and more at 0.14 million (the GAT-E
+//   cells' 20k-node plan): too few chunks to fill the card, each a serial
+//   walk.
 // A warp finds its first row with a 32-way search (over piece_ptr for a
-// piece, over indptr for a chunk: a few rounds of 32 parallel probes),
-// stages its edge ids (and, for a chunk,
-// its rows' offsets) in shared memory, and walks its row pieces in plan
-// order. Lane j holds the pair (h, d) = (j / D, j % D), in passes of 32
-// when H*D > 32 (GAT-E's 4 heads of 8 fill one warp exactly), and keeps
-// its head's online state (m, l, acc) in registers. A row piece issues
-// kUnroll edges' logit and value loads before it folds them in: m_new =
-// max(m, x_1..x_U), one rescale exp(m - m_new), then the edges'
-// p = exp(x - m_new) summed in edge order. A chunk streams its edges
-// across row ends instead, the next kUnroll edges' loads in flight
-// while the current ones are folded in edge by edge with one
-// exponential each, so that a chunk of 40 short rows is not 40 round
-// trips. A piece that is a whole row is written straight out:
-// out = acc / max(l, 1e-20), m, den = l. A row that is cut leaves its
-// state (acc, m, l) per unit in scratch slots: for a chunk, slot 1 of
-// the chunk where it starts and slot 0 of every later one it reaches;
-// for rows and pieces, as row_pieces.cuh lays them out. The second launch (edge_softmax_merge)
-// gives each cut row to the warp of the unit that holds its end, which
-// folds the slots in plan order, (m, l, acc) <- (max(m, m'),
-// l*s + l'*s', acc*s + acc'*s') with s = exp(m - max), s' =
-// exp(m' - max), and divides once at the end: the 1e-20 clamp applies
-// only there.
+// piece, over indptr for a chunk's first and last units: a few rounds of
+// 32 parallel probes), stages its edge ids (and, for a chunk, its rows'
+// offsets) in shared memory, and walks its units in plan order. Lane j
+// holds the pair (h, d) = (j / D, j % D), in passes of 32 when H*D > 32
+// (GAT-E's 4 heads of 8 fill one warp exactly), and keeps its head's
+// online state (m, l, acc) in registers.
 //
 // Masked edges arrive with NEG logits and no separate mask: a row whose
 // edges are all masked ends with m = NEG and den = its edge count, also
@@ -82,17 +83,41 @@ namespace {
 
 using namespace row_pieces;
 
-constexpr int kChunk = 256;  // large plans: merge-path items per warp
 constexpr int64_t kLargePlan = int64_t{1} << 19;  // N + E from which
                                                   // chunks pay
+constexpr int kChunk = 128;  // merge-path items per warp, and twice that
+constexpr int64_t kWideChunks = int64_t{1} << 22;  // from this N + E on
 constexpr int kUnroll = 4;   // edges whose loads a warp issues at once
+static_assert(kPiece % kUnroll == 0, "a unit's end must be a group's");
 
 struct State {
   float m, l, acc;
 };
 
+// One group of up to kUnroll edges folded into st (x = -inf, v = 0 past
+// the group's end): m_new = max(m, x_1..x_U), one rescale exp(m - m_new),
+// then the edges' p = exp(x - m_new) summed in edge order. Both schedules
+// fold every unit through this, group for group from the unit's start.
+__device__ __forceinline__ void fold_group(State& st, const float* x,
+                                           const float* v) {
+  float m_new = st.m;
+#pragma unroll
+  for (int u = 0; u < kUnroll; ++u) m_new = fmaxf(m_new, x[u]);
+  const float alpha = expf(st.m - m_new);
+  float ps = 0.f, pv = 0.f;
+#pragma unroll
+  for (int u = 0; u < kUnroll; ++u) {
+    const float p = expf(x[u] - m_new);
+    ps += p;
+    pv += p * v[u];
+  }
+  st.l = st.l * alpha + ps;
+  st.acc = st.acc * alpha + pv;
+  st.m = m_new;
+}
+
 // Lane (h, j)'s online softmax over the `count` edges ids[0..count),
-// staged in shared memory.
+// staged in shared memory: one unit of the rows schedule.
 __device__ State fold(const float* __restrict__ logits,
                       const float* __restrict__ values, const int* ids,
                       int count, int64_t heads, int64_t hd, int64_t h,
@@ -111,20 +136,7 @@ __device__ State fold(const float* __restrict__ logits,
         v[u] = 0.f;
       }
     }
-    float m_new = st.m;
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) m_new = fmaxf(m_new, x[u]);
-    const float alpha = expf(st.m - m_new);
-    float ps = 0.f, pv = 0.f;
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const float p = expf(x[u] - m_new);
-      ps += p;
-      pv += p * v[u];
-    }
-    st.l = st.l * alpha + ps;
-    st.acc = st.acc * alpha + pv;
-    st.m = m_new;
+    fold_group(st, x, v);
   }
   return st;
 }
@@ -152,11 +164,31 @@ __device__ __forceinline__ void put(const State& st, float* __restrict__ slot,
   }
 }
 
+// A place in the merge path's units: the unit of row `row` that starts
+// at edge `edge` (its row unit when edge == indptr[row]).
+struct Cursor {
+  int row, edge;
+};
+
+// The first unit that starts at item d or later, given r, the row whose
+// items hold item d (n when d is past the last item).
+__device__ inline Cursor first_unit(const int* __restrict__ indptr, int n,
+                                    int r, int64_t d) {
+  if (r >= n) return {n, indptr[n]};
+  const int s = indptr[r], e = indptr[r + 1];
+  const int64_t start = (int64_t)r + s;  // the item of its row unit
+  if (start >= d) return {r, s};
+  const int64_t j = (d - start + kPiece - 1) / kPiece;  // a piece, if any
+  if (j * kPiece < e - s) return {r, s + (int)(j * kPiece)};
+  return {r + 1, e};
+}
+
 // carry: (units, 2, H*D + 2*H) partials, each [acc | m | l], at the
-// slots row_pieces.cuh lays out; merge_row: per chunk (kChunks) or per
-// piece, the row whose end it holds and whose partials the second
-// launch folds, or -1.
-template <bool kChunks>
+// slots row_pieces.cuh lays out; merge_row: per piece, the row whose
+// end it holds and whose partials the second launch folds, or -1.
+// kItems: a warp per unit of the rows schedule (0), or per merge-path
+// chunk of kItems items.
+template <int kItems>
 __global__ void __launch_bounds__(32 * kWarpsPerBlock)
 edge_softmax_kernel(const float* __restrict__ logits,
                     const float* __restrict__ values,
@@ -166,14 +198,18 @@ edge_softmax_kernel(const float* __restrict__ logits,
                     float* __restrict__ out, float* __restrict__ m_out,
                     float* __restrict__ den_out, float* __restrict__ carry,
                     int* __restrict__ merge_row, int n, int64_t heads,
-                    int64_t dim, int64_t units) {
-  constexpr int kSpan = kChunks ? kChunk : kPiece;
+                    int64_t dim, int64_t warps) {
+  // a chunk's units start in its kItems items and run at most kPiece - 1
+  // edges past them (and a group's ids are read kUnroll at a time); its
+  // rows are at most kItems + 1, their ends one more
+  constexpr bool kChunks = kItems > 0;
+  constexpr int kSpan = kChunks ? kItems + kPiece + kUnroll : kPiece;
   __shared__ int s_ids[kWarpsPerBlock][kSpan];
-  __shared__ int s_ptr[kWarpsPerBlock][kChunks ? kChunk + 2 : 1];
+  __shared__ int s_ptr[kWarpsPerBlock][kChunks ? kItems + 2 : 1];
   const int lane = threadIdx.x & 31;
   const int w = threadIdx.x >> 5;
   const int64_t k = (int64_t)blockIdx.x * kWarpsPerBlock + w;
-  if (k >= units) return;  // uniform across the warp
+  if (k >= warps) return;  // uniform across the warp
   const int64_t hd = heads * dim;
   const int64_t slot = hd + 2 * heads;
   if (!kChunks) {  // a row, or a piece of one (row_pieces.cuh)
@@ -189,96 +225,111 @@ edge_softmax_kernel(const float* __restrict__ logits,
     }
     return;
   }
-  // chunk k of the merge path: items [d0, d1), rows i0..i1, edges [j0, j1)
+  // chunk k of the merge path, items [d0, d0 + kItems): the units from
+  // (ra, ja) up to (rb, jb), the first unit at or past the next chunk
   const int64_t items = (int64_t)n + indptr[n];
-  const int64_t d0 = k * kChunk;
-  if (d0 >= items) {
-    if (lane == 0) merge_row[k] = -1;
-    return;
-  }
-  const int64_t d1 = d0 + kChunk < items ? d0 + kChunk : items;
+  const int64_t d0 = k * kItems;
+  if (d0 >= items) return;
+  const int64_t d1 = d0 + kItems;
   const int i0 = count_rows(indptr, 0, n, true, d0, lane);
-  const int i1 = count_rows(indptr, i0, i0 + kChunk < n ? i0 + kChunk : n,
-                            true, d1, lane);  // at most kChunk rows end here
-  const int j0 = (int)(d0 - i0), j1 = (int)(d1 - i1);
-  for (int t = lane; t < j1 - j0; t += 32) s_ids[w][t] = perm[j0 + t];
-  const int last = i1 < n ? i1 : n - 1;  // rows i0..last meet the chunk
-  for (int t = lane; t <= last + 1 - i0; t += 32)
-    s_ptr[w][t] = indptr[i0 + t];
+  const int i1 = count_rows(indptr, i0, i0 + kItems < n ? i0 + kItems : n,
+                            true, d1, lane);  // at most kItems rows end here
+  const Cursor a = first_unit(indptr, n, i0, d0);
+  const Cursor b = first_unit(indptr, n, i1, d1);
+  const int ra = a.row, ja = a.edge, rb = b.row, jb = b.edge;
+  for (int t = lane; t < jb - ja; t += 32) s_ids[w][t] = perm[ja + t];
+  const int last = rb < n ? rb : n - 1;  // rows ra..last meet the chunk
+  for (int t = lane; t <= last + 1 - ra; t += 32)
+    s_ptr[w][t] = indptr[ra + t];
   __syncwarp();
-  if (lane == 0) merge_row[k] = (i0 < i1 && s_ptr[w][0] < j0) ? i0 : -1;
-  // The chunk's edges stream through in groups of kUnroll, the next
-  // group's loads in flight while this one is folded in, across row
-  // ends: a chunk of short rows is not a chain of one round trip a row.
+  const int* ids = s_ids[w] - ja;  // ids[g]: edge g's id, ja <= g < jb
+  const int* ptr = s_ptr[w] - ra;  // ptr[r]: indptr[r], ra <= r <= last + 1
   for (int64_t j = lane; j < (hd + 31) / 32 * 32; j += 32) {
     const bool active = j < hd;
     const int64_t h = active ? j / dim : 0;
-    const auto load = [&](float* x, float* v, int g) {
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        if (active && g + u < j1) {
-          const int64_t e = s_ids[w][g + u - j0];
-          x[u] = logits[e * heads + h];
-          v[u] = values[e * hd + j];
-        } else {
-          x[u] = v[u] = 0.f;
-        }
-      }
+    // the row that holds edge g, from r on: rows that end at g are done,
+    // and an empty one among them is written out (its row unit starts in
+    // this chunk)
+    const auto seek = [&](int r, int g) {
+      for (; r < rb && g == ptr[r + 1]; ++r)
+        if (active && ptr[r] == g)
+          put(State{kNeg, 0.f, 0.f}, nullptr, out, m_out, den_out, r, heads,
+              hd, dim, h, j);
+      return r;
     };
-    // row r's state goes out whole, or to a slot when a chunk edge cuts
-    // it: slot 0 if r began in an earlier chunk, else slot 1
-    const auto flush = [&](int r, const State& st) {
-      const int start = s_ptr[w][r - i0];
-      if (active)
-        put(st, r < i1 && start >= j0
-                    ? nullptr
-                    : carry + (k * 2 + (start < j0 ? 0 : 1)) * slot,
-            out, m_out, den_out, r, heads, hd, dim, h, j);
-    };
-    int r = i0;
-    int end = r < i1 ? s_ptr[w][1] : j1;  // row i1 ends past the chunk
     State st{kNeg, 0.f, 0.f};
-    float x[kUnroll], v[kUnroll];
-    load(x, v, j0);
-    for (int g = j0; g < j1; g += kUnroll) {
-      float xn[kUnroll], vn[kUnroll];
-      load(xn, vn, g + kUnroll);
+    // the group of n edges at edge g of row r, whose edges are [s, e)
+    struct Group {
+      int r, g, n, s, e;
+    };
+    // the group after q: in q's row, or in the row that holds its end
+    const auto after = [&](const Group& q) {
+      const int g2 = q.g + q.n;
+      if (g2 < q.e && g2 < jb)
+        return Group{q.r, g2, min(kUnroll, q.e - g2), q.s, q.e};
+      const int r2 = seek(q.r, g2);
+      if (g2 >= jb) return Group{r2, g2, 0, g2, g2};
+      const int s2 = ptr[r2], e2 = ptr[r2 + 1];
+      return Group{r2, g2, min(kUnroll, e2 - g2), s2, e2};
+    };
+    // group q's loads: its edge ids read whole from shared memory (past
+    // jb they are never used), then the edges' logits and values
+    const auto issue = [&](const Group& q, float* x, float* v) {
+      int64_t id[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) id[u] = ids[q.g + u];
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
-        if (g + u >= j1) break;
-        while (r < i1 && g + u >= end) {  // rows that end before this edge
-          flush(r++, st);
-          st = State{kNeg, 0.f, 0.f};
-          end = r < i1 ? s_ptr[w][r - i0 + 1] : j1;
+        if (active && u < q.n) {
+          x[u] = logits[id[u] * heads + h];
+          v[u] = values[id[u] * hd + j];
+        } else {
+          x[u] = -INFINITY;  // p = 0, m unchanged
+          v[u] = 0.f;
         }
-        // the online update with one exponential: exp(m - m_new) and
-        // exp(x - m_new) are exp(-|x - m|) and 1, in some order
-        const bool up = x[u] > st.m;
-        const float ex = expf(up ? st.m - x[u] : x[u] - st.m);
-        const float alpha = up ? ex : 1.f, p = up ? 1.f : ex;
-        st.l = st.l * alpha + p;
-        st.acc = st.acc * alpha + p * v[u];
-        st.m = up ? x[u] : st.m;
       }
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) x[u] = xn[u], v[u] = vn[u];
+    };
+    // fold group q in; at its unit's end, write the unit out
+    const auto finish = [&](const Group& q, const float* x, const float* v) {
+      fold_group(st, x, v);
+      const int ge = q.g + q.n;
+      if (ge == q.e || (ge - q.s) % kPiece == 0) {
+        const int unit = (ge - 1 - q.s) / kPiece;  // 0: the row unit
+        if (unit == 0 && ge == q.e) {
+          if (active)
+            put(st, nullptr, out, m_out, den_out, q.r, heads, hd, dim, h, j);
+        } else {
+          const int64_t p = (int64_t)piece_ptr[q.r] + unit - 1;
+          if (active)
+            put(st, carry + (unit == 0 ? (p + 1) * 2 + 1 : p * 2) * slot,
+                out, m_out, den_out, q.r, heads, hd, dim, h, j);
+          if (unit > 0 && j == 0) merge_row[p] = ge == q.e ? q.r : -1;
+        }
+        st = State{kNeg, 0.f, 0.f};
+      }
+    };
+    // two groups' loads in flight: each buffer is loaded while the other
+    // is folded in, and never copied (a copy would wait for its loads)
+    Group qa = after(Group{ra, ja, 0, ja, ja}), qb;
+    float xa[kUnroll], va[kUnroll], xb[kUnroll], vb[kUnroll];
+    issue(qa, xa, va);
+    while (qa.g < jb) {
+      qb = after(qa);
+      issue(qb, xb, vb);
+      finish(qa, xa, va);
+      if (qb.g >= jb) break;
+      qa = after(qb);
+      issue(qa, xa, va);
+      finish(qb, xb, vb);
     }
-    for (; r < i1; ++r) {  // rows that end after the chunk's last edge
-      flush(r, st);
-      st = State{kNeg, 0.f, 0.f};
-    }
-    if (r < n && s_ptr[w][r - i0] < j1) flush(r, st);  // row i1's piece
   }
 }
 
-// One warp per chunk or piece: finish the cut row whose end it holds,
-// folding the row's partials in plan order: slot 1 of the chunk where it
-// starts and slot 0 of each later chunk to this one; slot 1 of its first
-// piece (its row unit's) and slot 0 of each of its pieces.
-template <bool kChunks>
+// One warp per piece: finish the cut row whose end it holds, folding the
+// row's partials in row order: slot 1 of its first piece (its row
+// unit's) and slot 0 of each of its pieces.
 __global__ void __launch_bounds__(32 * kWarpsPerBlock)
-edge_softmax_merge(const int* __restrict__ indptr,
-                   const int* __restrict__ piece_ptr,
+edge_softmax_merge(const int* __restrict__ piece_ptr,
                    const float* __restrict__ carry,
                    const int* __restrict__ merge_row,
                    float* __restrict__ out, float* __restrict__ m_out,
@@ -287,18 +338,17 @@ edge_softmax_merge(const int* __restrict__ indptr,
   const int lane = threadIdx.x & 31;
   const int64_t k =
       (int64_t)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (k >= units || (!kChunks && !has_piece(piece_ptr, n, k))) return;
+  if (k >= units || !has_piece(piece_ptr, n, k)) return;
   const int r = merge_row[k];
   if (r < 0) return;  // uniform across the warp
   const int64_t hd = heads * dim;
   const int64_t slot = hd + 2 * heads;
-  const int64_t first = kChunks ? ((int64_t)r + indptr[r]) / kChunk
-                                : (int64_t)piece_ptr[r];
+  const int64_t first = piece_ptr[r];
   for (int64_t j = lane; j < hd; j += 32) {
     const int64_t h = j / dim;
     const float* s = carry + (first * 2 + 1) * slot;
     State st{s[hd + h], s[hd + heads + h], s[j]};
-    for (int64_t q = kChunks ? first + 1 : first; q <= k; ++q) {
+    for (int64_t q = first; q <= k; ++q) {
       s = carry + q * 2 * slot;
       const float m2 = s[hd + h];
       const float m_new = fmaxf(st.m, m2);
@@ -311,37 +361,42 @@ edge_softmax_merge(const int* __restrict__ indptr,
   }
 }
 
-// A plan's schedule: merge-path chunks from kLargePlan items on, each
-// chunk a unit that holds partials (counted from the rows and all E
-// edges, pads included: a chunk past the real items exits), else
-// row_pieces.cuh's rows and up to max_pieces pieces. Shapes alone set
-// it, so it is the same for every view of a bucket.
-bool chunked(int64_t num_segments, int64_t num_edges) {
-  return num_segments + num_edges >= kLargePlan;
+// A plan's schedule: from kLargePlan items on, a merge-path chunk a warp
+// (counted from the rows and all E edges, pads included: a chunk past
+// the real items exits), of kChunk items, or 2 * kChunk from kWideChunks
+// on (where the plan gives the card many waves of chunks, so fewer
+// searches pay more than a shorter tail); else row_pieces.cuh's rows and
+// up to max_pieces pieces. Under either, the pieces hold partials and
+// merge them. Shapes alone set it, so it is the same for every view of a
+// bucket.
+int chunk_items(int64_t num_segments, int64_t num_edges) {
+  const int64_t items = num_segments + num_edges;
+  return items < kLargePlan ? 0 : items < kWideChunks ? kChunk : 2 * kChunk;
 }
 
 Schedule plan_schedule(int64_t num_segments, int64_t num_edges,
                        int64_t max_pieces) {
-  if (!chunked(num_segments, num_edges))
-    return schedule_for(num_segments, max_pieces);
-  const int64_t chunks = (num_segments + num_edges + kChunk - 1) / kChunk;
-  return {chunks, chunks};
+  const Schedule rows = schedule_for(num_segments, max_pieces);
+  const int c = chunk_items(num_segments, num_edges);
+  if (c == 0) return rows;
+  return {(num_segments + num_edges + c - 1) / c, rows.units};
 }
 
-template <bool kChunks>
+template <int kItems>
 void launch(const float* logits, const float* values, const int* perm,
             const int* indptr, const int* piece_ptr, float* out,
-            float* m_out, float* den_out, char* scratch, int64_t num_segments, const Schedule& sc,
-            int64_t heads, int64_t dim, cudaStream_t s) {
+            float* m_out, float* den_out, char* scratch,
+            int64_t num_segments, const Schedule& sc, int64_t heads,
+            int64_t dim, cudaStream_t s) {
   int* merge_row = reinterpret_cast<int*>(scratch);
   float* carry = reinterpret_cast<float*>(scratch + carry_offset(sc.units));
   const dim3 block(32 * kWarpsPerBlock);
-  edge_softmax_kernel<kChunks><<<blocks_for(sc.warps), block, 0, s>>>(
+  edge_softmax_kernel<kItems><<<blocks_for(sc.warps), block, 0, s>>>(
       logits, values, perm, indptr, piece_ptr, out, m_out, den_out, carry,
       merge_row, (int)num_segments, heads, dim, sc.warps);
   if (sc.units > 0)  // a shape test: the merge runs for every view
-    edge_softmax_merge<kChunks><<<blocks_for(sc.units), block, 0, s>>>(
-        indptr, piece_ptr, carry, merge_row, out, m_out, den_out,
+    edge_softmax_merge<<<blocks_for(sc.units), block, 0, s>>>(
+        piece_ptr, carry, merge_row, out, m_out, den_out,
         (int)num_segments, heads, dim, sc.units);
 }
 
@@ -385,11 +440,18 @@ extern "C" int edge_softmax_f32(const void* logits, const void* values,
   auto* dn = static_cast<float*>(den_out);
   auto* scr = static_cast<char*>(scratch);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (chunked(num_segments, num_edges))
-    launch<true>(lg, va, pm, ip, pp, o, mo, dn, scr, num_segments, sc,
-                 heads, dim, s);
-  else
-    launch<false>(lg, va, pm, ip, pp, o, mo, dn, scr, num_segments, sc,
-                  heads, dim, s);
+  switch (chunk_items(num_segments, num_edges)) {
+    case 0:
+      launch<0>(lg, va, pm, ip, pp, o, mo, dn, scr, num_segments, sc, heads,
+                dim, s);
+      break;
+    case kChunk:
+      launch<kChunk>(lg, va, pm, ip, pp, o, mo, dn, scr, num_segments, sc,
+                     heads, dim, s);
+      break;
+    default:
+      launch<2 * kChunk>(lg, va, pm, ip, pp, o, mo, dn, scr, num_segments,
+                         sc, heads, dim, s);
+  }
   return (int)cudaGetLastError();
 }

@@ -210,8 +210,8 @@ def _edge_softmax_cuda(logits: torch.Tensor, values: torch.Tensor,
                        plan: CSCPlan):
     """One op, two CUDA launches (``csrc/edge_softmax.cu``): a warp per row
     and per 64-edge piece of a long row, or from 2^19 rows plus edges a
-    warp per merge-path chunk, then the merge of the rows that were
-    cut."""
+    warp per merge-path chunk of the same units, then the merge of the
+    rows that were cut."""
     _check_cuda("edge_softmax", _plan_index(plan), logits, values)
     n, e, x = plan.num_segments, plan.num_edges, plan.max_pieces
     _, h, d = values.shape

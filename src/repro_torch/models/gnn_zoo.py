@@ -75,6 +75,16 @@ class SAGELayer(TGARLayer):
         return F.relu(out) if self.activation else out
 
 
+def _head_dot(n: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+    """(N, H, D) . (H, D) -> (N, H): each head's part of a node's row
+    against that head's row of ``a``, a product and a sum over D for each
+    (node, head) on its own, so that a node's result does not depend on
+    how many nodes came with it (a served cache hit's small block against
+    a full recompute's large one), where an ``einsum`` over the N rows
+    takes a kernel chosen by N."""
+    return (n * a).sum(-1)
+
+
 class GATLayer(TGARLayer):
     combine = "softmax"
 
@@ -95,9 +105,8 @@ class GATLayer(TGARLayer):
     def transform(self, h):
         n = matmul(h, self.w).reshape(h.shape[0], self.heads, self.hd)
         # per-node halves of the attention logit (NN-T owns node math)
-        return {"n": n,
-                "as": torch.einsum("nhd,hd->nh", n, self.a_src),
-                "ad": torch.einsum("nhd,hd->nh", n, self.a_dst)}
+        return {"n": n, "as": _head_dot(n, self.a_src),
+                "ad": _head_dot(n, self.a_dst)}
 
     def gather(self, n_src, n_dst, edge_attr, edge_w, edge_mask):
         logit = _leaky_relu(n_src["as"] + n_dst["ad"])

@@ -28,22 +28,14 @@ the true h^{K-1} of that prefix, and the 1-hop view aggregates the same
 edges in the same plan order; the kernels sum in plan order without
 atomics, and cut a row of more than 64 edges into pieces counted from
 the row's start, so a target's row sums the same way at its offset in
-the 1-hop view and in the K-hop one (ROADMAP C.14); and the dense
-products run over row tiles of one fixed size
+the 1-hop view and in the K-hop one, at every bucket (ROADMAP C.14:
+``edge_softmax``'s merge-path chunks, which run plans of 2^19 rows plus
+edges or more, balance the same row-relative units over warps); and the
+dense products run over row tiles of one fixed size
 (:func:`~repro_torch.nn.layers.fixed_row_tiles`, the ladder's largest
 node count), so cuBLAS computes a row the same way in a small block and
-a large one.
-
-The limit: ``edge_softmax`` (GAT, GAT-E) runs a plan of 2^19 rows plus
-edges or more (``csrc/edge_softmax.cu``'s ``kLargePlan``) as merge-path
-chunks, which cut rows where the item count falls, not where the row
-starts. So a GAT or GAT-E hit is bitwise a recompute while every bucket
-the server stages holds fewer than 2^19 rows plus edges: the default
-ladder's largest, ``ceil_pow2(N) + ceil_pow2(E)``, is 163,840 for the
-GAT-E cells' 20,000-node alipay_like graph, and reaches 2^19 past
-262,144 edges (65,536 + 524,288), some 43,700 nodes at that graph's six
-in-edges a node. ``segment_sum`` and ``segment_max`` keep the row cuts
-at every size.
+a large one. So a hit is bitwise a full recompute, whatever the
+buckets.
 """
 from __future__ import annotations
 

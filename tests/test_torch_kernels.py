@@ -67,10 +67,12 @@ def _constant(source: str, name: str) -> int:
 # segment_sum.cu, segment_max.cu, edge_softmax.cu and edge_softmax_bwd.cu
 # use (a warp per row, pieces of PIECE edges past a row's first PIECE,
 # counted from the row's start), and edge_softmax.cu's merge-path chunks
-# of CHUNK items (rows plus edges) from LARGE_PLAN on
+# over the same units, of CHUNK items (rows plus edges) from LARGE_PLAN
+# on and of 2 * CHUNK from WIDE_CHUNKS on
 PIECE = _constant("row_pieces.cuh", "kPiece")
 CHUNK = _constant("edge_softmax.cu", "kChunk")
 LARGE_PLAN = _constant("edge_softmax.cu", "kLargePlan")
+WIDE_CHUNKS = _constant("edge_softmax.cu", "kWideChunks")
 
 @pytest.fixture(scope="module", autouse=True)
 def _one_thread():
@@ -337,6 +339,19 @@ def test_cuda_chunk_schedule_matches_plain_version(cuda):
     assert not out[n // 2].any()
     for r in (1, 2, n - 3, n - 2):
         assert (m[r] == NEG).all() and not den[r].any() and not out[r].any()
+    # the hubs, the empty rows beside them and a few short rows, alone in
+    # a plan under LARGE_PLAN (the rows schedule): the same bits
+    rows = np.array([0, 1, 2, 3, 4, 5, n // 2, n // 2 + 1, n - 3, n - 2,
+                     n - 1])
+    keep = np.isin(ids, rows)
+    small = build_csc_plan(np.searchsorted(rows, ids[keep]).astype(np.int32),
+                           len(rows))
+    assert small.num_segments + small.num_edges < LARGE_PLAN
+    alone = ops.edge_softmax_fwd_op(lg[:e][torch.from_numpy(keep).to(cuda)],
+                                    v[:e][torch.from_numpy(keep).to(cuda)],
+                                    small.to(cuda))
+    for a, b in zip(alone, got):
+        assert torch.equal(a, b[torch.from_numpy(rows).to(cuda)])
 
 
 @pytest.mark.cuda
@@ -392,32 +407,55 @@ def _count_rows(indptr, lo: int, hi: int, by_item: bool, d: int) -> int:
     return lo
 
 
-def _split_chunks(indptr, chunk: int, reduce, put):
-    """``edge_softmax.cu``'s large-plan schedule: merge-path chunks of
-    ``chunk`` items (row r's edges, then its end marker). Each chunk
-    reduces its row pieces in plan order (``reduce(row, a, b)``) and
-    ``put``s each: ``put(row, part, None)`` for a whole row, else into
-    slot (unit, 1) where the row starts and (unit, 0) after. Returns
-    {unit: (row, the slots the second launch folds, in order)}."""
+def _first_unit(indptr, r: int, d: int, piece: int) -> tuple:
+    """``edge_softmax.cu``'s ``first_unit``: (row, first edge) of the
+    first unit that starts at merge-path item ``d`` or later, given
+    ``r``, the row whose items hold item ``d`` (n past the last). Row r's
+    unit j starts at item r + indptr[r] + j * piece: its row unit (j =
+    0, also when the row is empty) and each piece with j * piece less
+    than its length."""
     n = len(indptr) - 1
-    items, merge_rows = n + int(indptr[n]), {}
-    for k, d0 in enumerate(range(0, items, chunk)):
-        d1 = min(d0 + chunk, items)
+    if r >= n:
+        return n, int(indptr[n])
+    s, e = int(indptr[r]), int(indptr[r + 1])
+    if r + s >= d:
+        return r, s
+    j = -(-(d - r - s) // piece)
+    return (r, s + j * piece) if j * piece < e - s else (r + 1, e)
+
+
+def _split_chunks(indptr, chunk: int, piece: int, reduce, put):
+    """``edge_softmax.cu``'s large-plan schedule: merge-path chunks of
+    ``chunk`` items (row r's edges, then its end marker), each taking
+    the units of ``_split_rows``' schedule (pieces of ``piece`` edges,
+    counted from the row's start) that start in it. Each unit is
+    reduced (``reduce(row, a, b)``) and ``put`` as the rows schedule
+    puts it: ``put(row, part, None)`` for a whole row, else into slot
+    (piece_ptr[r], 1) from its row unit and (p, 0) from piece p.
+    Returns {last piece of a cut row: (row, the slots it folds)}."""
+    n = len(indptr) - 1
+    ptr = _piece_ptr(indptr, piece)
+    merge_rows = {}
+    for d0 in range(0, n + int(indptr[n]), chunk):
         i0 = _count_rows(indptr, 0, n, True, d0)
-        i1 = _count_rows(indptr, i0, min(i0 + chunk, n), True, d1)
-        j0, j1 = d0 - i0, d1 - i1
-        if i0 < i1 and indptr[i0] < j0:
-            first = (i0 + int(indptr[i0])) // chunk
-            merge_rows[k] = (i0, [(first, 1)] + [(q, 0) for q in
-                                                 range(first + 1, k + 1)])
-        for r in range(i0, min(i1, n - 1) + 1):
-            start, ends_here = int(indptr[r]), r < i1
-            if not ends_here and start >= j1:
-                break
-            part = reduce(r, max(start, j0),
-                          int(indptr[r + 1]) if ends_here else j1)
-            put(r, part, None if ends_here and start >= j0
-                else (k, 0 if start < j0 else 1))
+        i1 = _count_rows(indptr, i0, min(i0 + chunk, n), True, d0 + chunk)
+        r, g = _first_unit(indptr, i0, d0, piece)
+        end = _first_unit(indptr, i1, d0 + chunk, piece)
+        # the kernel's shared memory: the chunk's edge ids and row ends
+        assert end[1] - g <= chunk + piece and end[0] - r <= chunk
+        while (r, g) < end:
+            s, e = int(indptr[r]), int(indptr[r + 1])
+            b, unit = min(e, g + piece), (g - s) // piece
+            part = reduce(r, g, b)
+            if unit == 0 and b == e:
+                put(r, part, None)
+            else:
+                p = int(ptr[r]) + unit - 1
+                put(r, part, (int(ptr[r]), 1) if unit == 0 else (p, 0))
+                if unit > 0 and b == e:
+                    merge_rows[p] = (r, [(int(ptr[r]), 1)] + [
+                        (q, 0) for q in range(int(ptr[r]), p + 1)])
+            r, g = (r + 1, e) if b == e else (r, b)
     return merge_rows
 
 
@@ -462,21 +500,25 @@ def _split_rows(indptr, num_edges: int, piece: int, reduce, put):
 
 def _schedule(n: int, num_edges: int, schedule=None):
     """``schedule``, or ``edge_softmax.cu``'s choice for a plan of n rows
-    and num_edges edges: ("chunks", CHUNK) or ("rows", PIECE)."""
+    and num_edges edges: ("rows", PIECE), or ("chunks", CHUNK, PIECE),
+    chunks of 2 * CHUNK items from WIDE_CHUNKS on."""
     if schedule is not None:
         return schedule
-    return ("chunks", CHUNK) if n + num_edges >= LARGE_PLAN else ("rows",
-                                                                  PIECE)
+    items = n + num_edges
+    if items < LARGE_PLAN:
+        return ("rows", PIECE)
+    return ("chunks", CHUNK * (2 if items >= WIDE_CHUNKS else 1), PIECE)
 
 
 def _split_and_merge(indptr, num_edges: int, schedule, reduce, merge,
                      finish) -> int:
     """Both launches of a kernel, on the CPU. ``schedule`` is ("chunks",
-    items) or ("rows", edges), by default ``edge_softmax.cu``'s choice for the
-    plan; the second launch folds each cut row's slots in plan order
-    (``merge``) and ``finish``es it. Returns the number of cut rows."""
+    items, edges) or ("rows", edges), by default ``edge_softmax.cu``'s
+    choice for the plan; the second launch folds each cut row's slots in
+    plan order (``merge``) and ``finish``es it. Returns the number of cut
+    rows."""
     indptr = np.asarray(indptr).astype(np.int64)
-    kind, size = _schedule(len(indptr) - 1, num_edges, schedule)
+    kind, *sizes = _schedule(len(indptr) - 1, num_edges, schedule)
     slots = {}
 
     def put(r, part, slot):
@@ -486,8 +528,9 @@ def _split_and_merge(indptr, num_edges: int, schedule, reduce, merge,
             assert slot not in slots, f"slot {slot} written twice"
             slots[slot] = part
 
-    merge_rows = (_split_chunks(indptr, size, reduce, put) if kind == "chunks"
-                  else _split_rows(indptr, num_edges, size, reduce, put))
+    merge_rows = (_split_chunks(indptr, *sizes, reduce, put)
+                  if kind == "chunks"
+                  else _split_rows(indptr, num_edges, *sizes, reduce, put))
     for r, folds in merge_rows.values():
         part = slots.pop(folds[0])
         for key in folds[1:]:
@@ -499,16 +542,15 @@ def _split_and_merge(indptr, num_edges: int, schedule, reduce, merge,
 
 def _edge_softmax_twin(logits, values, perm, indptr, schedule=None):
     """``edge_softmax.cu`` step for step, in float32 numpy: the plan's
-    schedule (or ``schedule``); per row piece of the rows schedule, 4
-    edges at a time, m_new = max(m, x_1..x_4), one rescale by
-    exp(m - m_new), the edges' p = exp(x - m_new) summed in edge order;
-    in a chunk, edge by edge (the kernel's one-exponential update is
-    this one exactly: exp(0) = 1); cut rows' (m, l, acc) merged in plan
+    schedule (or ``schedule``), which under either kind runs the same
+    units; per unit, 4 edges at a time from its start, m_new = max(m,
+    x_1..x_4), one rescale by exp(m - m_new), the edges' p = exp(x -
+    m_new) summed in edge order; cut rows' (m, l, acc) merged in row
     order; out = acc / max(l, 1e-20). Returns (out, m, den, rows cut)."""
     f = np.float32
     n, (h, d) = len(indptr) - 1, values.shape[1:]
     schedule = _schedule(n, len(perm), schedule)
-    step = 1 if schedule[0] == "chunks" else 4
+    step = 4
     out = np.full((n, h, d), np.nan, f)
     m_out = np.full((n, h), np.nan, f)
     den = np.full((n, h), np.nan, f)
@@ -571,7 +613,7 @@ def test_cuda_kernel_recurrence_matches_plain_version(name):
 
 # schedules with units far below the kernels' PIECE and CHUNK, so that
 # short rows are cut too
-SPLITS = {"chunks_5": ("chunks", 5), "chunks_16": ("chunks", 16),
+SPLITS = {"chunks_5": ("chunks", 5, 1), "chunks_16": ("chunks", 16, 2),
           "rows_1": ("rows", 1), "rows_2": ("rows", 2)}
 
 
@@ -770,15 +812,95 @@ def _behind(lead: int, deg: int, h: int = 4, d: int = 8):
 LEADS = (0, 1, 17, 63)
 
 
+# the rows that must give the same bits under either schedule of
+# edge_softmax.cu and at any offset: short and empty rows, a row of
+# ``deg`` edges, the same with 30% and with all of its edges masked, and
+# a hub of 5,000 edges
+SWITCH_ROWS = (0, 1, 3, 6, 17, "deg", "deg masked", "deg all masked", 5000)
+# split sizes for the twin: (chunk items, piece edges), scaled down and
+# the kernel's own (both its chunk sizes), below and above a plan size
+# that switches
+SWITCH_SPLITS = ((16, 8), (CHUNK, PIECE), (2 * CHUNK, PIECE))
+SWITCH_AT = 8192                    # the scaled-down kLargePlan
+
+
+def _switch_rows(deg: int, h: int = 4, d: int = 8):
+    """SWITCH_ROWS' edges: (lengths, logits, values), each row's data
+    seeded by its place in the list, so that it is the same in every
+    plan it is put in."""
+    lengths, logits, values = [], [], []
+    for i, spec in enumerate(SWITCH_ROWS):
+        rng = np.random.default_rng(100 + i)
+        k = deg if isinstance(spec, str) else spec
+        lg = rng.normal(size=(k, h)).astype(np.float32) * 3
+        v = rng.normal(size=(k, h, d)).astype(np.float32)
+        masked = (np.ones(k, bool) if spec == "deg all masked" else
+                  rng.random(k) < 0.3 if spec == "deg masked" else
+                  np.zeros(k, bool))
+        lg[masked], v[masked] = NEG, 0.0
+        lengths.append(k)
+        logits.append(lg)
+        values.append(v)
+    return lengths, np.concatenate(logits), np.concatenate(values)
+
+
+def _switch_plan(lead: int, deg: int, fill: int):
+    """``fill`` short filler rows (seeded), a row of ``lead`` edges, then
+    SWITCH_ROWS: (plan, logits, values, the rows' first row)."""
+    lengths, logits, values = _switch_rows(deg)
+    rng = np.random.default_rng(7 + lead)
+    front = list(rng.integers(0, 9, fill)) + [lead]
+    k = int(sum(front))
+    ids = np.repeat(np.arange(len(front) + len(lengths), dtype=np.int32),
+                    front + lengths)
+    plan = build_csc_plan(ids, len(front) + len(lengths))
+    logits = np.concatenate([rng.normal(size=(k, 4)).astype(np.float32),
+                             logits])
+    values = np.concatenate([rng.normal(size=(k, 4, 8)).astype(np.float32),
+                             values])
+    return plan, logits, values, len(front)
+
+
+def _schedules_agree(deg: int) -> None:
+    """SWITCH_ROWS behind a lead row of 0, 1, 17 or 63 edges, in a plan
+    below SWITCH_AT items (which runs rows and pieces) and in one that
+    filler rows in front take past it (which runs chunks), at each of
+    SWITCH_SPLITS: every plan and chunk size with one piece size gives
+    the rows the bits of the first (the chunks set no bits)."""
+    wants = {}
+    for chunk, piece in SWITCH_SPLITS:
+        for lead in LEADS:
+            for fill in (0, 900):
+                plan, logits, values, first = _switch_plan(lead, deg, fill)
+                perm, indptr = plan.perm.numpy(), plan.indptr.numpy()
+                items = plan.num_segments + plan.num_edges
+                schedule = (("chunks", chunk, piece) if items >= SWITCH_AT
+                            else ("rows", piece))
+                assert (items >= SWITCH_AT) == (fill > 0)
+                out, m, den, cut = _edge_softmax_twin(logits, values, perm,
+                                                      indptr, schedule)
+                assert cut >= 4         # deg, its masked twins, the hub
+                got = [a[first:] for a in (out, m, den)]
+                for a, b in zip(wants.setdefault(piece, got), got):
+                    assert a.tobytes() == b.tobytes(), (
+                        f"{schedule} behind {lead} edges, {fill} fillers")
+
+
 @pytest.mark.parametrize("deg", [65, 130, 412])
-@pytest.mark.parametrize("kernel", ["edge_softmax", "segment_sum"])
+@pytest.mark.parametrize("kernel", ["edge_softmax", "segment_sum",
+                                    "edge_softmax_schedules"])
 def test_row_cuts_are_offset_invariant(kernel, deg):
     """A row longer than PIECE gives the same bits wherever it lies in
     the plan: behind a leading row of 0, 1, 17 or 63 edges, the
     kernels' split and merge (their CPU twins) cut it at the same edges
     and sum it in the same order. A served cache hit (the top layer over
     a 1-hop view) and a full recompute (over a K-hop view) see the same
-    row at different offsets."""
+    row at different offsets. ``edge_softmax_schedules``: the same holds
+    across ``edge_softmax``'s schedule switch, for short, long, masked and
+    all-masked rows (:func:`_schedules_agree`)."""
+    if kernel == "edge_softmax_schedules":
+        _schedules_agree(deg)
+        return
     rows = []
     for lead in LEADS:
         plan, logits, values = _behind(lead, deg)
@@ -823,20 +945,49 @@ def test_cuda_segment_sum_is_its_twin_bitwise(d, cuda):
                                     "segment_max"])
 def test_cuda_row_cuts_are_offset_invariant(kernel, cuda):
     """On the card, a row of 65, 412, 2,832 or 5,000 edges gives the same
-    bits behind a leading row of 0, 1, 17 or 63 edges."""
+    bits behind a leading row of 0, 1, 17 or 63 edges; through
+    ``edge_softmax`` also behind filler rows that take the plan past
+    LARGE_PLAN, where it runs merge-path chunks, and past WIDE_CHUNKS,
+    where its chunks are twice as long."""
     for deg in (65, 412, 2832, 5000):
         rows = []
         for lead in LEADS:
-            plan, logits, values = _behind(lead, deg)
-            plan = plan.to(cuda)
-            lg, v = (torch.from_numpy(a).to(cuda) for a in (logits, values))
+            plans = [_behind(lead, deg) + (1,)]
             if kernel == "edge_softmax":
-                got = ops.edge_softmax_fwd_op(lg, v, plan)
-            elif kernel == "segment_sum":
-                got = (ops.segment_sum_op(v, plan),)
-            else:
-                got = (ops.segment_max_op(v, plan),)
-            rows.append([t[1].cpu() for t in got])
-        for lead, row in zip(LEADS[1:], rows[1:]):
+                plans.append(_behind_fillers(lead, deg, LARGE_PLAN))
+            if kernel == "edge_softmax" and lead == LEADS[-1]:
+                plans.append(_behind_fillers(lead, deg, WIDE_CHUNKS))
+            for plan, logits, values, r in plans:
+                plan = plan.to(cuda)
+                lg, v = (torch.from_numpy(a).to(cuda)
+                         for a in (logits, values))
+                if kernel == "edge_softmax":
+                    got = ops.edge_softmax_fwd_op(lg, v, plan)
+                elif kernel == "segment_sum":
+                    got = (ops.segment_sum_op(v, plan),)
+                else:
+                    got = (ops.segment_max_op(v, plan),)
+                rows.append([t[r].cpu() for t in got])
+        for row in rows[1:]:
             for a, b in zip(rows[0], row):
-                assert torch.equal(a, b), f"{deg} edges behind {lead}"
+                assert torch.equal(a, b), f"{deg} edges"
+
+
+def _behind_fillers(lead: int, deg: int, items: int):
+    """``_behind(lead, deg)``'s rows behind seeded filler rows of 0-8
+    edges, enough to take the plan past ``items`` rows plus edges:
+    (plan, logits, values, the deg row's index)."""
+    _, logits, values = _behind(lead, deg)
+    rng = np.random.default_rng(lead)
+    fill = items // 4
+    front = rng.integers(0, 9, fill)
+    k = int(front.sum())
+    ids = np.repeat(np.arange(fill + 3, dtype=np.int32),
+                    np.concatenate([front, [lead, deg, 0]]))
+    plan = build_csc_plan(ids, fill + 3)
+    assert plan.num_segments + plan.num_edges >= items
+    logits = np.concatenate([rng.normal(size=(k, 4)).astype(np.float32),
+                             logits])
+    values = np.concatenate([rng.normal(size=(k, 4, 8)).astype(np.float32),
+                             values])
+    return plan, logits, values, fill + 1

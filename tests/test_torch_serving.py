@@ -22,6 +22,7 @@ from repro_torch.launch.serve_gnn import (build_server, main,
                                           request_trace, resolve_graph,
                                           run_clients)
 from repro_torch.models import make_gnn
+from repro_torch.nn.layers import fixed_row_tiles
 from repro_torch.serving import (GNNServer, ServerClosedError,
                                  ServerOverloadedError)
 from repro_torch.weights import params_from_jax
@@ -110,6 +111,26 @@ def test_cache_hit_equals_full_recompute_bitwise_on_cpu(gat_e):
                                 base_block(g, gcn_norm=False, csc_plan=True))
     np.testing.assert_allclose(again, offline[targets].numpy(), rtol=1e-5,
                                atol=1e-5)
+
+
+@pytest.mark.parametrize("model", ["gat", "gat_e"])
+def test_attention_halves_do_not_depend_on_the_block(model):
+    """A node's attention-logit halves (``as``, ``ad``) and messages from
+    a GAT or GAT-E layer's ``transform``, under the server's fixed row
+    tiles, are the same bits whether the node comes in a block of 1, 7,
+    4,096 or 40,000 rows: a cache hit runs the top layer on a smaller
+    block than the full recompute (the halves were an ``einsum`` over
+    the N rows, whose kernel the card picks by N)."""
+    cfg = GNNConfig(model=model, num_layers=2, hidden_dim=32, num_classes=2,
+                    feature_dim=24, num_heads=4, edge_feature_dim=8)
+    layer = make_gnn(cfg, seed=0).layers[1]
+    h = torch.randn(40_000, 32, generator=torch.Generator().manual_seed(3))
+    with torch.no_grad(), fixed_row_tiles(len(h)):
+        full = layer.transform(h)
+        for rows in (1, 7, 4096):
+            part = layer.transform(h[:rows].clone())
+            for k in ("n", "as", "ad"):
+                assert torch.equal(part[k], full[k][:rows]), (rows, k)
 
 
 def test_concurrent_clients_deterministic(gat_e):

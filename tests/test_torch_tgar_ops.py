@@ -235,18 +235,36 @@ def _msg(mode, seed=0):
     return dst, msg, mask
 
 
-@pytest.mark.parametrize("backend", [None, "reference", "csc"])
+# (backend, whether both packages are given the plan, the port's route):
+# the first three on the plain route without a plan keep their names
+COMBINE_CASES = [pytest.param(b, given, on_card, id=str(b) + (
+    "" if not (given or on_card) else
+    "-" + ("the same plan" if given else "no plan")
+    + ("-kernel route" if on_card else "-plain")))
+    for on_card in (False, True) for given in (False, True)
+    for b in (None, "reference", "csc")]
+
+
+@pytest.mark.parametrize("backend,given,on_card", COMBINE_CASES)
 @pytest.mark.parametrize("mode", ["sum", "mean", "max", "softmax"])
-def test_combine_messages_matches_jax(mode, backend):
-    """``backend=None`` is ``"reference"`` on CPU tensors, in both
-    packages; ``"csc"`` without a plan builds one from ``dst`` (the JAX
-    ``csc`` backend is given its own plan). Forward and the messages'
-    gradients; under ``max`` each backend keeps its tie rule (C.1), the
-    forward exactly and the ``csc`` gradient exactly."""
+def test_combine_messages_matches_jax(mode, backend, given, on_card,
+                                      monkeypatch):
+    """Both packages get the same plan, built from ``dst``, or none.
+    ``backend=None`` is ``"reference"`` in both, and ``"csc"`` without
+    a plan the reference's segment math (the JAX ``csc`` backend's
+    fallback); with a plan the ``csc`` kernels run over it (the
+    ``reference`` backend ignores one). Forward and the messages'
+    gradients, on the plain route and on the kernels' (where the port
+    plans ``dst`` itself); under ``max`` the forward and the gradients
+    exactly: the even tie split where the reference's math runs (C.1),
+    the whole cotangent to every tie where the ``csc`` kernel does."""
+    if on_card:
+        monkeypatch.setattr(tgar, "_on_card", lambda t: True)
     dst, msg, mask = _msg(mode)
     g = _rand(N, H, D, seed=7)
     layer = types.SimpleNamespace(combine=mode)
-    jplan = jax_plan(dst, N) if backend == "csc" else None
+    jplan = jax_plan(dst, N) if given else None
+    tplan = build_csc_plan(dst, N) if given else None
     keys = sorted(msg)
 
     def jfn(*xs):
@@ -257,34 +275,42 @@ def test_combine_messages_matches_jax(mode, backend):
         return tgar.combine_messages(layer, dict(zip(keys, xs)),
                                      torch.from_numpy(dst), N,
                                      torch.from_numpy(mask),
-                                     backend=backend)
+                                     backend=backend, plan=tplan)
     jout, jg, out, grads = _grads(jfn, tfn, [msg[k] for k in keys], g)
     if mode == "max":
         np.testing.assert_array_equal(out, jout)
     else:
         np.testing.assert_allclose(out, jout, rtol=RTOL, atol=ATOL)
     for a, b in zip(grads, jg):
-        if mode == "max" and backend == "csc":
+        if mode == "max":
             np.testing.assert_array_equal(a, b)
         else:
-            # the reference backend's even split divides by the tie
-            # count where JAX multiplies by its reciprocal
             np.testing.assert_allclose(a, b, rtol=RTOL, atol=ATOL)
 
 
 def test_combine_messages_takes_a_given_plan(monkeypatch):
-    """A plan passed in is used as it is, not rebuilt."""
-    dst, msg, mask = _msg("sum")
+    """A plan passed in is used as it is, not rebuilt; without one the
+    kernels' route plans ``dst`` once a call, whatever the mode's count
+    of segment passes."""
+    dst, msg, mask = _msg("softmax")
     plan = build_csc_plan(dst, N)
     built = []
     monkeypatch.setattr(tgar, "build_csc_plan",
                         lambda *a: built.append(a) or build_csc_plan(*a))
-    layer = types.SimpleNamespace(combine="sum")
-    t = {"value": torch.from_numpy(msg["value"])}
-    want = tgar.combine_messages(layer, t, torch.from_numpy(dst), N,
-                                 torch.from_numpy(mask), backend="csc")
-    got = tgar.combine_messages(layer, t, torch.from_numpy(dst), N,
+    t = {k: torch.from_numpy(v) for k, v in msg.items()}
+    for mode in ("sum", "mean", "softmax"):
+        layer = types.SimpleNamespace(combine=mode)
+        got = tgar.combine_messages(layer, t, torch.from_numpy(dst), N,
+                                    torch.from_numpy(mask), backend="csc",
+                                    plan=plan)
+        want = tgar.agg.combine(mode, t, torch.from_numpy(dst), N,
                                 torch.from_numpy(mask), backend="csc",
                                 plan=plan)
-    assert len(built) == 1
-    assert torch.equal(got, want)
+        assert not built
+        assert torch.equal(got, want)
+    monkeypatch.setattr(tgar, "_on_card", lambda t: True)
+    for mode in ("sum", "mean", "max", "softmax"):
+        layer = types.SimpleNamespace(combine=mode)
+        tgar.combine_messages(layer, t, torch.from_numpy(dst), N,
+                              torch.from_numpy(mask), backend="csc")
+    assert len(built) == 4
