@@ -97,10 +97,11 @@ Phases (each raises on failure, so the script exits non-zero):
     0-3 and 5-29; the card's step-15 checkpoint must take one step on the
     CPU within ``LOSS_TOL`` of the card's step-16 loss; the process pool
     must not degrade to threads. Then, for the mini and cluster cells of
-    both configs, ``stage_s`` (``first_stage_s`` of it the first view's
-    wait, which holds a sampler pool's start), ``step_s`` and steps/s
-    for inline staging, builder threads and sampler processes (default
-    count), one JSON ``runtime row`` each;
+    both configs, ``stage_s`` (the fit loop's ``step.stage_wait`` span,
+    whose first wait holds a sampler pool's start), ``step_s`` (its
+    ``step.dispatch`` and ``step.loss_wait``) and steps/s for inline
+    staging, builder threads and sampler processes (default count), one
+    JSON ``runtime row`` each;
 12. serve Qwen3-4B at full width and depth (36 layers, d 2560) through
     ``repro_torch.launch.serve.BatchServer``: first the float32 parity
     gates on left-padded prompts (prefill plus 8 decode steps: the
@@ -2902,6 +2903,24 @@ def _profile(trainer, views, step_ms: float, steps: int = 5) -> float:
     return busy
 
 
+def _spans() -> dict:
+    """The fit loop's span seconds so far (``repro_torch.utils.trace``):
+    the waits for staged views, the dispatches and the loss reads."""
+    from repro_torch.utils import trace
+    return {k: trace.spans.get(k, {"seconds": 0.0})["seconds"]
+            for k in ("step.stage_wait", "step.dispatch", "step.loss_wait")}
+
+
+def _loop_s(before: dict) -> dict:
+    """Host seconds of the fit loop since ``before`` (:func:`_spans`):
+    ``stage_s``, the waits for staged views; ``step_s``, the dispatches
+    and the loss reads (any wait on the device)."""
+    now = _spans()
+    d = {k: now[k] - before[k] for k in now}
+    return {"stage_s": d["step.stage_wait"],
+            "step_s": d["step.dispatch"] + d["step.loss_wait"]}
+
+
 def _src_plan_s(trainer, views, steps: int):
     """Host seconds that building the source plans (the gather
     backward's, ROADMAP C.7) adds to staging the first ``steps`` views of
@@ -2949,7 +2968,9 @@ def train(config: str, label: str, bwd_kernel: str, bwd_per_step: int,
             weight_decay=tcfg.weight_decay, seed=tcfg.seed, compact=True,
             halo_hops=tcfg.cluster_halo_hops, eval_every=0, device=DEVICE)
         ops.reset_launches()
+        before = _spans()
         card, views, losses, grads, wall = _fit_job(job, TRAIN_STEPS)
+        t = _loop_s(before)
         launches = dict(ops.launches)
         for k, n in launches.items():
             total[k] = total.get(k, 0) + n
@@ -2957,8 +2978,10 @@ def train(config: str, label: str, bwd_kernel: str, bwd_per_step: int,
         # card run and before the CPU job, whose threads would slow it:
         # fit's default builder threads share the GIL with the step's
         # launches, and a global stream is staged inline either way
-        inl, _, inl_losses, _, inl_wall = _fit_job(
+        before = _spans()
+        _, _, inl_losses, _, inl_wall = _fit_job(
             dataclasses.replace(job, dataset=g), TRAIN_STEPS, prefetch=False)
+        ti = _loop_s(before)
         _, _, want, want_grads, _ = _fit_job(
             dataclasses.replace(job, device="cpu"), TRAIN_STEPS)
         g_err = max(float((grads[k] - want_grads[k]).abs().max())
@@ -2966,13 +2989,11 @@ def train(config: str, label: str, bwd_kernel: str, bwd_per_step: int,
                     for k in want_grads)
         l_err = max(abs(a - b) / max(1.0, abs(b))
                     for a, b in zip(losses, want))
-        t = card.timing
         print(f"  [{label}, {cfg.model}, {strategy}] {TRAIN_STEPS} steps, "
               f"buckets {dict(card.step_calls)}: "
               f"{(TRAIN_STEPS - 1) / wall:.2f} steps/s over steps 2-"
               f"{TRAIN_STEPS}; host staging {t['stage_s']:.4f} s, device "
               f"step {t['step_s']:.4f} s (host clock, all steps)")
-        ti = inl.timing
         print(f"    inline staging: {(TRAIN_STEPS - 1) / inl_wall:.2f} "
               f"steps/s over steps 2-{TRAIN_STEPS} (builder threads "
               f"{(TRAIN_STEPS - 1) / wall:.2f}); host staging "
@@ -3196,20 +3217,17 @@ def runtime(label: str) -> dict:
                              (f"thread x{workers}", {}),
                              (f"process x{workers}",
                               dict(prefetch_mode="process"))):
+                before = _spans()
                 tr, _, out, wall = _rt_run(job(strategy), **kw)
-                t = tr.timing
-                # the first view's wait holds a sampler pool's start (its
-                # samplers import torch), other_s the fit's set-up and the
-                # pool's close; the loop's rate counts neither
-                loop = t["stage_s"] - t["first_stage_s"] + t["step_s"]
+                t = _loop_s(before)
+                # stage_s holds the first view's wait, and with it a
+                # sampler pool's start (its samplers import torch);
+                # other_s the fit's set-up and the pool's close
                 row = {"config": config, "strategy": strategy,
                        "mode": mode, "steps": RUNTIME_STEPS,
-                       "stage_s": t["stage_s"],
-                       "first_stage_s": t["first_stage_s"],
-                       "step_s": t["step_s"],
+                       "stage_s": t["stage_s"], "step_s": t["step_s"],
                        "other_s": wall - t["stage_s"] - t["step_s"],
                        "wall_s": wall, "steps_per_s": RUNTIME_STEPS / wall,
-                       "loop_steps_per_s": RUNTIME_STEPS / loop,
                        "cores": cores, "card": label}
                 print("    runtime row " + json.dumps(row))
         if procpool._DEGRADE_WARNED:

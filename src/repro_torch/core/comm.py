@@ -34,12 +34,27 @@ and sum them in rank order, so every process holds the same bits, those
 ``LocalComm`` gives, run after run, whatever order the network would
 reduce in. Over NCCL a step through it is capturable as well: the eager
 warm-up before a capture connects the peers.
+
+Each counts what it sends (:func:`repro_torch.utils.trace.count`, into a
+capture's tally while a step is captured): ``comm.all_to_all.bytes``,
+the exchange's payload less the part a partition addresses to itself,
+forward and backward; ``comm.all_gather.bytes``, ``(W - 1)`` times the
+rows gathered, for the reductions and ``all_gather``. A process counts
+what it sends to the other processes; ``LocalComm`` counts what its
+``P`` partitions would send each other as ``P`` processes, so over a
+group of one partition a process the processes' counts sum to its
+count.
 """
 from __future__ import annotations
 
 from typing import Dict, Optional
 
 import torch
+
+from repro_torch.utils import trace
+
+A2A_BYTES = "comm.all_to_all.bytes"
+GATHER_BYTES = "comm.all_gather.bytes"
 
 
 class Comm:
@@ -76,6 +91,16 @@ def _rank_order_sum(rows: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _nbytes(x: torch.Tensor) -> int:
+    return x.numel() * x.element_size()
+
+
+def _sent(x: torch.Tensor, parts: int) -> int:
+    """Bytes of ``x`` (``parts`` equal blocks on its leading axis, block
+    ``r`` addressed to part ``r``) that leave the part that holds it."""
+    return _nbytes(x) * (parts - 1) // parts
+
+
 class LocalComm(Comm):
     """All ``P`` partitions in this process."""
 
@@ -87,15 +112,24 @@ class LocalComm(Comm):
 
     def all_to_all(self, buf):
         # row [p, q] is what p sends q; q receives row [q, p]
-        return buf.transpose(0, 1).contiguous()
+        trace.count(A2A_BYTES, _sent(buf, self.P))
+        out = buf.transpose(0, 1).contiguous()
+        if out.requires_grad:         # the backward's exchange
+            out.register_hook(
+                lambda g: trace.count(A2A_BYTES, _sent(g, self.P)))
+        return out
 
     def all_reduce(self, x):
+        trace.count(GATHER_BYTES, (self.P - 1) * _nbytes(x))
         return _rank_order_sum(x).detach()
 
     def all_reduce_grads(self, grads):
-        pass                          # the backward already summed them
+        # the backward already summed them; P processes would gather
+        trace.count(GATHER_BYTES, self.P * (self.P - 1) * sum(
+            _nbytes(g) for g in grads.values()))
 
     def all_gather(self, x):
+        trace.count(GATHER_BYTES, (self.P - 1) * _nbytes(x))
         return x
 
 
@@ -119,6 +153,7 @@ def _exchange(x: torch.Tensor, group) -> torch.Tensor:
     import torch.distributed as dist
     x = x.contiguous()       # so that empty_like lays out rows as x does
     out = torch.empty_like(x)
+    trace.count(A2A_BYTES, _sent(x, x.shape[0]))
     dist.all_to_all_single(out, x, group=group)
     return out
 
@@ -159,6 +194,7 @@ class ProcessGroupComm(Comm):
         import torch.distributed as dist
         x = x.contiguous()
         parts = [torch.empty_like(x) for _ in range(self.world)]
+        trace.count(GATHER_BYTES, (self.world - 1) * _nbytes(x))
         dist.all_gather(parts, x, group=self.group)
         return torch.cat(parts)
 

@@ -36,6 +36,7 @@ import numpy as np
 
 from repro_torch.graph.csr import Graph
 from repro_torch.kernels.plan import build_csc_plan, build_csc_plans_stacked
+from repro_torch.utils import trace
 
 
 def _round_up(x: int, m: int = 8) -> int:
@@ -192,9 +193,18 @@ def build_partitions(g: Graph, P: int, method: str = "1d_src",
                      ) -> ShardedGraph:
     """Partition ``g`` into ``P`` shards, as the reference does: the same
     owners, masters, mirrors, local edges and exchange plan, bit for bit.
-    The reference's per-node dictionaries are array lookups here."""
+    The reference's per-node dictionaries are array lookups here. The
+    plan is a ``plan.build`` span (:mod:`repro_torch.utils.trace`); the
+    node and edge data sliced per partition after it are not."""
+    with trace.span("plan.build"):
+        plan, edges_l = _partition_plan(g, P, method, seed)
+    return _slice_data(g, plan, edges_l, gcn_norm)
+
+
+def _partition_plan(g: Graph, P: int, method: str, seed: int):
+    """The :class:`PartitionPlan`, and each partition's edge ids."""
     rng = np.random.default_rng(seed)
-    N, M = g.num_nodes, g.num_edges
+    N = g.num_nodes
 
     # ---- master assignment: even split of a shuffled permutation ----------
     perm = rng.permutation(N)
@@ -282,8 +292,15 @@ def build_partitions(g: Graph, P: int, method: str = "1d_src",
     plan = PartitionPlan(P, method, owner, masters, master_mask, mirrors,
                          mirror_mask, src_local, dst_local, edge_mask,
                          edge_orig, send_idx, send_mask, recv_slot, recv_mask)
+    return plan, edges_l
 
-    # ---- node/edge data sliced per partition --------------------------------
+
+def _slice_data(g: Graph, plan: PartitionPlan, edges_l: list,
+                gcn_norm: bool) -> ShardedGraph:
+    """The node and edge data sliced per partition of ``plan``."""
+    P, M = plan.P, g.num_edges
+    masters, master_mask = plan.masters, plan.master_mask
+    n_m_pad, e_pad = masters.shape[1], plan.edge_mask.shape[1]
     F = g.node_features.shape[1]
     x = np.zeros((P, n_m_pad, F), np.float32)
     y = np.zeros((P, n_m_pad), np.int32)

@@ -52,7 +52,6 @@ import itertools
 import math
 import os
 import threading
-import time
 from typing import Mapping, Optional
 
 import numpy as np
@@ -67,7 +66,6 @@ from repro_torch.core.views import (CompactBlockBuilder, CompactView,
                                     GlobalViewStream, GraphView, ViewStream)
 from repro_torch.device import resolve_device
 from repro_torch.graph.csr import GraphBlock, base_block
-from repro_torch.kernels import ops
 from repro_torch.optim.optimizers import write_scalars
 from repro_torch.runtime.faults import (DivergenceError, FaultInjector,
                                         FaultPolicy, Retrier,
@@ -77,6 +75,7 @@ from repro_torch.runtime.prefetch import StreamPrefetcher, ViewPrefetcher
 from repro_torch.runtime.procpool import (ProcessViewService,
                                           ProcPoolUnavailable,
                                           warn_unavailable_once)
+from repro_torch.utils import trace
 from repro_torch.weights import (opt_state_from_jax, opt_state_to_jax,
                                  params_from_jax, params_to_jax)
 
@@ -164,15 +163,17 @@ def load_view(static: dict, view: dict) -> None:
 
 class CapturedStep:
     """One bucket's captured graph: the inputs it reads (``static``), the
-    outputs it writes, and the kernel launches of one replay. ``load``
-    copies a staged input into ``static``."""
+    outputs it writes, and what one replay counts (``counts``: kernel
+    launches by kernel name, and the bytes its collectives send by
+    ``comm.<collective>.bytes``; :mod:`repro_torch.utils.trace`).
+    ``load`` copies a staged input into ``static``."""
 
-    def __init__(self, graph, static, out, launches: dict,
+    def __init__(self, graph, static, out, counts: dict,
                  load=load_block):
         self.graph = graph
         self.static = static
         self.out = out
-        self.launches = launches
+        self.counts = counts
         self.load = load
 
     def replay(self, block):
@@ -180,7 +181,7 @@ class CapturedStep:
         valid until the next replay."""
         self.load(self.static, block)
         self.graph.replay()
-        ops.add_launches(self.launches)
+        trace.add(self.counts)
         return self.out
 
 
@@ -207,7 +208,7 @@ def capture(fn, static, side, lock=None, load=load_block) -> CapturedStep:
     thread touches the device meanwhile, and the cycle collector off
     (:func:`_no_collection`). A failed capture raises."""
     graph = torch.cuda.CUDAGraph()
-    with (lock or contextlib.nullcontext()), ops.capture_tally() as tally, \
+    with (lock or contextlib.nullcontext()), trace.capture_tally() as tally, \
             _no_collection():
         with torch.cuda.graph(graph, stream=side,
                               capture_error_mode="thread_local"):
@@ -239,7 +240,7 @@ def _make_runtime(fault_policy: Optional[FaultPolicy],
 class BaseTrainer:
     """The shared trainer surface: the ``fit`` loop (prefetch pipelines,
     loss sync policy, divergence handling, eval and checkpoint cadence,
-    host/device timing) and ``save``/``restore``/``reset``. Subclasses
+    its spans) and ``save``/``restore``/``reset``. Subclasses
     provide ``_make_prepare()`` (a ``view -> staged`` callable, which
     prefetch workers call concurrently), ``_dispatch(staged)`` (one step,
     returning the loss as a tensor on the device), ``evaluate`` and
@@ -258,12 +259,6 @@ class BaseTrainer:
         # move the stream itself
         self.view_cursor = 0
         self._resume_cursor: Optional[int] = None
-        # host-clock seconds: waiting for the next staged view (its build,
-        # staging and copy to the device when prefetch is off; the wait
-        # for each fit's first view, which holds a pool's start, also in
-        # first_stage_s), and the step (its launches, plus any wait on
-        # the device)
-        self.timing = {"stage_s": 0.0, "first_stage_s": 0.0, "step_s": 0.0}
 
     def _make_prepare(self):
         raise NotImplementedError
@@ -297,6 +292,12 @@ class BaseTrainer:
         reads the loss of step *i - max_in_flight* (one scalar wait, which
         bounds how far the host runs ahead of the device), and the rest
         are read at the end.
+
+        Each step's host time is in three spans
+        (:mod:`repro_torch.utils.trace`): ``step.stage_wait``, the wait
+        for the next staged view; ``step.loss_wait``, each read of a
+        loss; ``step.dispatch``, the step's launch or replay (a bucket's
+        first holds ``step.warm_up`` and ``step.capture``).
 
         ``resume=True`` restores the newest *valid* checkpoint in
         ``checkpoint_dir`` first (a fresh start if there is none) and
@@ -355,36 +356,35 @@ class BaseTrainer:
             # idx counts the views this fit consumed, monotonic across a
             # rollback, so a keyed "diverge" fires once per poison view
             for idx in itertools.count():
-                # the state is whole here: the last step's update, counters
-                # and checkpoint are done
-                signum = take_interrupt()
-                if signum is not None:
-                    raise TrainingInterrupted(signum)
-                t0 = time.perf_counter()
-                staged = next(staged_iter, _END)
+                with trace.span("step.stage_wait"):
+                    # the state is whole here: the last step's update,
+                    # counters and checkpoint are done
+                    signum = take_interrupt()
+                    if signum is not None:
+                        raise TrainingInterrupted(signum)
+                    staged = next(staged_iter, _END)
                 if staged is _END:
                     break
-                t1 = time.perf_counter()
                 if max_in_flight > 0 and len(pending) >= max_in_flight:
-                    losses.append(float(pending.pop(0)))
-                prev = self._snapshot() if guard else None
-                if rt is None:
-                    loss = self._dispatch(staged)
-                else:
-                    # a transient failure re-dispatches the same (params,
-                    # staged): the injected fault fires before the step
-                    loss = rt("step", lambda: self._dispatch(staged),
-                              key=self.step_num)
-                self.timing["stage_s"] += t1 - t0
-                if idx == 0:
-                    self.timing["first_stage_s"] += t1 - t0
-                self.timing["step_s"] += time.perf_counter() - t1
-                self.step_num += 1
-                self.view_cursor = (stream.cursor if stream is not None
-                                    else self.step_num)
+                    with trace.span("step.loss_wait"):
+                        losses.append(float(pending.pop(0)))
+                with trace.span("step.dispatch"):
+                    prev = self._snapshot() if guard else None
+                    if rt is None:
+                        loss = self._dispatch(staged)
+                    else:
+                        # a transient failure re-dispatches the same
+                        # (params, staged): the injected fault fires
+                        # before the step
+                        loss = rt("step", lambda: self._dispatch(staged),
+                                  key=self.step_num)
+                    self.step_num += 1
+                    self.view_cursor = (stream.cursor if stream is not None
+                                        else self.step_num)
                 if sync_now:
-                    loss_val = sync_with_timeout(lambda: float(loss),
-                                                 watchdog)
+                    with trace.span("step.loss_wait"):
+                        loss_val = sync_with_timeout(lambda: float(loss),
+                                                     watchdog)
                     if inj is not None and inj.fires("diverge", key=idx):
                         loss_val = float("nan")   # simulated divergence
                     if guard and not math.isfinite(loss_val):
@@ -413,7 +413,8 @@ class BaseTrainer:
                 # with a runtime the service already appended its
                 # supervision events into rt.events
                 events.extend(staged_iter.events)
-        losses.extend(float(x) for x in pending)
+        with trace.span("step.loss_wait"):
+            losses.extend(float(x) for x in pending)
         self.history.extend(evals)
         return {"losses": losses, "evals": evals, "steps": self.step_num,
                 "events": list(events)}
@@ -609,7 +610,6 @@ class BaseTrainer:
         self.history = []
         self.view_cursor = 0
         self._resume_cursor = None
-        self.timing = {"stage_s": 0.0, "first_stage_s": 0.0, "step_s": 0.0}
 
 
 class CompactTrainer(BaseTrainer):
@@ -674,8 +674,9 @@ class CompactTrainer(BaseTrainer):
         self._static: Optional[tuple] = None   # (global view, its block)
         self._base: Optional[tuple] = None     # (host base, device base)
         self.graphs_on = bool(cuda_graphs) and self.device.type == "cuda"
-        # (n_pad, e_pad) -> graphs captured for that bucket
         self.captures: dict = {}
+        """(n_pad, e_pad) -> graphs captured for that bucket; the engine
+        ``Trainer`` keeps its count in ``trace_counts["train_step"]``."""
         self._graphs: dict = {}     # (bucket, layout) -> CapturedStep
         self._side = None           # the warm-up and capture stream
         self._scal = None           # the optimizer's scalars, on the card
@@ -768,10 +769,12 @@ class CompactTrainer(BaseTrainer):
                 grads, self.opt_state, self.params, self._scal))
             return loss, {k: p.grad for k, p in self.params.items()}
 
-        loss, grads = warm_up(body, static, self._side)
+        with trace.span("step.warm_up"):
+            loss, grads = warm_up(body, static, self._side)
         self.model.zero_grad(set_to_none=True)   # the graph owns its grads
-        self._graphs[gkey] = capture(body, static, self._side,
-                                     self._stage_lock)
+        with trace.span("step.capture"):
+            self._graphs[gkey] = capture(body, static, self._side,
+                                         self._stage_lock)
         self.captures[key] = self.captures.get(key, 0) + 1
         for k, p in self.params.items():
             p.grad = grads[k]
@@ -900,6 +903,8 @@ class Trainer(BaseTrainer):
         self._initial = {k: p.detach().cpu().clone()
                          for k, p in self.params.items()}
         self.trace_counts = {"train_step": 0, "infer": 0}
+        """Captures of the step and of ``infer``; ``CompactTrainer`` keeps
+        its step's by bucket in ``captures``."""
         self.steps_run = 0
         self.graphs_on = (bool(cuda_graphs) and self.device.type == "cuda"
                           and engine.comm.capturable)
@@ -976,10 +981,12 @@ class Trainer(BaseTrainer):
                 grads, self.opt_state, self.params, self._scal))
             return loss, {k: p.grad for k, p in self.params.items()}
 
-        loss, grads = warm_up(body, static, self._side)
+        with trace.span("step.warm_up"):
+            loss, grads = warm_up(body, static, self._side)
         self.model.zero_grad(set_to_none=True)   # the graph owns its grads
-        self._graph = capture(body, static, self._side, self._stage_lock,
-                              load=load_view)
+        with trace.span("step.capture"):
+            self._graph = capture(body, static, self._side,
+                                  self._stage_lock, load=load_view)
         self.trace_counts["train_step"] += 1
         for k, p in self.params.items():
             p.grad = grads[k]

@@ -15,9 +15,9 @@ The Sum-stage wrappers size every grid and scratch from the plan's
 shapes and its bound ``max_pieces``, never from a count that changes
 within a bucket, so a CUDA graph captured over one view of a bucket
 replays for every other. A call made while a graph is being captured
-launches nothing yet: it counts into the capture's tally
-(:func:`capture_tally`), which each replay adds to ``launches``
-(:func:`add_launches`).
+launches nothing yet: it counts into the capture's tally, which each
+replay adds to ``launches`` (:mod:`repro_torch.utils.trace`, the one
+tally of every captured count).
 
 Every wrapper runs its route, plain or CUDA, inside a kernel scope
 (:func:`kernel_scope`): an op recorder of :mod:`repro_torch.analysis`
@@ -42,37 +42,16 @@ from repro_torch.kernels.ref import (NEG, edge_softmax_bwd_ref,
                                      segment_max_bwd_ref, segment_max_ref,
                                      segment_sum_bwd_ref, segment_sum_ref,
                                      wkv6_ref)
+from repro_torch.utils import trace
 
 launches = {"segment_sum": 0, "edge_softmax": 0, "segment_sum_bwd": 0,
             "edge_softmax_bwd": 0, "segment_max": 0, "segment_max_bwd": 0,
             "flash_attention": 0, "wkv6": 0}
 
 
-_tally: Optional[dict] = None     # the capture in progress, if any
-
-
 def reset_launches() -> None:
     for k in launches:
         launches[k] = 0
-
-
-def add_launches(counts: dict) -> None:
-    """Count the kernel launches of one replay of a captured graph."""
-    for k, n in counts.items():
-        launches[k] += n
-
-
-@contextlib.contextmanager
-def capture_tally():
-    """While a CUDA graph is captured: the wrappers' calls count into the
-    yielded dict instead of ``launches``, since the capture launches
-    nothing; each replay then adds it (:func:`add_launches`)."""
-    global _tally
-    prev, _tally = _tally, {}
-    try:
-        yield _tally
-    finally:
-        _tally = prev
 
 
 _sinks: list = []                 # the op recorders running (analysis)
@@ -116,10 +95,7 @@ def kernel_scope(name: str, route: str, *operands: torch.Tensor):
 
 
 def _count(name: str) -> None:
-    if _tally is not None and torch.cuda.is_current_stream_capturing():
-        _tally[name] = _tally.get(name, 0) + 1
-    else:
-        launches[name] += 1
+    trace.count(name, into=launches)
 
 
 def _ptr(t: torch.Tensor):
@@ -577,7 +553,7 @@ def _flash_attention_cuda(q, k, v, kv_start, causal, sliding_window,
                 Hq, k.shape[2], D, int(causal), int(sliding_window),
                 seq_len, stream)
     _raise_on(rc, "flash_attention")
-    launches["flash_attention"] += 1
+    _count("flash_attention")
     return out
 
 
@@ -643,7 +619,7 @@ def _wkv6_cuda(r, k, v, w, u, out_dtype):
         rc = fn(_ptr(r), _ptr(k), _ptr(v), _ptr(w), _ptr(u), _ptr(o),
                 _ptr(s), B, T, H, K, stream)
     _raise_on(rc, "wkv6")
-    launches["wkv6"] += 1
+    _count("wkv6")
     return o, s
 
 

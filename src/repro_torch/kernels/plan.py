@@ -27,7 +27,8 @@ and pieces of rows, so the plan keeps only the contracts:
 Edges whose segment id is ``num_segments`` or more (the pad edges of a
 bucket) sort past ``indptr[-1]`` and join no row, so the kernels read
 each real edge once and need no atomics. Built once per graph or per
-staged view, with numpy; work is O(E) (a stable radix sort).
+staged view, with numpy; work is O(E) (a stable radix sort). Each build
+is a ``plan.build`` span (:mod:`repro_torch.utils.trace`).
 
 The same plan over the *source* ids (a block's ``src_plan``) turns the
 backward of the NN-G gather ``n[src]`` into a per-source segment sum,
@@ -39,6 +40,8 @@ from dataclasses import dataclass, replace
 
 import numpy as np
 import torch
+
+from repro_torch.utils import trace
 
 # edges per unit of the kernels' schedule, csrc/row_pieces.cuh's kPiece
 PIECE = 64
@@ -82,6 +85,11 @@ def _stable_order(ids: np.ndarray) -> np.ndarray:
 def build_csc_plan(segment_ids: np.ndarray, num_segments: int) -> CSCPlan:
     """Plan over ``segment_ids`` (E,); ids at or past ``num_segments``
     are pad edges and join no row."""
+    with trace.span("plan.build"):
+        return _plan(segment_ids, num_segments)
+
+
+def _plan(segment_ids: np.ndarray, num_segments: int) -> CSCPlan:
     ids = np.asarray(segment_ids).astype(np.int64)
     E = len(ids)
     if E >= 2 ** 31 or num_segments >= 2 ** 31:
