@@ -2941,13 +2941,14 @@ def _src_plan_s(trainer, views, steps: int):
 
 
 def train(config: str, label: str, bwd_kernel: str, bwd_per_step: int,
-          model_name=None) -> dict:
+          take_per_step: int, model_name=None) -> dict:
     """Train the config module's model (swapped for ``model_name`` when
     given) on the card under each strategy, hold it against the same job
     on the CPU, and return the launch counts of the card runs; the
-    backward kernel must launch ``bwd_per_step`` times on every step.
-    Then run 20 global steps twice on the card: the two runs must agree
-    bit for bit."""
+    backward kernel must launch ``bwd_per_step`` times on every step, and
+    NN-G's planned gather (``"take"``) ``take_per_step`` times. Then run
+    20 global steps twice on the card: the two runs must agree bit for
+    bit."""
     import dataclasses
     import importlib
     import numpy as np
@@ -3014,8 +3015,8 @@ def train(config: str, label: str, bwd_kernel: str, bwd_per_step: int,
               f"gradients max rel err {g_err:.3e} (tolerance {GRAD_TOL}), "
               f"losses max rel err {l_err:.3e} (tolerance {LOSS_TOL})")
         print(f"    launches: {launches}, "
-              f"{launches[bwd_kernel] / TRAIN_STEPS:.2f} {bwd_kernel} per "
-              "step")
+              f"{launches[bwd_kernel] / TRAIN_STEPS:.2f} {bwd_kernel} and "
+              f"{launches['take'] / TRAIN_STEPS:.2f} take per step")
         _profile(card, views, 1e3 * wall / (TRAIN_STEPS - 1))
         if not np.isfinite(losses).all() or len(losses) != TRAIN_STEPS:
             raise AssertionError(f"{strategy}: bad losses {losses}")
@@ -3034,6 +3035,10 @@ def train(config: str, label: str, bwd_kernel: str, bwd_per_step: int,
             raise AssertionError(
                 f"{strategy}: {launches[bwd_kernel]} {bwd_kernel} launches "
                 f"in {TRAIN_STEPS} steps, expected {bwd_per_step} per step")
+        if launches["take"] != take_per_step * TRAIN_STEPS:
+            raise AssertionError(
+                f"{strategy}: {launches['take']} take launches in "
+                f"{TRAIN_STEPS} steps, expected {take_per_step} per step")
 
     # the same 20 global steps twice on the card, bit for bit
     job = api.TrainJob(dataset=dataset, model=cfg.model, steps=20,
@@ -3525,6 +3530,13 @@ ENGINE_TOL = 1e-4             # card vs CPU step 1; engine vs one block
 ENGINE_TIMING_NODES = 200_000  # alipay_like nodes for the timing row
 ENGINE_KERNELS = ("segment_sum", "segment_sum_bwd", "segment_max",
                   "segment_max_bwd")
+# NN-G's planned gathers ("take") a process step, read from one eager
+# step of each model at P=4 and P=1 alike: a layer gathers each of its
+# transform's keys at both edge ends and broadcasts each to the mirrors
+# through the halo's gather of master rows; GAT-E's sharded softmax adds
+# the broadcast of the row max and its gather onto the edges. GAT-E: 2
+# layers x (3 keys x 2 ends + 3 + 2) = 22; GCN and SAGE-max: 2 x (2 + 1)
+ENGINE_TAKES = {"gat_e": 22, "gcn": 6, "sage_max": 6}
 # the engine's chaos scenarios on the card: every injection point alone,
 # the combined plan, a sampler process killed, and both divergence
 # recoveries
@@ -3737,9 +3749,16 @@ def _engine_run(name: str, job, g, strategies, label: str, kernels,
     if missing or not np.isfinite(rl).all():
         raise AssertionError(f"{name}: kernels {missing} not launched, or "
                              f"bad losses {rl}")
+    take0 = ops.launches["take"]
     eager, el, ep, ewall = _engine_fit(job, streams, cuda_graphs=False)
     _bitwise(f"{name}: replay vs eager over {'/'.join(strategies)}",
              (rl, rp), (el, ep))
+    steps = ENGINE_STEPS * len(strategies)
+    takes = {"replay": got["take"], "eager": ops.launches["take"] - take0}
+    if any(n != ENGINE_TAKES[job.model] * steps for n in takes.values()):
+        raise AssertionError(f"{name}: take launches {takes} in {steps} "
+                             f"steps, expected {ENGINE_TAKES[job.model]} "
+                             "a step")
     print(f"    {name}: one engine Trainer over {' -> '.join(strategies)}: "
           f"captures {rep.trace_counts} (the step captured once); loss "
           f"{rl[0]:.5f} -> {rl[-1]:.5f}")
@@ -3755,7 +3774,6 @@ def _engine_run(name: str, job, g, strategies, label: str, kernels,
     view0 = streams[0].build(0)
     widths = _exchange_counts(eager, eager.engine.stage_view(
         shard_view(eager.plan, view0)))["floats_per_value"]
-    steps = ENGINE_STEPS * len(strategies)
     per_step = {k: v / steps for k, v in got.items() if v}
     # steady state: the step captured, the same views again
     swall = {True: _steady(rep, streams), False: _steady(eager, streams)}
@@ -6230,10 +6248,12 @@ def main(argv=None) -> int:
     rows.update(lm_kernel_times())
 
     phase("7. train GAT-E (alipay_like)")
-    count(train("gnn_gat_e_alipay", label, "edge_softmax_bwd", 2))
+    # NN-G gathers n, as and ad at both edge ends: 6 takes a layer
+    count(train("gnn_gat_e_alipay", label, "edge_softmax_bwd", 2, 12))
 
     phase("8. train GCN (reddit_like + self-loops)")
-    count(train("gnn_gcn_reddit", label, "segment_sum_bwd", 2))
+    # n at both edge ends: 2 takes a layer
+    count(train("gnn_gcn_reddit", label, "segment_sum_bwd", 2, 4))
 
     phase("9. serve SAGE-max (reddit_like)")
     got = serve("gnn_gcn_reddit", label, requests, model_name="sage_max")
@@ -6246,8 +6266,9 @@ def main(argv=None) -> int:
 
     phase("10. train SAGE-max (reddit_like)")
     # layer 0 pools the raw features, which take no gradient: two forward
-    # launches and one backward launch per step
-    got = train("gnn_gcn_reddit", label, "segment_max_bwd", 1,
+    # launches and one backward launch per step; n at both edge ends, with
+    # a gradient or without: 2 takes a layer
+    got = train("gnn_gcn_reddit", label, "segment_max_bwd", 1, 4,
                 model_name="sage_max")
     if got["segment_max"] != 2 * 3 * TRAIN_STEPS:
         raise AssertionError(f"SAGE-max training: {got['segment_max']} "

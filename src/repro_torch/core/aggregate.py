@@ -281,20 +281,32 @@ def get_backend(backend: Union[None, str, AggregationBackend]
     return _INSTANCES[backend]
 
 
+def _gather(v: torch.Tensor, idx: torch.Tensor,
+            plan: Optional[CSCPlan]) -> torch.Tensor:
+    """``v[idx]`` along the leading axis: on the card with ``plan`` (the
+    plan over ``idx``), the plan-driven gather kernel (``ops.take_op``),
+    which copies every real edge's row exactly and gives pad edges the
+    last row; else ``index_select``."""
+    if plan is not None and v.is_cuda:
+        return ops.take_op(v, plan)
+    return v.index_select(0, idx)
+
+
 class _PlannedGather(torch.autograd.Function):
     """``v[idx]`` whose backward is a segment sum over ``plan``, the plan
     over ``idx`` (``d_v[i]`` sums ``g`` over the edges with ``idx == i``,
     in plan order). torch's own backward of ``index_select`` is an
     ``index_add_``, atomic on CUDA and so not the same from run to run;
     this one is the ``segment_sum`` kernel: no atomics, the same bits on
-    every run. Pad edges join no row of the plan: the combine masks
-    their messages, so their cotangent is 0 and dropping it changes
-    nothing."""
+    every run. The forward is :func:`_gather`, on the card the gather
+    kernel over the same plan. Pad edges join no row of the plan: the
+    combine masks their messages, so their cotangent is 0 and dropping
+    it changes nothing."""
 
     @staticmethod
     def forward(ctx, v, idx, plan: CSCPlan):
         ctx.plan = plan
-        return v.index_select(0, idx)
+        return _gather(v, idx, plan)
 
     @staticmethod
     def backward(ctx, g):
@@ -306,12 +318,16 @@ class _PlannedGather(torch.autograd.Function):
 
 def take(v: torch.Tensor, idx: torch.Tensor,
          plan: Optional[CSCPlan] = None) -> torch.Tensor:
-    """``v[idx]`` along the leading axis; with ``plan`` (the plan over
-    ``idx``) and a gradient to take, its backward is the deterministic
-    segment sum of :class:`_PlannedGather`."""
+    """``v[idx]`` along the leading axis. With ``plan`` (the plan over
+    ``idx``) and ``v`` on the card, the gather kernel over the plan
+    (``ops.take_op``): real edges get their rows bit for bit, pad edges
+    (which every consumer masks) the last row. On the CPU, or without a
+    plan, ``index_select``. With a plan and a gradient to take, the
+    backward is the deterministic segment sum of
+    :class:`_PlannedGather`."""
     if plan is not None and v.requires_grad and torch.is_grad_enabled():
         return _PlannedGather.apply(v, idx, plan)
-    return v.index_select(0, idx)
+    return _gather(v, idx, plan)
 
 
 @dataclass(frozen=True)

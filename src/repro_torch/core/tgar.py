@@ -281,12 +281,13 @@ class TGARLayer(nn.Module):
 
 def tree_take(tree: Dict[str, torch.Tensor], idx: torch.Tensor,
               plan: Optional[CSCPlan] = None):
-    """Index the leading axis of every entry (edge-endpoint lookup).
-    ``plan`` — the plan over ``idx`` (a block's ``src_plan`` for its
-    ``src``, ``csc_plan`` for its ``dst``) — makes the backward the
-    deterministic segment sum of :class:`_PlannedGather`; without one
-    (or with no gradient to take) it is plain ``index_select``
-    (:func:`repro_torch.core.aggregate.take`)."""
+    """Index the leading axis of every entry (edge-endpoint lookup),
+    through :func:`repro_torch.core.aggregate.take`. ``plan`` — the plan
+    over ``idx`` (a block's ``src_plan`` for its ``src``, ``csc_plan``
+    for its ``dst``) — makes the gather on the card the plan's gather
+    kernel and the backward the deterministic segment sum of
+    :class:`_PlannedGather`; without one, or on the CPU, the forward is
+    plain ``index_select``."""
     return {k: agg.take(v, idx, plan) for k, v in tree.items()}
 
 

@@ -10,6 +10,9 @@ the kernel; ``segment_sum``, ``segment_max`` and ``edge_softmax`` make
 two CUDA launches a call (their rows and pieces, or chunks, then the
 merge of the rows they cut) and count one. The backward wrappers are
 what the autograd Functions of :mod:`repro_torch.core.aggregate` call.
+``take_op``, NN-G's gather of node rows onto the edges, is the
+``segment_sum_bwd`` kernel under its own name: a plan over the gather's
+ids makes the two the same copy.
 
 The Sum-stage wrappers size every grid and scratch from the plan's
 shapes and its bound ``max_pieces``, never from a count that changes
@@ -46,7 +49,7 @@ from repro_torch.utils import trace
 
 launches = {"segment_sum": 0, "edge_softmax": 0, "segment_sum_bwd": 0,
             "edge_softmax_bwd": 0, "segment_max": 0, "segment_max_bwd": 0,
-            "flash_attention": 0, "wkv6": 0}
+            "take": 0, "flash_attention": 0, "wkv6": 0}
 
 
 def reset_launches() -> None:
@@ -221,15 +224,16 @@ def sum_bwd_schedule(dim: int) -> str:
 
 
 def _segment_sum_bwd_cuda(g: torch.Tensor, plan: CSCPlan,
-                          schedule: Optional[str] = None) -> torch.Tensor:
+                          schedule: Optional[str] = None,
+                          name: str = "segment_sum_bwd") -> torch.Tensor:
     """One launch (``csrc/segment_sum_bwd.cu``) under the kernel's rule:
     the destination plan's rows (several to a warp), 64-edge pieces and
     64-edge runs of pad edges, each unit holding its row of g in
     registers, the grid sized by bounds on the pieces and runs; or a
     sub-warp per edge through ``edge_dst``. ``schedule``
     forces one of :data:`SUM_BWD_SCHEDULES`, a hook for tests and
-    timings."""
-    _check_cuda("segment_sum_bwd", _plan_index(plan) + (plan.edge_dst,), g)
+    timings; ``name`` is the wrapper the launch counts under."""
+    _check_cuda(name, _plan_index(plan) + (plan.edge_dst,), g)
     (n, d), e = g.shape, plan.num_edges
     if n == 0:
         return g.new_zeros((e, d))
@@ -237,15 +241,15 @@ def _segment_sum_bwd_cuda(g: torch.Tensor, plan: CSCPlan,
     if e == 0 or d == 0:
         return out
     if schedule not in (None,) + SUM_BWD_SCHEDULES:
-        raise ValueError(f"segment_sum_bwd: no schedule {schedule!r}")
+        raise ValueError(f"{name}: no schedule {schedule!r}")
     rows = -1 if schedule is None else int(schedule == "rows")
     fn = build.kernel("segment_sum_bwd")
     with torch.cuda.device(g.device):
         stream = torch.cuda.current_stream(g.device).cuda_stream
         rc = fn(_ptr(g), *map(_ptr, _plan_index(plan)), _ptr(plan.edge_dst),
                 _ptr(out), e, n, plan.max_pieces, d, rows, stream)
-    _raise_on(rc, "segment_sum_bwd")
-    _count("segment_sum_bwd")
+    _raise_on(rc, name)
+    _count(name)
     return out
 
 
@@ -380,24 +384,42 @@ def edge_softmax_op(logits: torch.Tensor, values: torch.Tensor,
     return edge_softmax_fwd_op(logits, values, plan)[0]
 
 
+def _gather_rows_op(name: str, v: torch.Tensor, plan: CSCPlan
+                    ) -> torch.Tensor:
+    """v (num_segments, ...trailing) -> (E, ...trailing), ``out[e] =
+    v[edge_dst[e]]``: trailing axes fold into the feature axis, and pad
+    edges read the last row, as the TPU kernel clips."""
+    if v.shape[0] != plan.num_segments:
+        raise ValueError(f"{name}: segment axis {v.shape[0]} != plan "
+                         f"num_segments {plan.num_segments}")
+    trailing = tuple(v.shape[1:])
+    # autograd may hand a cotangent over expanded (stride 0)
+    flat = v.contiguous().reshape(v.shape[0], math.prod(trailing))
+    route = _route(v)
+    with kernel_scope(name, route, flat):
+        if route == "cpu":
+            out = segment_sum_bwd_ref(flat, plan.edge_dst)
+        else:
+            out = _segment_sum_bwd_cuda(flat, plan, name=name)
+    return out.reshape((plan.num_edges,) + trailing)
+
+
 def segment_sum_bwd_op(g: torch.Tensor, plan: CSCPlan) -> torch.Tensor:
     """Backward of :func:`segment_sum_op`: g (num_segments, ...trailing)
     -> (E, ...trailing), ``d_data[e] = g[edge_dst[e]]`` (segment-sum is
     linear). Multi-head cotangents fold into the feature axis as in the
     forward; pad edges read the last row, as the TPU kernel clips."""
-    if g.shape[0] != plan.num_segments:
-        raise ValueError(f"cotangent segment axis {g.shape[0]} != plan "
-                         f"num_segments {plan.num_segments}")
-    trailing = tuple(g.shape[1:])
-    # autograd may hand the cotangent over expanded (stride 0)
-    flat = g.contiguous().reshape(g.shape[0], math.prod(trailing))
-    route = _route(g)
-    with kernel_scope("segment_sum_bwd", route, flat):
-        if route == "cpu":
-            out = segment_sum_bwd_ref(flat, plan.edge_dst)
-        else:
-            out = _segment_sum_bwd_cuda(flat, plan)
-    return out.reshape((plan.num_edges,) + trailing)
+    return _gather_rows_op("segment_sum_bwd", g, plan)
+
+
+def take_op(v: torch.Tensor, plan: CSCPlan) -> torch.Tensor:
+    """NN-G's gather ``v[idx]`` for ``plan``, the plan over ``idx``: v
+    (num_segments, ...trailing) -> (E, ...trailing), every real edge's
+    row copied exactly, pad edges the last row. The ``segment_sum_bwd``
+    kernel counted as ``"take"``: rows of 16 floats or more are read once
+    each and written to their edges, narrower ones gathered in edge
+    order."""
+    return _gather_rows_op("take", v, plan)
 
 
 def segment_max_bwd_op(g: torch.Tensor, fwd_out: torch.Tensor,
