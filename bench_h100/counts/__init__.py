@@ -1,7 +1,9 @@
 """Operations and bytes worked out from shapes, frozen with the benchmark
 so that a change to the program cannot move the yardstick: the Sum-stage
 kernels' (``kernels.py``), the card's peaks (``peaks.py``), and one
-file a model (``<model>.py``) with the FLOPs of one of its layers."""
+file a model (``<model>.py``) with the FLOPs of its whole step
+(``train_step_flops(cfg, N, E)``) or, for a stack of layers and a
+decoder, of one of its layers (``layer_flops(N, E, F, cfg)``)."""
 from __future__ import annotations
 
 
@@ -13,9 +15,14 @@ def train_step_flops(cfg: dict, num_nodes: int, num_edges: int) -> float:
     equations ask for. The backward counts twice the forward's work (a
     gradient for the inputs and one for the weights), except the first
     layer's input transform, which needs no input gradient (once). The
-    optimizer's few operations a parameter are left out."""
+    optimizer's few operations a parameter are left out. The model's
+    own ``train_step_flops`` where it has one, else the stack's sum over
+    its ``layer_flops``."""
     from bench_h100.spec import piece
-    layer = piece("counts", cfg["model"]).layer_flops
+    counts = piece("counts", cfg["model"])
+    if hasattr(counts, "train_step_flops"):
+        return float(counts.train_step_flops(cfg, num_nodes, num_edges))
+    layer = counts.layer_flops
     N, E = num_nodes, num_edges
     dims = [cfg["feature_dim"]] + [cfg["hidden_dim"]] * cfg["num_layers"]
     total = 0.0

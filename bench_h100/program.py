@@ -31,8 +31,8 @@ def loaded_forbidden() -> list:
 
 def port_graph(cfg: dict, g: dict):
     """The program's Graph of the input arrays, with a self-loop at every
-    node where the configuration says so (GCN's, as the program's facade
-    gives its named datasets)."""
+    node where the configuration's ``self_loops`` says so (as the
+    program's facade gives its named datasets)."""
     from repro_torch.graph.csr import Graph
     out = Graph(g["src"], g["dst"], g["num_nodes"], g["x"], g["y"],
                 edge_features=g["edge_attr"], train_mask=g["train_mask"],

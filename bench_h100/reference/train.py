@@ -1,7 +1,16 @@
-"""Plain training steps of a GNN: the model's layers
+"""Plain training steps of a GNN: the model's forward pass
 (``reference/<model>.py``, plain ``index_select`` and ``index_add_``),
-the masked mean cross-entropy, autograd for the gradients and a plain
-Adam with L2 weight decay.
+its loss, autograd for the gradients and a plain Adam with L2 weight
+decay.
+
+A model's file declares what it needs; what it leaves out is the
+default here. Always: ``edge_inputs(cfg, g, src, dst, device)``. Its
+parameters: ``param_shapes(cfg)``, or by default a stack of
+``num_layers`` layers of ``layer_shapes(cfg, fan_in)`` and a decoder to
+``num_classes``. Each tensor's start: ``initial(name, shape)``. Its
+forward pass: ``logits(cfg, p, g)``, or by default the stack of
+``layer(p, pre, h, g, act)`` and the decoder. Its loss: ``loss(cfg,
+logits, g)``, or by default the masked mean softmax cross-entropy.
 
 Everything runs in float32 on the given device; ``tf32=True`` lets
 float32 matrix products run in TF32 (the control that has to fail the
@@ -17,15 +26,23 @@ from bench_h100.spec import piece
 
 
 def model(cfg: dict):
-    """The configuration's model, ``reference/<model>.py``: its
-    ``layer_shapes(cfg, fan_in)``, ``layer(p, pre, h, g, act)`` and
-    ``edge_inputs(cfg, g, src, dst, device)``."""
+    """The configuration's model, ``reference/<model>.py``."""
     return piece("reference", cfg["model"])
+
+
+def _own(cfg: dict, name: str, default):
+    """The model's own ``name``, or the default."""
+    return getattr(model(cfg), name, default)
 
 
 def param_shapes(cfg: dict) -> dict:
     """name -> shape of every trained tensor of the configuration's
-    model: per layer ``k`` the layer's own, then the decoder."""
+    model: the model's ``param_shapes``, or :func:`stack_shapes`."""
+    return dict(_own(cfg, "param_shapes", stack_shapes)(cfg))
+
+
+def stack_shapes(cfg: dict) -> dict:
+    """Per layer ``k`` the layer's own tensors, then the decoder."""
     K, D = cfg["num_layers"], cfg["hidden_dim"]
     dims = [cfg["feature_dim"]] + [D] * K
     out = {}
@@ -37,38 +54,57 @@ def param_shapes(cfg: dict) -> dict:
     return out
 
 
+def initial(name: str, shape: tuple):
+    """A tensor's start: ``"normal"`` (the seeded normal over the square
+    root of its first axis) for a matrix, else the constant 0.0."""
+    return "normal" if len(shape) >= 2 else 0.0
+
+
 def make_params(cfg: dict, seed: int, device) -> dict:
-    """The initial parameters from the seed, in one draw on the device:
-    each matrix normal with standard deviation 1/sqrt(its first axis),
-    each bias zero."""
+    """The initial parameters from the seed, in one draw on the device
+    over the sorted names: each tensor that the model's ``initial``
+    makes ``"normal"`` takes its slice over sqrt(its first axis); a
+    constant one drops its slice, so the others' bits stay the same."""
     shapes = param_shapes(cfg)
+    start = _own(cfg, "initial", initial)
     names = sorted(shapes)
     sizes = [math.prod(shapes[n]) for n in names]
     gen = torch.Generator(device=torch.device(device)).manual_seed(int(seed))
     flat = torch.randn(sum(sizes), generator=gen, device=device)
     out = {}
     for n, part in zip(names, flat.split(sizes)):
-        shape = shapes[n]
-        if len(shape) == 1:
-            out[n] = torch.zeros(shape, device=device)
-        else:
+        shape = tuple(shapes[n])
+        how = start(n, shape)
+        if how == "normal":
             out[n] = (part.reshape(shape) / math.sqrt(shape[0])).contiguous()
+        else:
+            out[n] = torch.full(shape, float(how), device=device)
     return out
 
 
-def loss(cfg: dict, p: dict, g: dict) -> torch.Tensor:
-    """The masked mean cross-entropy of the model on the graph ``g``
-    (tensors on one device: ``x``, ``src``, ``dst``, ``y``, ``mask``,
-    and what the model's ``edge_inputs`` adds)."""
+def stack_logits(cfg: dict, p: dict, g: dict) -> torch.Tensor:
+    """The stack of the model's layers, then the decoder."""
     h, K = g["x"], cfg["num_layers"]
     layer = model(cfg).layer
     for k in range(K):
         h = layer(p, f"layers.{k}.", h, g, k != K - 1)
-    logits = h @ p["decoder.w"] + p["decoder.b"]
+    return h @ p["decoder.w"] + p["decoder.b"]
+
+
+def softmax_loss(cfg: dict, logits: torch.Tensor, g: dict) -> torch.Tensor:
+    """The masked mean softmax cross-entropy over ``long`` labels."""
     nll = torch.logsumexp(logits, -1) - logits.gather(
         1, g["y"][:, None]).squeeze(1)
     m = g["mask"]
     return (nll * m).sum() / m.sum().clamp_min(1.0)
+
+
+def loss(cfg: dict, p: dict, g: dict) -> torch.Tensor:
+    """The model's loss on the graph ``g`` (tensors on one device: ``x``,
+    ``src``, ``dst``, ``y``, ``mask``, and what the model's
+    ``edge_inputs`` adds): its ``logits``, then its ``loss``."""
+    logits = _own(cfg, "logits", stack_logits)(cfg, p, g)
+    return _own(cfg, "loss", softmax_loss)(cfg, logits, g)
 
 
 class Adam:
@@ -139,12 +175,16 @@ def train_steps(cfg: dict, params0: dict, graphs, device,
 
 
 def to_device(cfg: dict, g: dict, device) -> dict:
-    """A step's graph on the device: the node rows, the loss mask, and
-    the edges with what the model adds to them (``edge_inputs``)."""
+    """A step's graph on the device: the node rows, the labels (a class
+    a node as ``long``, or a row of task targets as float32), the loss
+    mask, and the edges with what the model adds to them
+    (``edge_inputs``)."""
     def t(a, dtype=None):
         return torch.as_tensor(a).to(device=device, dtype=dtype)
     src, dst = t(g["src"], torch.long), t(g["dst"], torch.long)
-    out = {"x": t(g["x"], torch.float32), "y": t(g["y"], torch.long),
+    y = t(g["y"])
+    out = {"x": t(g["x"], torch.float32),
+           "y": y.long() if y.dim() == 1 else y.float(),
            "mask": t(g["loss_mask"], torch.float32)}
     out.update(model(cfg).edge_inputs(cfg, g, src, dst, device))
     return out

@@ -19,6 +19,14 @@ UNIT = re.compile(r"^[A-Za-z0-9_/%.\-]{1,16}$")
 BENCHMARK = specs.load_benchmark()
 CELLS = [w["name"] for w in BENCHMARK["workloads"]]
 YARDSTICK = ("reference", "strategies", "data", "counts")
+# a model's file: the default form (a stack of layers and a decoder) or
+# the declared form (its own parameters and forward pass; ``loss`` and
+# ``initial`` optional); its counts: a layer's FLOPs or the whole step's
+MODEL_FORMS = (("layer_shapes", "edge_inputs", "layer"),
+               ("param_shapes", "edge_inputs", "logits"))
+COUNT_FORMS = ("layer_flops", "train_step_flops")
+# the harness's own files, which find every model by name
+GENERAL = ("reference/train.py", "counts/__init__.py", "program.py")
 
 
 @pytest.mark.parametrize("workload", CELLS)
@@ -30,14 +38,26 @@ def test_every_cell_resolves_by_name(workload):
     for m in c["end_to_end"] + c["per_layer"]:
         assert callable(specs.reader(m["name"]))
     model = specs.piece("reference", cfg["model"])
-    assert all(callable(getattr(model, f)) for f in
-               ("layer_shapes", "edge_inputs", "layer"))
-    assert callable(specs.piece("counts", cfg["model"]).layer_flops)
+    assert any(all(callable(getattr(model, f, None)) for f in form)
+               for form in MODEL_FORMS)
+    assert all(callable(getattr(model, f)) for f in ("loss", "initial")
+               if hasattr(model, f))
+    steps = specs.piece("counts", cfg["model"])
+    assert any(callable(getattr(steps, f, None)) for f in COUNT_FORMS)
     strategy = specs.piece("strategies", mix["strategy"])
     assert callable(strategy.step_graphs) and callable(strategy.warmup_steps)
     assert callable(specs.piece("data", mix["graph"]["generator"]).make)
     e2e = {m["name"] for m in c["end_to_end"]}
     assert "setup_s" in e2e and len(e2e) >= 2 and c["per_layer"]
+
+
+@pytest.mark.parametrize("path", GENERAL)
+def test_the_harness_names_no_model(path):
+    models = {p.stem for p in (BENCH / "reference").glob("*.py")} \
+        - {"__init__", "train"}
+    text = (BENCH / path).read_text()
+    assert models and not [m for m in models if re.search(
+        rf"\b{re.escape(m)}\b", text, re.IGNORECASE)]
 
 
 def test_benchmark_json_keeps_its_format():
